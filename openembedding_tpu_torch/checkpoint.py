@@ -1,4 +1,4 @@
-"""Checkpoint save/load in the JAX package's on-disk array layout
+"""Checkpoint save/load in the JAX package's on-disk layout
 (``openembedding_tpu/checkpoint.py``).
 
 This slice reads and writes the local, uncompressed, single-process,
@@ -7,19 +7,29 @@ This slice reads and writes the local, uncompressed, single-process,
 * ``<path>/model_meta`` — the ``ModelMeta`` JSON, with ``extra`` keys
   ``include_optimizer``, ``storage_dtypes`` (per-field numpy dtype names),
   ``delta_last_seq`` (the hot-swap burn counter, carried over from a
-  previous save in the same directory) and ``variable_num_shards``;
-* ``<path>/var_<id>_<name>.d/{weights,slot_*}.npy`` — exactly
-  ``input_dim`` rows in logical id order. bfloat16 fields are stored as
-  numpy's opaque ``'<V2'`` descr, as the JAX package stores them, and
-  decoded through the recorded storage dtype.
+  previous save in the same directory), ``variable_num_shards`` and, for
+  hash variables, ``hash_variables`` (``hash_capacity`` and ``key_dtype``,
+  so a loader that has only the dump, the serving registry, sizes tables
+  that hold every row);
+* ``<path>/var_<id>_<name>.d/{weights,slot_*}.npy`` — for an array
+  variable exactly ``input_dim`` rows in logical id order; for a hash
+  variable ``keys.npy`` (``[n]`` int32 or ``[n, 2]`` int32 pairs) beside
+  them, holding the live rows only, in slot order. bfloat16 fields are
+  stored as numpy's opaque ``'<V2'`` descr, as the JAX package stores
+  them, and decoded through the recorded storage dtype.
 
-Loads validate the meta before touching a table, then stream each field
-in bounded blocks into a tensor on the collection's device, so host memory
-stays at one block whatever the table size. Slot files are skipped when
-the collection's optimizer has no slots (serving's ``default``). What the
-JAX package also writes — delta chains, hash variables, multi-host part
-files, compressed streams, legacy ``.npz`` files, remote URIs — is refused
-with ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Loads validate the meta before touching a table. Array fields stream in
+bounded blocks into a tensor on the collection's device, so host memory
+stays at one block whatever the table size; hash variables load by
+inserting chunks of ``_LOAD_CHUNK`` rows into an empty table on the device
+(``hash_table.insert_rows``), and a load that cannot place every row
+fails. An int32-key dump loads into a wide table as (lo, hi) pairs, and
+a wide dump into an int32 table when every key fits int32. Slot
+files are skipped when the collection's optimizer has no slots (serving's
+``default``). What the JAX package also writes or reads — delta chains,
+multi-host part files, compressed streams, legacy ``.npz`` files, remote
+URIs, hash<->array conversion on load — is refused with
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from . import hash_table as hash_lib
 from .embedding import EmbeddingCollection, not_ported
 from .meta import UNBOUNDED_VOCAB, ModelMeta
 from .utils import fs
@@ -39,9 +50,12 @@ MODEL_META_FILE = "model_meta"
 DELTA_MANIFEST_FILE = "delta_manifest"
 # rows move between disk and device in windows of about this many bytes
 _BLOCK_BYTES = 32 << 20
+# hash rows load in chunks of this many keys (the JAX loader's chunk, so
+# keys land in the same slots as a JAX load of the same dump)
+_LOAD_CHUNK = 1 << 16
 
 _NP_NAMES = {torch.float32: "float32", torch.float64: "float64",
-             torch.bfloat16: "bfloat16"}
+             torch.bfloat16: "bfloat16", torch.int32: "int32"}
 
 
 def _var_dir(variable_id: int, name: str) -> str:
@@ -83,6 +97,26 @@ def _host_words(block: torch.Tensor) -> np.ndarray:
     return block.numpy()
 
 
+def _write_field(npy: str, t: torch.Tensor, mask: Optional[torch.Tensor],
+                 rows: Optional[int]) -> int:
+    """Write ``t`` (only its rows where ``mask`` holds, ``rows`` of them,
+    in order) to ``npy`` block by block; returns the bytes written."""
+    if mask is None:
+        rows = t.shape[0]
+    mm = _open_npy_for_write(npy, t.dtype, (rows,) + tuple(t.shape[1:]))
+    step = _block_rows(t)
+    o = 0
+    for lo in range(0, t.shape[0], step):
+        block = t[lo:lo + step]
+        if mask is not None:
+            block = block[mask[lo:lo + step]]
+        mm[o:o + block.shape[0]] = _host_words(block)
+        o += block.shape[0]
+    mm.flush()
+    del mm
+    return rows * (t[0].numel() if len(t) else 0) * t.element_size()
+
+
 def _prev_meta_last_seq(path: str) -> int:
     """Burn counter a previous save recorded in this directory (0 when
     the dir is fresh or its meta unreadable)."""
@@ -117,13 +151,23 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
     meta = collection.model_meta(model_sign=model_sign, model_uri=path)
     meta.extra["include_optimizer"] = bool(include_optimizer)
     meta.extra["delta_last_seq"] = _prev_meta_last_seq(path)
-    targets = {}
+    hash_info = {name: {"hash_capacity": spec.hash_capacity,
+                        "key_dtype": spec.key_dtype}
+                 for name, spec in collection.specs.items() if spec.use_hash}
+    if hash_info:
+        meta.extra["hash_variables"] = hash_info
+    targets, live = {}, {}
     for name, spec in collection.specs.items():
         state = states[name]
         fields = {"weights": state.weights}
         if include_optimizer:
             fields.update({f"slot_{s}": v for s, v in state.slots.items()})
-        targets[name] = {f: t[:spec.input_dim] for f, t in fields.items()}
+        if spec.use_hash:
+            targets[name] = {"keys": state.keys, **fields}
+            live[name] = state.live()
+        else:
+            targets[name] = {f: t[:spec.input_dim]
+                             for f, t in fields.items()}
     meta.extra["storage_dtypes"] = {
         name: {f: _NP_NAMES[t.dtype] for f, t in fields.items()}
         for name, fields in targets.items()}
@@ -137,15 +181,11 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
             # files a later load would mistake for state
             fs.rmtree(vdir)
         fs.makedirs(vdir)
+        mask = live.get(name)
+        rows = int(mask.sum()) if mask is not None else None
         for fname, t in fields.items():
-            mm = _open_npy_for_write(os.path.join(vdir, fname + ".npy"),
-                                     t.dtype, tuple(t.shape))
-            step = _block_rows(t)
-            for lo in range(0, t.shape[0], step):
-                mm[lo:lo + step] = _host_words(t[lo:lo + step])
-            mm.flush()
-            del mm
-            nbytes += t.numel() * t.element_size()
+            nbytes += _write_field(os.path.join(vdir, fname + ".npy"), t,
+                                   mask, rows)
     return {"mode": "full", "bytes": int(nbytes),
             "seconds": time.perf_counter() - t0, "seq": 0}
 
@@ -168,9 +208,13 @@ def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
             raise ValueError(f"checkpoint at {path!r} has no variable "
                              f"{v.name!r}")
         g = got_vars[v.name].meta
-        if _is_hash(g):
-            raise not_ported(f"hash variable {v.name!r} in {path!r}",
-                             "hash-table serving path")
+        if _is_hash(g) != _is_hash(v.meta):
+            raise not_ported(
+                f"loading the {'hash' if _is_hash(g) else 'array'} dump of "
+                f"{v.name!r} in {path!r} into an "
+                f"{'array' if _is_hash(g) else 'hash'} variable "
+                "(hash<->array conversion)",
+                "delta checkpoints and other layouts")
         if g == v.meta:
             continue
         dtype_ok = (g.datatype == v.meta.datatype
@@ -237,6 +281,68 @@ def _load_field(npy: str, target: torch.Tensor, true_dtype: Optional[str],
                                     legacy_dtype))
 
 
+def _load_hash_var(vdir: str, name: str, spec, collection, with_opt: bool,
+                   stored: Dict[str, str], legacy: Optional[str]):
+    """An empty hash table on the collection's device, filled by inserting
+    the dump's live rows chunk by chunk; refuses a dump whose rows do not
+    all fit."""
+    state = collection.init(only=[name])[name]
+    empty = hash_lib.empty_key(torch.int32)
+    keys = np.load(fs.join(vdir, "keys.npy"), mmap_mode="r")
+    fields = {"weights": state.weights}
+    if with_opt:
+        fields.update({s: t for s, t in state.slots.items()
+                       if fs.exists(fs.join(vdir, f"slot_{s}.npy"))})
+    stores = {f: np.load(fs.join(vdir, ("weights" if f == "weights"
+                                        else f"slot_{f}") + ".npy"),
+                         mmap_mode="r") for f in fields}
+    for f, arr in stores.items():
+        if arr.shape[0] != keys.shape[0] \
+                or tuple(arr.shape[1:]) != tuple(fields[f].shape[1:]):
+            raise ValueError(f"{vdir}: {f} of shape {arr.shape} does not "
+                             f"match keys {keys.shape}")
+    n = keys.shape[0]
+    for lo in range(0, n, _LOAD_CHUNK):
+        hi = min(n, lo + _LOAD_CHUNK)
+        ck = np.array(keys[lo:hi])
+        if state.wide and ck.ndim == 1:
+            # an int32 (or int64) dump into a wide table: narrow keys
+            # become the pairs of the same 64-bit values; keys in the
+            # wide EMPTY band (hi == INT32_MIN) would read as free slots
+            ck = hash_lib.split64(ck.astype(np.int64))
+            banded = ck[:, 1] == empty
+            if banded.any():
+                raise ValueError(
+                    f"{int(banded.sum())} dump keys of {name!r} fall in "
+                    "the wide-key EMPTY band (hi word == INT32_MIN, keys "
+                    "in [-2^63, -2^63+2^32)); the wide pair encoding "
+                    "excludes that range")
+        elif not state.wide and ck.ndim == 2:
+            # a wide dump into an int32 table: join, refuse truncation
+            joined = hash_lib.join64(ck)
+            if joined.size and (joined.max() > np.iinfo(np.int32).max
+                                or joined.min() < np.iinfo(np.int32).min):
+                raise ValueError(
+                    f"wide-key dump of {name!r} holds keys outside the "
+                    "table's int32 range; load into a key_dtype='wide' "
+                    "variable instead")
+            ck = joined.astype(np.int32)
+        rows = {f: _decode(arr[lo:hi], stored.get(
+                    "weights" if f == "weights" else f"slot_{f}"),
+                    fields[f].dtype, legacy).to(collection.device)
+                for f, arr in stores.items()}
+        weights = rows.pop("weights")
+        hash_lib.insert_rows(state, torch.from_numpy(ck).to(
+            collection.device), weights, rows)
+    failed = int(state.insert_failures)
+    if failed:
+        raise RuntimeError(
+            f"hash variable {name!r}: {failed} of {n} checkpoint rows did "
+            f"not fit (hash_capacity={spec.hash_capacity}); increase "
+            "hash_capacity — a load must deliver every row or fail")
+    return state
+
+
 def load_checkpoint(path: str, collection: EmbeddingCollection, *,
                     info: Optional[Dict[str, Any]] = None
                     ) -> Dict[str, Any]:
@@ -255,6 +361,10 @@ def load_checkpoint(path: str, collection: EmbeddingCollection, *,
         vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
         stored = stored_all.get(name, {})
         legacy = dump_meta[name].datatype
+        if spec.use_hash:
+            out[name] = _load_hash_var(vdir, name, spec, collection,
+                                       with_opt, stored, legacy)
+            continue
         dtype = resolve_dtype(spec.meta())
         weights = torch.zeros((spec.input_dim, spec.output_dim),
                               dtype=dtype, device=device)

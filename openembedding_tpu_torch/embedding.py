@@ -4,10 +4,14 @@
 ``EmbeddingSpec`` keeps the JAX package's fields and validation, so a
 model's spec list reads the same in both packages. ``EmbeddingCollection``
 is the single-device case of the JAX collection: variable ids by
-registration order, the same ``model_meta`` JSON, ``init`` and ``pull``.
-What this slice does not run raises ``NotImplementedError`` naming its
-ROADMAP.md item: hash tables (``input_dim=-1``), pooled sequence features,
-and every exchange plane but the one-shard ``a2a``.
+registration order, the same ``model_meta`` JSON, ``init`` and ``pull``,
+for array tables and for hash tables (``input_dim=-1``) with ``"wide"``
+pair keys or ``"int32"`` keys. Hash pulls are read-only here (missing keys
+give zero rows). What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP.md item: a hash pull with an
+initializer (the training contract), ``key_dtype="int64"``, pooled
+sequence features, the hot-row cache (``cache_k``), and every exchange
+plane but the one-shard ``a2a``.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .meta import EmbeddingVariableMeta, ModelMeta, ModelVariableMeta
+from .meta import (UNBOUNDED_VOCAB, EmbeddingVariableMeta, ModelMeta,
+                   ModelVariableMeta)
 from .optim.initializers import make_initializer
 from .optim.optimizers import make_optimizer
+from . import hash_table as hash_lib
 from . import table as table_lib
 from .utils.device import DeviceLike, resolve_device
 
@@ -77,9 +83,13 @@ class EmbeddingSpec:
                 raise ValueError(
                     f"embedding {self.name!r}: unknown {knob} "
                     f"{getattr(self, knob)!r}; known: {_PRECISIONS}")
-        if self.use_hash:
-            raise not_ported(f"hash variable {self.name!r} (input_dim=-1)",
-                             "hash-table serving path")
+        if self.use_hash and self.key_dtype == "int64":
+            raise not_ported(f"hash variable {self.name!r} with "
+                             "key_dtype='int64'", "int64 hash keys")
+        if self.use_hash and self.key_dtype not in ("wide", "int32"):
+            raise ValueError(f"embedding {self.name!r}: unknown key_dtype "
+                             f"{self.key_dtype!r}; known: ('wide', "
+                             "'int32', 'int64')")
         if self.pooling is not None:
             raise not_ported(f"pooled variable {self.name!r}",
                              "ragged and hybrid features")
@@ -91,15 +101,20 @@ class EmbeddingSpec:
                 f"num_shards={self.num_shards}, precisions "
                 f"{self.exchange_precision}/{self.push_precision}",
                 "multi-shard exchange planes")
+        if self.cache_k:
+            raise not_ported(f"hot-row cache of {self.name!r} "
+                             f"(cache_k={self.cache_k})",
+                             "multi-shard exchange planes")
 
     @property
     def use_hash(self) -> bool:
         return self.input_dim == -1
 
     def meta(self) -> EmbeddingVariableMeta:
+        vocab = UNBOUNDED_VOCAB if self.use_hash else self.input_dim
         return EmbeddingVariableMeta(datatype=self.dtype,
                                      embedding_dim=self.output_dim,
-                                     vocabulary_size=self.input_dim)
+                                     vocabulary_size=vocab)
 
 
 class EmbeddingCollection:
@@ -174,10 +189,18 @@ class EmbeddingCollection:
         return g
 
     def init(self, only: Optional[Any] = None) -> Dict[str, Any]:
-        """Materialize every variable (``only`` restricts to some names)."""
+        """Materialize every variable (``only`` restricts to some names).
+        Hash variables start empty, ``round_capacity(hash_capacity)``
+        slots."""
         states = {}
         for name, spec in self.specs.items():
             if only is not None and name not in only:
+                continue
+            if spec.use_hash:
+                states[name] = hash_lib.create_hash_table(
+                    spec.meta(), self._optimizers[name],
+                    capacity=spec.hash_capacity, key_dtype=spec.key_dtype,
+                    device=self.device)
                 continue
             states[name] = table_lib.create_table(
                 spec.meta(), self._optimizers[name],
@@ -189,23 +212,65 @@ class EmbeddingCollection:
     def pull(self, states: Dict[str, Any], inputs: Dict[str, Any], *,
              batch_sharded: bool = True, read_only: bool = False,
              serving_rows: bool = False) -> Dict[str, torch.Tensor]:
-        """Rows for every input column: ``name -> indices.shape + (dim,)``.
+        """Rows for every input column: ``name -> rows``, shaped
+        ``indices.shape + (dim,)`` (``indices.shape[:-1] + (dim,)`` for
+        pair keys on a wide hash variable).
 
         Inputs are integer tensors or numpy arrays of any shape; they move
-        to the collection's device. ``batch_sharded``, ``read_only`` and
-        ``serving_rows`` keep the JAX signature; on one device with array
-        tables they select nothing (they matter for hash tables, pooling
-        and the exchange planes).
+        to the collection's device. ``read_only`` selects the serving
+        contract for hash variables (missing keys give zero rows); a hash
+        pull without it needs per-key init rows, which the training slice
+        brings. ``batch_sharded`` and ``serving_rows`` keep the JAX
+        signature and select nothing on one device without pooling.
         """
-        del batch_sharded, read_only, serving_rows
+        del batch_sharded, serving_rows
         rows = {}
         for name, idx in inputs.items():
+            spec = self.specs[name]
+            idx = self._widen(spec, idx)
             if not isinstance(idx, torch.Tensor):
                 idx = torch.from_numpy(np.array(idx, copy=True))
             if idx.dtype.is_floating_point or idx.dtype == torch.bool:
                 raise TypeError(f"{name!r}: indices must be integers, got "
                                 f"{idx.dtype}")
-            rows[name] = table_lib.pull(states[name],
-                                        idx.to(self.device,
-                                               non_blocking=True))
+            idx = idx.to(self.device, non_blocking=True)
+            if spec.use_hash:
+                if spec.key_dtype == "wide" and not (
+                        idx.ndim >= 2 and idx.shape[-1] == 2):
+                    idx = hash_lib.widen_ids(idx)
+                rows[name] = hash_lib.pull(
+                    states[name], idx,
+                    None if read_only else self._initializers[name])
+            else:
+                rows[name] = table_lib.pull(states[name], idx)
         return rows
+
+    def _widen(self, spec: EmbeddingSpec, idx):
+        """Host int64 ids for a hash variable, before they move to the
+        device: (lo, hi) pairs for a wide variable, int32 for an int32 one;
+        every other input passes.
+
+        The JAX collection's rule (``EmbeddingCollection._widen``): a
+        trailing dim of 2 IS a pair axis (pooled specs, whose ``[B, L=2]``
+        matrices are sequences, are not ported, so the serving rule
+        ``pair_ndim=2`` is the only one). Host int64 ids split on the host
+        (``hash_table.split64``); host pair words typed int64, and int64
+        ids for an int32-key table, must fit int32, never wrap. Narrow ids
+        that reach the device widen there (``hash_table.widen_ids``, in
+        :meth:`pull`).
+        """
+        if not spec.use_hash or isinstance(idx, torch.Tensor):
+            return idx
+        arr = np.asarray(idx)
+        if arr.dtype.kind not in "iu" or arr.dtype.itemsize != 8:
+            return arr
+        pairs = arr.ndim >= 2 and arr.shape[-1] == 2
+        if spec.key_dtype == "wide" and not pairs:
+            return hash_lib.split64(arr)
+        if arr.size and (arr.max() > np.iinfo(np.int32).max
+                         or arr.min() < np.iinfo(np.int32).min):
+            raise ValueError(
+                f"embedding {spec.name!r}: ids exceed int32 — pass "
+                "hash_table.split64(ids) pairs to a key_dtype='wide' "
+                "variable, not raw 64-bit ids")
+        return arr.astype(np.int32)

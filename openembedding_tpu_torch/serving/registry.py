@@ -3,10 +3,14 @@
 Loads a checkpoint for serving and answers read-only lookups: models are
 keyed by ``model_sign``, carry CREATING/NORMAL/DELETING/ERROR status, load
 synchronously or on a thread (CREATING while it runs), and a lookup takes
-one snapshot of the model's states per request. Every lookup is a pull
-through the CUDA row-gather kernel (``ops/gather.py``) on the registry's
-device. Shard slices, delta hot-swaps and micro-batching are later slices
-and raise ``NotImplementedError`` when asked for.
+one snapshot of the model's states per request. Every lookup is a pull on
+the registry's device: through the CUDA row-gather kernel
+(``ops/gather.py``) for an array variable, through the CUDA probe-gather
+kernel (``ops/probe_gather.py``) for a hash variable, whose table the load
+fills by inserting the dump's rows. Wide hash variables take ``[..., 2]``
+int32 (lo, hi) pair queries or narrow ids, which the lookup widens. Shard
+slices, delta hot-swaps and micro-batching are later slices and raise
+``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ class ServingModel:
 
     def lookup(self, variable: Any, indices) -> torch.Tensor:
         """Read-only pull for one variable (by name or variable_id): rows
-        shaped ``indices.shape + (dim,)`` on the model's device, zero rows
-        for ids outside ``[0, input_dim)``."""
+        shaped ``indices.shape + (dim,)`` on the model's device (for pair
+        queries on a wide hash variable ``indices.shape[:-1] + (dim,)``),
+        zero rows for ids outside ``[0, input_dim)`` and for hash keys the
+        table does not hold."""
         name = (variable if isinstance(variable, str)
                 else self._by_id[int(variable)])
         if name not in self.collection.specs:
@@ -56,28 +62,36 @@ class ServingModel:
         return rows[name]
 
 
-def _specs_from_meta(meta: ModelMeta) -> List[EmbeddingSpec]:
+def _specs_from_meta(meta: ModelMeta,
+                     hash_capacity: int) -> List[EmbeddingSpec]:
     """Rebuild EmbeddingSpecs from a checkpoint's model_meta alone, with
     the stateless ``default`` optimizer: serving allocates and loads no
-    slot tensors."""
+    slot tensors. Hash capacity and key dtype come from the meta's
+    ``hash_variables`` extra where the dump recorded them, else
+    ``hash_capacity`` and ``"int32"``, as in the JAX registry."""
+    hash_info = meta.extra.get("hash_variables", {})
     specs = []
     for v in sorted(meta.variables, key=lambda v: v.variable_id):
-        if v.meta.vocabulary_size >= UNBOUNDED_VOCAB:
-            raise not_ported(f"serving hash variable {v.name!r}",
-                             "hash-table serving path")
+        hash_var = v.meta.vocabulary_size >= UNBOUNDED_VOCAB
+        info = hash_info.get(v.name, {})
         specs.append(EmbeddingSpec(
-            name=v.name, input_dim=v.meta.vocabulary_size,
+            name=v.name, input_dim=-1 if hash_var else v.meta.vocabulary_size,
             output_dim=v.meta.embedding_dim, dtype=v.meta.datatype,
-            optimizer={"category": "default"}))
+            optimizer={"category": "default"},
+            hash_capacity=int(info.get("hash_capacity", hash_capacity)),
+            key_dtype=info.get("key_dtype", "int32")))
     return specs
 
 
 class ModelRegistry:
     """All models served by this process, on one device (cuda unless the
-    caller names another)."""
+    caller names another). ``default_hash_capacity`` sizes the hash tables
+    of a dump that did not record its own."""
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, *,
+                 default_hash_capacity: int = 2**20):
         self.device = resolve_device(device)
+        self.default_hash_capacity = default_hash_capacity
         self._lock = threading.Lock()
         self._models: Dict[str, ServingModel] = {}
         self._status: Dict[str, Dict[str, Any]] = {}
@@ -115,8 +129,9 @@ class ModelRegistry:
 
         def _load():
             try:
-                coll = EmbeddingCollection(_specs_from_meta(meta),
-                                           device=self.device)
+                coll = EmbeddingCollection(
+                    _specs_from_meta(meta, self.default_hash_capacity),
+                    device=self.device)
                 load_info: Dict[str, Any] = {}
                 states = ckpt_lib.load_checkpoint(model_uri, coll,
                                                   info=load_info)

@@ -3,6 +3,9 @@
 A JAX ``save_checkpoint`` (the 8-device CPU mesh, adagrad, optimizer
 state included) loads bit-equal into the port; a port save loads
 bit-equal through JAX ``load_checkpoint`` with the same model_meta keys.
+Hash variables compare per key -> row (a load inserts, so the slots a key
+lands in depend on the table's layout), and a port dump of a state copied
+from a one-device JAX table is byte-identical to JAX's own dump.
 Checkpoints are copies: every comparison is exact, bf16 included.
 """
 
@@ -18,9 +21,12 @@ import jax.numpy as jnp
 
 import openembedding_tpu as oe
 from openembedding_tpu import checkpoint as jax_ckpt
+from openembedding_tpu import hash_table as jh
 from openembedding_tpu.parallel import hot_cache
+from openembedding_tpu.parallel import sharded_hash as jsh
 from openembedding_tpu.parallel.mesh import create_mesh
 from openembedding_tpu_torch import checkpoint as tck
+from openembedding_tpu_torch import hash_table as th
 from openembedding_tpu_torch import interop
 from openembedding_tpu_torch.embedding import EmbeddingCollection, EmbeddingSpec
 
@@ -212,13 +218,248 @@ def test_refusals(tmp_path, devices8):
     open(os.path.join(path, "delta_manifest"), "w").close()
     with pytest.raises(NotImplementedError, match="delta chain"):
         tck.load_checkpoint(path, coll)
-    # a JAX hash-table dump: refused before any table is touched
+    # a JAX hash-table dump loads into a hash variable; into an array
+    # variable (hash<->array conversion) it is refused before any table
+    # is touched
     mesh = create_mesh(2, 4, devices8)
     hcoll = oe.EmbeddingCollection(
         [oe.EmbeddingSpec(name="fields", input_dim=-1, output_dim=9,
                           hash_capacity=64)], mesh)
     hpath = str(tmp_path / "hash")
     jax_ckpt.save_checkpoint(hpath, hcoll, hcoll.init(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="hash variable"):
+    loaded = tck.load_checkpoint(hpath, EmbeddingCollection(
+        [EmbeddingSpec("fields", -1, 9, hash_capacity=64)], device="cpu"))
+    assert loaded["fields"].num_used() == 0
+    with pytest.raises(NotImplementedError, match="hash<->array"):
         tck.load_checkpoint(hpath, EmbeddingCollection(
             [EmbeddingSpec("fields", 37, 9)], device="cpu"))
+    with pytest.raises(NotImplementedError, match="hash<->array"):
+        tck.load_checkpoint(path, EmbeddingCollection(
+            [EmbeddingSpec("fields", -1, 9)], device="cpu"))
+
+
+# --- hash variables -----------------------------------------------------------
+
+# (name, dim, dtype): dim 9 + dim 1 like the fused hash headline, and bf16
+HVARS = [("fields", 9, "float32"), ("fields:linear", 1, "float32"),
+         ("emb_bf16", 8, "bfloat16")]
+HCAP = 512
+
+
+def _hash_specs(pkg, key_dtype, capacity=HCAP):
+    make = oe.EmbeddingSpec if pkg == "jax" else EmbeddingSpec
+    return [make(name=n, input_dim=-1, output_dim=d, dtype=t,
+                 hash_capacity=capacity, key_dtype=key_dtype)
+            for n, d, t in HVARS]
+
+
+def _hash_keys(rng, n, key_dtype):
+    """Unique keys in a variable's encoding; pairs carry hi != 0."""
+    if key_dtype == "wide":
+        ids = rng.randint(-2**62, 2**62, n, dtype=np.int64)
+        ids[:3] = [0, -1, 2**33 + 5]
+        return np.unique(jh.split64(ids), axis=0)
+    return np.unique(rng.randint(-2**31 + 1, 2**31, n, dtype=np.int64)
+                     .astype(np.int32))
+
+
+def _jax_hash_dump(path, mesh, key_dtype, n=300, seed=0):
+    """A JAX hash collection on ``mesh`` with ``n`` rows inserted per
+    variable (adagrad slots set), saved with optimizer state; returns the
+    collection and its states."""
+    rng = np.random.RandomState(seed)
+    coll = oe.EmbeddingCollection(_hash_specs("jax", key_dtype), mesh,
+                                  default_optimizer=ADAGRAD)
+    states = coll.init(jax.random.PRNGKey(0))
+    for name, dim, _ in HVARS:
+        keys = _hash_keys(rng, n, key_dtype)
+        st = jsh.insert_rows_sharded(
+            hot_cache.unwrap(states[name]), jnp.asarray(keys),
+            jnp.asarray(rng.randn(len(keys), dim).astype(np.float32)),
+            {"accum": jnp.asarray(rng.rand(len(keys), dim)
+                                  .astype(np.float32))},
+            mesh=mesh, spec=coll.sharding_spec(name))
+        assert int(st.insert_failures) == 0
+        states[name] = st
+    jax_ckpt.save_checkpoint(path, coll, states, include_optimizer=True,
+                             model_sign="h-1")
+    return coll, states
+
+
+def _dump_by_key(path, coll, name):
+    """A hash dump as ``{int64 key: (weights bits, accum)}``, read from
+    its files: the per-key view in which two placements compare."""
+    vdir = os.path.join(path, tck._var_dir(coll.variable_id(name), name))
+    keys = np.load(os.path.join(vdir, "keys.npy"))
+    keys = jh.join64(keys) if keys.ndim == 2 else keys.astype(np.int64)
+    w = np.load(os.path.join(vdir, "weights.npy"))
+    acc = np.load(os.path.join(vdir, "slot_accum.npy"))
+    w = w.view(np.uint16) if w.dtype.itemsize == 2 else w
+    assert len(np.unique(keys)) == len(keys) == len(w) == len(acc)
+    return {int(k): (w[i].tobytes(), acc[i].tobytes())
+            for i, k in enumerate(keys)}
+
+
+@pytest.mark.parametrize("key_dtype", ["wide", "int32"])
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 4)])
+def test_jax_hash_dump_loads_in_port_per_key(devices8, tmp_path, key_dtype,
+                                             mesh_shape):
+    """A JAX hash dump (one device or the 2x4 mesh, where the slots
+    differ) loads into the port's table by insertion; re-dumped by the
+    port, every key carries the same weights and adagrad row."""
+    mesh = create_mesh(*mesh_shape, devices8[:mesh_shape[0] * mesh_shape[1]])
+    path, back = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcoll, _ = _jax_hash_dump(path, mesh, key_dtype)
+    tcoll = EmbeddingCollection(_hash_specs("port", key_dtype), device="cpu",
+                                default_optimizer=ADAGRAD)
+    states = tck.load_checkpoint(path, tcoll)
+    for name, dim, _ in HVARS:
+        st = states[name]
+        assert st.capacity == HCAP and st.num_used() == 300
+        assert int(st.insert_failures) == 0
+    tck.save_checkpoint(back, tcoll, states, include_optimizer=True)
+    for name, _, _ in HVARS:
+        assert _dump_by_key(back, tcoll, name) == \
+            _dump_by_key(path, jcoll, name)
+
+
+@pytest.mark.parametrize("key_dtype", ["wide", "int32"])
+def test_port_hash_dump_loads_in_jax(devices8, tmp_path, key_dtype):
+    """A port hash dump loads through JAX ``load_checkpoint`` on the 2x4
+    mesh: JAX's re-dump holds the same rows per key, and JAX's read-only
+    pull answers what the port's does."""
+    rng = np.random.RandomState(4)
+    tcoll = EmbeddingCollection(_hash_specs("port", key_dtype), device="cpu",
+                                default_optimizer=ADAGRAD)
+    states = tcoll.init()
+    offered = {}
+    for name, dim, _ in HVARS:
+        keys = _hash_keys(rng, 250, key_dtype)
+        th.insert_rows(states[name], torch.from_numpy(keys),
+                       torch.randn(len(keys), dim),
+                       {"accum": torch.rand(len(keys), dim)})
+        offered[name] = keys
+    path, back = str(tmp_path / "port"), str(tmp_path / "jax")
+    tck.save_checkpoint(path, tcoll, states, include_optimizer=True,
+                        model_sign="h-2")
+    mesh = create_mesh(2, 4, devices8)
+    jcoll = oe.EmbeddingCollection(_hash_specs("jax", key_dtype), mesh,
+                                   default_optimizer=ADAGRAD)
+    jstates = jax_ckpt.load_checkpoint(path, jcoll)
+    jax_ckpt.save_checkpoint(back, jcoll, jstates, include_optimizer=True)
+    for name, _, _ in HVARS:
+        assert _dump_by_key(back, jcoll, name) == \
+            _dump_by_key(path, tcoll, name)
+        q = np.concatenate([offered[name][:40],
+                            _hash_keys(rng, 9, key_dtype)])
+        want = np.asarray(jcoll.pull(jstates, {name: jnp.asarray(q)},
+                                     batch_sharded=False,
+                                     read_only=True)[name])
+        got = tcoll.pull(states, {name: q}, read_only=True)[name]
+        np.testing.assert_array_equal(interop.tensor_to_numpy(got),
+                                      _bits(want))
+
+
+@pytest.mark.parametrize("key_dtype", ["wide", "int32"])
+def test_port_hash_dump_byte_identical_to_jax(devices8, tmp_path, key_dtype):
+    """The state of a one-device JAX hash table, copied into the port and
+    saved, gives byte-identical files and the same model_meta as JAX's
+    own dump."""
+    mesh = create_mesh(1, 1, devices8[:1])
+    jpath, tpath = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcoll, jstates = _jax_hash_dump(jpath, mesh, key_dtype)
+    tcoll = EmbeddingCollection(_hash_specs("port", key_dtype), device="cpu",
+                                default_optimizer=ADAGRAD)
+    states = {}
+    for name, _, _ in HVARS:
+        st = hot_cache.unwrap(jstates[name])
+        states[name] = interop.hash_state_from_numpy(
+            np.asarray(st.keys), np.asarray(st.weights),
+            {k: np.asarray(v) for k, v in st.slots.items()}, "cpu")
+    tck.save_checkpoint(tpath, tcoll, states, include_optimizer=True,
+                        model_sign="h-1")
+    mine = json.load(open(os.path.join(tpath, "model_meta")))
+    theirs = json.load(open(os.path.join(jpath, "model_meta")))
+    assert mine["variables"] == theirs["variables"]
+    for key in ("hash_variables", "storage_dtypes", "include_optimizer"):
+        assert mine["extra"][key] == theirs["extra"][key], key
+    for name, _, _ in HVARS:
+        vdir = tck._var_dir(jcoll.variable_id(name), name)
+        files = sorted(os.listdir(os.path.join(jpath, vdir)))
+        assert files == sorted(os.listdir(os.path.join(tpath, vdir))) == [
+            "keys.npy", "slot_accum.npy", "weights.npy"]
+        for f in files:
+            a = open(os.path.join(tpath, vdir, f), "rb").read()
+            b = open(os.path.join(jpath, vdir, f), "rb").read()
+            assert a == b, (name, f)
+
+
+def test_hash_dump_key_migrations(tmp_path):
+    """An int32-key dump loads into a wide table as the pairs of the same
+    keys (and a wide dump into an int32 table when every key fits); keys
+    the target cannot hold are refused, never truncated."""
+    rng = np.random.RandomState(5)
+    src = EmbeddingCollection(_hash_specs("port", "int32"), device="cpu",
+                              default_optimizer=ADAGRAD)
+    states = src.init()
+    for name, dim, _ in HVARS:
+        keys = _hash_keys(rng, 200, "int32")
+        th.insert_rows(states[name], torch.from_numpy(keys),
+                       torch.randn(len(keys), dim))
+    narrow = str(tmp_path / "narrow")
+    tck.save_checkpoint(narrow, src, states, include_optimizer=True)
+    wide = EmbeddingCollection(_hash_specs("port", "wide"), device="cpu",
+                               default_optimizer=ADAGRAD)
+    wstates = tck.load_checkpoint(narrow, wide)
+    wpath = str(tmp_path / "wide")
+    tck.save_checkpoint(wpath, wide, wstates, include_optimizer=True)
+    back = EmbeddingCollection(_hash_specs("port", "int32"), device="cpu",
+                               default_optimizer=ADAGRAD)
+    bstates = tck.load_checkpoint(wpath, back)
+    for name, _, _ in HVARS:
+        assert wstates[name].wide and not bstates[name].wide
+        assert _dump_by_key(wpath, wide, name) == \
+            _dump_by_key(narrow, src, name)
+        q = np.load(os.path.join(narrow, tck._var_dir(
+            src.variable_id(name), name), "keys.npy"))
+        assert torch.equal(
+            wide.pull(wstates, {name: q.astype(np.int64)},
+                      read_only=True)[name],
+            src.pull(states, {name: q}, read_only=True)[name])
+        assert torch.equal(back.pull(bstates, {name: q}, read_only=True)[name],
+                           src.pull(states, {name: q}, read_only=True)[name])
+    # a wide key beyond int32 cannot enter an int32 table
+    vdir = os.path.join(wpath, tck._var_dir(0, "fields"))
+    keys = np.load(os.path.join(vdir, "keys.npy"))
+    keys[0] = [5, 1]
+    np.save(os.path.join(vdir, "keys.npy"), keys)
+    with pytest.raises(ValueError, match="outside the table's int32"):
+        tck.load_checkpoint(wpath, back)
+    # an int64 key in the wide EMPTY band cannot enter a wide table
+    vdir = os.path.join(narrow, tck._var_dir(0, "fields"))
+    keys = np.load(os.path.join(vdir, "keys.npy")).astype(np.int64)
+    keys[0] = -2**63 + 5
+    np.save(os.path.join(vdir, "keys.npy"), keys)
+    with pytest.raises(ValueError, match="EMPTY band"):
+        tck.load_checkpoint(narrow, wide)
+
+
+def test_hash_load_refuses_rows_that_do_not_fit(tmp_path):
+    """A dump holding more rows than the loading table's windows can place
+    fails its load, naming the variable and the count."""
+    rng = np.random.RandomState(6)
+    big = EmbeddingCollection(_hash_specs("port", "wide", capacity=1024),
+                              device="cpu", default_optimizer=ADAGRAD)
+    states = big.init()
+    for name, dim, _ in HVARS:
+        keys = _hash_keys(rng, 600, "wide")
+        th.insert_rows(states[name], torch.from_numpy(keys),
+                       torch.randn(len(keys), dim))
+    path = str(tmp_path / "big")
+    tck.save_checkpoint(path, big, states)
+    small = EmbeddingCollection(_hash_specs("port", "wide", capacity=256),
+                                device="cpu", default_optimizer=ADAGRAD)
+    with pytest.raises(RuntimeError,
+                       match="'fields': [0-9]+ of 600 checkpoint rows did "
+                             "not fit"):
+        tck.load_checkpoint(path, small)

@@ -62,14 +62,59 @@ def test_fused_specs_match_jax():
 
 
 def test_fused_refusals():
-    with pytest.raises(NotImplementedError, match="hash"):
-        tf.make_fused_specs(["a", "b"], -1, 4)
-    with pytest.raises(NotImplementedError, match="hash"):
-        tf.FusedMapper(("a",), (-1,)).fuse({"a": np.array([1])})
+    # hash groups build and fuse; int64 hash keys are not ported yet
+    specs, mapper = tf.make_fused_specs(["a", "b"], -1, 4)
+    assert [s.input_dim for s in specs] == [-1, -1]
+    assert [s.key_dtype for s in specs] == ["wide", "wide"]
+    assert tf.FusedMapper(("a",), (-1,)).fuse(
+        {"a": np.array([1])})["fields"].tolist() == [[[1, 0]]]
+    with pytest.raises(NotImplementedError, match="int64 hash keys"):
+        tf.make_fused_specs(["a", "b"], -1, 4, key_dtype="int64")
     with pytest.raises(ValueError, match="cannot fuse"):
         tf.make_fused_specs(["a", "b"], [-1, 4], 4)
     with pytest.raises(ValueError, match="must match"):
         tf.make_fused_specs(["a", "b"], [3], 4)
+
+
+# an id whose key k * 26 + f wraps into the wide EMPTY band (hi word ==
+# INT32_MIN), which the wide encoding remaps one hi step up
+_BAND_ID = 2**63 // 26 + 1
+
+
+@pytest.mark.parametrize("key_dtype", ["wide", "int32"])
+@pytest.mark.parametrize("num_buckets", [1 << 22, 1 << 62])
+def test_hash_fuse_matches_jax(key_dtype, num_buckets):
+    """Hash fusion ``k * F + f`` (int64, wrapping) equals the JAX mapper's
+    in both key encodings, on the synthetic Criteo stream and on edge ids
+    (negative, wrapping, the EMPTY band), int32 and int64 columns; the
+    hash specs equal JAX's field for field."""
+    kw = dict(hash_capacity=1 << 23, key_dtype=key_dtype,
+              optimizer={"category": "adagrad", "learning_rate": 0.01})
+    jspecs, jm = jax_fused.make_fused_specs(tc.SPARSE_NAMES, -1, 9, **kw)
+    tspecs, tm = tf.make_fused_specs(tc.SPARSE_NAMES, -1, 9, **kw)
+    for t, j in zip(tspecs, jspecs):
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert t.meta().to_json() == j.meta().to_json()
+    stream = next(tc.synthetic_criteo(64, num_buckets=num_buckets, seed=2))
+    edge = {}
+    for j, name in enumerate(tc.SPARSE_NAMES):
+        col = stream["sparse"][name].astype(np.int64)
+        col[:4] = [-1, -(2**62) - j, _BAND_ID, 2**63 - 1 - j]
+        edge[name] = col
+    inputs = [stream["sparse"], edge]
+    if num_buckets < 2**31:
+        inputs.append({k: v.astype(np.int32)
+                       for k, v in stream["sparse"].items()})
+    for sparse in inputs:
+        want = jm.fuse(sparse)
+        got = tm.fuse(sparse)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+    if key_dtype == "wide":
+        band = tm.fuse(edge)["fields"][2]
+        assert (band[:, 1] != np.iinfo(np.int32).min).all()
 
 
 def test_synthetic_criteo_matches_jax():

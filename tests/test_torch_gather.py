@@ -114,27 +114,3 @@ def test_wrapper_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="indices on"):
         tg.gather_rows(table, torch.zeros(2, dtype=torch.int64,
                                           device="meta"))
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
-    """On the card: the CUDA kernel against its plain version, exact, at
-    dims 9 / 1 / 64, f32 and bf16, int32 and int64 ids (wild ones too)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    rng = np.random.RandomState(0)
-    for dim, dtype in ((9, torch.float32), (1, torch.float32),
-                       (64, torch.bfloat16)):
-        table = torch.randn(1000, dim, device="cuda").to(dtype)
-        for ids in (rng.randint(-5, 1005, 3001).astype(np.int32),
-                    np.asarray([2**32 + 3, -(2**40), 999, 0, 1000],
-                               np.int64)):
-            t_ids = torch.from_numpy(ids).cuda()
-            before = tg.gather_rows.launches
-            got = tg.gather_rows(table, t_ids)
-            torch.cuda.synchronize()
-            assert tg.gather_rows.launches == before + 1
-            assert torch.equal(got, tg.gather_rows_reference(table, t_ids))
-    empty = tg.gather_rows(table, torch.zeros(0, dtype=torch.int64,
-                                              device="cuda"))
-    assert empty.shape == (0, 64)

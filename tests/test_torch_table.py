@@ -139,9 +139,14 @@ def test_spec_fields_and_validation_match_jax():
     assert s.meta() == EmbeddingVariableMeta("float32", 4, 10)
     with pytest.raises(ValueError, match="unknown pooling"):
         EmbeddingSpec(name="a", input_dim=10, output_dim=4, pooling="max")
-    for later in ({"input_dim": -1}, {"pooling": "sum"},
+    hashed = EmbeddingSpec(name="h", input_dim=-1, output_dim=4)
+    jhashed = oe.EmbeddingSpec(name="h", input_dim=-1, output_dim=4)
+    assert hashed.key_dtype == jhashed.key_dtype == "wide"
+    assert hashed.meta().to_json() == jhashed.meta().to_json()
+    for later in ({"input_dim": -1, "key_dtype": "int64"}, {"pooling": "sum"},
                   {"plane": "psum"}, {"plane": "a2a+bf16"},
-                  {"num_shards": 4}, {"push_precision": "int8_ef"}):
+                  {"num_shards": 4}, {"push_precision": "int8_ef"},
+                  {"cache_k": 8}):
         kw = {"name": "a", "input_dim": 10, "output_dim": 4, **later}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EmbeddingSpec(**kw)
@@ -183,11 +188,27 @@ def test_collection_init_and_pull():
         c1.pull(s1, {"a": np.zeros(3, np.float32)})
 
 
+def _probe_one(device):
+    """One probe-gather call on a table made on ``device``."""
+    from openembedding_tpu_torch import hash_table as th
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    st = th.create_hash_table(EmbeddingVariableMeta("float32", 4, 2**63),
+                              "default", capacity=64, key_dtype="wide",
+                              device=device)
+    return probe_gather(st.keys, st.weights, st.keys[:3].clone(), chain=1,
+                        bucket=64, empty=th.empty_key(torch.int32))
+
+
 def _entry_points():
+    from openembedding_tpu_torch import hash_table as th
     from openembedding_tpu_torch.serving.registry import ModelRegistry
     from openembedding_tpu_torch.serving.rest import ControllerServer
     meta = EmbeddingVariableMeta("float32", 4, 10)
     return {
+        "create_hash_table": lambda d: th.create_hash_table(
+            EmbeddingVariableMeta("float32", 4, 2**63), "default",
+            capacity=64, device=d),
+        "probe_gather": _probe_one,
         "EmbeddingCollection": lambda d: EmbeddingCollection(
             [EmbeddingSpec("a", 10, 4)], device=d),
         "ModelRegistry": lambda d: ModelRegistry(device=d),
