@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the run exits nonzero:
    the card, exact equality (it is a copy), with CUDA-event medians of the
    kernel, the plain version and ``torch.index_select`` (the yardstick,
    never used by the port) beside the least time the card could take
-   (bytes over 3.35 TB/s, table rows counted in 32-byte sectors);
+   (bytes over 3.35 TB/s, table rows counted in 32-byte sectors), at the
+   main-path shapes and at the kernel's edges (n = 1, 2, 3 mod 4, n =
+   1,000,003, dim 300, ids that are not 16-byte aligned);
 4. serving path: the ``deepfm_dim9`` fused Criteo tables (26 x 2^20 rows,
    dim 9 plus the dim-1 ``:linear`` twin, adagrad slots) are initialized
    from a seed, saved as a checkpoint, loaded through ``POST /models`` of a
@@ -26,7 +28,10 @@ Phases, in order; any failure raises and the run exits nonzero:
    ``insert_rows`` to load 0.5 with seeded rows: every distinct key of the
    served batches plus filler keys. ``probe_gather`` is held against
    ``probe_gather_reference`` on the card, exact in rows and hit flags, at
-   the main-path shape and on the cases ``phase_probe_kernels`` lists,
+   the main-path shape and on the cases ``phase_probe_kernels`` lists
+   (the design's edges among them: matches at window slots 31 to 33, keys
+   overflowed into a window's second bucket, misses in windows with no
+   EMPTY slot, the span's last window, n = 300,001),
    timed beside the plain version, ``torch.index_select`` over the
    already-resolved slots ("gather part only": not the same function)
    and the bound (bytes over 3.35 TB/s);
@@ -71,6 +76,8 @@ HASH_CAPACITY = 1 << 23       # deepfm_dim9_hash (bench.py): slots per table
 HASH_VOCAB = 1 << 22          # ... and buckets per feature
 HASH_BIN_BATCHES = 12         # + 1 batch of hi != 0 keys, x 2 variables
 LOAD_CHUNK = 1 << 16          # keys per insert_rows call, as the loader's
+GATHER_MANY = 1_000_003       # K1 ids in one call: many strides of its grid
+PROBE_MANY = 300_001          # K2 queries in one call: likewise
 
 
 def log(*parts) -> None:
@@ -99,21 +106,17 @@ def phase_build() -> None:
 
 # --- phase 3 -----------------------------------------------------------------
 
-def _median_ms(fn, flush: torch.Tensor, queued: bool) -> float:
-    """CUDA-event median of ``fn`` with the L2 flushed before each run.
-
-    ``queued``: a ~1 ms spin kernel runs first, so ``fn``'s kernels are
-    all enqueued before the start event fires and the events bracket
-    device time alone; without it they also bracket the host's dispatch
-    of ``fn`` (the time a caller pays per call).
-    """
+def _median_ms(fn, flush: torch.Tensor) -> float:
+    """CUDA-event median of ``fn``'s device time with the L2 flushed before
+    each run: a ~1 ms spin kernel runs first, so ``fn``'s kernels are all
+    enqueued before the start event fires and the events bracket device
+    time alone."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(REPS):
         flush.zero_()
-        if queued:
-            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -121,6 +124,24 @@ def _median_ms(fn, flush: torch.Tensor, queued: bool) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _call_ms(fn, calls: int = 100) -> float:
+    """What a caller pays per call: the wall time of ``calls`` back-to-back
+    calls of ``fn`` through the final synchronize, over ``calls`` (the
+    host's dispatch, or the device time where that is longer), median of
+    9 repeats."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
     return statistics.median(times)
 
 
@@ -147,8 +168,16 @@ def gather_bound_bytes(table: torch.Tensor, ids: np.ndarray) -> int:
             + ids.size * ids.itemsize + ids.size * row_bytes)
 
 
-def check_case(name, table, ids_np, flush, gather_rows, reference):
-    ids = torch.from_numpy(ids_np).to(table.device)
+def check_case(name, table, ids_np, flush, gather_rows, reference,
+               unaligned=False):
+    """K1 against its plain version on one case, exact, with its timings
+    beside the plain version's, ``index_select``'s and the bound;
+    ``unaligned``: the ids tensor starts one id past a 16-byte boundary."""
+    if unaligned:
+        ids = torch.from_numpy(np.concatenate(
+            [ids_np[:1], ids_np])).to(table.device)[1:]
+    else:
+        ids = torch.from_numpy(ids_np).to(table.device)
     got = gather_rows(table, ids)
     want = reference(table, ids)
     torch.cuda.synchronize()
@@ -167,9 +196,9 @@ def check_case(name, table, ids_np, flush, gather_rows, reference):
                "plain": lambda: reference(table, ids),
                "library": lambda: torch.index_select(table, 0, valid)}
         for k, fn in fns.items():
-            case[f"{k}_ms"] = _median_ms(fn, flush, queued=True)
+            case[f"{k}_ms"] = _median_ms(fn, flush)
         for k in ("kernel", "library"):
-            case[f"{k}_call_ms"] = _median_ms(fns[k], flush, queued=False)
+            case[f"{k}_call_ms"] = _call_ms(fns[k])
         case["bound_ms"] = gather_bound_bytes(table, ids_np) \
             / HBM_BYTES_PER_S * 1e3
     return case
@@ -183,6 +212,7 @@ def phase_kernels(w9, w1, main_ids: np.ndarray):
     rng = np.random.RandomState(SEED)
     bf16 = torch.randn((1 << 18, 64), device=dev).to(torch.bfloat16)
     t128 = torch.randn((4096, 128), device=dev)
+    t300 = torch.randn((1 << 14, 300), device=dev)
     wild = np.concatenate([
         rng.randint(0, 1 << 18, 4093).astype(np.int64),
         np.asarray([-1, 1 << 18, 2**32 + 3, -(2**40),
@@ -208,6 +238,18 @@ def phase_kernels(w9, w1, main_ids: np.ndarray):
                    gather_rows_reference),
         check_case("fields_n0", w9, main_ids[:0], flush, gather_rows,
                    gather_rows_reference),
+        check_case(f"fields_dim9_f32_n{GATHER_MANY}", w9,
+                   rng.randint(0, w9.shape[0], GATHER_MANY).astype(np.int32),
+                   flush, gather_rows, gather_rows_reference),
+        *[check_case(f"{name}_n_mod4_{r}", w, main_ids[:main_ids.size - 4 + r],
+                     flush, gather_rows, gather_rows_reference)
+          for name, w in (("fields_dim9", w9), ("linear_dim1", w1))
+          for r in (1, 2, 3)],
+        check_case("dim300_f32_i32", t300,
+                   rng.randint(-2, t300.shape[0] + 2, 32768).astype(np.int32),
+                   flush, gather_rows, gather_rows_reference),
+        check_case("fields_dim9_f32_i32_unaligned_ids", w9, main_ids, flush,
+                   gather_rows, gather_rows_reference, unaligned=True),
     ]
     log(json.dumps({"gather_cases": cases}))
     return cases
@@ -533,9 +575,9 @@ def check_probe_case(name, keys, weights, query, flush):
                                                        **kw),
                "gather": lambda: torch.index_select(weights, 0, resolved)}
         for k, fn in fns.items():
-            case[f"{k}_ms"] = _median_ms(fn, flush, queued=True)
+            case[f"{k}_ms"] = _median_ms(fn, flush)
         for k in ("kernel", "gather"):
-            case[f"{k}_call_ms"] = _median_ms(fns[k], flush, queued=False)
+            case[f"{k}_call_ms"] = _call_ms(fns[k])
         needed, windows = probe_bound_bytes(keys, weights, query, slots)
         case["bound_ms"] = needed / HBM_BYTES_PER_S * 1e3
         case["bound_windows_ms"] = windows / HBM_BYTES_PER_S * 1e3
@@ -554,14 +596,69 @@ def _narrow_table(dev, capacity, dim, keys: np.ndarray, gen):
     return st
 
 
+def _window_offsets(keys: torch.Tensor) -> torch.Tensor:
+    """[capacity] int64: each live slot's offset in its key's probe window,
+    -1 at free slots."""
+    from openembedding_tpu_torch.hash_table import (DEFAULT_MAX_PROBES,
+                                                    probe_starts)
+    wide = keys.dim() == 2
+    live = torch.nonzero((keys[:, 1] if wide else keys) != EMPTY32).flatten()
+    out = torch.full((keys.shape[0],), -1, dtype=torch.int64,
+                     device=keys.device)
+    out[live] = live - probe_starts(keys[live], keys.shape[0],
+                                    DEFAULT_MAX_PROBES)
+    return out
+
+
+def _crafted_table(dev, gen, rng):
+    """A wide-key ``[2^16, 9]`` f32 table whose window at bucket 5 and whose
+    last window (the span's last start, ending at the table's end) each
+    hold 256 keys that start there, filled through ``insert_rows`` with 8
+    more per window that fail: both windows are full, so keys overflowed
+    into their second bucket and a miss there finds no EMPTY slot to stop
+    at. Returns the state and, per window, the offered keys (placed, then
+    failed) and absent keys that start in it, as pairs."""
+    from openembedding_tpu_torch.hash_table import (
+        DEFAULT_MAX_PROBES, create_hash_table, insert_rows, probe_starts,
+        split64, table_layout)
+    from openembedding_tpu_torch.meta import (UNBOUNDED_VOCAB,
+                                              EmbeddingVariableMeta)
+    capacity = 1 << 16
+    bsz, nb, chain = table_layout(capacity, DEFAULT_MAX_PROBES)
+    span = nb - chain + 1
+    cand = split64(np.unique(rng.randint(0, 2**62, span * 700,
+                                         dtype=np.int64)))
+    start = (probe_starts(torch.from_numpy(cand).to(dev), capacity,
+                          DEFAULT_MAX_PROBES) // bsz).cpu().numpy()
+    windows = {}
+    for name, b in (("bucket5", 5), ("last", span - 1)):
+        mine = cand[start == b]
+        windows[name] = (mine[:chain * bsz + 8], mine[chain * bsz + 8:300])
+    st = create_hash_table(
+        EmbeddingVariableMeta("float32", 9, UNBOUNDED_VOCAB), "default",
+        capacity=capacity, key_dtype="wide", device=dev)
+    offered = np.concatenate([w[0] for w in windows.values()])
+    insert_rows(st, torch.from_numpy(offered).to(dev),
+                torch.randn((len(offered), 9), generator=gen, device=dev))
+    if int(st.insert_failures) != 16:
+        raise AssertionError(f"crafted table: {int(st.insert_failures)} "
+                             "insert failures, 16 expected")
+    return st, windows
+
+
 def phase_probe_kernels(states, batches, keys64):
     """K2 against its plain version on the card: the main-path shape (one
     ``[4096, 26, 2]`` batch on the filled ``fields`` table), the ``:linear``
     table, an int32-key table of the same capacity, the JAX kernel's own
     benchmark shape ``hash_probe_dim128`` (``[2^22, 128]``, 32,768
     queries), bf16 weights, a mix of hits, misses, EMPTY and hi != 0
-    keys, n = 1 and n = 0."""
-    from openembedding_tpu_torch.hash_table import join64
+    keys, n = 1 and n = 0; then the design's edges: keys at window slots
+    31, 32 and 33 (the end and start of a 32-pair step) of the ``fields``
+    table, the crafted table's full windows (keys overflowed into the
+    second bucket, misses with no EMPTY slot to stop at, the span's last
+    window at the table's end), and n = 300,001 (the one-wave grid strides
+    several times)."""
+    from openembedding_tpu_torch.hash_table import join64, split64
     fields, linear = states["fields"], states["fields:linear"]
     dev = fields.keys.device
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -580,6 +677,21 @@ def phase_probe_kernels(states, batches, keys64):
     mixed[::7, 1] = EMPTY32                                 # EMPTY
     mixed[3::11] = rng.randint(1 << 20, 1 << 30, (mixed[3::11].shape))
     mixed = torch.from_numpy(mixed).to(dev)
+    offsets = _window_offsets(fields.keys)
+    at_step_edge = torch.nonzero((offsets >= 31) & (offsets <= 33)).flatten()
+    edge_q = fields.keys[at_step_edge]
+    if sorted(offsets[at_step_edge].unique().tolist()) != [31, 32, 33]:
+        raise AssertionError("no fields keys at window slots 31, 32 and 33")
+    crafted, windows = _crafted_table(dev, gen, rng)
+    crafted_q = {name: torch.from_numpy(np.concatenate(w)).to(dev)
+                 for name, w in windows.items()}
+    depth = _window_offsets(crafted.keys)
+    if not (bool((depth >= 128).any()) and bool((depth == 255).any())):
+        raise AssertionError("crafted table: no keys in second buckets")
+    big = split64(keys64[rng.randint(0, keys64.size, PROBE_MANY)])
+    big[::5] = split64(rng.randint(2**62, 2**63 - 1, big[::5].shape[0],
+                                   dtype=np.int64))          # misses
+    big = torch.from_numpy(big).to(dev)
     cases = [
         check_probe_case("fields_wide_dim9_f32_main", fields.keys,
                          fields.weights, main, flush),
@@ -597,6 +709,15 @@ def phase_probe_kernels(states, batches, keys64):
                          flush),
         check_probe_case("fields_n0", fields.keys, fields.weights, main[:0],
                          flush),
+        check_probe_case("fields_window_slots_31_32_33", fields.keys,
+                         fields.weights, edge_q, flush),
+        check_probe_case("crafted_second_bucket_and_full_window_misses",
+                         crafted.keys, crafted.weights,
+                         crafted_q["bucket5"], flush),
+        check_probe_case("crafted_last_window_of_span", crafted.keys,
+                         crafted.weights, crafted_q["last"], flush),
+        check_probe_case(f"fields_n{PROBE_MANY}", fields.keys, fields.weights,
+                         big, flush),
     ]
     log(json.dumps({"probe_cases": cases}))
     return cases
@@ -702,10 +823,9 @@ def phase_hash_serving(coll, states, batches, host):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def main() -> None:
-    phase_device()
-    sys.path.insert(0, ROOT)
-    phase_build()
+def setup_array():
+    """The ``deepfm_dim9`` collection initialized from the seed, its host
+    copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
     from openembedding_tpu_torch.data.criteo import (SPARSE_NAMES,
                                                      synthetic_criteo)
     from openembedding_tpu_torch.embedding import EmbeddingCollection
@@ -721,13 +841,17 @@ def main() -> None:
     main_ids = mapper.fuse(next(synthetic_criteo(
         BATCH, num_buckets=VOCAB_PER_FEATURE, seed=SEED))["sparse"])[
             "fields"].reshape(-1)
+    return coll, states, mapper, host, main_ids
 
-    cases = phase_kernels(states["fields"].weights,
-                          states["fields:linear"].weights, main_ids)
-    launches = phase_serving(coll, states, mapper, host)
-    del coll, states, host
 
+def setup_hash():
+    """The ``deepfm_dim9_hash`` collection filled to load 0.5, the served
+    batches, the stored keys and each table's host dictionary."""
+    from openembedding_tpu_torch.data.criteo import SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
     from openembedding_tpu_torch.hash_table import split64
+
     hspecs, hmapper = make_fused_specs(
         SPARSE_NAMES, -1, 9, hash_capacity=HASH_CAPACITY,
         optimizer={"category": "adagrad", "learning_rate": 0.01})
@@ -742,6 +866,20 @@ def main() -> None:
     log(f"hash fill: {keys64.size} keys into each of {len(hstates)} "
         f"tables of {HASH_CAPACITY} slots in "
         f"{time.perf_counter() - t0:.3f} s, 0 insert failures")
+    return hcoll, hstates, batches, keys64, hhost
+
+
+def main() -> None:
+    phase_device()
+    sys.path.insert(0, ROOT)
+    phase_build()
+    coll, states, mapper, host, main_ids = setup_array()
+    cases = phase_kernels(states["fields"].weights,
+                          states["fields:linear"].weights, main_ids)
+    launches = phase_serving(coll, states, mapper, host)
+    del coll, states, host
+
+    hcoll, hstates, batches, keys64, hhost = setup_hash()
     pcases = phase_probe_kernels(hstates, batches, keys64)
     plaunches = phase_hash_serving(hcoll, hstates, batches, hhost)
 
@@ -753,7 +891,8 @@ def main() -> None:
         "launches": launches,
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
+        "ms": main_case["kernel_ms"], "call_ms": main_case["kernel_call_ms"],
+        "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
         "library_ms": main_case["library_ms"]}, {
         "name": "probe_gather", "route": "cuda",
@@ -762,7 +901,8 @@ def main() -> None:
         "launches": plaunches,
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
-        "ms": pmain["kernel_ms"], "plain_ms": pmain["plain_ms"],
+        "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
+        "plain_ms": pmain["plain_ms"],
         "bound_ms": pmain["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "gather_part_ms": pmain["gather_ms"]}]}))
     log(json.dumps({"ok": True, "device": {

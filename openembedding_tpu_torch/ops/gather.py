@@ -8,7 +8,12 @@ takes any row width directly (no 128-lane ``pad_table``).
 
 Dispatch is by the device the tensors lie on, nothing else: CPU tensors
 take the plain version :func:`gather_rows_reference`; CUDA tensors launch
-the kernel or raise. There is no fallback from one to the other.
+the kernel or raise. There is no fallback from one to the other. The C
+entry is resolved once per process (the first call builds it), and a call
+enters a ``torch.cuda.device`` context only when the tensors lie on
+another device than the current one. The stream handle comes from the raw
+current-stream query PyTorch's own kernel launchers use, not from a
+``torch.cuda.Stream`` object built per call.
 """
 
 from __future__ import annotations
@@ -19,8 +24,7 @@ import torch
 
 _WORD_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
-_THREADS = 256          # kThreads in csrc/gather_rows.cu
-_MAX_BLOCKS = 2**31 - 1
+_fn = None              # the C entry, once built and loaded
 
 
 def gather_rows_reference(table: torch.Tensor,
@@ -37,15 +41,16 @@ def gather_rows_reference(table: torch.Tensor,
 
 
 def _entry():
-    from . import _build
-    lib = _build.load("gather_rows")
-    fn = lib.oe_gather_rows
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        from . import _build
+        fn = _build.load("gather_rows").oe_gather_rows
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -78,17 +83,19 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows kernel needs contiguous tensors")
     vocab, dim = table.shape
     n = indices.shape[0]
-    out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
+    device = table.device
+    out = torch.empty((n, dim), dtype=table.dtype, device=device)
     if n == 0 or dim == 0:
         return out          # a grid of zero blocks is a launch error
-    per = max(1, _THREADS // dim)
-    if -(-n // per) > _MAX_BLOCKS:
-        raise ValueError(f"gather_rows: {n} ids exceed one launch's grid")
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = _entry()(table.data_ptr(), indices.data_ptr(), out.data_ptr(),
-                      n, vocab, dim, _WORD_BYTES[table.dtype],
-                      _INDEX_BYTES[indices.dtype], stream)
+    args = (table.data_ptr(), indices.data_ptr(), out.data_ptr(), n, vocab,
+            dim, _WORD_BYTES[table.dtype], _INDEX_BYTES[indices.dtype])
+    fn = _fn or _entry()
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, raw_stream(device.index))
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{rc}")

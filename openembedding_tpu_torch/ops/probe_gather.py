@@ -10,9 +10,21 @@ TPU kernel it takes wide ``[n, 2]`` pair keys as well as int32 keys, any
 row width, and computes each query's window start itself (the TPU kernel
 is handed ``starts``): the same mixing as ``hash_table.probe_starts``.
 
+The kernel ends a query's scan at the first slot, in slot order, that
+holds its key or EMPTY. That is the full-window answer on every table the
+port or the JAX package builds: slots are never freed and
+``find_or_insert`` gives a key the first free slot of the first bucket of
+its window that has one, so no stored key lies after an EMPTY slot of its
+own window. The plain version compares the whole window.
+
 Dispatch is by the device the tensors lie on, nothing else: CPU tensors
 take the plain version :func:`probe_gather_reference`; CUDA tensors launch
-the kernel or raise. There is no fallback from one to the other.
+the kernel or raise. There is no fallback from one to the other. The C
+entry is resolved once per process (the first call builds it), and a call
+enters a ``torch.cuda.device`` context only when the tensors lie on
+another device than the current one. The stream handle comes from the raw
+current-stream query PyTorch's own kernel launchers use, not from a
+``torch.cuda.Stream`` object built per call.
 """
 
 from __future__ import annotations
@@ -23,8 +35,7 @@ from typing import Tuple
 import torch
 
 _WORD_BYTES = {torch.float32: 4, torch.bfloat16: 2}
-_WARPS = 8              # kWarps in csrc/probe_gather.cu: queries per block
-_MAX_BLOCKS = 2**31 - 1
+_fn = None              # the C entry, once built and loaded
 
 
 def _check(table_keys: torch.Tensor, weights: torch.Tensor,
@@ -83,17 +94,18 @@ def probe_gather_reference(table_keys: torch.Tensor, weights: torch.Tensor,
 
 
 def _entry():
-    from . import _build
-    lib = _build.load("probe_gather")
-    fn = lib.oe_probe_gather
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        from . import _build
+        fn = _build.load("probe_gather").oe_probe_gather
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def probe_gather(table_keys: torch.Tensor, weights: torch.Tensor,
@@ -106,8 +118,11 @@ def probe_gather(table_keys: torch.Tensor, weights: torch.Tensor,
     int32 pairs with ``[n, 2]`` pair queries; ``weights`` is ``[C, D]``
     float32 or bfloat16. ``bucket`` divides ``C`` and ``chain * bucket``
     slots from each query's start are compared (``hash_table.table_layout``).
-    On CUDA all tensors must be contiguous; the kernel launches on the
-    current stream and ``probe_gather.launches`` counts each launch.
+    On CUDA all tensors must be contiguous, pair keys 8-byte aligned; the
+    kernel launches on the current stream and ``probe_gather.launches``
+    counts each launch. Precondition of the kernel: no stored key lies
+    after an EMPTY slot of its own window (true of every table
+    ``find_or_insert`` and ``insert_rows`` fill; see the module note).
     """
     wide = _check(table_keys, weights, query, chain, bucket)
     device = table_keys.device
@@ -132,15 +147,16 @@ def probe_gather(table_keys: torch.Tensor, weights: torch.Tensor,
     hit = torch.empty((n,), dtype=torch.bool, device=device)
     if n == 0:
         return rows, hit    # a grid of zero blocks is a launch error
-    if -(-n // _WARPS) > _MAX_BLOCKS:
-        raise ValueError(f"probe_gather: {n} queries exceed one launch's "
-                         "grid")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _entry()(table_keys.data_ptr(), weights.data_ptr(),
-                      query.data_ptr(), rows.data_ptr(), hit.data_ptr(),
-                      n, capacity, dim, bucket, chain, int(empty),
-                      int(wide), _WORD_BYTES[weights.dtype], stream)
+    args = (table_keys.data_ptr(), weights.data_ptr(), query.data_ptr(),
+            rows.data_ptr(), hit.data_ptr(), n, capacity, dim, bucket, chain,
+            int(empty), int(wide), _WORD_BYTES[weights.dtype])
+    fn = _fn or _entry()
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, raw_stream(device.index))
     if rc != 0:
         raise RuntimeError(f"probe_gather kernel launch failed: CUDA error "
                            f"{rc}")

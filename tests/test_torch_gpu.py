@@ -97,3 +97,132 @@ def test_probe_gather_kernel_matches_plain():
                 rows, hit = tp.probe_gather(st.keys, st.weights, q[:0], **kw)
                 assert rows.shape == (0, dim) and hit.shape == (0,)
                 assert tp.probe_gather.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_gather_rows_kernel_boundaries():
+    """K1 where its design has edges: n = 1, 2, 3 (mod 4) (the ragged end
+    after the 4-row sets), dims 1 and 9 (compile-time widths) and 64, 128,
+    300 (the runtime-width kernel), an invalid id at every position of a
+    4-id vector, ids that are not 16-byte aligned, a table that is not
+    16-byte aligned, and n = 1,000,003."""
+    _need_card()
+    rng = np.random.RandomState(1)
+    vocab = 5000
+    for dim, dtype in ((1, torch.float32), (9, torch.float32),
+                       (9, torch.bfloat16), (64, torch.bfloat16),
+                       (128, torch.float32), (300, torch.float32)):
+        table = torch.randn(vocab, dim, device="cuda").to(dtype)
+        for n in (1, 2, 3, 4, 5, 4097, 4098, 4099):
+            ids = torch.from_numpy(rng.randint(0, vocab, n).astype(
+                np.int32)).cuda()
+            assert torch.equal(tg.gather_rows(table, ids),
+                               tg.gather_rows_reference(table, ids))
+        for bad in (-1, vocab, 2**32 + 3, -(2**40)):
+            for pos in range(4):
+                ids = rng.randint(0, vocab, 16).astype(np.int64)
+                ids[4 + pos] = bad
+                variants = [torch.from_numpy(ids).cuda()]
+                if -2**31 <= bad < 2**31:
+                    variants.append(variants[0].to(torch.int32))
+                for t_ids in variants:
+                    assert torch.equal(tg.gather_rows(table, t_ids),
+                                       tg.gather_rows_reference(table, t_ids))
+        ids = torch.from_numpy(rng.randint(-3, vocab + 3, 4099).astype(
+            np.int32)).cuda()
+        assert ids[1:].data_ptr() % 16 == 4           # unaligned id vectors
+        assert torch.equal(tg.gather_rows(table, ids[1:]),
+                           tg.gather_rows_reference(table, ids[1:]))
+        shifted = torch.empty(vocab * dim + 1, dtype=dtype, device="cuda")
+        view = shifted[1:].view(vocab, dim)
+        view.copy_(table)
+        assert torch.equal(tg.gather_rows(view, ids),
+                           tg.gather_rows_reference(view, ids))
+    table = torch.randn(1 << 20, 9, device="cuda")
+    ids = torch.from_numpy(rng.randint(0, 1 << 20, 1_000_003).astype(
+        np.int32)).cuda()
+    assert torch.equal(tg.gather_rows(table, ids),
+                       tg.gather_rows_reference(table, ids))
+    assert torch.equal(tg.gather_rows(table, ids.long()),
+                       tg.gather_rows_reference(table, ids.long()))
+    torch.cuda.synchronize()
+
+
+def _crafted(wide, capacity, rng):
+    """Keys of a table whose window at bucket 5 and whose last window (the
+    span's last start, ending at the table's end) each hold 256 keys that
+    start there, with 8 more that failed: both windows are full, keys
+    overflowed into their second bucket, and a miss scans a window with
+    no EMPTY slot. Returns the inserted keys and keys that start in those
+    windows but are absent."""
+    bsz, nb, chain = th.table_layout(capacity, th.DEFAULT_MAX_PROBES)
+    span = nb - chain + 1
+    cand = _keys(rng, span * 1200, wide)
+    cand = cand[(cand[:, 1] if wide else cand) != EMPTY]
+    start = th.probe_starts(torch.from_numpy(cand), capacity,
+                            th.DEFAULT_MAX_PROBES).numpy() // bsz
+    placed, absent = [], []
+    for b in (5, span - 1):
+        mine = cand[start == b]
+        assert len(mine) >= 300
+        placed.append(mine[:chain * bsz + 8])
+        absent.append(mine[chain * bsz + 8:300])
+    return np.concatenate(placed), np.concatenate(absent)
+
+
+@pytest.mark.gpu
+def test_probe_gather_kernel_boundaries():
+    """K2 where its design has edges: matches at window slots 31, 32 and 33
+    (the end and start of a 32-pair step), keys that overflowed into the
+    second bucket of their window, misses in full windows (no EMPTY slot
+    to stop at) at bucket 5 and at the table's end, n = 300,001 (the
+    one-wave grid strides several times), keys and weights that are not
+    16-byte aligned, narrow and wide keys, f32 dims 1 / 9 / 128 and bf16
+    dim 9, all exact against the plain version."""
+    _need_card()
+    rng = np.random.RandomState(2)
+    capacity = 1 << 14
+    bsz, _nb, chain = th.table_layout(capacity, th.DEFAULT_MAX_PROBES)
+    kw = dict(chain=chain, bucket=bsz, empty=EMPTY)
+    for wide in (False, True):
+        placed, absent = _crafted(wide, capacity, rng)
+        empty = np.full((4, 2) if wide else 4, EMPTY, np.int32)
+        for dim, dtype in ((1, "float32"), (9, "float32"), (9, "bfloat16"),
+                           (128, "float32")):
+            st = th.create_hash_table(
+                EmbeddingVariableMeta(dtype, dim, 2**63), "default",
+                capacity=capacity, key_dtype="wide" if wide else "int32",
+                device="cuda")
+            th.insert_rows(st, torch.from_numpy(placed).cuda(),
+                           torch.randn(len(placed), dim, device="cuda"))
+            assert int(st.insert_failures) == 16
+            q = torch.from_numpy(np.concatenate([placed, absent, empty])).cuda()
+            slot = th.find_rows(st.keys, q)
+            offset = (slot - th.probe_starts(q, capacity,
+                                             th.DEFAULT_MAX_PROBES))[slot >= 0]
+            for at in (31, 32, 33, bsz, 2 * bsz - 1):
+                assert bool((offset == at).any())
+            big = torch.from_numpy(np.resize(
+                q.cpu().numpy()[rng.permutation(len(q))],
+                (300_001,) + tuple(q.shape[1:]))).cuda()
+            keys_buf = torch.empty(st.keys.numel() + 4, dtype=torch.int32,
+                                   device="cuda")
+            off = 2 if wide else 1                  # 8 or 4 bytes past 16
+            keys_view = keys_buf[off:off + st.keys.numel()].view(
+                st.keys.shape)
+            keys_view.copy_(st.keys)
+            w_buf = torch.empty(st.weights.numel() + 1,
+                                dtype=st.weights.dtype, device="cuda")
+            w_view = w_buf[1:].view(st.weights.shape)
+            w_view.copy_(st.weights)
+            for keys, weights, query in ((st.keys, st.weights, q),
+                                         (st.keys, st.weights, big),
+                                         (keys_view, w_view, q)):
+                assert keys.data_ptr() % 16 != 0 or keys is st.keys
+                rows, hit = tp.probe_gather(keys, weights, query, **kw)
+                want_rows, want_hit = tp.probe_gather_reference(
+                    keys, weights, query, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(rows, want_rows)
+                assert torch.equal(hit, want_hit)
+                assert torch.equal(hit, th.find_rows(keys, query) >= 0)
