@@ -41,8 +41,21 @@ Phases, in order; any failure raises and the run exits nonzero:
    ``lookup``; every response must equal the host's key -> row
    dictionary exactly, and the probe kernel's launch count must cover
    every lookup;
-7. the kernel list as one JSON line;
-8. last line: ``{"ok": true, "device": {...}}``.
+7. training: the ``deepfm_dim9`` trainer at full width (the fused tables
+   with sparse Adagrad, ``DeepFM`` 247 -> 256 -> 128 -> 1, dense
+   optax-form Adagrad, batches of 4096 from ``synthetic_criteo``) built
+   on the card from the seed; its initial state copied to a trainer on
+   the CPU (the plain K1); 4 steps on each must agree (losses rtol 1e-4;
+   touched rows, slots, dense parameters and accumulators atol 1e-5 +
+   rtol 1e-4; a seeded sample of 2^20 untouched ids bit-identical to the
+   initial state); K1 must launch exactly twice a card step; then the
+   training throughput (median of 5 timed blocks of 20 steps), each
+   stage timed alone (pull, dense, push), a ``torch.profiler`` trace of
+   20 steps (device busy share, launches a step, top device operations,
+   longest idle gaps), and the trained tables saved, loaded through
+   ``POST /models`` and served back exactly;
+8. the kernel list as one JSON line;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port, never jax or openembedding_tpu.
 """
@@ -78,6 +91,15 @@ HASH_BIN_BATCHES = 12         # + 1 batch of hi != 0 keys, x 2 variables
 LOAD_CHUNK = 1 << 16          # keys per insert_rows call, as the loader's
 GATHER_MANY = 1_000_003       # K1 ids in one call: many strides of its grid
 PROBE_MANY = 300_001          # K2 queries in one call: likewise
+TRAIN_BATCHES = 8             # distinct batches, cycled (bench.py's 8)
+CHECK_STEPS = 4               # card steps held against CPU steps
+WARMUP_STEPS = 3
+BLOCKS, BLOCK_STEPS = 5, 20   # timed throughput blocks
+TRACE_STEPS = 20
+STAGE_REPS = 20
+UNTOUCHED_SAMPLE = 1 << 20    # untouched ids checked bit for bit
+CHANGE_RTOL = 1e-3            # of a touched row's largest change
+CHANGE_ULPS = 2               # units at each value's magnitude
 
 
 def log(*parts) -> None:
@@ -823,6 +845,347 @@ def phase_hash_serving(coll, states, batches, host):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# --- phase 7: training -------------------------------------------------------
+
+def build_trainer(device):
+    """The ``deepfm_dim9`` trainer of ``bench.py``: the fused tables with
+    sparse Adagrad (lr 0.01), ``DeepFM`` with ``dnn_units=(256, 128)`` and
+    dense optax-form Adagrad (lr 0.01), on ``device``."""
+    from openembedding_tpu_torch.data.criteo import NUM_DENSE, SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models.deepctr import build_model
+    from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.training import Trainer
+    specs, mapper = make_fused_specs(
+        SPARSE_NAMES, VOCAB_PER_FEATURE, 9,
+        optimizer={"category": "adagrad", "learning_rate": 0.01})
+    module = build_model("deepfm", SPARSE_NAMES, embedding_dim=9,
+                         num_dense=NUM_DENSE, dnn_units=(256, 128))
+    return Trainer(module, EmbeddingCollection(specs, device=device,
+                                               seed=SEED),
+                   dense.adagrad(0.01)), mapper
+
+
+def _close(what, got, want) -> float:
+    """``got`` (card) within atol 1e-5 + rtol 1e-4 of ``want`` (CPU);
+    returns the largest difference."""
+    got = got.cpu()
+    if got.shape != want.shape or not torch.allclose(got, want, rtol=1e-4,
+                                                     atol=1e-5):
+        raise AssertionError(f"training: {what} differs between the card "
+                             "and the CPU")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def change_ratio(got, want, initial) -> torch.Tensor:
+    """Per row, how far the card's change (``got - initial``) lies from
+    the CPU's (``want - initial``) in units of that row's limit:
+    ``CHANGE_RTOL`` of the row's largest CPU change plus ``CHANGE_ULPS``
+    units of the storage dtype at each value's magnitude (the devices may
+    round a sum once differently). Above 1 is a mismatch. A value check
+    cannot see the change of a row that starts near 1e-4 and moves by
+    1e-7; this one can."""
+    eps = torch.finfo(initial.dtype).eps
+    got, want, initial = (t.detach().cpu().double().reshape(len(t), -1)
+                          for t in (got, want, initial))
+    d_got, d_want = got - initial, want - initial
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()), initial.abs())
+    limit = (CHANGE_RTOL * d_want.abs().amax(1, keepdim=True)
+             + CHANGE_ULPS * eps * mag).clamp_min(torch.finfo().tiny)
+    return ((d_got - d_want).abs() / limit).amax(1)
+
+
+def _fault_reading(faulted, want, initial, rows) -> dict:
+    """What the change check and the value check read on a card state
+    with a simulated fault in ``rows`` (those the CPU moved): the largest
+    ratio, and the share of those rows each check flags. A row whose
+    move lies within the rounding floor cannot be flagged."""
+    if not rows.any():
+        return {"rows": 0}
+    ratio = change_ratio(faulted, want, initial)[rows]
+    value = ((faulted - want).abs()
+             > 1e-5 + 1e-4 * want.abs()).reshape(len(want), -1).any(1)[rows]
+    return {"rows": int(rows.sum()), "change_max": float(ratio.max()),
+            "change_flags": float((ratio > 1).double().mean()),
+            "value_flags": float(value.double().mean())}
+
+
+def check_against_cpu(trainer, state, batches):
+    """``CHECK_STEPS`` card steps against the same steps of a CPU trainer
+    from a copy of the initial state; untouched rows bit for bit; K1
+    launched twice a card step. Every touched row's change, and that of
+    its slots, is held to the CPU's by ``change_ratio``, and the check is
+    shown to flag two simulated push faults: cold rows (seen once) of the
+    weights left unwritten, and ``accum`` left unchanged (a slot's cold
+    rows may move within the rounding floor, so there it is only read).
+    Returns the per-step losses,
+    the largest differences and the readings."""
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.training import copy_state
+    dev = trainer.device
+    cpu_trainer, _ = build_trainer("cpu")
+    cstate = copy_state(state, "cpu")
+    vocab = state.emb["fields"].capacity
+    touched = np.unique(np.concatenate(
+        [b["sparse"]["fields"].reshape(-1) for b in batches[:CHECK_STEPS]]))
+    touched = touched[(touched >= 0) & (touched < vocab)]
+    rng = np.random.RandomState(SEED + 4)
+    cand = np.unique(rng.randint(0, vocab, 2 * UNTOUCHED_SAMPLE))
+    cand = cand[~np.isin(cand, touched)]
+    untouched = torch.from_numpy(
+        cand[rng.permutation(cand.size)[:UNTOUCHED_SAMPLE]]).to(dev)
+    if untouched.numel() != UNTOUCHED_SAMPLE:
+        raise AssertionError("training: too few untouched ids sampled")
+    initial = {n: [s.weights[untouched].clone()]
+               + [v[untouched].clone() for v in s.slots.values()]
+               for n, s in state.emb.items()}
+    ids = torch.from_numpy(touched)
+    before_rows = {n: {"weights": s.weights[ids.to(dev)].cpu(),
+                       **{k: v[ids.to(dev)].cpu()
+                          for k, v in s.slots.items()}}
+                   for n, s in state.emb.items()}
+    card, host = [], []
+    before = gather_rows.launches
+    for b in batches[:CHECK_STEPS]:
+        state, m = trainer.train_step(state, b)
+        card.append(m["loss"])
+    torch.cuda.synchronize()
+    if gather_rows.launches - before != 2 * CHECK_STEPS:
+        raise AssertionError(f"training: {gather_rows.launches - before} "
+                             f"K1 launches for {CHECK_STEPS} steps")
+    for b in batches[:CHECK_STEPS]:
+        cstate, m = cpu_trainer.train_step(cstate, b)
+        host.append(float(m["loss"]))
+    card = [float(x) for x in card]
+    if not np.allclose(card, host, rtol=1e-4, atol=0):
+        raise AssertionError(f"training: losses {card} on the card, {host} "
+                             "on the CPU")
+    seen = np.concatenate([b["sparse"]["fields"].reshape(-1)
+                           for b in batches[:CHECK_STEPS]])
+    seen, times = np.unique(seen, return_counts=True)
+    cold = torch.from_numpy(np.isin(touched, seen[times == 1]))
+    err, change, faults = {}, {}, {}
+    for n, s in state.emb.items():
+        cs = cstate.emb[n]
+        err[n] = max([_close(f"{n} touched rows", s.weights[ids.to(dev)],
+                             cs.weights[ids])]
+                     + [_close(f"{n} slot {k}", v[ids.to(dev)],
+                               cs.slots[k][ids])
+                        for k, v in s.slots.items()])
+        now = [s.weights[untouched]] + [v[untouched]
+                                        for v in s.slots.values()]
+        if not all(torch.equal(a, b) for a, b in zip(now, initial[n])):
+            raise AssertionError(f"training: untouched rows of {n} changed")
+        for k, v in [("weights", s.weights)] + list(s.slots.items()):
+            got = v[ids.to(dev)].cpu()
+            want = cs.weights[ids] if k == "weights" else cs.slots[k][ids]
+            init = before_rows[n][k]
+            reading = float(change_ratio(got, want, init).max())
+            change[f"{n}/{k}"] = reading
+            if not reading <= 1:
+                raise AssertionError(
+                    f"training: the change of {n} {k} differs between the "
+                    f"card and the CPU ({reading:.3g} of its limit)")
+            moved = (want != init).reshape(len(want), -1).any(1)
+            # the push skips cold rows: they keep their initial values
+            faulted = torch.where(cold.reshape((-1,) + (1,) * (got.dim() - 1)),
+                                  init, got)
+            must = f"{n}/{k} cold rows skipped"
+            faults[must] = _fault_reading(faulted, want, init, moved & cold)
+            if k != "weights":
+                # the push leaves the slot unchanged
+                must = f"{n}/{k} unchanged"
+                faults[must] = _fault_reading(init, want, init, moved)
+            if not faults[must].get("change_max", 0) > 1:
+                raise AssertionError(
+                    f"training: the change check misses a simulated fault "
+                    f"({must}): {json.dumps(faults[must])}")
+    err["dense"] = max(
+        [_close(f"parameter {k}", v, cstate.params[k])
+         for k, v in state.params.items()]
+        + [_close(f"accumulator {k}", v, cstate.opt_state[k])
+           for k, v in state.opt_state.items()])
+    return state, {"card_losses": card, "cpu_losses": host,
+                   "touched_ids": int(touched.size),
+                   "untouched_checked": UNTOUCHED_SAMPLE,
+                   "max_abs_diff": err, "change_ratio_max": change,
+                   "simulated_faults": faults}
+
+
+def _stage_ms(fn) -> float:
+    """Wall time of one call of ``fn`` on the host's clock, each run
+    ended by a synchronize, median of ``STAGE_REPS`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(STAGE_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def stage_breakdown(trainer, state, batch) -> dict:
+    """Each stage of a step timed alone on the trained state, as
+    ``bench.py`` isolates its stages: the pull of both tables, the dense
+    half (forward, backward, dense update) and the push of both tables.
+    The stages mutate the state like steps do."""
+    coll = trainer.collection
+    placed = trainer.place_batch(batch)
+    rows = coll.pull(state.emb, placed["sparse"])
+    _, grads = trainer.dense_step(state, placed, rows)
+    ids = batch["sparse"]["fields"]
+    return {
+        "pull_ms": _stage_ms(lambda: coll.pull(state.emb, placed["sparse"])),
+        "dense_ms": _stage_ms(lambda: trainer.dense_step(state, placed,
+                                                         rows)),
+        "push_ms": _stage_ms(lambda: coll.apply_gradients(
+            state.emb, placed["sparse"], grads)),
+        "place_batch_ms": _stage_ms(lambda: trainer.place_batch(batch)),
+        "unique_fraction": float(np.unique(ids).size / ids.size)}
+
+
+def training_trace(trainer, state, batches, trace_path) -> dict:
+    """A ``torch.profiler`` trace of ``TRACE_STEPS`` steps: the device's
+    busy share of the window's wall time (kernels, copies and fills, their
+    union), launches a step, the top 5 device operations by time and the
+    longest idle gaps between device work."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TRACE_STEPS):
+            state, _ = trainer.train_step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name, spans = {}, []
+    for e in events:
+        dur = float(e.get("dur", 0.0))
+        by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + dur
+        spans.append((float(e["ts"]), float(e["ts"]) + dur))
+    spans.sort()
+    busy, gaps, end = 0.0, [], None
+    for a, b in spans:
+        if end is None or a > end:
+            if end is not None:
+                gaps.append(a - end)
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    kernels = sum(1 for e in events if e["cat"] == "kernel")
+    return {"steps": TRACE_STEPS, "wall_us": wall_us,
+            "device_busy_us": busy,
+            "device_busy_share": busy / wall_us if spans else None,
+            "kernels_per_step": kernels / TRACE_STEPS,
+            "device_ops_per_step": len(events) / TRACE_STEPS,
+            "top5_us": dict(sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:5]),
+            "longest_idle_gaps_us": sorted(gaps, reverse=True)[:5],
+            "idle_gaps_per_step": len(gaps) / TRACE_STEPS}
+
+
+def train_then_serve(trainer, state, batch) -> dict:
+    """Save the trained tables, load them through ``POST /models`` of a
+    ``ControllerServer`` and look one trained batch up on both tables:
+    the rows must equal the trainer's exactly."""
+    from openembedding_tpu_torch import checkpoint
+    from openembedding_tpu_torch.serving.rest import ControllerServer
+    ckpt_dir = os.path.join(ROOT, "_smoke_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    server = None
+    try:
+        saved = checkpoint.save_checkpoint(
+            ckpt_dir, trainer.collection, state.emb,
+            model_sign=trainer.model_sign(state))
+        server = ControllerServer(port=0).start()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        status, body = _post(conn, "/models", json.dumps(
+            {"model_uri": ckpt_dir, "block": True}).encode())
+        if status != 201:
+            raise AssertionError(f"POST /models: HTTP {status} {body!r}")
+        sign = json.loads(body)["model_sign"]
+        ids = batch["sparse"]["fields"]
+        dev_ids = torch.from_numpy(ids.reshape(-1)).to(trainer.device)
+        for var in ("fields", "fields:linear"):
+            rows, _ = lookup_bin(conn, sign, var, ids)
+            want = state.emb[var].weights[dev_ids.long()].reshape(
+                ids.shape + (-1,)).cpu().numpy()
+            if not np.array_equal(rows, want):
+                raise AssertionError(f"served {var} rows differ from the "
+                                     "trained table")
+        conn.close()
+        return {"model_sign": sign, "save_s": saved["seconds"],
+                "save_bytes": saved["bytes"], "served_exact": True}
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_training() -> int:
+    """Phase 7; returns K1's launches on the training path."""
+    from openembedding_tpu_torch.data.criteo import synthetic_criteo
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    trainer, mapper = build_trainer("cuda")
+    dev = trainer.device
+    batches = [mapper.fuse_batch(b) for b in synthetic_criteo(
+        BATCH, num_buckets=VOCAB_PER_FEATURE, seed=SEED,
+        num_batches=TRAIN_BATCHES)]
+    t0 = time.perf_counter()
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED),
+                         batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gather_rows.launches = 0
+    state, check = check_against_cpu(trainer, state, batches)
+    for i in range(WARMUP_STEPS):
+        state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
+    torch.cuda.synchronize()
+    block_eps = []
+    for _ in range(BLOCKS):
+        t0 = time.perf_counter()
+        for i in range(BLOCK_STEPS):
+            state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
+        torch.cuda.synchronize()
+        block_eps.append(BLOCK_STEPS * BATCH / (time.perf_counter() - t0))
+    trace_path = os.path.join(ROOT, "_smoke_train_trace.json")
+    try:
+        trace = training_trace(trainer, state, batches, trace_path)
+    finally:
+        if os.path.exists(trace_path):
+            os.remove(trace_path)
+    steps = CHECK_STEPS + WARMUP_STEPS + BLOCKS * BLOCK_STEPS + TRACE_STEPS
+    launches = gather_rows.launches
+    if launches != 2 * steps:
+        raise AssertionError(f"training: {launches} K1 launches for {steps} "
+                             "steps, 2 a step expected")
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"training: loss {loss}")
+    stages = stage_breakdown(trainer, state, batches[0])
+    served = train_then_serve(trainer, state, batches[1])
+    eps = statistics.median(block_eps)
+    log(json.dumps({"training": {
+        "config": "deepfm_dim9", "batch": BATCH, "init_s": init_s,
+        "check": check, "steps": steps, "k1_launches": launches,
+        "examples_per_s": eps, "eps_min": min(block_eps),
+        "eps_max": max(block_eps), "block_eps": block_eps,
+        "step_ms": BATCH / eps * 1e3, "last_loss": loss,
+        "stages": stages, "trace": trace, "serve": served,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}))
+    return launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -882,6 +1245,10 @@ def main() -> None:
     hcoll, hstates, batches, keys64, hhost = setup_hash()
     pcases = phase_probe_kernels(hstates, batches, keys64)
     plaunches = phase_hash_serving(hcoll, hstates, batches, hhost)
+    del hcoll, hstates, hhost
+    torch.cuda.empty_cache()
+
+    launches += phase_training()
 
     main_case, pmain = cases[0], pcases[0]
     log(json.dumps({"kernels": [{

@@ -6,6 +6,9 @@ NVIDIA GPU and answer REST lookups. Array tables pull through the
 hand-written CUDA row-gather kernel (``ops/gather.py``,
 ``csrc/gather_rows.cu``), hash tables through the hand-written CUDA
 probe-gather kernel (``ops/probe_gather.py``, ``csrc/probe_gather.cu``).
+And it trains models over array tables (``training.Trainer``): each step
+pulls through the row-gather kernel and pushes the row gradients with
+static-shape PyTorch ops.
 Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no device named they raise.
 The package imports torch and numpy, never jax or openembedding_tpu.
@@ -16,9 +19,11 @@ from .hash_table import HashTableState, create_hash_table
 from .meta import (EmbeddingVariableMeta, ModelMeta, ModelStatus,
                    ModelVariableMeta)
 from .table import TableState, create_table, pull
+from .training import Trainer, TrainState
 
 __all__ = [
     "EmbeddingCollection", "EmbeddingSpec", "EmbeddingVariableMeta",
     "HashTableState", "ModelMeta", "ModelStatus", "ModelVariableMeta",
-    "TableState", "create_hash_table", "create_table", "pull",
+    "TableState", "TrainState", "Trainer", "create_hash_table",
+    "create_table", "pull",
 ]

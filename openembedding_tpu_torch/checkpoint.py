@@ -133,11 +133,17 @@ def _prev_meta_last_seq(path: str) -> int:
 
 def save_checkpoint(path: str, collection: EmbeddingCollection,
                     states: Dict[str, Any], *,
+                    dense_state: Any = None,
                     include_optimizer: bool = True,
                     model_sign: str = "",
                     mode: str = "full") -> Dict[str, Any]:
     """Dump every variable under ``path``; returns
-    ``{"mode", "bytes", "seconds", "seq"}`` like the JAX package."""
+    ``{"mode", "bytes", "seconds", "seq"}`` like the JAX package.
+    ``dense_state`` (the JAX package's flax-msgpack dense file) is not
+    written yet."""
+    if dense_state is not None:
+        raise not_ported("save_checkpoint(dense_state=)",
+                         "delta checkpoints and other layouts")
     if mode == "delta":
         raise not_ported("delta checkpoints (mode='delta')",
                          "delta checkpoints and other layouts")

@@ -1,5 +1,5 @@
-"""Criteo-shaped data (``openembedding_tpu/data/criteo.py``): feature names
-and the deterministic synthetic stream.
+"""Criteo-shaped data (``openembedding_tpu/data/criteo.py``): feature names,
+the deterministic synthetic stream and ``add_linear_columns``.
 
 ``synthetic_criteo`` reproduces the JAX package's generator draw for draw
 (same ``numpy.random.RandomState`` sequence, same splitmix64 bucket hash),
@@ -8,7 +8,7 @@ so a seed gives both packages the same batches.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -53,3 +53,14 @@ def synthetic_criteo(batch_size: int, *,
         label = (rng.rand(batch_size) > 0.75).astype(np.float32)
         yield {"label": label, "dense": dense, "sparse": sparse}
         i += 1
+
+
+def add_linear_columns(batches: Iterable[Dict],
+                       suffix: str = ":linear") -> Iterator[Dict]:
+    """Duplicate each sparse column under its ':linear' name so models with a
+    first-order term see both (same ids, separate dim-1 variable)."""
+    for b in batches:
+        sp = dict(b["sparse"])
+        for name in list(b["sparse"]):
+            sp[name + suffix] = b["sparse"][name]
+        yield {**b, "sparse": sp}

@@ -6,12 +6,12 @@ model's spec list reads the same in both packages. ``EmbeddingCollection``
 is the single-device case of the JAX collection: variable ids by
 registration order, the same ``model_meta`` JSON, ``init`` and ``pull``,
 for array tables and for hash tables (``input_dim=-1``) with ``"wide"``
-pair keys or ``"int32"`` keys. Hash pulls are read-only here (missing keys
-give zero rows). What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP.md item: a hash pull with an
-initializer (the training contract), ``key_dtype="int64"``, pooled
-sequence features, the hot-row cache (``cache_k``), and every exchange
-plane but the one-shard ``a2a``.
+pair keys or ``"int32"`` keys, and ``apply_gradients`` (the push) for
+array tables. Hash pulls are read-only here (missing keys give zero rows).
+What the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item: hash training (a hash pull with an initializer, a hash
+push), ``key_dtype="int64"``, pooled sequence features, the hot-row cache
+(``cache_k``), and every exchange plane but the one-shard ``a2a``.
 """
 
 from __future__ import annotations
@@ -121,9 +121,9 @@ class EmbeddingCollection:
     """All sparse variables of one model, on one device.
 
     ``states`` (from :meth:`init` or ``checkpoint.load_checkpoint``) is a
-    plain dict ``name -> TableState``. ``default_optimizer`` is the
-    stateless ``default`` until the training slice ports ``sgd`` (the JAX
-    collection's default).
+    plain dict ``name -> TableState``. A spec without an optimizer gets
+    ``default_optimizer``, ``{"category": "sgd", "learning_rate": 0.01}``
+    unless given, as in the JAX collection.
     """
 
     num_shards = 1
@@ -135,7 +135,7 @@ class EmbeddingCollection:
         self.device = resolve_device(device)
         self.seed = int(seed)
         if default_optimizer is None:
-            default_optimizer = {"category": "default"}
+            default_optimizer = {"category": "sgd", "learning_rate": 0.01}
         if default_initializer is None:
             default_initializer = dict(table_lib.DEFAULT_INITIALIZER)
         self.specs: Dict[str, EmbeddingSpec] = {}
@@ -219,31 +219,62 @@ class EmbeddingCollection:
         Inputs are integer tensors or numpy arrays of any shape; they move
         to the collection's device. ``read_only`` selects the serving
         contract for hash variables (missing keys give zero rows); a hash
-        pull without it needs per-key init rows, which the training slice
-        brings. ``batch_sharded`` and ``serving_rows`` keep the JAX
+        pull without it needs per-key init rows, which the hash training
+        slice brings. ``batch_sharded`` and ``serving_rows`` keep the JAX
         signature and select nothing on one device without pooling.
         """
         del batch_sharded, serving_rows
         rows = {}
         for name, idx in inputs.items():
             spec = self.specs[name]
-            idx = self._widen(spec, idx)
-            if not isinstance(idx, torch.Tensor):
-                idx = torch.from_numpy(np.array(idx, copy=True))
-            if idx.dtype.is_floating_point or idx.dtype == torch.bool:
-                raise TypeError(f"{name!r}: indices must be integers, got "
-                                f"{idx.dtype}")
-            idx = idx.to(self.device, non_blocking=True)
+            idx = self.to_device(name, idx)
             if spec.use_hash:
-                if spec.key_dtype == "wide" and not (
-                        idx.ndim >= 2 and idx.shape[-1] == 2):
-                    idx = hash_lib.widen_ids(idx)
                 rows[name] = hash_lib.pull(
                     states[name], idx,
                     None if read_only else self._initializers[name])
             else:
                 rows[name] = table_lib.pull(states[name], idx)
         return rows
+
+    def apply_gradients(self, states: Dict[str, Any],
+                        inputs: Dict[str, Any],
+                        row_grads: Dict[str, torch.Tensor], *,
+                        batch_sharded: bool = True) -> Dict[str, Any]:
+        """Push and update every column present in ``row_grads``, in place.
+
+        ``row_grads[name]`` has the shape of the pulled rows and
+        ``inputs[name]`` the ids they were pulled for. Array tables run
+        ``table.apply_gradients`` (dedup, combine, update the touched rows
+        and slots, scatter back); the other variables' states are not
+        touched. A hash variable raises: its push inserts keys, which the
+        hash training slice brings. Returns ``states``.
+        """
+        del batch_sharded
+        for name, g in row_grads.items():
+            spec = self.specs[name]
+            if spec.use_hash:
+                raise not_ported(f"apply_gradients on hash variable "
+                                 f"{name!r}", "hash training step")
+            table_lib.apply_gradients(states[name], self._optimizers[name],
+                                      self.to_device(name, inputs[name]), g)
+        return states
+
+    def to_device(self, name: str, idx) -> torch.Tensor:
+        """Input column ``name`` as an integer tensor on the collection's
+        device (a copy that does not wait for the device), pair-widened
+        for a wide hash variable."""
+        spec = self.specs[name]
+        idx = self._widen(spec, idx)
+        if not isinstance(idx, torch.Tensor):
+            idx = torch.from_numpy(np.array(idx, copy=True))
+        if idx.dtype.is_floating_point or idx.dtype == torch.bool:
+            raise TypeError(f"{spec.name!r}: indices must be integers, got "
+                            f"{idx.dtype}")
+        idx = idx.to(self.device, non_blocking=True)
+        if spec.use_hash and spec.key_dtype == "wide" and not (
+                idx.ndim >= 2 and idx.shape[-1] == 2):
+            idx = hash_lib.widen_ids(idx)
+        return idx
 
     def _widen(self, spec: EmbeddingSpec, idx):
         """Host int64 ids for a hash variable, before they move to the

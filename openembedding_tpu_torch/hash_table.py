@@ -23,7 +23,7 @@ split so that no intermediate passes 2^63.
 
 The read-only pull (the serving contract: missing keys give zero rows)
 goes through the probe-gather kernel of ``ops/probe_gather.py``. What the
-training slice brings raises ``NotImplementedError``: a pull with an
+hash training slice brings raises ``NotImplementedError``: a pull with an
 initializer (deterministic per-key init rows) and ``apply_gradients``;
 int64-key tables raise as well. ``find_or_insert`` and ``insert_rows``
 update the table in place (the JAX functions return new arrays): a
@@ -423,7 +423,7 @@ def pull(state: HashTableState, indices: torch.Tensor,
     keys give zero rows. One probe-gather kernel launch on a CUDA table."""
     if initializer is not None:
         raise _not_ported("a hash pull with an initializer (per-key init "
-                          "rows for missing keys)", "training step")
+                          "rows for missing keys)", "hash training step")
     if state.wide:
         flat = _wide_query(state.keys, indices)
         out_shape = tuple(indices.shape[:-1]) + (state.dim,)

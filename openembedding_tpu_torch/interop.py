@@ -8,11 +8,17 @@ placement). bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes, or
 numpy's opaque ``V2``) cross as their raw 16-bit words: the port never
 imports ml_dtypes, and ``table_state_to_numpy`` returns bfloat16 fields as
 ``uint16`` words (compare with ``jax_array_as_numpy.view(np.uint16)``).
+
+Dense state crosses too: flax parameter trees (nested dicts of arrays)
+become the port's parameter dicts keyed by module name and back, a flax
+``Dense`` ``kernel`` ``[in, out]`` as the torch ``weight`` ``[out, in]``;
+optax's Adagrad state (``ScaleByRssState.sum_of_squares``, the same tree)
+becomes ``optim/dense.py``'s state and back.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -78,3 +84,70 @@ def hash_state_to_numpy(state: HashTableState
     """``(keys, weights, slots)`` of a hash table, slot for slot."""
     weights, slots = table_state_to_numpy(state)
     return tensor_to_numpy(state.keys), weights, slots
+
+
+def _flax_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+                 ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flax_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def dense_params_from_flax(module: torch.nn.Module, params: Mapping,
+                           device: DeviceLike = None
+                           ) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree as ``{module parameter name: tensor}`` on
+    ``device``; the tree must hold exactly ``module``'s parameters, at
+    their shapes."""
+    want = {k: tuple(v.shape) for k, v in module.named_parameters()}
+    out = {}
+    for path, leaf in _flax_leaves(params):
+        arr = np.asarray(leaf)
+        if path[-1] == "kernel":
+            path, arr = path[:-1] + ("weight",), arr.T
+        name = ".".join(path)
+        if want.get(name) != arr.shape:
+            raise ValueError(f"flax parameter {name} {arr.shape} does not "
+                             f"match the module's {want.get(name)}")
+        out[name] = tensor_from_numpy(arr, device)
+    if set(out) != set(want):
+        raise ValueError(f"module parameters {sorted(set(want) - set(out))} "
+                         "are not in the flax tree")
+    return out
+
+
+def dense_params_to_flax(params: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's parameter dict as a flax tree of numpy arrays."""
+    tree: Dict = {}
+    for name, t in params.items():
+        path = name.split(".")
+        arr = tensor_to_numpy(t)
+        if path[-1] == "weight":
+            path, arr = path[:-1] + ["kernel"], np.ascontiguousarray(arr.T)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def dense_state_from_optax(module: torch.nn.Module, opt_state,
+                           device: DeviceLike = None
+                           ) -> Dict[str, torch.Tensor]:
+    """``optim/dense.py``'s state from an optax state: Adagrad's
+    ``sum_of_squares`` tree, or nothing for a stateless transform (SGD)."""
+    for part in opt_state:
+        if hasattr(part, "sum_of_squares"):
+            return dense_params_from_flax(module, part.sum_of_squares,
+                                          device)
+    return {}
+
+
+def dense_state_to_optax(state: Mapping[str, torch.Tensor], template):
+    """An optax state shaped like ``template`` (``tx.init(params)`` of the
+    same transform) holding the port's values, as numpy leaves."""
+    return tuple(
+        part._replace(sum_of_squares=dense_params_to_flax(state))
+        if hasattr(part, "sum_of_squares") else part for part in template)

@@ -463,3 +463,41 @@ def test_hash_load_refuses_rows_that_do_not_fit(tmp_path):
                        match="'fields': [0-9]+ of 600 checkpoint rows did "
                              "not fit"):
         tck.load_checkpoint(path, small)
+
+
+def test_trained_port_tables_load_in_jax(devices8, tmp_path):
+    """Train, save, load in JAX: a port trainer takes 3 steps of a tiny
+    fused DeepFM, saves with the port's ``save_checkpoint``, and JAX
+    ``load_checkpoint`` reads tables and slots equal to the port's, byte
+    for byte. The dense state is not written yet and says so."""
+    from openembedding_tpu.fused import make_fused_specs as jax_fused_specs
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models import deepctr as tm
+    from openembedding_tpu_torch.optim import dense
+    specs, mapper = make_fused_specs(criteo.SPARSE_NAMES, 64, 4,
+                                     optimizer=ADAGRAD)
+    coll = EmbeddingCollection(specs, device="cpu")
+    trainer = tr.Trainer(
+        tm.build_model("deepfm", criteo.SPARSE_NAMES, embedding_dim=4,
+                       dnn_units=(16, 8)), coll, dense.adagrad(0.01))
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        32, num_buckets=64, seed=4, num_batches=3)]
+    state = trainer.init(torch.Generator().manual_seed(0), batches[0])
+    state, _ = trainer.fit(state, batches)
+    path = str(tmp_path / "trained")
+    tck.save_checkpoint(path, coll, state.emb, model_sign="t-3")
+    with pytest.raises(NotImplementedError, match="delta checkpoints"):
+        tck.save_checkpoint(str(tmp_path / "d"), coll, state.emb,
+                            dense_state=state.params)
+    jspecs, _ = jax_fused_specs(criteo.SPARSE_NAMES, 64, 4,
+                                optimizer=ADAGRAD)
+    jcoll = oe.EmbeddingCollection(jspecs, create_mesh(1, 1, devices8[:1]))
+    jstates = jax_ckpt.load_checkpoint(path, jcoll)
+    for name in ("fields", "fields:linear"):
+        w, slots = _jax_numpy(jcoll, jstates, name, 26 * 64)
+        tw, tslots = interop.table_state_to_numpy(state.emb[name])
+        assert w.tobytes() == tw.tobytes()
+        assert slots["accum"].tobytes() == tslots["accum"].tobytes()
+        assert not np.all(tslots["accum"] == np.float32(0.1))

@@ -226,3 +226,84 @@ def test_probe_gather_kernel_boundaries():
                 assert torch.equal(rows, want_rows)
                 assert torch.equal(hit, want_hit)
                 assert torch.equal(hit, th.find_rows(keys, query) >= 0)
+
+
+def _tiny_trainer(device):
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models import deepctr as tm
+    from openembedding_tpu_torch.optim import dense
+    specs, mapper = make_fused_specs(
+        criteo.SPARSE_NAMES, 1000, 9,
+        optimizer={"category": "adagrad", "learning_rate": 0.01})
+    module = tm.build_model("deepfm", criteo.SPARSE_NAMES, embedding_dim=9,
+                            dnn_units=(64, 32))
+    return tr.Trainer(module, EmbeddingCollection(specs, device=device),
+                      dense.adagrad(0.01)), mapper
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu_without_host_sync():
+    """A small fused DeepFM trainer takes 3 steps on the card and 3 on the
+    CPU from the same state: losses within rtol 1e-4, tables, slots,
+    dense parameters and accumulators within atol 1e-5 + rtol 1e-4 (the
+    card's scatter-adds sum in any order), and each table row's change
+    within rtol 1e-3 of the CPU's; two K1 launches a step; and no
+    step reads anything back to the host (sync debug mode "error")."""
+    _need_card()
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    gpu, mapper = _tiny_trainer("cuda")
+    cpu, _ = _tiny_trainer("cpu")
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        512, num_buckets=1000, seed=0, num_batches=4)]
+    gstate = gpu.init(torch.Generator(device="cuda").manual_seed(0),
+                      batches[0])
+    gstate, _ = gpu.train_step(gstate, batches[3])     # warm: builds K1
+    torch.cuda.synchronize()
+    cstate = tr.copy_state(gstate, "cpu")
+    initial = tr.copy_state(gstate, "cpu")
+    losses = []
+    before = tg.gather_rows.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[:3]:
+            gstate, m = gpu.train_step(gstate, b)
+            losses.append(m["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tg.gather_rows.launches == before + 6
+    for i, b in enumerate(batches[:3]):
+        cstate, m = cpu.train_step(cstate, b)
+        np.testing.assert_allclose(float(losses[i]), float(m["loss"]),
+                                   rtol=1e-4)
+
+    def close(a, b):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+    def close_change(a, b, start):
+        """Each row's change on the card within 1e-3 of the CPU's largest
+        change in that row, plus 2 float32 units at each value's size:
+        a push that skips a cold row, moved by 1e-7 from ~1e-4, fails."""
+        a, b, start = (t.cpu().double().reshape(len(t), -1)
+                       for t in (a, b, start))
+        size = torch.maximum(torch.maximum(a.abs(), b.abs()), start.abs())
+        limit = (1e-3 * (b - start).abs().amax(1, keepdim=True)
+                 + 2 * torch.finfo(torch.float32).eps * size)
+        assert bool(((a - b).abs() <= limit).all())
+
+    for n in gstate.emb:
+        for g, c, i in [(gstate.emb[n].weights, cstate.emb[n].weights,
+                         initial.emb[n].weights),
+                        (gstate.emb[n].slots["accum"],
+                         cstate.emb[n].slots["accum"],
+                         initial.emb[n].slots["accum"])]:
+            close(g, c)
+            close_change(g, c, i)
+    for k in gstate.params:
+        close(gstate.params[k], cstate.params[k])
+        close(gstate.opt_state[k], cstate.opt_state[k])
+    assert int(gstate.step) == int(cstate.step) == 4

@@ -59,7 +59,10 @@ def test_pull_matches_jax_on_copied_state(devices8, dtype):
 
 
 @pytest.mark.parametrize("category,dtype", [
-    ("default", "float32"), ("adagrad", "float32"), ("adagrad", "bfloat16")])
+    ("default", "float32"), ("adagrad", "float32"), ("adagrad", "bfloat16"),
+    *[(c, "float32") for c in ("adadelta", "adam", "adamax", "ftrl",
+                               "rmsprop", "sgd", "test")],
+    ("adam", "bfloat16")])
 def test_slots_match_jax(category, dtype):
     """Slot names, shapes, init values and >= f32 storage dtypes equal the
     JAX optimizer's."""
@@ -80,16 +83,20 @@ def test_slots_match_jax(category, dtype):
 def test_optimizer_categories():
     with pytest.raises(ValueError, match="known: .*adagrad"):
         to.make_optimizer({"category": "nope"})
-    with pytest.raises(NotImplementedError, match="training slice"):
-        to.make_optimizer("sgd")
+    for category in ("default", "adadelta", "adagrad", "adam", "adamax",
+                     "ftrl", "rmsprop", "sgd", "test"):
+        assert to.make_optimizer(category).to_config() == \
+            jax_opt.make_optimizer(category).to_config()
+    assert to.make_optimizer({"category": "sgd", "nesterov": "true"}
+                             ).nesterov is True
     with pytest.raises(ValueError, match="unknown adagrad options"):
         to.make_optimizer({"category": "adagrad", "lr": 1})
     opt = to.make_optimizer({"category": "adagrad", "learning_rate": "0.5"})
     assert opt.learning_rate == 0.5
     assert opt.to_config() == jax_opt.make_optimizer(
         {"category": "adagrad", "learning_rate": 0.5}).to_config()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        opt.update_rows(None, None, None, None)
+    with pytest.raises(NotImplementedError):
+        to.SparseOptimizer().update_rows(None, None, None, None)
 
 
 def test_initializers_range_moments_and_determinism():
@@ -165,6 +172,33 @@ def test_collection_model_meta_matches_jax(devices8):
         jcoll.model_meta("s", "u").dumps()
     with pytest.raises(ValueError, match="duplicate"):
         EmbeddingCollection([EmbeddingSpec("a", 3, 2)] * 2, device="cpu")
+
+
+def test_default_optimizer_matches_jax(devices8):
+    """A collection built with no optimizer gets ``sgd`` at lr 0.01 in
+    both packages: the same model_meta JSON, the same slot names, shapes
+    and dtypes, the same optimizer config."""
+    specs = [("a", 30, 9, "float32"), ("b", 7, 1, "bfloat16")]
+    jcoll = oe.EmbeddingCollection(
+        [oe.EmbeddingSpec(name=n, input_dim=v, output_dim=d, dtype=t)
+         for n, v, d, t in specs], create_mesh(1, 1, devices8[:1]))
+    tcoll = EmbeddingCollection(
+        [EmbeddingSpec(name=n, input_dim=v, output_dim=d, dtype=t)
+         for n, v, d, t in specs], device="cpu")
+    assert tcoll.model_meta("s").dumps() == jcoll.model_meta("s").dumps()
+    jstates = jcoll.init(jax.random.PRNGKey(0))
+    tstates = tcoll.init()
+    for name, *_ in specs:
+        assert tcoll.optimizer(name).to_config() == \
+            jcoll.optimizer(name).to_config() == \
+            {"category": "sgd", "learning_rate": 0.01, "momentum": 0.0,
+             "nesterov": False}
+        jslots, tslots = jstates[name].slots, tstates[name].slots
+        assert set(tslots) == set(jslots) == {"moment"}
+        for k in jslots:
+            assert tuple(tslots[k].shape) == jslots[k].shape
+            assert str(tslots[k].dtype).replace("torch.", "") == \
+                jnp.dtype(jslots[k].dtype).name
 
 
 def test_collection_init_and_pull():
