@@ -1,6 +1,6 @@
 """Smoke run of the torch port on one NVIDIA GPU: every kernel built from
 ``openembedding_tpu_torch/csrc``, held against its plain PyTorch version,
-then the serving path driven end to end at full width.
+then the serving and training paths driven end to end at full width.
 
     python3 chip_smoke.py
 
@@ -54,8 +54,29 @@ Phases, in order; any failure raises and the run exits nonzero:
    20 steps (device busy share, launches a step, top device operations,
    longest idle gaps), and the trained tables saved, loaded through
    ``POST /models`` and served back exactly;
-8. the kernel list as one JSON line;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. hash training: the ``deepfm_dim9_hash`` trainer at full width (the
+   wide-key hash tables of phase 5, empty, with sparse Adagrad, and the
+   same dense half, batches of 4096 from ``synthetic_criteo(4096,
+   num_buckets=2^22)``) built on the card; its initial state copied to
+   a CPU trainer; 4 steps on each must agree (the keys arrays and
+   insert-failure counts bit-identical; losses rtol 1e-4; every stored
+   key's row and slots atol 1e-5 + rtol 1e-4, and its change from its
+   init row within ``change_ratio``'s limit, the check shown to flag
+   simulated push faults; free slots still zero); 3 steps that insert
+   keys under ``torch.cuda.set_sync_debug_mode("error")``; the init-rows
+   kernel KI held against its plain version on the main path's pulls and
+   edges (exact for uniform and constant draws, normal ones within
+   ``2^-21 * (|want| + stddev)``), timed beside its bound (the larger of
+   bytes over 3.35 TB/s and its threefry and draw operations over the
+   instruction rate, 128 lane operations a clock an SM); K2 launched exactly
+   2 and KI 4 times a step; the throughput on ``bench.py``'s 8 cycled
+   batches and on batches the tables have not seen (the open key space,
+   with the keys inserted a step), the stages alone on unseen batches
+   (pull, dense, push, and the push's dedup, insert and update), a
+   ``torch.profiler`` trace of 20 unseen-batch steps, keys inserted and
+   the load factor, and the trained tables served back exactly;
+9. the kernel list as one JSON line;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port, never jax or openembedding_tpu.
 """
@@ -100,6 +121,24 @@ STAGE_REPS = 20
 UNTOUCHED_SAMPLE = 1 << 20    # untouched ids checked bit for bit
 CHANGE_RTOL = 1e-3            # of a touched row's largest change
 CHANGE_ULPS = 2               # units at each value's magnitude
+SYNC_STEPS = 3                # hash steps under sync debug mode "error"
+# H100 SXM: each of an SM's 4 schedulers dispatches one warp instruction a
+# clock, 128 lane operations, which is the data sheet's 67 TFLOP/s float32
+# rate (an FMA counted as two flops) over 2. KI's integer adds reach that
+# rate too: besides the 64-lane INT pipe, the FMA pipe takes them as
+# IMAD.IADD, so 64 int32 lanes an SM are not the ceiling of its mix.
+LANE_OPS_PER_S = 67e12 / 2
+# 32-bit operations of one threefry-2x32 block: the key schedule (one
+# three-input LOP3), the first key injection (2 adds), 20 rounds of add,
+# funnel shift, xor (60) and 5 key injections of 2 adds each (x1 + ks[b]
+# + i is one IADD3)
+THREEFRY_OPS = 73
+# a row element's draw after its block: uniform x0 ^ x1, shift, or,
+# subtract 1, FMA, max (6); a normal draw adds erf_inv's float arithmetic
+# (x * x, w - 2.5, 8 polynomial steps of a multiply and an add, p * x) and
+# the scaling (sqrt 2, stddev, mean), 22, leaving log1pf and sqrtf
+# uncounted; a truncated one adds the clip (2)
+DRAW_OPS = {"uniform": 6, "normal": 6 + 22, "truncated": 6 + 22 + 2}
 
 
 def log(*parts) -> None:
@@ -1037,6 +1076,9 @@ def stage_breakdown(trainer, state, batch) -> dict:
     rows = coll.pull(state.emb, placed["sparse"])
     _, grads = trainer.dense_step(state, placed, rows)
     ids = batch["sparse"]["fields"]
+    if ids.ndim == 3:                   # wide hash keys: (lo, hi) pairs
+        from openembedding_tpu_torch.hash_table import join64
+        ids = join64(ids)
     return {
         "pull_ms": _stage_ms(lambda: coll.pull(state.emb, placed["sparse"])),
         "dense_ms": _stage_ms(lambda: trainer.dense_step(state, placed,
@@ -1186,6 +1228,456 @@ def phase_training() -> int:
     return launches
 
 
+# --- phase 8: hash training --------------------------------------------------
+
+def build_hash_trainer(device):
+    """The ``deepfm_dim9_hash`` trainer of ``bench.py``: the 26 features
+    fused into one wide-key hash table of ``HASH_CAPACITY`` slots, dim 9,
+    and its dim-1 ``:linear`` twin, sparse Adagrad (lr 0.01), ``DeepFM``
+    with ``dnn_units=(256, 128)`` and dense optax-form Adagrad (lr 0.01),
+    on ``device``, tables empty."""
+    from openembedding_tpu_torch.data.criteo import NUM_DENSE, SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models.deepctr import build_model
+    from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.training import Trainer
+    specs, mapper = make_fused_specs(
+        SPARSE_NAMES, -1, 9, hash_capacity=HASH_CAPACITY,
+        optimizer={"category": "adagrad", "learning_rate": 0.01})
+    module = build_model("deepfm", SPARSE_NAMES, embedding_dim=9,
+                         num_dense=NUM_DENSE, dnn_units=(256, 128))
+    return Trainer(module, EmbeddingCollection(specs, device=device,
+                                               seed=SEED),
+                   dense.adagrad(0.01)), mapper
+
+
+def _live_keys64(state) -> np.ndarray:
+    """The int64 keys a CPU hash table holds, in slot order."""
+    from openembedding_tpu_torch.hash_table import join64
+    return join64(state.keys[state.live()].numpy())
+
+
+def check_hash_against_cpu(trainer, state, batches):
+    """``CHECK_STEPS`` card steps from empty tables against the same steps
+    of a CPU trainer from a copy of the initial state: the keys arrays and
+    insert-failure counts bit-identical, losses within rtol 1e-4, every
+    stored key's row and slots within atol 1e-5 + rtol 1e-4 and its change
+    (value minus the key's init row, or the slot's initial value) held to
+    the CPU's by ``change_ratio``, shown to flag the simulated push faults;
+    free slots still zero; K2 launched twice a step and KI four times."""
+    from openembedding_tpu_torch import hash_table as hash_lib
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    from openembedding_tpu_torch.training import copy_state
+    dev = trainer.device
+    cpu_trainer, _ = build_hash_trainer("cpu")
+    cstate = copy_state(state, "cpu")
+    initial = copy_state(state, "cpu")
+    k2, ki = probe_gather.launches, init_rows.launches
+    card, host = [], []
+    for b in batches[:CHECK_STEPS]:
+        state, m = trainer.train_step(state, b)
+        card.append(m["loss"])
+    torch.cuda.synchronize()
+    launched = (probe_gather.launches - k2, init_rows.launches - ki)
+    if launched != (2 * CHECK_STEPS, 4 * CHECK_STEPS):
+        raise AssertionError(f"hash training: K2 and KI launched {launched} "
+                             f"times in {CHECK_STEPS} steps")
+    for b in batches[:CHECK_STEPS]:
+        cstate, m = cpu_trainer.train_step(cstate, b)
+        host.append(float(m["loss"]))
+    card = [float(x) for x in card]
+    if not np.allclose(card, host, rtol=1e-4, atol=0):
+        raise AssertionError(f"hash training: losses {card} on the card, "
+                             f"{host} on the CPU")
+    seen = np.concatenate([hash_lib.join64(b["sparse"]["fields"]).reshape(-1)
+                           for b in batches[:CHECK_STEPS]])
+    seen, times = np.unique(seen, return_counts=True)
+    err, change, faults, tables = {}, {}, {}, {}
+    for n, s in state.emb.items():
+        cs = cstate.emb[n]
+        if not torch.equal(s.keys.cpu(), cs.keys) \
+                or int(s.insert_failures) != int(cs.insert_failures):
+            raise AssertionError(f"hash training: the keys of {n} differ "
+                                 "between the card and the CPU")
+        live = cs.live()
+        idx = torch.nonzero(live).reshape(-1)
+        free = ~live.to(dev)
+        if int(torch.count_nonzero(s.weights[free])):
+            raise AssertionError(f"hash training: free slots of {n} hold "
+                                 "nonzero rows")
+        cold = torch.from_numpy(np.isin(_live_keys64(cs),
+                                        seen[times == 1]))
+        init_w = hash_lib.init_rows(trainer.collection.initializer(n),
+                                    cs.init_rng, cs.keys[idx], cs.dim,
+                                    cs.weights.dtype)
+        fields = [("weights", s.weights, cs.weights, init_w)] + [
+            (k, v, cs.slots[k], initial.emb[n].slots[k][idx])
+            for k, v in s.slots.items()]
+        errs = []
+        for k, v, cv, init in fields:
+            got, want = v[idx.to(dev)].cpu(), cv[idx]
+            errs.append(_close(f"{n} {k} of stored keys", got, want))
+            reading = float(change_ratio(got, want, init).max())
+            change[f"{n}/{k}"] = reading
+            if not reading <= 1:
+                raise AssertionError(
+                    f"hash training: the change of {n} {k} differs between "
+                    f"the card and the CPU ({reading:.3g} of its limit)")
+            moved = (want != init).reshape(len(want), -1).any(1)
+            # the push skips cold keys' rows: they keep their init values
+            faulted = torch.where(cold.reshape((-1,) + (1,) * (got.dim() - 1)),
+                                  init, got)
+            must = f"{n}/{k} cold rows skipped"
+            faults[must] = _fault_reading(faulted, want, init, moved & cold)
+            if k != "weights":
+                must = f"{n}/{k} unchanged"
+                faults[must] = _fault_reading(init, want, init, moved)
+            if not faults[must].get("change_max", 0) > 1:
+                raise AssertionError(
+                    f"hash training: the change check misses a simulated "
+                    f"fault ({must}): {json.dumps(faults[must])}")
+        err[n] = max(errs)
+        tables[n] = {"keys": int(idx.numel()),
+                     "insert_failures": int(cs.insert_failures),
+                     "cold_keys": int(cold.sum())}
+    err["dense"] = max(
+        [_close(f"parameter {k}", v, cstate.params[k])
+         for k, v in state.params.items()]
+        + [_close(f"accumulator {k}", v, cstate.opt_state[k])
+           for k, v in state.opt_state.items()])
+    return state, {"card_losses": card, "cpu_losses": host,
+                   "keys_bit_identical": True, "tables": tables,
+                   "max_abs_diff": err, "change_ratio_max": change,
+                   "simulated_faults": faults}
+
+
+def ki_bound(keys: torch.Tensor, skip: torch.Tensor, dim: int,
+             word_bytes: int, draw: str):
+    """KI's least time on this input: the larger of the bytes it must move
+    (the skip flags, the keys and rows of the rows it fills) over
+    ``HBM_BYTES_PER_S`` and the operations of those rows over
+    ``LANE_OPS_PER_S``: a key's fold_ins (two threefry blocks for a pair
+    key, one for an int32 key), and for each element its block and
+    ``DRAW_OPS[draw]``; none for a constant. Returns
+    ``(bound_ms, bound_by)``."""
+    n = int(keys.shape[0])
+    fill = n - int(skip.sum())
+    constant = draw == "constant"
+    key_bytes = 0 if constant else fill * keys.element_size() * (
+        keys.numel() // max(n, 1))
+    data = n + key_bytes + fill * dim * word_bytes
+    folds = 2 if keys.dim() == 2 else 1
+    ops = 0 if constant else fill * (
+        folds * THREEFRY_OPS + dim * (THREEFRY_OPS + DRAW_OPS[draw]))
+    t_bytes, t_ops = data / HBM_BYTES_PER_S, ops / LANE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def check_ki_case(name, keys, skip, dim, dtype, cfg, flush):
+    """KI against its plain version on the card on one case (exact for
+    uniform and constant draws, normal ones within
+    ``2^-21 * (|want| + stddev)``, bfloat16 one unit more), timed beside
+    the plain version and the bound."""
+    from openembedding_tpu_torch.ops.init_rows import (init_rows,
+                                                       init_rows_reference)
+    from openembedding_tpu_torch.optim import initializers as ti
+    init = ti.make_initializer(cfg)
+    kind, params = ti.keyed_params(init)
+    base = (0x12345678, 0x9ABCDEF0)
+    out = torch.full((keys.shape[0], dim), 3.0, dtype=dtype,
+                     device=keys.device)
+    ref = out.clone()
+    init_rows(out, keys, skip, base, init)
+    init_rows_reference(ref, keys, skip, base, kind, params)
+    torch.cuda.synchronize()
+    got, want = out.float(), ref.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if kind in (ti.UNIFORM, ti.CONSTANT):
+        ok = torch.equal(out, ref)
+    else:
+        bound = 2.0**-21 * (want.abs() + cfg.get("stddev", 1.0))
+        if dtype == torch.bfloat16:
+            bound = bound + 2.0**-7 * want.abs()
+        ok = bool(((got - want).abs() <= bound).all())
+    if not ok or not bool((out[skip] == 3.0).all()):
+        raise AssertionError(f"init_rows != reference on case {name} "
+                             f"(max abs difference {err})")
+    draw = ("constant", "uniform", "normal", "truncated")[kind]
+    bound_ms, bound_by = ki_bound(keys, skip, dim, out.element_size(), draw)
+    return {"case": name, "n": int(keys.shape[0]), "dim": dim,
+            "dtype": str(dtype).replace("torch.", ""),
+            "keys": "pairs" if keys.dim() == 2 else "int32",
+            "draw": cfg["category"] + ("/truncated" if cfg.get("truncated")
+                                       else ""),
+            "filled": int(keys.shape[0] - int(skip.sum())),
+            "max_abs_err": err,
+            "kernel_ms": _median_ms(
+                lambda: init_rows(out, keys, skip, base, init), flush),
+            "kernel_call_ms": _call_ms(
+                lambda: init_rows(out, keys, skip, base, init)),
+            "plain_ms": _median_ms(lambda: init_rows_reference(
+                ref, keys, skip, base, kind, params), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_ki_kernels(trainer, state, batch):
+    """KI held against its plain version on the card: the main path's two
+    pulls of a batch the table has not seen (its own skip flags, the
+    ``fields`` normal and ``:linear`` constant draws), the same keys all
+    missing, every draw at the main-path shape, and the edges (n = 1,
+    EMPTY and negative keys, bfloat16 rows, int32 keys). The launches made
+    here (KI's, and K2's that finds the batch's hits) are not counted as
+    the main path's."""
+    from openembedding_tpu_torch import hash_table as hash_lib
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    dev = trainer.device
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    counted = init_rows.launches, probe_gather.launches
+    keys = trainer.collection.to_device("fields", batch["sparse"]["fields"])
+    keys = keys.reshape(-1, 2).contiguous()
+    st = state.emb["fields"]
+    bsz, _, chain = hash_lib.table_layout(st.capacity,
+                                          hash_lib.DEFAULT_MAX_PROBES)
+    _, hit = hash_lib.probe_gather(st.keys, st.weights, keys, chain=chain,
+                                   bucket=bsz, empty=EMPTY32)
+    invalid = keys[:, 1] == EMPTY32
+    skip = hit | invalid
+    coll = trainer.collection
+    cfg9 = coll.initializer("fields").to_config()
+    cfg1 = coll.initializer("fields:linear").to_config()
+    rng = np.random.RandomState(SEED + 5)
+    odd = torch.from_numpy(rng.randint(-2**31, 2**31, (4099, 2),
+                                       dtype=np.int64).astype(np.int32))
+    odd[::5, 1] = EMPTY32
+    odd = odd.to(dev)
+    odd_skip = odd[:, 1] == EMPTY32
+    narrow = keys[:, 0].contiguous()
+    f32, bf16 = torch.float32, torch.bfloat16
+    uniform = {"category": "uniform", "minval": -1e-3, "maxval": 1e-3}
+    trunc = {"category": "normal", "truncated": True, "stddev": 0.5,
+             "mean": 0.1}
+    cases = [
+        check_ki_case("pull_fields_dim9_normal", keys, skip, 9, f32, cfg9,
+                      flush),
+        check_ki_case("pull_linear_dim1_constant", keys, skip, 1, f32, cfg1,
+                      flush),
+        check_ki_case("all_missing_fields_dim9_normal", keys, invalid, 9,
+                      f32, cfg9, flush),
+        check_ki_case("all_missing_dim9_uniform", keys, invalid, 9, f32,
+                      uniform, flush),
+        check_ki_case("all_missing_dim9_truncated", keys, invalid, 9, f32,
+                      trunc, flush),
+        check_ki_case("all_missing_dim1_normal", keys, invalid, 1, f32,
+                      cfg9, flush),
+        check_ki_case("bf16_dim9_normal", keys, invalid, 9, bf16, cfg9,
+                      flush),
+        check_ki_case("bf16_dim9_uniform", keys, invalid, 9, bf16, uniform,
+                      flush),
+        check_ki_case("int32_keys_dim9_normal", narrow, narrow == EMPTY32,
+                      9, f32, cfg9, flush),
+        check_ki_case("int32_keys_dim9_uniform", narrow, narrow == EMPTY32,
+                      9, f32, uniform, flush),
+        check_ki_case("n1", keys[:1], invalid[:1], 9, f32, cfg9, flush),
+        check_ki_case("empty_and_negative_keys_dim9_uniform", odd, odd_skip,
+                      9, f32, uniform, flush),
+        check_ki_case("empty_and_negative_keys_dim1_truncated", odd,
+                      odd_skip, 1, f32, trunc, flush),
+    ]
+    init_rows.launches, probe_gather.launches = counted
+    log(json.dumps({"init_rows_cases": cases}))
+    return cases
+
+
+def push_stages(trainer, state, batches) -> dict:
+    """The push of both tables split into its three stages, on batches the
+    tables have not seen: for each batch its gradients (untimed), then
+    dedup and combine, ``find_or_insert`` (which inserts the batch's new
+    keys) and the update (gather, init rows, optimizer, scatter), each
+    timed alone on the host's clock and ended by a synchronize. Medians
+    over the batches after the first, a warm-up; ``push_ms`` is the median
+    of the three stages' sum, ``push_inserted_keys`` of the ``fields``
+    keys inserted a batch."""
+    from openembedding_tpu_torch import hash_table as hash_lib
+    coll = trainer.collection
+    times = {"push_dedup_ms": [], "push_insert_ms": [],
+             "push_update_ms": [], "push_ms": []}
+    inserted = []
+    for b in batches:
+        placed = trainer.place_batch(b)
+        rows = coll.pull(state.emb, placed["sparse"])
+        _, grads = trainer.dense_step(state, placed, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ded = {n: hash_lib.push_dedup(state.emb[n], placed["sparse"][n],
+                                      grads[n]) for n in grads}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ins = {n: hash_lib.find_or_insert(state.emb[n].keys, ded[n][0],
+                                          ded[n][1]) for n in grads}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for n in grads:
+            uniq, valid, summed, counts = ded[n]
+            hash_lib.push_update(state.emb[n], coll.optimizer(n),
+                                 coll.initializer(n), uniq, valid, summed,
+                                 counts, ins[n][1], ins[n][2])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(times, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
+            times[k].append(v * 1e3)
+        inserted.append(int(ins["fields"][2].sum()))
+    out = {k: statistics.median(v[1:]) for k, v in times.items()}
+    out["push_inserted_keys"] = statistics.median(inserted[1:])
+    return out
+
+
+def timed_blocks(trainer, state, batch_of):
+    """``BLOCKS`` timed blocks of ``BLOCK_STEPS`` steps, step ``i`` of
+    block ``k`` on ``batch_of(k, i)``, each ended by a synchronize; the
+    ``fields`` keys inserted in a block are read after its time is taken.
+    Returns the state, the last step's metrics and a summary: the median
+    block's examples/s (min, max) and step time, and the keys inserted a
+    step, also as a share of the step's keys."""
+    block_eps, inserted = [], []
+    keys_per_step = None
+    for k in range(BLOCKS):
+        used = state.emb["fields"].num_used()
+        t0 = time.perf_counter()
+        for i in range(BLOCK_STEPS):
+            batch = batch_of(k, i)
+            state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        block_eps.append(BLOCK_STEPS * BATCH / (time.perf_counter() - t0))
+        inserted.append((state.emb["fields"].num_used() - used)
+                        / BLOCK_STEPS)
+        keys_per_step = int(np.prod(batch["sparse"]["fields"].shape[:-1]))
+    eps = statistics.median(block_eps)
+    return state, m, {
+        "examples_per_s": eps, "eps_min": min(block_eps),
+        "eps_max": max(block_eps), "block_eps": block_eps,
+        "step_ms": BATCH / eps * 1e3, "inserted_per_step": inserted,
+        "inserted_share": statistics.mean(inserted) / keys_per_step}
+
+
+def hash_train_then_serve(trainer, state, batch) -> dict:
+    """Save the trained hash tables, load them through ``POST /models`` of
+    a ``ControllerServer`` and look one trained batch of pairs up on both
+    tables: the rows must equal the trainer's read-only pull exactly."""
+    from openembedding_tpu_torch import checkpoint
+    from openembedding_tpu_torch import hash_table as hash_lib
+    from openembedding_tpu_torch.serving.rest import ControllerServer
+    ckpt_dir = os.path.join(ROOT, "_smoke_hash_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    server = None
+    try:
+        saved = checkpoint.save_checkpoint(
+            ckpt_dir, trainer.collection, state.emb,
+            model_sign=trainer.model_sign(state))
+        server = ControllerServer(port=0).start()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        status, body = _post(conn, "/models", json.dumps(
+            {"model_uri": ckpt_dir, "block": True}).encode())
+        if status != 201:
+            raise AssertionError(f"POST /models: HTTP {status} {body!r}")
+        sign = json.loads(body)["model_sign"]
+        ids = batch["sparse"]["fields"]
+        dev_ids = torch.from_numpy(ids).to(trainer.device)
+        for var in ("fields", "fields:linear"):
+            rows, _ = lookup_bin(conn, sign, var, ids)
+            want = hash_lib.pull(state.emb[var], dev_ids, None).cpu().numpy()
+            if not np.array_equal(rows, want) or not np.abs(want).sum():
+                raise AssertionError(f"served hash {var} rows differ from "
+                                     "the trained table")
+        conn.close()
+        return {"model_sign": sign, "save_s": saved["seconds"],
+                "save_bytes": saved["bytes"], "served_exact": True}
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def phase_hash_training():
+    """Phase 8; returns the KI cases and K2's and KI's launches on the hash
+    training path."""
+    from openembedding_tpu_torch.data.criteo import synthetic_criteo
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    trainer, mapper = build_hash_trainer("cuda")
+    dev = trainer.device
+    # bench.py's 8 cycled batches, then the same stream's next batches,
+    # which the tables have not seen: the open key space
+    stream = synthetic_criteo(BATCH, num_buckets=HASH_VOCAB, seed=SEED)
+    batches = [mapper.fuse_batch(next(stream)) for _ in range(TRAIN_BATCHES)]
+    fresh = [mapper.fuse_batch(next(stream)) for _ in range(
+        BLOCKS * BLOCK_STEPS + TRACE_STEPS + STAGE_REPS + 2)]
+    trace_batches = fresh[BLOCKS * BLOCK_STEPS:][:TRACE_STEPS]
+    stage_batches = fresh[BLOCKS * BLOCK_STEPS + TRACE_STEPS:]
+    t0 = time.perf_counter()
+    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED),
+                         batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    probe_gather.launches = init_rows.launches = 0
+    state, check = check_hash_against_cpu(trainer, state, batches)
+    # steps that insert keys, none reading the device back
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[CHECK_STEPS:CHECK_STEPS + SYNC_STEPS]:
+            state, m = trainer.train_step(state, b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cases = phase_ki_kernels(trainer, state, batches[-1])
+    for i in range(WARMUP_STEPS):
+        state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
+    torch.cuda.synchronize()
+    state, m, cycled = timed_blocks(
+        trainer, state, lambda k, i: batches[i % TRAIN_BATCHES])
+    state, m, opened = timed_blocks(
+        trainer, state, lambda k, i: fresh[k * BLOCK_STEPS + i])
+    trace_path = os.path.join(ROOT, "_smoke_train_trace.json")
+    try:
+        trace = training_trace(trainer, state, trace_batches, trace_path)
+    finally:
+        if os.path.exists(trace_path):
+            os.remove(trace_path)
+    steps = CHECK_STEPS + SYNC_STEPS + WARMUP_STEPS \
+        + 2 * BLOCKS * BLOCK_STEPS + TRACE_STEPS
+    launches = {"probe_gather": probe_gather.launches,
+                "init_rows": init_rows.launches}
+    if launches != {"probe_gather": 2 * steps, "init_rows": 4 * steps}:
+        raise AssertionError(f"hash training: launches {launches} in "
+                             f"{steps} steps, K2 2 and KI 4 a step expected")
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"hash training: loss {loss}")
+    # a batch not yet seen: its pulls fill the missing rows every time;
+    # its push inserts in the warm-up call only, so it is ``push_seen_ms``
+    stages = stage_breakdown(trainer, state, stage_batches[0])
+    stages["push_seen_ms"] = stages.pop("push_ms")
+    stages.update(push_stages(trainer, state, stage_batches[1:]))
+    tables = {n: {"keys": s.num_used(), "capacity": s.capacity,
+                  "load_factor": s.num_used() / s.capacity,
+                  "insert_failures": int(s.insert_failures)}
+              for n, s in state.emb.items()}
+    served = hash_train_then_serve(trainer, state, batches[1])
+    log(json.dumps({"hash_training": {
+        "config": "deepfm_dim9_hash", "batch": BATCH, "init_s": init_s,
+        "check": check, "steps": steps, "launches": launches,
+        "tables": tables, "cycled": cycled, "fresh": opened,
+        "examples_per_s": opened["examples_per_s"],
+        "step_ms": opened["step_ms"],
+        "last_loss": loss, "stages": stages, "trace": trace,
+        "serve": served,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}))
+    return cases, launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -1249,8 +1741,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     launches += phase_training()
+    torch.cuda.empty_cache()
+    kcases, hash_launches = phase_hash_training()
 
-    main_case, pmain = cases[0], pcases[0]
+    main_case, pmain, kmain = cases[0], pcases[0], kcases[0]
     log(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda",
         "source": "openembedding_tpu_torch/csrc/gather_rows.cu",
@@ -1265,13 +1759,24 @@ def main() -> None:
         "name": "probe_gather", "route": "cuda",
         "source": "openembedding_tpu_torch/csrc/probe_gather.cu",
         "replaces": "openembedding_tpu/ops/pallas_hash.py:40",
-        "launches": plaunches,
+        "launches": plaunches + hash_launches["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
         "plain_ms": pmain["plain_ms"],
         "bound_ms": pmain["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "gather_part_ms": pmain["gather_ms"]}]}))
+        "library_ms": None, "gather_part_ms": pmain["gather_ms"]}, {
+        "name": "init_rows", "route": "cuda",
+        "source": "openembedding_tpu_torch/csrc/init_rows.cu",
+        "replaces": "openembedding_tpu/hash_table.py:300 (init_rows: XLA "
+                    "code, not a Pallas kernel)",
+        "launches": hash_launches["init_rows"],
+        "checked_against_plain": True,
+        "max_abs_err": max(c["max_abs_err"] for c in kcases),
+        "ms": kmain["kernel_ms"], "call_ms": kmain["kernel_call_ms"],
+        "plain_ms": kmain["plain_ms"],
+        "bound_ms": kmain["bound_ms"], "bound_by": kmain["bound_by"],
+        "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

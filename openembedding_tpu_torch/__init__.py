@@ -6,9 +6,11 @@ NVIDIA GPU and answer REST lookups. Array tables pull through the
 hand-written CUDA row-gather kernel (``ops/gather.py``,
 ``csrc/gather_rows.cu``), hash tables through the hand-written CUDA
 probe-gather kernel (``ops/probe_gather.py``, ``csrc/probe_gather.cu``).
-And it trains models over array tables (``training.Trainer``): each step
-pulls through the row-gather kernel and pushes the row gradients with
-static-shape PyTorch ops.
+And it trains models over array and hash tables (``training.Trainer``):
+each step pulls through the row-gather kernel (array tables) or the
+probe-gather kernel, with the init-rows kernel (``ops/init_rows.py``,
+``csrc/init_rows.cu``) drawing missing keys' rows (hash tables), and
+pushes the row gradients with static-shape PyTorch ops.
 Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no device named they raise.
 The package imports torch and numpy, never jax or openembedding_tpu.

@@ -22,8 +22,8 @@ Loads validate the meta before touching a table. Array fields stream in
 bounded blocks into a tensor on the collection's device, so host memory
 stays at one block whatever the table size; hash variables load by
 inserting chunks of ``_LOAD_CHUNK`` rows into an empty table on the device
-(``hash_table.insert_rows``), and a load that cannot place every row
-fails. An int32-key dump loads into a wide table as (lo, hi) pairs, and
+(``hash_table.insert_rows``) that carries the collection's init key for
+the variable, and a load that cannot place every row fails. An int32-key dump loads into a wide table as (lo, hi) pairs, and
 a wide dump into an int32 table when every key fits int32. Slot
 files are skipped when the collection's optimizer has no slots (serving's
 ``default``). What the JAX package also writes or reads — delta chains,
@@ -291,7 +291,10 @@ def _load_hash_var(vdir: str, name: str, spec, collection, with_opt: bool,
                    stored: Dict[str, str], legacy: Optional[str]):
     """An empty hash table on the collection's device, filled by inserting
     the dump's live rows chunk by chunk; refuses a dump whose rows do not
-    all fit."""
+    all fit. The fresh table takes the collection's init key for the
+    variable (``EmbeddingCollection.hash_init_rng``), as JAX's loader
+    takes ``collection.init(rng)``'s, so a loaded model that trains on
+    draws JAX's init rows for keys the dump lacks."""
     state = collection.init(only=[name])[name]
     empty = hash_lib.empty_key(torch.int32)
     keys = np.load(fs.join(vdir, "keys.npy"), mmap_mode="r")

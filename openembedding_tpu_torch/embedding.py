@@ -7,11 +7,12 @@ is the single-device case of the JAX collection: variable ids by
 registration order, the same ``model_meta`` JSON, ``init`` and ``pull``,
 for array tables and for hash tables (``input_dim=-1``) with ``"wide"``
 pair keys or ``"int32"`` keys, and ``apply_gradients`` (the push) for
-array tables. Hash pulls are read-only here (missing keys give zero rows).
+both. A hash pull gives a missing key its deterministic init row (zero
+rows under ``read_only``, the serving contract) and the push inserts it.
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: hash training (a hash pull with an initializer, a hash
-push), ``key_dtype="int64"``, pooled sequence features, the hot-row cache
-(``cache_k``), and every exchange plane but the one-shard ``a2a``.
+ROADMAP.md item: ``key_dtype="int64"``, pooled sequence features, the
+hot-row cache (``cache_k``), and every exchange plane but the one-shard
+``a2a``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from .meta import (UNBOUNDED_VOCAB, EmbeddingVariableMeta, ModelMeta,
                    ModelVariableMeta)
-from .optim.initializers import make_initializer
+from .optim.initializers import fold_in, make_initializer, prng_key
 from .optim.optimizers import make_optimizer
 from . import hash_table as hash_lib
 from . import table as table_lib
@@ -188,10 +189,17 @@ class EmbeddingCollection:
         g.manual_seed(int(seq.generate_state(1, np.uint64)[0] >> 1))
         return g
 
+    def hash_init_rng(self, name: str):
+        """The threefry key of hash variable ``name``'s init rows:
+        ``fold_in(PRNGKey(seed), variable_id)``, the JAX collection's rule
+        (one shared key for all shards), so a port collection with seed
+        ``s`` draws the rows of JAX's ``collection.init(PRNGKey(s))``."""
+        return fold_in(prng_key(self.seed), self._variable_ids[name])
+
     def init(self, only: Optional[Any] = None) -> Dict[str, Any]:
         """Materialize every variable (``only`` restricts to some names).
         Hash variables start empty, ``round_capacity(hash_capacity)``
-        slots."""
+        slots, with :meth:`hash_init_rng` as their init key."""
         states = {}
         for name, spec in self.specs.items():
             if only is not None and name not in only:
@@ -199,8 +207,9 @@ class EmbeddingCollection:
             if spec.use_hash:
                 states[name] = hash_lib.create_hash_table(
                     spec.meta(), self._optimizers[name],
-                    capacity=spec.hash_capacity, key_dtype=spec.key_dtype,
-                    device=self.device)
+                    capacity=spec.hash_capacity,
+                    rng=self.hash_init_rng(name),
+                    key_dtype=spec.key_dtype, device=self.device)
                 continue
             states[name] = table_lib.create_table(
                 spec.meta(), self._optimizers[name],
@@ -217,11 +226,10 @@ class EmbeddingCollection:
         pair keys on a wide hash variable).
 
         Inputs are integer tensors or numpy arrays of any shape; they move
-        to the collection's device. ``read_only`` selects the serving
-        contract for hash variables (missing keys give zero rows); a hash
-        pull without it needs per-key init rows, which the hash training
-        slice brings. ``batch_sharded`` and ``serving_rows`` keep the JAX
-        signature and select nothing on one device without pooling.
+        to the collection's device. A hash variable gives a missing key
+        its deterministic init row, or a zero row under ``read_only`` (the
+        serving contract). ``batch_sharded`` and ``serving_rows`` keep the
+        JAX signature and select nothing on one device without pooling.
         """
         del batch_sharded, serving_rows
         rows = {}
@@ -245,18 +253,19 @@ class EmbeddingCollection:
         ``row_grads[name]`` has the shape of the pulled rows and
         ``inputs[name]`` the ids they were pulled for. Array tables run
         ``table.apply_gradients`` (dedup, combine, update the touched rows
-        and slots, scatter back); the other variables' states are not
-        touched. A hash variable raises: its push inserts keys, which the
-        hash training slice brings. Returns ``states``.
+        and slots, scatter back), hash tables ``hash_table.apply_gradients``
+        (the same, inserting missing keys with their init rows); the other
+        variables' states are not touched. Returns ``states``.
         """
         del batch_sharded
         for name, g in row_grads.items():
-            spec = self.specs[name]
-            if spec.use_hash:
-                raise not_ported(f"apply_gradients on hash variable "
-                                 f"{name!r}", "hash training step")
-            table_lib.apply_gradients(states[name], self._optimizers[name],
-                                      self.to_device(name, inputs[name]), g)
+            idx = self.to_device(name, inputs[name])
+            if self.specs[name].use_hash:
+                hash_lib.apply_gradients(states[name], self._optimizers[name],
+                                         self._initializers[name], idx, g)
+            else:
+                table_lib.apply_gradients(states[name],
+                                          self._optimizers[name], idx, g)
         return states
 
     def to_device(self, name: str, idx) -> torch.Tensor:

@@ -21,14 +21,19 @@ either package answers the same. torch has no general uint32 arithmetic:
 the 32-bit mixing runs in int64 and masks to 32 bits, and products are
 split so that no intermediate passes 2^63.
 
-The read-only pull (the serving contract: missing keys give zero rows)
-goes through the probe-gather kernel of ``ops/probe_gather.py``. What the
-hash training slice brings raises ``NotImplementedError``: a pull with an
-initializer (deterministic per-key init rows) and ``apply_gradients``;
-int64-key tables raise as well. ``find_or_insert`` and ``insert_rows``
-update the table in place (the JAX functions return new arrays): a
-checkpoint load streams many chunks into one table, and a copy per chunk
-would double the table's memory.
+Pulls go through the probe-gather kernel of ``ops/probe_gather.py`` (K2).
+The read-only pull (the serving contract, ``initializer=None``) gives
+zero rows for missing keys; the training pull gives a missing key its
+deterministic init row, drawn from the table's threefry key
+(``init_rng``) folded with the key, by the init-rows kernel of
+``ops/init_rows.py`` (KI): the same rows JAX's ``init_rows`` draws.
+``apply_gradients`` (the push) dedups, inserts missing keys with those
+init rows, runs the optimizer over the touched rows and writes them back,
+with static shapes and no device-to-host read. int64-key tables raise.
+``find_or_insert``, ``insert_rows`` and ``apply_gradients`` update the
+table in place (the JAX functions return new arrays): a checkpoint load
+streams many chunks into one table, and a copy per chunk would double the
+table's memory.
 """
 
 from __future__ import annotations
@@ -39,8 +44,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import table as table_lib
 from .meta import EmbeddingVariableMeta
+from .ops import dedup
+from .ops.init_rows import init_rows as _init_rows_kernel
 from .ops.probe_gather import probe_gather
+from .optim.initializers import Initializer, make_initializer, prng_key
 from .optim.optimizers import make_optimizer
 from .table import resolve_dtype
 from .utils.device import DeviceLike, resolve_device
@@ -228,12 +237,15 @@ def _wide_query(keys: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class HashTableState:
-    """One hash table: keys, weights, optimizer slots, and the count of
-    keys an insert could not place (a probe-window overflow)."""
+    """One hash table: keys, weights, optimizer slots, the threefry key of
+    its per-key init rows (two uint32 words, held on the host so that a
+    launch reads no device value), and the count of keys an insert could
+    not place (a probe-window overflow)."""
 
     keys: torch.Tensor                    # [capacity] or [capacity, 2]
     weights: torch.Tensor                 # [capacity, dim]
     slots: Dict[str, torch.Tensor]        # each [capacity, ...]
+    init_rng: Tuple[int, int]             # jax.random key words
     insert_failures: torch.Tensor         # int64 scalar on the device
 
     @property
@@ -261,10 +273,13 @@ def create_hash_table(meta: EmbeddingVariableMeta,
                       optimizer: Any,
                       *,
                       capacity: int,
+                      rng: Optional[Tuple[int, int]] = None,
                       key_dtype: str = "int32",
                       device: DeviceLike = None) -> HashTableState:
     """An empty hash table on ``device`` (cuda unless named), capacity
-    rounded up to the bucket granularity. ``key_dtype``: ``"wide"`` for
+    rounded up to the bucket granularity. ``rng``: the two words of the
+    threefry key its init rows fold each key into (default
+    ``jax.random.PRNGKey(0)``'s). ``key_dtype``: ``"wide"`` for
     [capacity, 2] pair keys, ``"int32"`` for plain keys."""
     if key_dtype == "int64":
         raise _not_ported("int64 hash keys (key_dtype='int64')",
@@ -283,8 +298,33 @@ def create_hash_table(meta: EmbeddingVariableMeta,
     weights = torch.zeros((capacity, dim), dtype=dtype, device=device)
     slots = optimizer.init_slots(capacity, dim, dtype, device)
     return HashTableState(keys=keys, weights=weights, slots=slots,
+                          init_rng=threefry_key(rng),
                           insert_failures=torch.zeros(
                               (), dtype=torch.int64, device=device))
+
+
+def threefry_key(rng) -> Tuple[int, int]:
+    """A threefry key as two uint32 ints (``None``: ``PRNGKey(0)``)."""
+    if rng is None:
+        return prng_key(0)
+    words = tuple(int(w) for w in rng)
+    if len(words) != 2 or not all(0 <= w <= _MASK32 for w in words):
+        raise ValueError(f"a threefry key is two uint32 words, got {rng}")
+    return words
+
+
+def init_rows(initializer: Any, base_rng: Tuple[int, int],
+              keys: torch.Tensor, dim: int, dtype: torch.dtype
+              ) -> torch.Tensor:
+    """Deterministic initializer row per key (``[n]`` int32 or ``[n, 2]``
+    pairs): the key folded into ``base_rng``, wide keys both words, so
+    rows depend on the full 64-bit key. ``[n, dim]`` of ``dtype``; one
+    init-rows kernel launch on a CUDA device."""
+    n = keys.shape[0]
+    out = torch.zeros((n, dim), dtype=dtype, device=keys.device)
+    skip = torch.zeros(n, dtype=torch.bool, device=keys.device)
+    return _init_rows_kernel(out, keys.contiguous(), skip, base_rng,
+                             make_initializer(initializer))
 
 
 # --- probe and insert ----------------------------------------------------------
@@ -329,6 +369,39 @@ def find_rows(table_keys: torch.Tensor, query: torch.Tensor,
     return torch.where(hit, h + _first(match), -1)
 
 
+def _scatter_plan(ok: torch.Tensor, slot: torch.Tensor):
+    """Where each entry of a sync-free scatter writes.
+
+    Boolean-mask indexing reads its size back to the host, so every entry
+    writes: an ``ok`` entry its own ``slot``; any other entry copies an
+    ``ok`` entry, slot and value, the ok entries taken in turn (rank
+    ``p mod n_ok``), so no slot receives two different values and none
+    takes many writes (``index_copy_`` keeps an arbitrary one of
+    duplicates). Returns ``(src, dst, any_ok)``: entry ``p`` writes
+    ``values[src[p]]`` to ``dst[p]``; with no ok entry all write slot 0's
+    own value back (:func:`_commit`).
+    """
+    n = ok.shape[0]
+    pos = torch.arange(n, device=ok.device)
+    rank = torch.cumsum(ok, 0) - 1
+    n_ok = rank[-1] + 1
+    ok_pos = torch.zeros(n + 1, dtype=torch.int64, device=ok.device)
+    ok_pos.scatter_(0, torch.where(ok, rank, n), pos)
+    src = torch.where(ok, pos, ok_pos[pos % torch.clamp_min(n_ok, 1)])
+    any_ok = n_ok > 0
+    dst = torch.where(any_ok, slot.index_select(0, src), 0)
+    return src, dst, any_ok
+
+
+def _commit(table: torch.Tensor, values: torch.Tensor, plan) -> None:
+    """``table[dst] = values[src]`` by the plan of :func:`_scatter_plan`,
+    in place, cast to the table's dtype."""
+    src, dst, any_ok = plan
+    rows = values.index_select(0, src).to(table.dtype)
+    rows = torch.where(any_ok, rows, table[:1])
+    table.index_copy_(0, dst, rows)
+
+
 def find_or_insert(table_keys: torch.Tensor, new_keys: torch.Tensor,
                    valid: torch.Tensor,
                    max_probes: int = DEFAULT_MAX_PROBES
@@ -341,8 +414,9 @@ def find_or_insert(table_keys: torch.Tensor, new_keys: torch.Tensor,
     ranked (stable sort by bucket id) and rank r takes the bucket's
     (r+1)-th free slot; keys ranked past the free count overflow to the
     next level. Step for step the JAX algorithm, so keys land in the same
-    slots. Returns ``(table_keys, slot [n] (-1 = failed), inserted [n],
-    failed [n])``.
+    slots. No step reads the device back (the placed keys are written by
+    :func:`_scatter_plan`'s rule). Returns ``(table_keys, slot [n] (-1 =
+    failed), inserted [n], failed [n])``.
     """
     capacity = table_keys.shape[0]
     n = new_keys.shape[0]
@@ -355,6 +429,8 @@ def find_or_insert(table_keys: torch.Tensor, new_keys: torch.Tensor,
     slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
     done = ~valid
     inserted = torch.zeros(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return table_keys, slot, inserted, inserted.clone()
     for j in range(chain):
         bj = b0 + j
         start = bj * bsz
@@ -371,21 +447,32 @@ def find_or_insert(table_keys: torch.Tensor, new_keys: torch.Tensor,
         bid = torch.where(active, bj, nb)
         order = torch.argsort(bid, stable=True)
         sorted_bid = bid[order]
-        seg = torch.ones(n, dtype=torch.bool, device=dev)
-        seg[1:] = sorted_bid[1:] != sorted_bid[:-1]
-        group_start = torch.cummax(torch.where(seg, ids, 0), dim=0).values
-        rank = torch.empty_like(ids)
-        rank[order] = ids - group_start
-        # rank r takes the (r+1)-th free slot of the bucket
-        cum = torch.cumsum(emptym, dim=1)
+        # a group starts at the first sorted position of its bucket id
+        group_start = torch.searchsorted(sorted_bid, sorted_bid)
+        rank = torch.empty_like(ids).scatter_(0, order, ids - group_start)
+        # rank r takes the (r+1)-th free slot of the bucket; the count of
+        # free slots up to each slot runs down the [bsz, n] transpose, one
+        # thread a key (a scan along each 128-slot row is far slower)
+        cum = torch.cumsum(emptym.t(), dim=0, dtype=torch.int32).t()
         place = active & (rank < cum[:, -1])
         pslot = start + _first((cum == rank[:, None] + 1) & emptym)
-        table_keys[pslot[place]] = new_keys[place]
+        _commit(table_keys, new_keys, _scatter_plan(place, pslot))
         slot = torch.where(place, pslot, slot)
         done = done | place
         inserted = inserted | place
     failed = valid & ~done
     return table_keys, slot, inserted, failed
+
+
+def _flat_keys(state: HashTableState, indices: torch.Tensor):
+    """A query as flat keys of the table's dtype and their validity (not
+    EMPTY): ``[n, 2]`` pairs on a wide table, ``[n]`` keys otherwise."""
+    empty = empty_key(state.keys.dtype)
+    if state.wide:
+        flat = _wide_query(state.keys, indices)
+        return flat, flat[:, 1] != empty
+    flat = check_key_dtype(state.keys, indices.reshape(-1))
+    return flat, flat != empty
 
 
 def insert_rows(state: HashTableState,
@@ -397,20 +484,15 @@ def insert_rows(state: HashTableState,
     keys: the checkpoint load path. Updates ``state`` in place and returns
     it. ``keys`` must be unique; EMPTY keys are skipped; keys that find no
     free slot in their window are counted in ``insert_failures``."""
-    empty = empty_key(state.keys.dtype)
-    if state.wide:
-        keys = _wide_query(state.keys, keys)
-        valid = keys[:, 1] != empty
-    else:
-        keys = check_key_dtype(state.keys, keys.reshape(-1))
-        valid = keys != empty
+    keys, valid = _flat_keys(state, keys)
+    if keys.shape[0] == 0:
+        return state
     _, slot, _inserted, failed = find_or_insert(state.keys, keys, valid,
                                                 max_probes)
-    ok = valid & (slot >= 0)
-    dst = slot[ok]
-    state.weights[dst] = weights[ok].to(state.weights.dtype)
+    plan = _scatter_plan(valid & (slot >= 0), slot)
+    _commit(state.weights, weights, plan)
     for name, rows in (slot_rows or {}).items():
-        state.slots[name][dst] = rows[ok].to(state.slots[name].dtype)
+        _commit(state.slots[name], rows, plan)
     state.insert_failures += failed.sum()
     return state
 
@@ -418,20 +500,94 @@ def insert_rows(state: HashTableState,
 def pull(state: HashTableState, indices: torch.Tensor,
          initializer: Any = None,
          max_probes: int = DEFAULT_MAX_PROBES) -> torch.Tensor:
-    """Rows for keys of any shape (``[..., 2]`` pairs on a wide table):
-    the read-only contract, ``initializer=None``, where missing and EMPTY
-    keys give zero rows. One probe-gather kernel launch on a CUDA table."""
-    if initializer is not None:
-        raise _not_ported("a hash pull with an initializer (per-key init "
-                          "rows for missing keys)", "hash training step")
-    if state.wide:
-        flat = _wide_query(state.keys, indices)
-        out_shape = tuple(indices.shape[:-1]) + (state.dim,)
-    else:
-        flat = check_key_dtype(state.keys, indices.reshape(-1))
-        out_shape = tuple(indices.shape) + (state.dim,)
+    """Rows for keys of any shape (``[..., 2]`` pairs on a wide table).
+
+    A stored key gives its row. A missing key gives its deterministic
+    init row (:func:`init_rows`), or a zero row with ``initializer=None``
+    (the read-only serving contract). EMPTY keys give zero rows. Nothing
+    is inserted: the push inserts, with the same init row. On a CUDA table
+    one probe-gather kernel launch, plus one init-rows launch when an
+    initializer is given.
+    """
+    flat, valid = _flat_keys(state, indices)
+    lead = indices.shape[:-1] if state.wide else indices.shape
     bsz, _nb, chain = table_layout(state.capacity, max_probes)
-    rows, _hit = probe_gather(state.keys, state.weights, flat.contiguous(),
-                              chain=chain, bucket=bsz,
-                              empty=empty_key(state.keys.dtype))
-    return rows.reshape(out_shape)
+    flat = flat.contiguous()
+    rows, hit = probe_gather(state.keys, state.weights, flat,
+                             chain=chain, bucket=bsz,
+                             empty=empty_key(state.keys.dtype))
+    if initializer is not None:
+        _init_rows_kernel(rows, flat, hit | ~valid, state.init_rng,
+                          make_initializer(initializer))
+    return rows.reshape(tuple(lead) + (state.dim,))
+
+
+def push_dedup(state: HashTableState, indices: torch.Tensor,
+               grads: torch.Tensor):
+    """The push's first stage: the batch's keys deduplicated at the
+    batch's size (:func:`dedup.unique_pairs`, or ``unique_indices`` for
+    int32 keys; EMPTY keys not valid) and their gradients summed. Returns
+    ``(uniq, valid, summed, counts)``."""
+    empty = empty_key(state.keys.dtype)
+    flat, _ = _flat_keys(state, indices)
+    n = flat.shape[0]
+    if state.wide:
+        uniq, inverse, valid = dedup.unique_pairs(flat, n, fill_value=empty)
+    else:
+        uniq, inverse, valid = dedup.unique_indices(flat, n,
+                                                    fill_value=empty)
+    summed, counts = dedup.combine_gradients(
+        grads.reshape(-1, state.dim), inverse, n)
+    return uniq, valid, summed, counts
+
+
+def push_update(state: HashTableState, optimizer: Any,
+                initializer: Initializer, uniq: torch.Tensor,
+                valid: torch.Tensor, summed: torch.Tensor,
+                counts: torch.Tensor, slot: torch.Tensor,
+                inserted: torch.Tensor) -> None:
+    """The push's last stage, in place: gather the stored rows and slots
+    of the placed keys, give the inserted ones their init row (one
+    init-rows kernel launch), run the optimizer over the block and write
+    it back by :func:`_scatter_plan`'s rule. ``slot`` and ``inserted``
+    come from :func:`find_or_insert` on ``uniq``."""
+    ok = valid & (slot >= 0)
+    safe = torch.where(ok, slot, 0)
+    w = state.weights.index_select(0, safe)
+    _init_rows_kernel(w, uniq, ~inserted, state.init_rng, initializer)
+    s = {k: v.index_select(0, safe) for k, v in state.slots.items()}
+    new_w, new_s = table_lib.optimizer_block_update(optimizer, w, s,
+                                                    summed, counts)
+    plan = _scatter_plan(ok, safe)
+    _commit(state.weights, new_w, plan)
+    for k in state.slots:
+        _commit(state.slots[k], new_s[k], plan)
+
+
+def apply_gradients(state: HashTableState,
+                    optimizer: Any,
+                    initializer: Any,
+                    indices: torch.Tensor,
+                    grads: torch.Tensor,
+                    *,
+                    max_probes: int = DEFAULT_MAX_PROBES) -> HashTableState:
+    """Push and update in place: sum duplicate keys' gradients, insert
+    missing keys, update the touched rows and their slots.
+
+    The hash twin of ``table.apply_gradients``, step for step JAX's:
+    :func:`push_dedup`, :func:`find_or_insert`, :func:`push_update` (the
+    gather, the init rows of inserted keys, the optimizer, the scatter).
+    EMPTY keys are dropped; keys that find no free slot in their window
+    are dropped and counted in ``insert_failures``. No step reads the
+    device back. Returns ``state``.
+    """
+    if indices.numel() == 0:
+        return state
+    uniq, valid, summed, counts = push_dedup(state, indices, grads)
+    _, slot, inserted, failed = find_or_insert(state.keys, uniq, valid,
+                                               max_probes)
+    push_update(state, make_optimizer(optimizer),
+                make_initializer(initializer), uniq, valid, summed, counts,
+                slot, inserted)
+    state.insert_failures += failed.sum()
+    return state

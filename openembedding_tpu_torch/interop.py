@@ -18,12 +18,12 @@ becomes ``optim/dense.py``'s state and back.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .hash_table import HashTableState
+from .hash_table import HashTableState, threefry_key
 from .table import TableState
 from .utils.device import DeviceLike, resolve_device
 
@@ -67,23 +67,31 @@ def table_state_to_numpy(state: TableState
 
 def hash_state_from_numpy(keys: np.ndarray, weights: np.ndarray,
                           slots: Dict[str, np.ndarray],
-                          device: DeviceLike = None) -> HashTableState:
+                          device: DeviceLike = None,
+                          init_rng: Optional[np.ndarray] = None,
+                          insert_failures: int = 0) -> HashTableState:
     """A hash table from its keys (``[C]`` or ``[C, 2]`` int32), weights
-    and slots, slot for slot (no insert failures counted)."""
+    and slots, slot for slot. ``init_rng``: the two uint32 words of its
+    init key (``np.asarray(jax_state.init_rng)``; default
+    ``PRNGKey(0)``'s)."""
     device = resolve_device(device)
     return HashTableState(
         keys=tensor_from_numpy(np.asarray(keys, np.int32), device),
         weights=tensor_from_numpy(weights, device),
         slots={k: tensor_from_numpy(v, device) for k, v in slots.items()},
-        insert_failures=torch.zeros((), dtype=torch.int64, device=device))
+        init_rng=threefry_key(init_rng),
+        insert_failures=torch.full((), int(insert_failures),
+                                   dtype=torch.int64, device=device))
 
 
 def hash_state_to_numpy(state: HashTableState
                         ) -> Tuple[np.ndarray, np.ndarray,
-                                   Dict[str, np.ndarray]]:
-    """``(keys, weights, slots)`` of a hash table, slot for slot."""
+                                   Dict[str, np.ndarray], np.ndarray]:
+    """``(keys, weights, slots, init_rng)`` of a hash table, slot for slot;
+    ``init_rng`` as ``[2]`` uint32, the form of a JAX key."""
     weights, slots = table_state_to_numpy(state)
-    return tensor_to_numpy(state.keys), weights, slots
+    return (tensor_to_numpy(state.keys), weights, slots,
+            np.asarray(state.init_rng, np.uint32))
 
 
 def _flax_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()

@@ -57,6 +57,65 @@ def unique_indices(indices: torch.Tensor, capacity: Optional[int] = None,
     return uniq, inverse, uniq != fill_value
 
 
+def unique_rows(rows: torch.Tensor, capacity: Optional[int] = None,
+                fill_value: int = FILL
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deduplicate composite keys: ``[n, K]`` integer rows, ``K >= 2``.
+
+    Returns ``(uniq [capacity, K], inverse [n] int64, valid [capacity])``
+    as the JAX function does: rows ranked lexicographically by K stable
+    sorts (minor column first, major last), padding rows equal to
+    ``fill_value`` in every column, and a group whose LAST column is
+    ``fill_value`` not valid. Groups past ``capacity`` fall off the buffer
+    with ``inverse >= capacity``, as in :func:`unique_indices`.
+    """
+    n, k = rows.shape
+    if capacity is None:
+        capacity = n
+    dev = rows.device
+    buf = torch.full((capacity + 1, k), fill_value, dtype=rows.dtype,
+                     device=dev)
+    uniq = buf[:capacity]
+    if n == 0:
+        return uniq, torch.zeros(0, dtype=torch.int64, device=dev), \
+            torch.zeros(capacity, dtype=torch.bool, device=dev)
+    order = torch.arange(n, device=dev)
+    for c in range(k):
+        order = order[torch.sort(rows[order, c], stable=True).indices]
+    srt = rows[order]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = (srt[1:] != srt[:-1]).any(dim=1)
+    ordinal = torch.cumsum(head, 0) - 1
+    inverse = torch.empty(n, dtype=torch.int64, device=dev)
+    inverse.index_copy_(0, order, ordinal)
+    # the first row of each group writes its slot; the others, and groups
+    # past the buffer, write the scratch row
+    dst = torch.where(head, torch.clamp_max(ordinal, capacity), capacity)
+    buf.index_copy_(0, dst, srt)
+    return uniq, inverse, uniq[:, -1] != fill_value
+
+
+def unique_pairs(pairs: torch.Tensor, capacity: Optional[int] = None,
+                 fill_value: int = FILL
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deduplicate wide keys, ``[n, 2]`` int32 (lo, hi) rows: the result of
+    :func:`unique_rows` from one sort. ``hi * 2^32 + (lo + 2^31)`` in int64
+    orders the pairs as JAX's two stable sorts do (packing ``lo`` as
+    unsigned would not), so :func:`unique_indices` on it gives the same
+    buffer, inverse and overflow."""
+    if pairs.dtype != torch.int32 or pairs.dim() != 2 \
+            or pairs.shape[1] != 2:
+        raise ValueError(f"unique_pairs takes [n, 2] int32 pairs, got "
+                         f"{tuple(pairs.shape)} {pairs.dtype}")
+    wide = pairs.to(torch.int64)
+    packed = wide[:, 1] * 2**32 + (wide[:, 0] + 2**31)
+    fill = fill_value * 2**32 + (fill_value + 2**31)
+    u, inverse, _ = unique_indices(packed, capacity, fill)
+    uniq = torch.stack([(u & 0xFFFFFFFF) - 2**31, u >> 32],
+                       dim=1).to(torch.int32)
+    return uniq, inverse, uniq[:, 1] != fill_value
+
+
 def combine_gradients(grads: torch.Tensor, inverse: torch.Tensor,
                       capacity: int,
                       in_counts: Optional[torch.Tensor] = None

@@ -2,8 +2,9 @@
 (``openembedding_tpu/training.py``).
 
 A step does what the JAX package's jitted step does, as PyTorch ops:
-pull the batch's rows through the collection (the CUDA row-gather kernel
-on the card), take the loss and its gradients with respect to the dense
+pull the batch's rows through the collection (on the card the CUDA
+row-gather kernel for array tables; the probe-gather and init-rows
+kernels for hash tables), take the loss and its gradients with respect to the dense
 parameters and the pulled rows (``jax.value_and_grad(argnums=(0, 1))``),
 update the dense parameters, and push the row gradients into the tables
 (``EmbeddingCollection.apply_gradients``). No gradient flows into a table
@@ -45,17 +46,23 @@ class TrainState:
 
 def copy_state(state: TrainState, device) -> TrainState:
     """A copy of ``state`` on ``device`` (steps on one leave the other as
-    it was)."""
+    it was): every tensor of the dense state and of each table state
+    (a hash table's keys and failure count too)."""
     def cp(t):
         return t.to(device, copy=True)
+
+    def cp_table(s):
+        return dataclasses.replace(s, **{
+            f.name: cp(v) if isinstance(v, torch.Tensor)
+            else {k: cp(x) for k, x in v.items()} if isinstance(v, dict)
+            else v
+            for f in dataclasses.fields(s)
+            for v in (getattr(s, f.name),)})
     return TrainState(
         step=cp(state.step),
         params={k: cp(v) for k, v in state.params.items()},
         opt_state={k: cp(v) for k, v in state.opt_state.items()},
-        emb={n: dataclasses.replace(
-            s, weights=cp(s.weights),
-            slots={k: cp(v) for k, v in s.slots.items()})
-            for n, s in state.emb.items()})
+        emb={n: cp_table(s) for n, s in state.emb.items()})
 
 
 def binary_logloss(logits: torch.Tensor, labels: torch.Tensor

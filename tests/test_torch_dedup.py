@@ -1,7 +1,8 @@
 """Torch port, ``ops/dedup.py`` against ``openembedding_tpu/ops/dedup.py``:
-``unique_indices``, ``combine_gradients`` and ``overflow_count`` on the
-same numpy inputs, compared exactly (ids, inverse map, validity, summed
-gradients and counts). On the CPU both scatter-adds sum in index order."""
+``unique_indices``, ``combine_gradients``, ``overflow_count`` and the wide
+keys' ``unique_pairs``/``unique_rows`` on the same numpy inputs, compared
+exactly (ids, inverse map, validity, summed gradients and counts). On the
+CPU both scatter-adds sum in index order."""
 
 import numpy as np
 import pytest
@@ -83,3 +84,59 @@ def test_overflow_drops_the_largest_ids():
     assert int(td.overflow_count(inv, 3)) == 3
     summed, counts = td.combine_gradients(torch.ones(6, 2), inv, 3)
     assert counts.tolist() == [1, 1, 1] and summed.tolist() == [[1, 1]] * 3
+
+
+def _pair_cases():
+    rng = np.random.RandomState(2)
+    small = rng.randint(-3, 3, (300, 2)).astype(np.int32)
+    small[:6] = [[INT32_MIN, INT32_MIN], [4, INT32_MIN], [4, INT32_MIN],
+                 [-1, -1], [INT32_MIN, 0], [2**31 - 1, INT32_MIN + 1]]
+    wide = rng.randint(-2**31, 2**31, (400, 2), dtype=np.int64)
+    wide = np.concatenate([wide, wide[:50]]).astype(np.int32)
+    return {
+        "duplicates_empty_negative": (small, None),
+        "full_range": (wide, None),
+        "overflow": (wide, 64),
+        "capacity_above_n": (small, 500),
+        "n1": (np.asarray([[-7, 3]], np.int32), None),
+        "n1_empty": (np.asarray([[5, INT32_MIN]], np.int32), 2),
+    }
+
+
+PAIR_CASES = _pair_cases()
+
+
+@pytest.mark.parametrize("fn", ["unique_pairs", "unique_rows"])
+@pytest.mark.parametrize("case", sorted(PAIR_CASES))
+def test_unique_pairs_equal_jax(case, fn):
+    """Element for element JAX's order (hi major, lo minor, both signed),
+    inverse map, validity (no group whose hi word is the fill), overflow."""
+    pairs, capacity = PAIR_CASES[case]
+    ju, jinv, jvalid = getattr(jd, fn)(jnp.asarray(pairs), capacity)
+    tu, tinv, tvalid = getattr(td, fn)(torch.from_numpy(pairs), capacity)
+    assert tu.dtype == torch.int32 and tinv.dtype == torch.int64
+    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+
+
+def test_unique_rows_three_columns_equal_jax():
+    rng = np.random.RandomState(3)
+    rows = rng.randint(-2, 2, (200, 3)).astype(np.int32)
+    rows[:2, 2] = INT32_MIN
+    for capacity in (None, 8):
+        ju, jinv, jvalid = jd.unique_rows(jnp.asarray(rows), capacity)
+        tu, tinv, tvalid = td.unique_rows(torch.from_numpy(rows), capacity)
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+        np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
+        np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+
+
+@pytest.mark.parametrize("fn", ["unique_pairs", "unique_rows"])
+def test_unique_pairs_empty_input(fn):
+    """n = 0 (the JAX functions cannot take it): a buffer of fill rows,
+    none valid, an empty inverse map."""
+    uniq, inv, valid = getattr(td, fn)(torch.zeros((0, 2), dtype=torch.int32),
+                                       3)
+    assert uniq.tolist() == [[INT32_MIN, INT32_MIN]] * 3
+    assert inv.shape == (0,) and not bool(valid.any())

@@ -7,7 +7,9 @@ machine that has the card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX's virtual devices.)
-Every comparison is exact: the kernels copy rows and compare integers.
+K1 and K2 copy rows and compare integers, so their comparisons are
+exact; so are KI's uniform and constant draws, and its normal draws lie
+within the bound that ``_ki_within`` states.
 """
 
 import numpy as np
@@ -244,6 +246,23 @@ def _tiny_trainer(device):
                       dense.adagrad(0.01)), mapper
 
 
+def _close(a, b):
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _close_change(a, b, start):
+    """Each row's change on the card within 1e-3 of the CPU's largest
+    change in that row, plus 2 float32 units at each value's size: a push
+    that skips a cold row, moved by 1e-7 from ~1e-4, fails."""
+    a, b, start = (t.cpu().double().reshape(len(t), -1)
+                   for t in (a, b, start))
+    size = torch.maximum(torch.maximum(a.abs(), b.abs()), start.abs())
+    limit = (1e-3 * (b - start).abs().amax(1, keepdim=True)
+             + 2 * torch.finfo(torch.float32).eps * size)
+    assert bool(((a - b).abs() <= limit).all())
+
+
 @pytest.mark.gpu
 def test_train_step_on_card_matches_cpu_without_host_sync():
     """A small fused DeepFM trainer takes 3 steps on the card and 3 on the
@@ -280,30 +299,148 @@ def test_train_step_on_card_matches_cpu_without_host_sync():
         np.testing.assert_allclose(float(losses[i]), float(m["loss"]),
                                    rtol=1e-4)
 
-    def close(a, b):
-        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
-                                   rtol=1e-4, atol=1e-5)
-
-    def close_change(a, b, start):
-        """Each row's change on the card within 1e-3 of the CPU's largest
-        change in that row, plus 2 float32 units at each value's size:
-        a push that skips a cold row, moved by 1e-7 from ~1e-4, fails."""
-        a, b, start = (t.cpu().double().reshape(len(t), -1)
-                       for t in (a, b, start))
-        size = torch.maximum(torch.maximum(a.abs(), b.abs()), start.abs())
-        limit = (1e-3 * (b - start).abs().amax(1, keepdim=True)
-                 + 2 * torch.finfo(torch.float32).eps * size)
-        assert bool(((a - b).abs() <= limit).all())
-
     for n in gstate.emb:
         for g, c, i in [(gstate.emb[n].weights, cstate.emb[n].weights,
                          initial.emb[n].weights),
                         (gstate.emb[n].slots["accum"],
                          cstate.emb[n].slots["accum"],
                          initial.emb[n].slots["accum"])]:
-            close(g, c)
-            close_change(g, c, i)
+            _close(g, c)
+            _close_change(g, c, i)
     for k in gstate.params:
-        close(gstate.params[k], cstate.params[k])
-        close(gstate.opt_state[k], cstate.opt_state[k])
+        _close(gstate.params[k], cstate.params[k])
+        _close(gstate.opt_state[k], cstate.opt_state[k])
     assert int(gstate.step) == int(cstate.step) == 4
+
+
+def _ki_within(got, want, kind, stddev):
+    """KI against its plain version: exact for uniform and constant; for
+    normal draws (erf_inv on the card's log1pf) within
+    ``2^-21 * (|want| + stddev)``, plus one bfloat16 unit in bfloat16."""
+    from openembedding_tpu_torch.optim import initializers as ti
+    if kind in (ti.UNIFORM, ti.CONSTANT):
+        return torch.equal(got, want)
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    bound = 2.0**-21 * (want.abs() + stddev)
+    if bf16:
+        bound = bound + 2.0**-7 * want.abs()
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+def test_init_rows_kernel_matches_plain():
+    """KI: the CUDA kernel against its plain version on the card, for the
+    four draws, float32 and bfloat16 rows, dims 9 and 1, pair and int32
+    keys, rows skipped and not, EMPTY and negative keys, n = 1."""
+    _need_card()
+    from openembedding_tpu_torch.ops import init_rows as ki
+    from openembedding_tpu_torch.optim import initializers as ti
+    rng = np.random.RandomState(5)
+    inits = [{"category": "uniform", "minval": -1e-3, "maxval": 1e-3},
+             {"category": "constant", "value": 0.1},
+             {"category": "normal", "stddev": 1e-4},
+             {"category": "normal", "truncated": True, "stddev": 0.5,
+              "mean": 0.1}]
+    for n in (5000, 1):
+        for wide in (True, False):
+            keys = rng.randint(-2**31, 2**31, (n, 2) if wide else n,
+                               dtype=np.int64).astype(np.int32)
+            keys[0] = [5, EMPTY] if wide else EMPTY
+            skip = torch.from_numpy(rng.rand(n) < 0.3).cuda()
+            k = torch.from_numpy(keys).cuda()
+            for dim in (9, 1):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for cfg in inits:
+                        init = ti.make_initializer(cfg)
+                        kind, params = ti.keyed_params(init)
+                        out = torch.full((n, dim), 3.0, dtype=dtype,
+                                         device="cuda")
+                        ref = out.clone()
+                        before = ki.init_rows.launches
+                        ki.init_rows(out, k, skip, (7, 2**32 - 1), init)
+                        ki.init_rows_reference(ref, k, skip, (7, 2**32 - 1),
+                                               kind, params)
+                        torch.cuda.synchronize()
+                        assert ki.init_rows.launches == before + 1
+                        assert _ki_within(out, ref, kind,
+                                          cfg.get("stddev", 1.0)), (cfg, n)
+                        assert bool((out[skip] == 3.0).all())
+
+
+def _tiny_hash_trainer(device):
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models import deepctr as tm
+    from openembedding_tpu_torch.optim import dense
+    specs, mapper = make_fused_specs(
+        criteo.SPARSE_NAMES, -1, 9, hash_capacity=1 << 14,
+        optimizer={"category": "adagrad", "learning_rate": 0.01})
+    module = tm.build_model("deepfm", criteo.SPARSE_NAMES, embedding_dim=9,
+                            dnn_units=(64, 32))
+    return tr.Trainer(module, EmbeddingCollection(specs, device=device),
+                      dense.adagrad(0.01)), mapper
+
+
+@pytest.mark.gpu
+def test_hash_train_step_on_card_matches_cpu_without_host_sync():
+    """A small fused DeepFM over hash tables takes 3 steps on the card and
+    3 on the CPU from the same state, every step inserting new keys: the
+    keys arrays and failure counts bit-identical, losses within rtol
+    1e-4, rows, slots and dense state within atol 1e-5 + rtol 1e-4, and
+    each stored key's row and slots changed as on the CPU (from the key's
+    init row when the steps inserted it, else from its row before them,
+    within ``_close_change``'s limit); K2 launched twice a step and KI
+    four times; no step reads the device back (sync debug mode
+    "error")."""
+    _need_card()
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.ops import init_rows as ki
+    gpu, mapper = _tiny_hash_trainer("cuda")
+    cpu, _ = _tiny_hash_trainer("cpu")
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        512, num_buckets=1 << 12, seed=0, num_batches=4)]
+    gstate = gpu.init(torch.Generator(device="cuda").manual_seed(0),
+                      batches[0])
+    gstate, _ = gpu.train_step(gstate, batches[3])   # warm: builds kernels
+    torch.cuda.synchronize()
+    cstate = tr.copy_state(gstate, "cpu")
+    initial = tr.copy_state(gstate, "cpu")
+    losses = []
+    k2, k_i = tp.probe_gather.launches, ki.init_rows.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches[:3]:
+            gstate, m = gpu.train_step(gstate, b)
+            losses.append(m["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tp.probe_gather.launches == k2 + 6
+    assert ki.init_rows.launches == k_i + 12
+    for i, b in enumerate(batches[:3]):
+        cstate, m = cpu.train_step(cstate, b)
+        np.testing.assert_allclose(float(losses[i]), float(m["loss"]),
+                                   rtol=1e-4)
+    for n, g in gstate.emb.items():
+        c, i = cstate.emb[n], initial.emb[n]
+        assert torch.equal(g.keys.cpu(), c.keys)
+        assert int(g.insert_failures) == int(c.insert_failures)
+        assert g.num_used() > 4 * 512
+        idx = torch.nonzero(c.live()).reshape(-1)
+        new = ~i.live()[idx]
+        assert int(new.sum()) > 512
+        # a key keeps its slot, so a stored key's row before the steps is
+        # its slot's row then, and an inserted key's is its init row
+        start = i.weights[idx]
+        start[new] = th.init_rows(gpu.collection.initializer(n), c.init_rng,
+                                  c.keys[idx[new]], c.dim, c.weights.dtype)
+        for a, b, s0 in ((g.weights, c.weights, start),
+                         (g.slots["accum"], c.slots["accum"],
+                          i.slots["accum"][idx])):
+            _close(a, b)
+            _close_change(a[idx.to(a.device)], b[idx], s0)
+    for k in gstate.params:
+        _close(gstate.params[k], cstate.params[k])

@@ -175,8 +175,9 @@ def test_insert_rows_matches_jax(wide, dtype):
                                 {"accum": jnp.asarray(acc)})
         th.insert_rows(tstate, torch.from_numpy(keys), torch.from_numpy(w),
                        {"accum": torch.from_numpy(acc)})
-    keys, weights, slots = interop.hash_state_to_numpy(tstate)
+    keys, weights, slots, init_rng = interop.hash_state_to_numpy(tstate)
     np.testing.assert_array_equal(keys, np.asarray(jstate.keys))
+    np.testing.assert_array_equal(init_rng, np.asarray(jstate.init_rng))
     jw = np.asarray(jstate.weights)
     np.testing.assert_array_equal(
         weights, jw.view(np.uint16) if dtype == "bfloat16" else jw)
@@ -263,8 +264,6 @@ def test_hash_refusals():
     malformed queries raise ValueError as in the JAX package."""
     coll = EmbeddingCollection(_hash_specs("port", "wide"), device="cpu")
     states = coll.init()
-    with pytest.raises(NotImplementedError, match="training step"):
-        coll.pull(states, {"h": np.arange(4)})          # not read_only
     with pytest.raises(NotImplementedError, match="int64 hash keys"):
         EmbeddingSpec(name="x", input_dim=-1, output_dim=2,
                       key_dtype="int64")

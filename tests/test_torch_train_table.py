@@ -108,8 +108,8 @@ def test_apply_gradients_edge_batches():
 
 def test_collection_apply_gradients_array_and_hash():
     """The collection pushes array variables in place and leaves the
-    others' states alone; a hash variable's push belongs to the hash
-    training slice and raises naming it."""
+    others' states alone; a hash variable's push inserts its keys with
+    their init rows (what a pull gave them) and updates them."""
     from openembedding_tpu_torch.embedding import (EmbeddingCollection,
                                                    EmbeddingSpec)
     coll = EmbeddingCollection(
@@ -126,5 +126,13 @@ def test_collection_apply_gradients_array_and_hash():
     want[1] -= 0.01                      # the default: sgd, lr 0.01
     want[2] -= 0.02
     assert torch.equal(states["a"].weights, want)
-    with pytest.raises(NotImplementedError, match="hash training step"):
-        coll.apply_gradients(states, {"h": ids}, {"h": torch.ones(2, 2, DIM)})
+    keys = np.asarray([[1, 2, 2], [70, 2, -5]], np.int64)  # a trailing 2: pairs
+    fresh = coll.pull(states, {"h": keys})["h"]
+    assert not torch.equal(fresh, torch.zeros_like(fresh))
+    a1 = states["a"].weights.clone()
+    coll.apply_gradients(states, {"h": keys}, {"h": torch.ones(2, 3, DIM)})
+    assert torch.equal(states["a"].weights, a1)
+    assert states["h"].num_used() == 4
+    got = coll.pull(states, {"h": keys}, read_only=True)["h"]
+    counts = torch.tensor([[1.0, 3.0, 3.0], [1.0, 3.0, 1.0]])[..., None]
+    assert torch.equal(got, fresh - 0.01 * counts)
