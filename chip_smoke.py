@@ -4,6 +4,9 @@ then the serving and training paths driven end to end at full width.
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
+two versions of the kernel in turns within one call; see ``ki_only``.)
+
 Phases, in order; any failure raises and the run exits nonzero:
 
 1. device: require CUDA, print the card's name and power limit;
@@ -44,7 +47,13 @@ Phases, in order; any failure raises and the run exits nonzero:
 7. training: the ``deepfm_dim9`` trainer at full width (the fused tables
    with sparse Adagrad, ``DeepFM`` 247 -> 256 -> 128 -> 1, dense
    optax-form Adagrad, batches of 4096 from ``synthetic_criteo``) built
-   on the card from the seed; its initial state copied to a trainer on
+   on the card by ``Trainer.init(prng_key(SEED), batch)``, KI's array mode
+   launched once for each table and dense kernel; with nothing copied,
+   its dense parameters and the first, a middle and the last 4096 rows of
+   each table equal the CPU's draws from the same key (uniform and
+   constant exactly, normal ones within ``2^-21 * (|want| + stddev)``),
+   and its first step's loss the CPU's from those values within 1e-6;
+   its initial state copied to a trainer on
    the CPU (the plain K1); 4 steps on each must agree (losses rtol 1e-4;
    touched rows, slots, dense parameters and accumulators atol 1e-5 +
    rtol 1e-4; a seeded sample of 2^20 untouched ids bit-identical to the
@@ -52,13 +61,20 @@ Phases, in order; any failure raises and the run exits nonzero:
    training throughput (median of 5 timed blocks of 20 steps), each
    stage timed alone (pull, dense, push), a ``torch.profiler`` trace of
    20 steps (device busy share, launches a step, top device operations,
-   longest idle gaps), and the trained tables saved, loaded through
-   ``POST /models`` and served back exactly;
+   longest idle gaps), the trained tables saved, loaded through
+   ``POST /models`` and served back exactly, and KI's array mode held
+   against its plain version (``phase_ki_flat``: the whole ``fields``
+   table in one launch, checked in three row ranges, those ranges drawn
+   from their offsets, ``fields:linear``, a ``[4096, 9]`` table, a
+   bfloat16 one and the first dense kernel), timed beside its bound;
 8. hash training: the ``deepfm_dim9_hash`` trainer at full width (the
    wide-key hash tables of phase 5, empty, with sparse Adagrad, and the
    same dense half, batches of 4096 from ``synthetic_criteo(4096,
-   num_buckets=2^22)``) built on the card; its initial state copied to
-   a CPU trainer; 4 steps on each must agree (the keys arrays and
+   num_buckets=2^22)``) built on the card by ``Trainer.init(prng_key(
+   SEED), batch)``; with nothing copied, its dense parameters, hash init
+   keys and empty keys arrays equal a CPU trainer's ``init`` from the same
+   key, and the two first steps' losses agree within 1e-6; its initial
+   state copied to a CPU trainer; 4 steps on each must agree (the keys arrays and
    insert-failure counts bit-identical; losses rtol 1e-4; every stored
    key's row and slots atol 1e-5 + rtol 1e-4, and its change from its
    init row within ``change_ratio``'s limit, the check shown to flag
@@ -75,7 +91,8 @@ Phases, in order; any failure raises and the run exits nonzero:
    (pull, dense, push, and the push's dedup, insert and update), a
    ``torch.profiler`` trace of 20 unseen-batch steps, keys inserted and
    the load factor, and the trained tables served back exactly;
-9. the kernel list as one JSON line;
+9. the card's name and power limit again, then the kernel list as one
+   JSON line;
 10. last line: ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port, never jax or openembedding_tpu.
@@ -122,6 +139,8 @@ UNTOUCHED_SAMPLE = 1 << 20    # untouched ids checked bit for bit
 CHANGE_RTOL = 1e-3            # of a touched row's largest change
 CHANGE_ULPS = 2               # units at each value's magnitude
 SYNC_STEPS = 3                # hash steps under sync debug mode "error"
+INIT_ROWS = 4096              # rows of each range held card against CPU
+INIT_LOSS_ATOL = 1e-6         # first losses from the card's and CPU's init
 # H100 SXM: each of an SM's 4 schedulers dispatches one warp instruction a
 # clock, 128 lane operations, which is the data sheet's 67 TFLOP/s float32
 # rate (an FMA counted as two flops) over 2. KI's integer adds reach that
@@ -167,15 +186,16 @@ def phase_build() -> None:
 
 # --- phase 3 -----------------------------------------------------------------
 
-def _median_ms(fn, flush: torch.Tensor) -> float:
-    """CUDA-event median of ``fn``'s device time with the L2 flushed before
-    each run: a ~1 ms spin kernel runs first, so ``fn``'s kernels are all
-    enqueued before the start event fires and the events bracket device
-    time alone."""
-    for _ in range(3):
+def _median_ms(fn, flush: torch.Tensor, reps: int = REPS,
+               warm: int = 3) -> float:
+    """CUDA-event median of ``fn``'s device time over ``reps`` runs after
+    ``warm`` more, with the L2 flushed before each run: a ~1 ms spin
+    kernel runs first, so ``fn``'s kernels are all enqueued before the
+    start event fires and the events bracket device time alone."""
+    for _ in range(warm):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.zero_()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
@@ -507,16 +527,28 @@ def hash_keys(mapper):
     return batches, keys[rng.permutation(keys.size)]
 
 
-def fill_hash(state, keys: torch.Tensor, gen: torch.Generator):
-    """Insert ``keys`` with seeded random rows and adagrad accumulators,
-    ``LOAD_CHUNK`` at a time; returns the rows as inserted (on the
-    device). Fails unless every key found a slot."""
+def seeded(key, tag: int, shape, cfg, dev) -> torch.Tensor:
+    """A float32 array of ``shape`` on ``dev`` drawn by ``cfg`` (an
+    initializer config) from ``fold_in(key, tag)``: test data made from a
+    threefry key, the same on any device."""
+    from openembedding_tpu_torch.optim import initializers as ti
+    return ti.make_initializer(cfg).init(ti.fold_in(key, tag), shape,
+                                         torch.float32, dev)
+
+
+def fill_hash(state, keys: torch.Tensor, key):
+    """Insert ``keys`` with rows and adagrad accumulators drawn from the
+    threefry ``key`` (normal(0, 1) rows, accumulators uniform on
+    [0.1, 1.1)), ``LOAD_CHUNK`` at a time; returns the rows as inserted
+    (on the device). Fails unless every key found a slot."""
     from openembedding_tpu_torch.hash_table import insert_rows
     n, dev = keys.shape[0], keys.device
-    rows = torch.randn((n, state.dim), generator=gen, device=dev).to(
+    rows = seeded(key, 0, (n, state.dim), "normal", dev).to(
         state.weights.dtype)
-    slots = {k: torch.rand((n,) + tuple(v.shape[1:]), generator=gen,
-                           device=dev) + 0.1 for k, v in state.slots.items()}
+    slots = {k: seeded(key, 1 + i, (n,) + tuple(v.shape[1:]),
+                       {"category": "uniform", "minval": 0.1,
+                        "maxval": 1.1}, dev)
+             for i, (k, v) in enumerate(state.slots.items())}
     for lo in range(0, n, LOAD_CHUNK):
         hi = lo + LOAD_CHUNK
         insert_rows(state, keys[lo:hi], rows[lo:hi],
@@ -645,7 +677,7 @@ def check_probe_case(name, keys, weights, query, flush):
     return case
 
 
-def _narrow_table(dev, capacity, dim, keys: np.ndarray, gen):
+def _narrow_table(dev, capacity, dim, keys: np.ndarray, key):
     """An int32-key hash table filled with ``keys`` and random rows."""
     from openembedding_tpu_torch.hash_table import create_hash_table
     from openembedding_tpu_torch.meta import (UNBOUNDED_VOCAB,
@@ -653,7 +685,7 @@ def _narrow_table(dev, capacity, dim, keys: np.ndarray, gen):
     st = create_hash_table(
         EmbeddingVariableMeta("float32", dim, UNBOUNDED_VOCAB), "default",
         capacity=capacity, key_dtype="int32", device=dev)
-    fill_hash(st, torch.from_numpy(keys).to(dev), gen)
+    fill_hash(st, torch.from_numpy(keys).to(dev), key)
     return st
 
 
@@ -671,7 +703,7 @@ def _window_offsets(keys: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _crafted_table(dev, gen, rng):
+def _crafted_table(dev, key, rng):
     """A wide-key ``[2^16, 9]`` f32 table whose window at bucket 5 and whose
     last window (the span's last start, ending at the table's end) each
     hold 256 keys that start there, filled through ``insert_rows`` with 8
@@ -700,7 +732,7 @@ def _crafted_table(dev, gen, rng):
         capacity=capacity, key_dtype="wide", device=dev)
     offered = np.concatenate([w[0] for w in windows.values()])
     insert_rows(st, torch.from_numpy(offered).to(dev),
-                torch.randn((len(offered), 9), generator=gen, device=dev))
+                seeded(key, 7, (len(offered), 9), "normal", dev))
     if int(st.insert_failures) != 16:
         raise AssertionError(f"crafted table: {int(st.insert_failures)} "
                              "insert failures, 16 expected")
@@ -723,15 +755,16 @@ def phase_probe_kernels(states, batches, keys64):
     fields, linear = states["fields"], states["fields:linear"]
     dev = fields.keys.device
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    from openembedding_tpu_torch.optim.initializers import fold_in, prng_key
+    key = prng_key(SEED + 1)
     rng = np.random.RandomState(SEED + 1)
     main = torch.from_numpy(batches[0].reshape(-1, 2)).to(dev)
     fits = keys64[(keys64 > EMPTY32) & (keys64 < 2**31)].astype(np.int32)
-    narrow = _narrow_table(dev, HASH_CAPACITY, 9, fits, gen)
+    narrow = _narrow_table(dev, HASH_CAPACITY, 9, fits, fold_in(key, 1))
     narrow_q = torch.from_numpy(join64(batches[0]).reshape(-1).astype(
         np.int32)).to(dev)
     probe_keys = (rng.permutation(1 << 23)[:1 << 21] + 1).astype(np.int32)
-    t128 = _narrow_table(dev, 1 << 22, 128, probe_keys, gen)
+    t128 = _narrow_table(dev, 1 << 22, 128, probe_keys, fold_in(key, 2))
     q128 = torch.from_numpy(probe_keys[rng.randint(0, probe_keys.size,
                                                    32768)]).to(dev)
     mixed = batches[-1].reshape(-1, 2).copy()
@@ -743,7 +776,7 @@ def phase_probe_kernels(states, batches, keys64):
     edge_q = fields.keys[at_step_edge]
     if sorted(offsets[at_step_edge].unique().tolist()) != [31, 32, 33]:
         raise AssertionError("no fields keys at window slots 31, 32 and 33")
-    crafted, windows = _crafted_table(dev, gen, rng)
+    crafted, windows = _crafted_table(dev, fold_in(key, 3), rng)
     crafted_q = {name: torch.from_numpy(np.concatenate(w)).to(dev)
                  for name, w in windows.items()}
     depth = _window_offsets(crafted.keys)
@@ -1052,6 +1085,126 @@ def check_against_cpu(trainer, state, batches):
                    "simulated_faults": faults}
 
 
+def _init_agrees(what, got, want, kind, stddev) -> float:
+    """A card draw (``got``) against the same draw on the CPU (``want``):
+    exact for uniform and constant draws, normal and truncated ones within
+    ``2^-21 * (|want| + stddev)`` (the card's ``log1pf``/``sqrtf`` against
+    the host's), bfloat16 one unit more. Returns the largest difference."""
+    from openembedding_tpu_torch.optim import initializers as ti
+    got = got.detach().cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"init: {what} is {tuple(got.shape)} "
+                             f"{got.dtype}, {tuple(want.shape)} "
+                             f"{want.dtype} expected")
+    diff = (got.float() - want.float()).abs()
+    if kind in (ti.UNIFORM, ti.CONSTANT):
+        ok = torch.equal(got, want)
+    else:
+        bound = 2.0**-21 * (want.float().abs() + stddev)
+        if got.dtype == torch.bfloat16:
+            bound = bound + 2.0**-7 * want.float().abs()
+        ok = bool((diff <= bound).all())
+    if not ok:
+        raise AssertionError(f"init: {what} differs between the card and "
+                             f"the CPU (max abs difference "
+                             f"{float(diff.max())})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _dense_init_agrees(card, cpu) -> float:
+    """Every dense parameter of a card ``Trainer.init`` against the CPU's
+    draw: lecun_normal kernels (truncated, ``stddev = sqrt(1 / fan_in) /
+    0.8796``) within the ``erf_inv`` bound, zero biases exactly."""
+    from openembedding_tpu_torch.optim import initializers as ti
+    errs = [0.0]
+    for k, v in cpu.items():
+        if v.dim() == 2:
+            std = float(np.sqrt(np.float32(1.0 / v.shape[1]))
+                        / np.float32(0.87962566103423978))
+            errs.append(_init_agrees(f"parameter {k}", card[k], v,
+                                     ti.TRUNCATED, std))
+        else:
+            errs.append(_init_agrees(f"parameter {k}", card[k], v,
+                                     ti.CONSTANT, 0.0))
+    return max(errs)
+
+
+def check_array_init_without_copy(trainer, state, batch) -> dict:
+    """The card's ``Trainer.init(prng_key(SEED), batch)`` against the same
+    state drawn on the CPU, nothing copied: the dense parameters
+    (``init_params`` under the dense half of ``split(key)``), and each
+    array table's first, a middle and its last ``INIT_ROWS`` rows (the
+    plain flat draw from the table's key and those rows' flat offsets, in
+    chunks; the whole 245 M-element ``fields`` would take minutes on the
+    host). Returns the readings and the loss of a first step on ``batch``
+    from the CPU's values (the rows of its ids drawn by the plain
+    version), which the card's first step must match."""
+    from openembedding_tpu_torch.models.deepctr import init_params
+    from openembedding_tpu_torch.optim import initializers as ti
+    coll = trainer.collection
+    cpu_trainer, _ = build_trainer("cpu")
+    emb_rng, dense_rng = ti.split(ti.prng_key(SEED))
+    params = init_params(cpu_trainer.module, dense_rng, "cpu")
+    placed = cpu_trainer.place_batch(batch)
+    tables, rows = {}, {}
+    for name, st in state.emb.items():
+        init = coll.initializer(name)
+        kind, prm = ti.keyed_params(init)
+        stddev = getattr(init, "stddev", 1.0)
+        key = coll.table_key(name, emb_rng)
+        vocab, dim = st.weights.shape
+        errs = []
+        for r0 in (0, vocab // 2 - INIT_ROWS // 2, vocab - INIT_ROWS):
+            want = ti.flat_rows(kind, prm, key, r0 * dim, INIT_ROWS * dim,
+                                st.weights.dtype).reshape(INIT_ROWS, dim)
+            errs.append(_init_agrees(f"{name} rows {r0}..",
+                                     st.weights[r0:r0 + INIT_ROWS], want,
+                                     kind, stddev))
+        ids = placed["sparse"][name].to(torch.int64)
+        rows[name] = ti.flat_draw(kind, prm, key,
+                                  ids[..., None] * dim + torch.arange(dim),
+                                  st.weights.dtype)
+        tables[name] = {"rows_checked": 3 * INIT_ROWS,
+                        "max_abs_diff": max(errs)}
+    with torch.no_grad():
+        loss = float(cpu_trainer.loss_fn(
+            cpu_trainer._logits(params, placed["dense"], rows),
+            placed["label"]))
+    return {"dense_max_abs_diff": _dense_init_agrees(state.params, params),
+            "tables": tables, "cpu_first_loss": loss}
+
+
+def check_hash_init_without_copy(trainer, state, batch) -> dict:
+    """The card's ``Trainer.init(prng_key(SEED), batch)`` against a CPU
+    trainer's ``init`` from the same key, nothing copied: the dense
+    parameters, and the hash tables' init keys and (empty) keys arrays;
+    returns the readings and the CPU's first-step loss on ``batch``."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    cpu_trainer, _ = build_hash_trainer("cpu")
+    cstate = cpu_trainer.init(prng_key(SEED), batch)
+    dense = _dense_init_agrees(state.params, cstate.params)
+    for n, cs in cstate.emb.items():
+        s = state.emb[n]
+        if s.init_rng != cs.init_rng or s.num_used() \
+                or not torch.equal(s.keys.cpu(), cs.keys):
+            raise AssertionError(f"init: hash table {n} differs between "
+                                 "the card and the CPU")
+    keys = {n: list(cs.init_rng) for n, cs in cstate.emb.items()}
+    cstate, m = cpu_trainer.train_step(cstate, batch)
+    return {"dense_max_abs_diff": dense, "init_rng": keys,
+            "cpu_first_loss": float(m["loss"])}
+
+
+def check_first_loss(what, reading: dict, card_loss: float) -> None:
+    """The card's first-step loss from its own init against the CPU's
+    from the CPU's own init: within ``INIT_LOSS_ATOL``."""
+    reading["card_first_loss"] = card_loss
+    if not abs(card_loss - reading["cpu_first_loss"]) <= INIT_LOSS_ATOL:
+        raise AssertionError(
+            f"{what}: first loss {card_loss} from the card's init, "
+            f"{reading['cpu_first_loss']} from the CPU's")
+
+
 def _stage_ms(fn) -> float:
     """Wall time of one call of ``fn`` on the host's clock, each run
     ended by a synchronize, median of ``STAGE_REPS`` after a warm-up."""
@@ -1175,21 +1328,28 @@ def train_then_serve(trainer, state, batch) -> dict:
 
 
 def phase_training() -> int:
-    """Phase 7; returns K1's launches on the training path."""
+    """Phase 7; returns K1's launches on the training path, KI's array
+    launches in the trainer's init and KI's array-mode cases."""
     from openembedding_tpu_torch.data.criteo import synthetic_criteo
     from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat
+    from openembedding_tpu_torch.optim.initializers import prng_key
     trainer, mapper = build_trainer("cuda")
     dev = trainer.device
     batches = [mapper.fuse_batch(b) for b in synthetic_criteo(
         BATCH, num_buckets=VOCAB_PER_FEATURE, seed=SEED,
         num_batches=TRAIN_BATCHES)]
+    init_flat.launches = 0
     t0 = time.perf_counter()
-    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED),
-                         batches[0])
+    state = trainer.init(prng_key(SEED), batches[0])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    flat_launches = init_flat.launches
+    check_init_launches("training", state, flat_launches)
+    nocopy = check_array_init_without_copy(trainer, state, batches[0])
     gather_rows.launches = 0
     state, check = check_against_cpu(trainer, state, batches)
+    check_first_loss("training", nocopy, check["card_losses"][0])
     for i in range(WARMUP_STEPS):
         state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
     torch.cuda.synchronize()
@@ -1216,16 +1376,29 @@ def phase_training() -> int:
         raise AssertionError(f"training: loss {loss}")
     stages = stage_breakdown(trainer, state, batches[0])
     served = train_then_serve(trainer, state, batches[1])
+    flat_cases = phase_ki_flat(trainer)
     eps = statistics.median(block_eps)
     log(json.dumps({"training": {
         "config": "deepfm_dim9", "batch": BATCH, "init_s": init_s,
+        "init_without_copy": nocopy, "init_flat_launches": flat_launches,
         "check": check, "steps": steps, "k1_launches": launches,
         "examples_per_s": eps, "eps_min": min(block_eps),
         "eps_max": max(block_eps), "block_eps": block_eps,
         "step_ms": BATCH / eps * 1e3, "last_loss": loss,
         "stages": stages, "trace": trace, "serve": served,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}))
-    return launches
+    return launches, flat_launches, flat_cases
+
+
+def check_init_launches(what, state, launches: int) -> None:
+    """A trainer's init on the card launches KI's array mode once for each
+    array table and each dense kernel (every array below 2^30 elements)."""
+    from openembedding_tpu_torch.table import TableState
+    want = sum(type(s) is TableState for s in state.emb.values()) \
+        + sum(v.dim() == 2 for v in state.params.values())
+    if launches != want:
+        raise AssertionError(f"{what}: {launches} KI array launches in the "
+                             f"trainer's init, {want} expected")
 
 
 # --- phase 8: hash training --------------------------------------------------
@@ -1492,6 +1665,126 @@ def phase_ki_kernels(trainer, state, batch):
     return cases
 
 
+def ki_flat_bound(count: int, word_bytes: int, draw: str):
+    """KI array mode's least time for ``count`` elements: the larger of the
+    bytes it writes over ``HBM_BYTES_PER_S`` and each element's threefry
+    block and ``DRAW_OPS[draw]`` over ``LANE_OPS_PER_S`` (none for a
+    constant). Returns ``(bound_ms, bound_by)``."""
+    ops = 0 if draw == "constant" else count * (THREEFRY_OPS
+                                                + DRAW_OPS[draw])
+    t_bytes, t_ops = count * word_bytes / HBM_BYTES_PER_S, \
+        ops / LANE_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def check_ki_flat_case(name, shape, dtype, cfg, key, flush, offset=0,
+                       ranges=None, plain_reps=REPS):
+    """KI's array mode against its plain version on the card: an array of
+    ``shape`` drawn from ``key`` at flat ``offset`` in one launch; the
+    plain version draws the whole array, or only the row ranges
+    ``ranges`` (from their flat offsets, in chunks); exact for uniform and
+    constant draws, normal ones within ``2^-21 * (|want| + stddev)``.
+    Timed beside the plain version over the whole array and the bound."""
+    from openembedding_tpu_torch.ops.init_rows import (init_flat,
+                                                       init_flat_reference)
+    from openembedding_tpu_torch.optim import initializers as ti
+    init = ti.make_initializer(cfg)
+    kind, prm = ti.keyed_params(init)
+    out = torch.empty(shape, dtype=dtype, device=flush.device)
+    init_flat(out, key, offset, init)
+    torch.cuda.synchronize()
+    dim = shape[-1]
+    rows = out.view(-1, dim)
+    err = 0.0
+    for r0, r1 in ranges or [(0, rows.shape[0])]:
+        want = ti.flat_rows(kind, prm, key, offset + r0 * dim,
+                            (r1 - r0) * dim, dtype, out.device)
+        err = max(err, _init_agrees(
+            f"array case {name} rows {r0}..{r1}", rows[r0:r1],
+            want.reshape(r1 - r0, dim).cpu(), kind,
+            getattr(init, "stddev", 1.0)))
+    draw = ("constant", "uniform", "normal", "truncated")[kind]
+    bound_ms, bound_by = ki_flat_bound(out.numel(), out.element_size(),
+                                       draw)
+    ref = torch.empty_like(out)
+    many = out.numel() > 1 << 24
+    case = {"case": name, "shape": list(shape), "offset": offset,
+            "dtype": str(dtype).replace("torch.", ""),
+            "draw": cfg["category"] + ("/truncated" if cfg.get("truncated")
+                                       else ""),
+            "elements_checked": sum((r1 - r0) * dim for r0, r1
+                                    in ranges or [(0, rows.shape[0])]),
+            "max_abs_err": err,
+            "kernel_ms": _median_ms(
+                lambda: init_flat(out, key, offset, init), flush),
+            "kernel_call_ms": _call_ms(
+                lambda: init_flat(out, key, offset, init),
+                calls=10 if many else 100),
+            "plain_ms": _median_ms(lambda: init_flat_reference(
+                ref, key, offset, kind, prm), flush, reps=plain_reps,
+                warm=1),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    del out, ref
+    return case
+
+
+def phase_ki_flat(trainer):
+    """KI's array mode held against its plain version on the card, on the
+    draws of the ``deepfm_dim9`` trainer's init under ``prng_key(SEED)``:
+    the whole ``fields`` table (27,262,976 x 9 normal(0, 1e-4), one
+    launch; the plain version checks its first, a middle and its last
+    ``INIT_ROWS`` rows), those three ranges drawn alone from their
+    offsets, the whole ``fields:linear`` (constant), a ``[4096, 9]``
+    table, a bfloat16 one and the first dense kernel (``[247, 256]``
+    truncated, flax's key). The launches made here are not counted as the
+    main path's."""
+    from openembedding_tpu_torch.interop import flax_path
+    from openembedding_tpu_torch.ops.init_rows import init_flat
+    from openembedding_tpu_torch.optim import initializers as ti
+    dev = trainer.device
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    counted = init_flat.launches
+    coll = trainer.collection
+    emb_rng, dense_rng = ti.split(ti.prng_key(SEED))
+    fkey = coll.table_key("fields", emb_rng)
+    cfg9 = coll.initializer("fields").to_config()
+    cfg1 = coll.initializer("fields:linear").to_config()
+    vocab = coll.specs["fields"].input_dim
+    mid = vocab // 2 - INIT_ROWS // 2
+    ranges = [(0, INIT_ROWS), (mid, mid + INIT_ROWS),
+              (vocab - INIT_ROWS, vocab)]
+    name = "MLP_0.Dense_0.weight"
+    fan_out, fan_in = dict(trainer.module.named_parameters())[name].shape
+    dkey = ti.flax_param_key(dense_rng, flax_path(name)[:-1], 1)
+    lecun = {"category": "normal", "truncated": True, "stddev": float(
+        np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978))}
+    uniform = {"category": "uniform", "minval": -1e-3, "maxval": 1e-3}
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [check_ki_flat_case("fields_whole_normal", (vocab, 9), f32,
+                                cfg9, fkey, flush, ranges=ranges,
+                                plain_reps=3)]
+    cases += [check_ki_flat_case(f"fields_rows_{where}_normal",
+                                 (INIT_ROWS, 9), f32, cfg9, fkey, flush,
+                                 offset=r0 * 9)
+              for where, (r0, _) in zip(("first", "middle", "last"),
+                                        ranges)]
+    cases += [
+        check_ki_flat_case("linear_whole_constant", (vocab, 1), f32, cfg1,
+                           coll.table_key("fields:linear", emb_rng), flush,
+                           ranges=ranges, plain_reps=3),
+        check_ki_flat_case("table_4096x9_normal", (4096, 9), f32, cfg9,
+                           fkey, flush),
+        check_ki_flat_case("table_4096x9_bf16_uniform", (4096, 9), bf16,
+                           uniform, fkey, flush),
+        check_ki_flat_case("dense_mlp0_kernel_truncated", (fan_in, fan_out),
+                           f32, lecun, dkey, flush),
+    ]
+    init_flat.launches = counted
+    log(json.dumps({"init_flat_cases": cases}))
+    return cases
+
+
 def push_stages(trainer, state, batches) -> dict:
     """The push of both tables split into its three stages, on batches the
     tables have not seen: for each batch its gradients (untimed), then
@@ -1604,9 +1897,10 @@ def hash_train_then_serve(trainer, state, batch) -> dict:
 
 def phase_hash_training():
     """Phase 8; returns the KI cases and K2's and KI's launches on the hash
-    training path."""
+    training path (KI's array launches: the trainer's init)."""
     from openembedding_tpu_torch.data.criteo import synthetic_criteo
-    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.optim.initializers import prng_key
     from openembedding_tpu_torch.ops.probe_gather import probe_gather
     trainer, mapper = build_hash_trainer("cuda")
     dev = trainer.device
@@ -1618,13 +1912,17 @@ def phase_hash_training():
         BLOCKS * BLOCK_STEPS + TRACE_STEPS + STAGE_REPS + 2)]
     trace_batches = fresh[BLOCKS * BLOCK_STEPS:][:TRACE_STEPS]
     stage_batches = fresh[BLOCKS * BLOCK_STEPS + TRACE_STEPS:]
+    init_flat.launches = 0
     t0 = time.perf_counter()
-    state = trainer.init(torch.Generator(device=dev).manual_seed(SEED),
-                         batches[0])
+    state = trainer.init(prng_key(SEED), batches[0])
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    flat_launches = init_flat.launches
+    check_init_launches("hash training", state, flat_launches)
+    nocopy = check_hash_init_without_copy(trainer, state, batches[0])
     probe_gather.launches = init_rows.launches = 0
     state, check = check_hash_against_cpu(trainer, state, batches)
+    check_first_loss("hash training", nocopy, check["card_losses"][0])
     # steps that insert keys, none reading the device back
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1653,6 +1951,7 @@ def phase_hash_training():
     if launches != {"probe_gather": 2 * steps, "init_rows": 4 * steps}:
         raise AssertionError(f"hash training: launches {launches} in "
                              f"{steps} steps, K2 2 and KI 4 a step expected")
+    launches["init_flat"] = flat_launches
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"hash training: loss {loss}")
@@ -1668,7 +1967,7 @@ def phase_hash_training():
     served = hash_train_then_serve(trainer, state, batches[1])
     log(json.dumps({"hash_training": {
         "config": "deepfm_dim9_hash", "batch": BATCH, "init_s": init_s,
-        "check": check, "steps": steps, "launches": launches,
+        "init_without_copy": nocopy, "check": check, "steps": steps, "launches": launches,
         "tables": tables, "cycled": cycled, "fresh": opened,
         "examples_per_s": opened["examples_per_s"],
         "step_ms": opened["step_ms"],
@@ -1706,6 +2005,7 @@ def setup_hash():
     from openembedding_tpu_torch.embedding import EmbeddingCollection
     from openembedding_tpu_torch.fused import make_fused_specs
     from openembedding_tpu_torch.hash_table import split64
+    from openembedding_tpu_torch.optim.initializers import fold_in, prng_key
 
     hspecs, hmapper = make_fused_specs(
         SPARSE_NAMES, -1, 9, hash_capacity=HASH_CAPACITY,
@@ -1715,19 +2015,41 @@ def setup_hash():
     batches, keys64 = hash_keys(hmapper)
     t0 = time.perf_counter()
     pairs = torch.from_numpy(split64(keys64)).to(hcoll.device)
-    gen = torch.Generator(device=hcoll.device).manual_seed(SEED)
-    hhost = {name: HostRows(keys64, fill_hash(st, pairs, gen).cpu().numpy())
-             for name, st in hstates.items()}
+    hhost = {name: HostRows(keys64, fill_hash(
+        st, pairs, fold_in(prng_key(SEED), hcoll.variable_id(name)))
+        .cpu().numpy()) for name, st in hstates.items()}
     log(f"hash fill: {keys64.size} keys into each of {len(hstates)} "
         f"tables of {HASH_CAPACITY} slots in "
         f"{time.perf_counter() - t0:.3f} s, 0 insert failures")
     return hcoll, hstates, batches, keys64, hhost
 
 
+def ki_only() -> None:
+    """``python3 chip_smoke.py --ki``: KI's per-key cases alone, for
+    comparing two versions of the kernel in turns within one call (run it
+    in each tree): the ``deepfm_dim9_hash`` trainer on the card from
+    ``prng_key(SEED)``, ``TRAIN_BATCHES`` steps on ``bench.py``'s batches,
+    then ``phase_ki_kernels`` on the stream's next batch. Prints the
+    cases; no result line."""
+    from openembedding_tpu_torch.data.criteo import synthetic_criteo
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    trainer, mapper = build_hash_trainer("cuda")
+    stream = synthetic_criteo(BATCH, num_buckets=HASH_VOCAB, seed=SEED)
+    batches = [mapper.fuse_batch(next(stream))
+               for _ in range(TRAIN_BATCHES + 1)]
+    state = trainer.init(prng_key(SEED), batches[0])
+    for b in batches[:TRAIN_BATCHES]:
+        state, _ = trainer.train_step(state, b)
+    phase_ki_kernels(trainer, state, batches[-1])
+
+
 def main() -> None:
-    phase_device()
+    card = phase_device()
     sys.path.insert(0, ROOT)
     phase_build()
+    if sys.argv[1:] == ["--ki"]:
+        ki_only()
+        return
     coll, states, mapper, host, main_ids = setup_array()
     cases = phase_kernels(states["fields"].weights,
                           states["fields:linear"].weights, main_ids)
@@ -1740,11 +2062,14 @@ def main() -> None:
     del hcoll, hstates, hhost
     torch.cuda.empty_cache()
 
-    launches += phase_training()
+    k1_training, flat_training, fcases = phase_training()
+    launches += k1_training
     torch.cuda.empty_cache()
     kcases, hash_launches = phase_hash_training()
 
-    main_case, pmain, kmain = cases[0], pcases[0], kcases[0]
+    main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
+        fcases[0]
+    log(card)       # again beside the results: the first line may scroll
     log(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda",
         "source": "openembedding_tpu_torch/csrc/gather_rows.cu",
@@ -1768,14 +2093,23 @@ def main() -> None:
         "library_ms": None, "gather_part_ms": pmain["gather_ms"]}, {
         "name": "init_rows", "route": "cuda",
         "source": "openembedding_tpu_torch/csrc/init_rows.cu",
-        "replaces": "openembedding_tpu/hash_table.py:300 (init_rows: XLA "
-                    "code, not a Pallas kernel)",
-        "launches": hash_launches["init_rows"],
+        "replaces": "openembedding_tpu/hash_table.py:300 (init_rows) and "
+                    "openembedding_tpu/optim/initializers.py:54-74 "
+                    "(Uniform/Normal.init): XLA code, not Pallas kernels",
+        "launches": hash_launches["init_rows"] + flat_training
+        + hash_launches["init_flat"],
+        "launches_per_key": hash_launches["init_rows"],
+        "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
-        "max_abs_err": max(c["max_abs_err"] for c in kcases),
+        "max_abs_err": max(c["max_abs_err"] for c in kcases + fcases),
         "ms": kmain["kernel_ms"], "call_ms": kmain["kernel_call_ms"],
         "plain_ms": kmain["plain_ms"],
         "bound_ms": kmain["bound_ms"], "bound_by": kmain["bound_by"],
+        "array_ms": fmain["kernel_ms"],
+        "array_call_ms": fmain["kernel_call_ms"],
+        "array_plain_ms": fmain["plain_ms"],
+        "array_bound_ms": fmain["bound_ms"],
+        "array_bound_by": fmain["bound_by"],
         "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -288,14 +288,14 @@ def _load_field(npy: str, target: torch.Tensor, true_dtype: Optional[str],
 
 
 def _load_hash_var(vdir: str, name: str, spec, collection, with_opt: bool,
-                   stored: Dict[str, str], legacy: Optional[str]):
+                   stored: Dict[str, str], legacy: Optional[str], rng):
     """An empty hash table on the collection's device, filled by inserting
     the dump's live rows chunk by chunk; refuses a dump whose rows do not
     all fit. The fresh table takes the collection's init key for the
-    variable (``EmbeddingCollection.hash_init_rng``), as JAX's loader
-    takes ``collection.init(rng)``'s, so a loaded model that trains on
-    draws JAX's init rows for keys the dump lacks."""
-    state = collection.init(only=[name])[name]
+    variable under ``rng`` (``EmbeddingCollection.hash_init_rng``), as
+    JAX's loader takes ``collection.init(rng)``'s, so a loaded model that
+    trains on draws JAX's init rows for keys the dump lacks."""
+    state = collection.init(rng, only=[name])[name]
     empty = hash_lib.empty_key(torch.int32)
     keys = np.load(fs.join(vdir, "keys.npy"), mmap_mode="r")
     fields = {"weights": state.weights}
@@ -353,11 +353,14 @@ def _load_hash_var(vdir: str, name: str, spec, collection, with_opt: bool,
 
 
 def load_checkpoint(path: str, collection: EmbeddingCollection, *,
-                    info: Optional[Dict[str, Any]] = None
+                    rng=None, info: Optional[Dict[str, Any]] = None
                     ) -> Dict[str, Any]:
     """Rebuild every variable's ``TableState`` from ``path`` on the
-    collection's device. ``info`` (a caller's dict) receives
-    ``applied_seq`` — always 0 here, since delta chains are refused."""
+    collection's device. ``rng``: the collection key whose hash init keys
+    the loaded hash tables take (``collection.init(rng)``'s, as JAX's
+    ``load_checkpoint(rng=)``; None: ``prng_key(collection.seed)``).
+    ``info`` (a caller's dict) receives ``applied_seq`` — always 0 here,
+    since delta chains are refused."""
     from .table import TableState, resolve_dtype
     meta = _check_meta(path, collection)
     _check_layout(path, collection)
@@ -372,7 +375,7 @@ def load_checkpoint(path: str, collection: EmbeddingCollection, *,
         legacy = dump_meta[name].datatype
         if spec.use_hash:
             out[name] = _load_hash_var(vdir, name, spec, collection,
-                                       with_opt, stored, legacy)
+                                       with_opt, stored, legacy, rng)
             continue
         dtype = resolve_dtype(spec.meta())
         weights = torch.zeros((spec.input_dim, spec.output_dim),

@@ -18,14 +18,15 @@ hot-row cache (``cache_k``), and every exchange plane but the one-shard
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .meta import (UNBOUNDED_VOCAB, EmbeddingVariableMeta, ModelMeta,
                    ModelVariableMeta)
-from .optim.initializers import fold_in, make_initializer, prng_key
+from .optim.initializers import (fold_in, make_initializer, prng_key,
+                                 threefry_key)
 from .optim.optimizers import make_optimizer
 from . import hash_table as hash_lib
 from . import table as table_lib
@@ -181,25 +182,35 @@ class EmbeddingCollection:
         return meta
 
     # --- state lifecycle ---------------------------------------------------
-    def generator(self, name: str) -> torch.Generator:
-        """The generator that initializes ``name``: on the collection's
-        device, seeded from the collection seed and the variable id."""
-        g = torch.Generator(device=self.device)
-        seq = np.random.SeedSequence([self.seed, self._variable_ids[name]])
-        g.manual_seed(int(seq.generate_state(1, np.uint64)[0] >> 1))
-        return g
+    def variable_key(self, name: str, rng=None) -> Tuple[int, int]:
+        """The threefry key of variable ``name`` under the collection key
+        ``rng`` (None: ``PRNGKey(seed)``): ``fold_in(rng, variable_id)``,
+        the JAX collection's rule. A hash variable keeps it as its init
+        key (one for all shards); an array table draws from
+        :meth:`table_key`."""
+        rng = prng_key(self.seed) if rng is None else threefry_key(rng)
+        return fold_in(rng, self._variable_ids[name])
 
-    def hash_init_rng(self, name: str):
-        """The threefry key of hash variable ``name``'s init rows:
-        ``fold_in(PRNGKey(seed), variable_id)``, the JAX collection's rule
-        (one shared key for all shards), so a port collection with seed
-        ``s`` draws the rows of JAX's ``collection.init(PRNGKey(s))``."""
-        return fold_in(prng_key(self.seed), self._variable_ids[name])
+    def table_key(self, name: str, rng=None) -> Tuple[int, int]:
+        """The key array variable ``name``'s weights are drawn from:
+        :meth:`variable_key` folded with shard 0, as the JAX collection's
+        one-shard table draws (``parallel/sharded_table.py``)."""
+        return fold_in(self.variable_key(name, rng), 0)
 
-    def init(self, only: Optional[Any] = None) -> Dict[str, Any]:
-        """Materialize every variable (``only`` restricts to some names).
-        Hash variables start empty, ``round_capacity(hash_capacity)``
-        slots, with :meth:`hash_init_rng` as their init key."""
+    def hash_init_rng(self, name: str, rng=None) -> Tuple[int, int]:
+        """The threefry key of hash variable ``name``'s init rows
+        (:meth:`variable_key`), so a port collection initialized with
+        ``rng`` draws the rows of JAX's ``collection.init(rng)``."""
+        return self.variable_key(name, rng)
+
+    def init(self, rng=None, only: Optional[Any] = None) -> Dict[str, Any]:
+        """Materialize every variable (``only`` restricts to some names),
+        with JAX's signature and keys: ``rng`` is a threefry key (two
+        uint32 words, ``prng_key(seed)``; None: ``prng_key(self.seed)``).
+        Array tables draw from :meth:`table_key`, the same values on every
+        device and as JAX's ``collection.init(rng)`` on one shard. Hash
+        variables start empty, ``round_capacity(hash_capacity)`` slots,
+        with :meth:`hash_init_rng` as their init key."""
         states = {}
         for name, spec in self.specs.items():
             if only is not None and name not in only:
@@ -208,12 +219,12 @@ class EmbeddingCollection:
                 states[name] = hash_lib.create_hash_table(
                     spec.meta(), self._optimizers[name],
                     capacity=spec.hash_capacity,
-                    rng=self.hash_init_rng(name),
+                    rng=self.hash_init_rng(name, rng),
                     key_dtype=spec.key_dtype, device=self.device)
                 continue
             states[name] = table_lib.create_table(
                 spec.meta(), self._optimizers[name],
-                self._initializers[name], generator=self.generator(name),
+                self._initializers[name], rng=self.table_key(name, rng),
                 device=self.device)
         return states
 

@@ -49,7 +49,8 @@ from .meta import EmbeddingVariableMeta
 from .ops import dedup
 from .ops.init_rows import init_rows as _init_rows_kernel
 from .ops.probe_gather import probe_gather
-from .optim.initializers import Initializer, make_initializer, prng_key
+from .optim.initializers import (Initializer, make_initializer,
+                                 threefry_key)
 from .optim.optimizers import make_optimizer
 from .table import resolve_dtype
 from .utils.device import DeviceLike, resolve_device
@@ -301,16 +302,6 @@ def create_hash_table(meta: EmbeddingVariableMeta,
                           init_rng=threefry_key(rng),
                           insert_failures=torch.zeros(
                               (), dtype=torch.int64, device=device))
-
-
-def threefry_key(rng) -> Tuple[int, int]:
-    """A threefry key as two uint32 ints (``None``: ``PRNGKey(0)``)."""
-    if rng is None:
-        return prng_key(0)
-    words = tuple(int(w) for w in rng)
-    if len(words) != 2 or not all(0 <= w <= _MASK32 for w in words):
-        raise ValueError(f"a threefry key is two uint32 words, got {rng}")
-    return words
 
 
 def init_rows(initializer: Any, base_rng: Tuple[int, int],

@@ -126,14 +126,24 @@ def dense_params_from_flax(module: torch.nn.Module, params: Mapping,
     return out
 
 
+def flax_path(name: str) -> Tuple[str, ...]:
+    """The flax path of the port's parameter ``name``: the module names,
+    then the leaf, a torch ``weight`` as flax's ``kernel``
+    (``"MLP_0.Dense_1.weight"`` -> ``("MLP_0", "Dense_1", "kernel")``), for
+    ``DeepFM``, ``WideDeep`` and ``LogisticRegression``, whose modules keep
+    flax's auto-names."""
+    path = tuple(name.split("."))
+    return path[:-1] + ("kernel",) if path[-1] == "weight" else path
+
+
 def dense_params_to_flax(params: Mapping[str, torch.Tensor]) -> Dict:
     """The port's parameter dict as a flax tree of numpy arrays."""
     tree: Dict = {}
     for name, t in params.items():
-        path = name.split(".")
+        path = flax_path(name)
         arr = tensor_to_numpy(t)
-        if path[-1] == "weight":
-            path, arr = path[:-1] + ["kernel"], np.ascontiguousarray(arr.T)
+        if path[-1] == "kernel":
+            arr = np.ascontiguousarray(arr.T)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -14,20 +14,23 @@ embedding width and the number of dense features. And the parameters keep
 flax's names (``MLP_0.Dense_0``, ``Dense_0``, ``bias``), with a flax
 ``kernel`` ``[in, out]`` stored as the torch ``weight`` ``[out, in]``, so
 ``interop.dense_params_from_flax`` maps one onto the other by name.
-:func:`init_params` draws flax's initial values from a ``torch.Generator``:
-``lecun_normal`` kernels, zero biases.
+:func:`init_params` draws flax's initial values from flax's keys:
+``lecun_normal`` kernels, zero biases, equal to ``module.init``'s.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..embedding import EmbeddingSpec, not_ported
 from ..fused import FUSED_NAME, LINEAR_SUFFIX
+from ..interop import flax_path
+from ..optim.initializers import Normal, flax_param_key
+from ..utils.device import resolve_device
 
 # flax's lecun_normal: the stddev of a normal truncated at +-2 is this
 # fraction of the untruncated one
@@ -199,21 +202,29 @@ def build_model(name: str, feature_names: Sequence[str], **kwargs):
     return MODELS[name](feature_names=tuple(feature_names), **kwargs)
 
 
-def init_params(module: nn.Module, generator: torch.Generator,
-                device=None) -> Dict[str, torch.Tensor]:
-    """Initial values for every parameter of ``module`` by flax's rule,
-    drawn from ``generator`` (on its device) in the order of
-    ``named_parameters`` and placed on ``device``: a linear layer's weight
-    is ``lecun_normal`` (a normal truncated at +-2 standard deviations,
-    ``stddev = sqrt(1 / fan_in) / 0.87962566``), every bias is zero."""
-    gdev = generator.device
+def init_params(module: nn.Module, rng, device=None
+                ) -> Dict[str, torch.Tensor]:
+    """Initial values for every parameter of ``module`` on ``device``, as
+    flax's ``module.init(rng, ...)`` gives them: each linear layer's
+    kernel is ``lecun_normal`` (a normal truncated at +-2, times
+    ``sqrt(1 / fan_in) / 0.87962566``, in float32 as JAX computes it),
+    drawn from the key flax's ``make_rng`` gives the layer's first
+    parameter (:func:`flax_param_key` of its path, ``interop.flax_path``),
+    as a flat ``[in, out]`` array (KI's array mode on the card), and
+    stored transposed as the torch ``weight``; every bias is zero. ``rng``
+    is a threefry key (``prng_key(seed)``); the values do not depend on
+    the device."""
+    device = resolve_device(device)
     out = {}
     for name, p in module.named_parameters():
-        t = torch.zeros(p.shape, dtype=p.dtype, device=gdev)
-        if name.endswith(".weight"):
-            std = math.sqrt(1.0 / p.shape[1]) / _TRUNC_STD
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-            t.mul_(std)
-        out[name] = t.to(device if device is not None else gdev)
+        path = flax_path(name)
+        if path[-1] != "kernel":
+            out[name] = torch.zeros(p.shape, dtype=p.dtype, device=device)
+            continue
+        fan_out, fan_in = p.shape
+        std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(_TRUNC_STD)
+        kernel = Normal(stddev=float(std), truncated=True).init(
+            flax_param_key(rng, path[:-1], 1), (fan_in, fan_out), p.dtype,
+            device)
+        out[name] = kernel.t().contiguous()
     return out

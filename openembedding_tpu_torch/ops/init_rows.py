@@ -1,18 +1,26 @@
-"""Per-key init rows of a hash table: the wrapper of ``csrc/init_rows.cu``
-(KI).
+"""Threefry init rows and arrays: the wrappers of ``csrc/init_rows.cu``
+(KI), in its two modes.
 
-No TPU kernel stands behind it: the JAX package draws these rows in XLA
-(``openembedding_tpu/hash_table.py`` ``init_rows``, a ``jax.vmap`` of the
-initializer over ``jax.random.fold_in`` keys). In the port a missing key
-would cost its 2 + dim threefry blocks as several hundred PyTorch
-operations a call, so the draw is one kernel: for each row whose ``skip``
-flag is clear, the key's threefry key and its row's draws, written in
-place. The pull passes the probe kernel's rows with ``skip = hit | EMPTY
-key``; the push passes the gathered rows with ``skip = ~inserted``.
+No TPU kernel stands behind it: the JAX package draws these values in XLA.
+- Per key (:func:`init_rows`): a hash table's init rows
+  (``openembedding_tpu/hash_table.py`` ``init_rows``, a ``jax.vmap`` of
+  the initializer over ``jax.random.fold_in`` keys). For each row whose
+  ``skip`` flag is clear, the key's threefry key and its row's draws,
+  written in place. The pull passes the probe kernel's rows with ``skip =
+  hit | EMPTY key``; the push the gathered rows with ``skip =
+  ~inserted``.
+- Flat (:func:`init_flat`): a whole array from one key, as
+  ``initializer.init(key, shape, dtype)`` draws it
+  (``openembedding_tpu/optim/initializers.py``, under
+  ``parallel/sharded_table.py``'s per-shard key): element ``i`` of the
+  flattened array from the block of counter ``offset + i``. Array tables
+  and the dense parameters start from it.
 
-Dispatch is by the device the tensors lie on, nothing else: CPU tensors
-take the plain version :func:`init_rows_reference` (the keyed draws of
-``optim/initializers.py``); CUDA tensors launch the kernel or raise.
+In the port each draw would cost its threefry blocks as a few hundred
+PyTorch operations, so it is one kernel. Dispatch is by the device the
+tensors lie on, nothing else: CPU tensors take the plain versions
+(:func:`init_rows_reference`, :func:`init_flat_reference`, on the draws
+of ``optim/initializers.py``); CUDA tensors launch the kernel or raise.
 There is no fallback from one to the other.
 """
 
@@ -23,11 +31,13 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ..optim.initializers import (Initializer, key_words, keyed_params,
-                                  keyed_rows)
+from ..optim.initializers import (Initializer, flat_rows, key_words,
+                                  keyed_params, keyed_rows, threefry_key)
 
 _WORD_BYTES = {torch.float32: 4, torch.bfloat16: 2}
-_fn = None              # the C entry, once built and loaded
+_INDEX_LIMIT = 2**31        # the per-key kernel's 32-bit element indices
+FLAT_LAUNCH = 1 << 30       # elements one flat launch fills at most
+_fns = {}                   # the C entries, once built and loaded
 
 
 def _check(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
@@ -56,7 +66,7 @@ def init_rows_reference(out: torch.Tensor, keys: torch.Tensor,
                         skip: torch.Tensor, base: Sequence[int],
                         kind: int, params: Tuple[float, ...]
                         ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the per-key kernel, on any device."""
     _check(out, keys, skip, base)
     words = key_words((int(base[0]), int(base[1])), keys)
     fresh = keyed_rows(kind, params, words, out.shape[1], out.dtype)
@@ -64,19 +74,57 @@ def init_rows_reference(out: torch.Tensor, keys: torch.Tensor,
     return out
 
 
-def _entry():
-    global _fn
-    if _fn is None:
+def init_flat_reference(out: torch.Tensor, key, offset: int, kind: int,
+                        params: Tuple[float, ...]) -> torch.Tensor:
+    """Plain PyTorch version of the flat kernel, on any device: ``out``
+    (contiguous, any shape) takes elements ``offset ..`` of the flat draw
+    under ``key``, drawn in chunks (``flat_rows``)."""
+    out.view(-1).copy_(flat_rows(kind, params, threefry_key(key),
+                                 int(offset), out.numel(), out.dtype,
+                                 out.device))
+    return out
+
+
+def _entry(name: str, argtypes):
+    fn = _fns.get(name)
+    if fn is None:
         from . import _build
-        fn = _build.load("init_rows").oe_init_rows
-        fn.argtypes = ([ctypes.c_void_p] * 3
-                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
-                       + [ctypes.c_float] * 6
-                       + [ctypes.c_int, ctypes.c_void_p])
+        fn = getattr(_build.load("init_rows"), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+_DRAW_ARGS = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int] \
+    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+_ROWS_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_int] + _DRAW_ARGS
+_FLAT_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64] + _DRAW_ARGS
+
+
+def _launch(fn, device: torch.device, args) -> None:
+    """Call a C entry on the current stream of ``device``; raise if the
+    launch failed."""
+    raw_stream = torch._C._cuda_getCurrentRawStream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, raw_stream(device.index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, raw_stream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"init_rows kernel launch failed: CUDA error "
+                           f"{rc}")
+
+
+def _cuda_out(out: torch.Tensor, what: str) -> None:
+    if out.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {out.device}")
+    if out.dtype not in _WORD_BYTES:
+        raise TypeError(f"{what} kernel writes float32 or bfloat16 values, "
+                        f"not {out.dtype}")
+    if not out.is_contiguous():
+        raise ValueError(f"{what} kernel needs contiguous tensors")
 
 
 def init_rows(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
@@ -88,41 +136,63 @@ def init_rows(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
     ``out`` is ``[n, dim]`` float32 or bfloat16 (any float dtype on the
     CPU); ``keys`` ``[n]`` int32 or ``[n, 2]`` int32 (lo, hi) pairs;
     ``skip`` ``[n]`` bool; ``base`` the table's two threefry key words
-    (``HashTableState.init_rng``). On CUDA all tensors must be contiguous;
-    the kernel launches on the current stream and ``init_rows.launches``
-    counts each launch.
+    (``HashTableState.init_rng``). On CUDA all tensors must be contiguous
+    and ``n * dim < 2^31``; the kernel launches on the current stream and
+    ``init_rows.launches`` counts each launch.
     """
     _check(out, keys, skip, base)
     kind, params = keyed_params(initializer)
-    device = out.device
-    if device.type == "cpu":
+    if out.device.type == "cpu":
         return init_rows_reference(out, keys, skip, base, kind, params)
-    if device.type != "cuda":
-        raise ValueError(f"init_rows runs on cpu or cuda, not {device}")
-    if out.dtype not in _WORD_BYTES:
-        raise TypeError(f"init_rows kernel writes float32 or bfloat16 "
-                        f"rows, not {out.dtype}")
-    if not (out.is_contiguous() and keys.is_contiguous()
-            and skip.is_contiguous()):
+    _cuda_out(out, "init_rows")
+    if not (keys.is_contiguous() and skip.is_contiguous()):
         raise ValueError("init_rows kernel needs contiguous tensors")
     n, dim = out.shape
+    if n * dim >= _INDEX_LIMIT:
+        raise ValueError(f"init_rows kernel indexes in 32 bits: n * dim = "
+                         f"{n * dim} must stay below 2^31")
     if n == 0 or dim == 0:
         return out          # a grid of zero blocks is a launch error
-    args = (keys.data_ptr(), skip.data_ptr(), out.data_ptr(), n, dim,
-            int(keys.dim() == 2), int(base[0]), int(base[1]), kind,
-            *params, _WORD_BYTES[out.dtype])
-    fn = _fn or _entry()
-    raw_stream = torch._C._cuda_getCurrentRawStream
-    if device.index == torch.cuda.current_device():
-        rc = fn(*args, raw_stream(device.index))
-    else:
-        with torch.cuda.device(device):
-            rc = fn(*args, raw_stream(device.index))
-    if rc != 0:
-        raise RuntimeError(f"init_rows kernel launch failed: CUDA error "
-                           f"{rc}")
+    fn = _fns.get("oe_init_rows") or _entry("oe_init_rows", _ROWS_ARGS)
+    _launch(fn, out.device, (
+        keys.data_ptr(), skip.data_ptr(), out.data_ptr(), n, dim,
+        int(keys.dim() == 2), int(base[0]), int(base[1]), kind, *params,
+        _WORD_BYTES[out.dtype]))
     init_rows.launches += 1
     return out
 
 
+def init_flat(out: torch.Tensor, key, offset: int,
+              initializer: Initializer) -> torch.Tensor:
+    """Fill ``out`` (contiguous, any shape) in place with elements
+    ``offset .. offset + out.numel() - 1`` of ``initializer``'s flat draw
+    under the threefry ``key``: with ``offset = 0``, JAX's
+    ``initializer.init(key, out.shape, dtype)``. Returns ``out``.
+
+    ``out`` is float32 or bfloat16 on CUDA (any float dtype on the CPU);
+    bfloat16 values are drawn in float32 and rounded to nearest even. On
+    CUDA one launch fills up to ``FLAT_LAUNCH`` elements on the current
+    stream; ``init_flat.launches`` counts each launch.
+    """
+    k0, k1 = threefry_key(key)
+    offset = int(offset)
+    if offset < 0 or offset + out.numel() > 2**64:
+        raise ValueError(f"flat counter range from {offset} outside "
+                         "[0, 2^64)")
+    kind, params = keyed_params(initializer)
+    if out.device.type == "cpu":
+        return init_flat_reference(out, (k0, k1), offset, kind, params)
+    _cuda_out(out, "init_flat")
+    fn = _fns.get("oe_init_flat") or _entry("oe_init_flat", _FLAT_ARGS)
+    flat, step = out.view(-1), out.element_size()
+    for lo in range(0, flat.numel(), FLAT_LAUNCH):
+        count = min(FLAT_LAUNCH, flat.numel() - lo)
+        _launch(fn, out.device, (
+            flat.data_ptr() + lo * step, count, offset + lo, k0, k1, kind,
+            *params, _WORD_BYTES[out.dtype]))
+        init_flat.launches += 1
+    return out
+
+
 init_rows.launches = 0
+init_flat.launches = 0

@@ -1,19 +1,25 @@
 """Row initializers for embedding tables (``openembedding_tpu/optim/initializers.py``).
 
 ``constant``, ``uniform`` (minval/maxval) and ``normal`` (mean/stddev, with
-the +/-2 stddev truncated variant), with the JAX package's config dicts.
+the +/-2 stddev truncated variant), with the JAX package's config dicts,
+and JAX's key algebra: threefry-2x32, ``PRNGKey``, ``fold_in``, ``split``
+and flax's ``_fold_in_static``, on Python ints and int64 tensors.
 
-Two ways to draw. ``init`` fills a whole array table from an explicit
-``torch.Generator`` on the target device, so a table initializes where it
-lives; those draws do not match ``jax.random``, and tests that compare the
-two packages' array tables copy the initial state over (``interop.py``).
-``keyed_rows`` draws the row of each hash key from its own threefry key,
-as ``jax.vmap(initializer.init)`` over ``jax.random.fold_in`` keys does
-(``hash_table.init_rows``): threefry-2x32 and the float conversions are
-reproduced here, so ``uniform`` and ``constant`` rows equal JAX's bit for
-bit, and ``normal`` rows (XLA's float32 ``erf_inv``, another polynomial
-evaluation order) lie within a few float32 units of them. These keyed
-functions are the plain version of the CUDA kernel in ``ops/init_rows.py``.
+Every draw is JAX's, from a threefry key, so it does not depend on the
+device. Two forms. ``Initializer.init(key, shape, dtype, device)`` fills
+an array as ``jax.random`` fills it from one key
+(``jax_threefry_partitionable``): element ``i`` of the flattened array
+takes the 32 bits ``x0 ^ x1`` of the block of counter ``(i >> 32, i &
+0xffffffff)`` (``flat_draw``, ``flat_rows``). ``keyed_rows`` draws the row
+of each hash key from its own key, as ``jax.vmap(initializer.init)`` over
+``jax.random.fold_in`` keys does (``hash_table.init_rows``): element
+``j`` from the block ``(0, j)``. The float conversions are JAX's, so
+``uniform`` and ``constant`` values equal JAX's bit for bit, and
+``normal`` ones (XLA's float32 ``erf_inv``, another polynomial
+evaluation order) lie within a few float32 units of them. These
+functions are the plain versions of the CUDA kernel in
+``ops/init_rows.py`` (KI), which ``Initializer.init`` launches for a CUDA
+tensor.
 
 torch has no general uint32 arithmetic: threefry runs on int64 tensors
 (or Python ints) holding uint32 values, masked to 32 bits after each add.
@@ -22,12 +28,14 @@ torch has no general uint32 arithmetic: threefry runs on int64 tensors
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import hashlib
+from typing import Any, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.config import coerce_fields
+from ..utils.device import DeviceLike, resolve_device
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -93,6 +101,55 @@ def fold_in(key, data):
     if isinstance(data, torch.Tensor):
         data = data.to(torch.int64)
     return threefry2x32(key[0], key[1], 0, data & _MASK32)
+
+
+def threefry_key(rng) -> Tuple[int, int]:
+    """A threefry key as two uint32 ints (``None``: ``PRNGKey(0)``); takes
+    a pair of ints or any two-word array (a JAX key as numpy)."""
+    if rng is None:
+        return prng_key(0)
+    words = tuple(int(w) for w in rng)
+    if len(words) != 2 or not all(0 <= w <= _MASK32 for w in words):
+        raise ValueError(f"a threefry key is two uint32 words, got {rng}")
+    return words
+
+
+def split(key, n: int = 2) -> Tuple[Tuple[int, int], ...]:
+    """``jax.random.split(key, n)`` with ``jax_threefry_partitionable``:
+    key ``i`` is the block of counter ``(0, i)`` under ``key``."""
+    k0, k1 = threefry_key(key)
+    return tuple(threefry2x32(k0, k1, 0, i) for i in range(n))
+
+
+def fold_in_static(key, path: Sequence[Any]) -> Tuple[int, int]:
+    """flax's ``_fold_in_static`` (``flax/core/scope.py``, with
+    ``flax_fix_rng_separator`` off, flax's default): the SHA-1 of the
+    path's parts, strings as UTF-8 and ints as their shortest big-endian
+    bytes, with no separator; its first 4 bytes, big-endian, folded into
+    ``key``. An empty path returns ``key``."""
+    key = threefry_key(key)
+    if not path:
+        return key
+    h = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            h.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            h.update(x.to_bytes((x.bit_length() + 7) // 8, "big"))
+        else:
+            raise ValueError(f"expected int or str, got {x!r}")
+    return fold_in(key, int.from_bytes(h.digest()[:4], "big"))
+
+
+def flax_param_key(rng, scope: Sequence[str], index: int) -> Tuple[int, int]:
+    """The key flax's ``make_rng("params")`` gives the ``index``-th
+    parameter (1-based) a module creates in scope ``scope`` under
+    ``module.init(rng, ...)``: each child scope appends its name to the
+    root key's lazy suffix (``LazyRng.create``), each ``make_rng`` in a
+    scope appends that scope's counter, and the suffix is folded in at
+    once (``fold_in_static``). A flax ``Dense`` creates its ``kernel``
+    first (index 1), then its ``bias`` (index 2)."""
+    return fold_in_static(rng, tuple(scope) + (int(index),))
 
 
 def random_bits(words: torch.Tensor, dim: int) -> torch.Tensor:
@@ -181,6 +238,19 @@ def keyed_params(initializer: "Initializer"
     raise TypeError(f"no keyed draw for {type(initializer).__name__}")
 
 
+def _draw(kind: int, params, bits: torch.Tensor) -> torch.Tensor:
+    """float32 values from 32 random bits each (int64 holding uint32), as
+    the initializer's ``jax.random`` call converts them; not for
+    ``CONSTANT``."""
+    x = _uniform(bits, params[0], params[1])
+    if kind == UNIFORM:
+        return x
+    x = erfinv32(x) * float(_SQRT2)
+    if kind == TRUNCATED:
+        x = torch.clamp(x, params[4], params[5])
+    return x * params[2] + params[3]
+
+
 def keyed_rows(kind: int, params, words: torch.Tensor, dim: int,
                dtype: torch.dtype) -> torch.Tensor:
     """``[n, dim]`` rows of ``dtype`` from ``[n, 2]`` key words (int64
@@ -191,27 +261,67 @@ def keyed_rows(kind: int, params, words: torch.Tensor, dim: int,
     if kind == CONSTANT:
         return torch.full((n, dim), params[0], dtype=torch.float32,
                           device=words.device).to(dtype)
-    x = _uniform(random_bits(words, dim), params[0], params[1])
-    if kind == UNIFORM:
-        return x.to(dtype)
-    x = erfinv32(x) * float(_SQRT2)
-    if kind == TRUNCATED:
-        x = torch.clamp(x, params[4], params[5])
-    return (x * params[2] + params[3]).to(dtype)
+    return _draw(kind, params, random_bits(words, dim)).to(dtype)
+
+
+def flat_draw(kind: int, params, key, index: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The elements at flat positions ``index`` (int64, >= 0, any shape)
+    of an array that ``init.init(key, shape, dtype)`` fills in JAX:
+    element ``i`` from the block of counter ``(i >> 32, i & 0xffffffff)``
+    under ``key``. Same shape as ``index``, of ``dtype`` (drawn in
+    float32, then rounded)."""
+    if kind == CONSTANT:
+        return torch.full(index.shape, params[0], dtype=torch.float32,
+                          device=index.device).to(dtype)
+    k0, k1 = threefry_key(key)
+    index = index.to(torch.int64)
+    y0, y1 = threefry2x32(k0, k1, index >> 32, index & _MASK32)
+    return _draw(kind, params, y0 ^ y1).to(dtype)
+
+
+FLAT_CHUNK = 1 << 22     # elements a chunk of the plain flat draw
+
+
+def flat_rows(kind: int, params, key, offset: int, count: int,
+              dtype: torch.dtype, device: DeviceLike = "cpu",
+              chunk: int = FLAT_CHUNK) -> torch.Tensor:
+    """Elements ``offset .. offset + count - 1`` of the flat draw under
+    ``key``, ``[count]`` of ``dtype`` on ``device``: the plain version of
+    KI's array mode. It draws ``chunk`` elements at a time, so its int64
+    work tensors stay at ``chunk`` elements whatever ``count`` is; a chunk
+    boundary may fall anywhere, mid-row too."""
+    out = torch.empty(count, dtype=dtype, device=device)
+    for lo in range(0, count, chunk):
+        hi = min(count, lo + chunk)
+        idx = torch.arange(offset + lo, offset + hi, dtype=torch.int64,
+                           device=out.device)
+        out[lo:hi] = flat_draw(kind, params, key, idx, dtype)
+    return out
 
 
 # --- the initializers -----------------------------------------------------------
 
 class Initializer:
-    """Base class. ``init(generator, shape, dtype, device)`` fills an array
-    table; ``keyed_rows(*keyed_params(init), words, dim, dtype)`` draws one
-    row per threefry key."""
+    """Base class. ``init(key, shape, dtype, device)`` draws an array from
+    a threefry key as JAX's ``init`` does; ``keyed_rows(*keyed_params(
+    init), words, dim, dtype)`` draws one row per threefry key."""
 
     category: str = ""
 
-    def init(self, generator: Optional[torch.Generator], shape,
-             dtype: torch.dtype, device) -> torch.Tensor:
-        raise NotImplementedError
+    def init(self, key, shape, dtype: torch.dtype,
+             device: DeviceLike = None) -> torch.Tensor:
+        """``jax``'s ``initializer.init(key, shape, dtype)``, the same values
+        on any device: through KI's array mode for a CUDA array, its plain
+        version on the CPU. Types other than float32 and bfloat16 are
+        drawn in float32 and converted, as JAX's ``astype``."""
+        from ..ops.init_rows import init_flat
+        store = dtype if dtype in (torch.float32, torch.bfloat16) \
+            else torch.float32
+        out = torch.empty(tuple(shape), dtype=store,
+                          device=resolve_device(device))
+        init_flat(out, key, 0, self)
+        return out if store == dtype else out.to(dtype)
 
     def to_config(self) -> dict:
         out = {"category": self.category}
@@ -224,21 +334,12 @@ class Constant(Initializer):
     value: float = 0.0
     category = "constant"
 
-    def init(self, generator, shape, dtype, device):
-        del generator
-        return torch.full(shape, self.value, dtype=dtype, device=device)
-
 
 @dataclasses.dataclass(frozen=True)
 class Uniform(Initializer):
     minval: float = -1.0
     maxval: float = 1.0
     category = "uniform"
-
-    def init(self, generator, shape, dtype, device):
-        x = torch.empty(shape, dtype=torch.float32, device=device)
-        x.uniform_(self.minval, self.maxval, generator=generator)
-        return x.to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,15 +348,6 @@ class Normal(Initializer):
     stddev: float = 1.0
     truncated: bool = False
     category = "normal"
-
-    def init(self, generator, shape, dtype, device):
-        x = torch.empty(shape, dtype=torch.float32, device=device)
-        if self.truncated:
-            torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
-                                        generator=generator)
-        else:
-            x.normal_(0.0, 1.0, generator=generator)
-        return (x * self.stddev + self.mean).to(dtype)
 
 
 _REGISTRY = {

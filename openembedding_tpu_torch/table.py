@@ -53,23 +53,22 @@ def create_table(meta: EmbeddingVariableMeta,
                  optimizer: Any,
                  initializer: Any = None,
                  *,
-                 generator: Optional[torch.Generator] = None,
+                 rng=None,
                  capacity: Optional[int] = None,
                  device: DeviceLike = None) -> TableState:
     """Materialize a table (weights initialized, slots at their init value)
-    on ``device`` (cuda unless named). ``generator`` must live on that
-    device; None draws from a fresh generator seeded 0."""
+    on ``device`` (cuda unless named). ``rng``: the threefry key the
+    weights are drawn from (two uint32 words; None: ``PRNGKey(0)``), as
+    JAX's ``create_table(rng=)`` draws them, so the table is the same on
+    every device."""
     device = resolve_device(device)
     optimizer = make_optimizer(optimizer)
     initializer = make_initializer(initializer or DEFAULT_INITIALIZER)
     if capacity is None:
         capacity = meta.vocabulary_size
-    if generator is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(0)
     dtype = resolve_dtype(meta)
-    weights = initializer.init(generator, (capacity, meta.embedding_dim),
-                               dtype, device)
+    weights = initializer.init(rng, (capacity, meta.embedding_dim), dtype,
+                               device)
     slots = optimizer.init_slots(capacity, meta.embedding_dim, dtype, device)
     return TableState(weights=weights, slots=slots)
 

@@ -32,6 +32,7 @@ from torch.func import functional_call
 
 from .embedding import EmbeddingCollection, not_ported
 from .models.deepctr import init_params
+from .optim.initializers import split
 
 
 @dataclasses.dataclass
@@ -123,21 +124,25 @@ class Trainer:
         self.model_uuid = uuid.uuid4().hex[:12]
 
     # --- initialization ----------------------------------------------------
-    def init(self, generator: torch.Generator,
-             sample_batch: Dict[str, Any]) -> TrainState:
-        """Dense parameters drawn from ``generator`` by flax's rule
-        (``models.deepctr.init_params``), the dense optimizer's state and
-        every embedding table (from the collection's seed). The sample
+    def init(self, rng, sample_batch: Dict[str, Any]) -> TrainState:
+        """Dense parameters, the dense optimizer's state and every
+        embedding table, from the threefry key ``rng`` (``prng_key(seed)``)
+        as JAX's ``Trainer.init(rng, batch)`` draws them: ``rng`` splits
+        into the tables' key and the dense key (``split``), the tables
+        come from ``collection.init(emb_rng)`` and the dense parameters
+        from flax's keys under the dense key (``models.deepctr.
+        init_params``). The same values on every device. The sample
         batch's sparse columns must be the collection's."""
         unknown = set(sample_batch["sparse"]) - set(self.collection.specs)
         if unknown:
             raise ValueError(f"batch columns {sorted(unknown)} are not in "
                              "the collection")
-        params = init_params(self.module, generator, self.device)
+        emb_rng, dense_rng = split(rng)
+        params = init_params(self.module, dense_rng, self.device)
         return TrainState(
             step=torch.zeros((), dtype=torch.int64, device=self.device),
             params=params, opt_state=self.tx.init(params),
-            emb=self.collection.init())
+            emb=self.collection.init(emb_rng))
 
     # --- steps ---------------------------------------------------------------
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:

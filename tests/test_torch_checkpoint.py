@@ -476,6 +476,7 @@ def test_trained_port_tables_load_in_jax(devices8, tmp_path):
     from openembedding_tpu_torch.fused import make_fused_specs
     from openembedding_tpu_torch.models import deepctr as tm
     from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.optim.initializers import prng_key
     specs, mapper = make_fused_specs(criteo.SPARSE_NAMES, 64, 4,
                                      optimizer=ADAGRAD)
     coll = EmbeddingCollection(specs, device="cpu")
@@ -484,7 +485,7 @@ def test_trained_port_tables_load_in_jax(devices8, tmp_path):
                        dnn_units=(16, 8)), coll, dense.adagrad(0.01))
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         32, num_buckets=64, seed=4, num_batches=3)]
-    state = trainer.init(torch.Generator().manual_seed(0), batches[0])
+    state = trainer.init(prng_key(0), batches[0])
     state, _ = trainer.fit(state, batches)
     path = str(tmp_path / "trained")
     tck.save_checkpoint(path, coll, state.emb, model_sign="t-3")

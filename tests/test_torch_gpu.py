@@ -20,6 +20,7 @@ from openembedding_tpu_torch import hash_table as th
 from openembedding_tpu_torch.meta import EmbeddingVariableMeta
 from openembedding_tpu_torch.ops import gather as tg
 from openembedding_tpu_torch.ops import probe_gather as tp
+from openembedding_tpu_torch.optim.initializers import prng_key
 
 EMPTY = -2**31
 
@@ -278,8 +279,7 @@ def test_train_step_on_card_matches_cpu_without_host_sync():
     cpu, _ = _tiny_trainer("cpu")
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         512, num_buckets=1000, seed=0, num_batches=4)]
-    gstate = gpu.init(torch.Generator(device="cuda").manual_seed(0),
-                      batches[0])
+    gstate = gpu.init(prng_key(0), batches[0])
     gstate, _ = gpu.train_step(gstate, batches[3])     # warm: builds K1
     torch.cuda.synchronize()
     cstate = tr.copy_state(gstate, "cpu")
@@ -368,6 +368,110 @@ def test_init_rows_kernel_matches_plain():
                         assert bool((out[skip] == 3.0).all())
 
 
+@pytest.mark.gpu
+def test_init_rows_kernel_warp_edges():
+    """KI per key at its warp's edges: n around one warp (31, 32, 33) and
+    not a multiple of a block, every row skipped, none skipped, one row
+    filled a warp; dims 1 and 9 (their own instances) and 5 and 300 (the
+    general one)."""
+    _need_card()
+    from openembedding_tpu_torch.ops import init_rows as ki
+    from openembedding_tpu_torch.optim import initializers as ti
+    rng = np.random.RandomState(6)
+    inits = [{"category": "uniform", "minval": -1e-3, "maxval": 1e-3},
+             {"category": "constant", "value": 0.1},
+             {"category": "normal", "truncated": True, "stddev": 0.5}]
+    for n in (31, 32, 33, 4099):
+        keys = torch.from_numpy(rng.randint(-2**31, 2**31, (n, 2),
+                                            dtype=np.int64)
+                                .astype(np.int32)).cuda()
+        lone = torch.ones(n, dtype=torch.bool, device="cuda")
+        lone[::32] = False
+        skips = [torch.ones(n, dtype=torch.bool, device="cuda"),
+                 torch.zeros(n, dtype=torch.bool, device="cuda"), lone]
+        for dim in (1, 9, 5, 300):
+            for skip in skips:
+                for cfg in inits:
+                    init = ti.make_initializer(cfg)
+                    kind, params = ti.keyed_params(init)
+                    out = torch.full((n, dim), 3.0, device="cuda")
+                    ref = out.clone()
+                    ki.init_rows(out, keys, skip, (3, 4), init)
+                    ki.init_rows_reference(ref, keys, skip, (3, 4), kind,
+                                           params)
+                    torch.cuda.synchronize()
+                    assert _ki_within(out, ref, kind,
+                                      cfg.get("stddev", 1.0)), (n, dim, cfg)
+
+
+@pytest.mark.gpu
+def test_init_flat_kernel_matches_plain():
+    """KI's array mode against its plain version: the four draws, float32
+    and bfloat16, counts that are and are not multiples of 4, an array
+    that is not 16-byte aligned (scalar stores), counters that cross
+    2^32 and end at ``fields``' last element; one launch a call."""
+    _need_card()
+    from openembedding_tpu_torch.ops import init_rows as ki
+    from openembedding_tpu_torch.optim import initializers as ti
+    inits = [{"category": "uniform", "minval": -1e-3, "maxval": 1e-3},
+             {"category": "constant", "value": 0.1},
+             {"category": "normal", "stddev": 1e-4},
+             {"category": "normal", "truncated": True, "stddev": 0.5,
+              "mean": 0.1}]
+    for count, offset in ((1, 0), (5, 0), (4097, 0), (36864, 0),
+                          (4099, 2**32 - 7), (36864, 245_329_920)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                for cfg in inits:
+                    init = ti.make_initializer(cfg)
+                    kind, params = ti.keyed_params(init)
+                    buf = torch.zeros(count + 1, dtype=dtype, device="cuda")
+                    out = buf[:count] if aligned else buf[1:]
+                    before = ki.init_flat.launches
+                    ki.init_flat(out, (9, 2**31 + 1), offset, init)
+                    want = ti.flat_rows(kind, params, (9, 2**31 + 1),
+                                        offset, count, dtype, "cuda")
+                    torch.cuda.synchronize()
+                    assert ki.init_flat.launches == before + 1
+                    assert _ki_within(out, want, kind,
+                                      cfg.get("stddev", 1.0)), \
+                        (count, offset, dtype, aligned, cfg)
+
+
+@pytest.mark.gpu
+def test_trainer_init_same_on_card_and_cpu():
+    """``Trainer.init(prng_key(0), batch)`` on the card and on the CPU
+    hold the same state with nothing copied: dense parameters and array
+    tables within the ``erf_inv`` bound (the ``:linear`` table and the
+    slots exactly), and the hash tables' init keys."""
+    _need_card()
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.optim import initializers as ti
+    for build in (_tiny_trainer, _tiny_hash_trainer):
+        gpu, mapper = build("cuda")
+        cpu, _ = build("cpu")
+        batch = mapper.fuse_batch(next(criteo.synthetic_criteo(
+            64, num_buckets=1000, seed=0)))
+        g = gpu.init(prng_key(0), batch)
+        c = cpu.init(prng_key(0), batch)
+        for k, v in c.params.items():
+            stddev = (1.0 / v.shape[1]) ** 0.5 / 0.87962566103423978 \
+                if v.dim() == 2 else 1.0
+            kind = ti.TRUNCATED if v.dim() == 2 else ti.CONSTANT
+            assert _ki_within(g.params[k].cpu(), v, kind, stddev), k
+        for n, cs in c.emb.items():
+            gs = g.emb[n]
+            if hasattr(cs, "init_rng"):
+                assert gs.init_rng == cs.init_rng
+                continue
+            init = gpu.collection.initializer(n)
+            kind, _ = ti.keyed_params(init)
+            assert _ki_within(gs.weights.cpu(), cs.weights, kind,
+                              getattr(init, "stddev", 1.0)), n
+            for s, v in cs.slots.items():
+                assert torch.equal(gs.slots[s].cpu(), v)
+
+
 def _tiny_hash_trainer(device):
     from openembedding_tpu_torch import training as tr
     from openembedding_tpu_torch.data import criteo
@@ -403,8 +507,7 @@ def test_hash_train_step_on_card_matches_cpu_without_host_sync():
     cpu, _ = _tiny_hash_trainer("cpu")
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         512, num_buckets=1 << 12, seed=0, num_batches=4)]
-    gstate = gpu.init(torch.Generator(device="cuda").manual_seed(0),
-                      batches[0])
+    gstate = gpu.init(prng_key(0), batches[0])
     gstate, _ = gpu.train_step(gstate, batches[3])   # warm: builds kernels
     torch.cuda.synchronize()
     cstate = tr.copy_state(gstate, "cpu")

@@ -45,6 +45,7 @@ from openembedding_tpu_torch.embedding import EmbeddingCollection
 from openembedding_tpu_torch.fused import make_fused_specs
 from openembedding_tpu_torch.models import deepctr as tm
 from openembedding_tpu_torch.optim import dense
+from openembedding_tpu_torch.optim import initializers as ti
 
 EMPTY = -2**31
 DEFAULT_INIT = {"category": "uniform", "minval": -1e-3, "maxval": 1e-3}
@@ -312,10 +313,11 @@ def test_collection_init_key_is_jax_rule(devices8):
 
 
 def test_checkpoint_round_trip_trains_on(devices8, tmp_path):
-    """Train, save, load into a fresh collection, train on: the loaded
-    state steps exactly as the saved one does, and the loaded tables hold
-    JAX's keys and draw JAX's init rows for keys the checkpoint lacks
-    (JAX's ``load_checkpoint`` of the same directory)."""
+    """Train, save, load into a fresh collection under the trainer's
+    table key, train on: the loaded state steps exactly as the saved one
+    does, and the loaded tables hold JAX's keys and draw JAX's init rows
+    for keys the checkpoint lacks (JAX's ``load_checkpoint`` of the same
+    directory, with the same key)."""
     specs, mapper = make_fused_specs(criteo.SPARSE_NAMES, -1, DIM,
                                      hash_capacity=CAPACITY * 4,
                                      optimizer=OPT)
@@ -326,20 +328,22 @@ def test_checkpoint_round_trip_trains_on(devices8, tmp_path):
                          dense.adagrad(0.01))
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         BATCH, num_buckets=VOCAB, seed=2, num_batches=6)]
-    state = trainer.init(torch.Generator().manual_seed(0), batches[0])
+    state = trainer.init(ti.prng_key(0), batches[0])
     for b in batches[:3]:
         state, _ = trainer.train_step(state, b)
     path = str(tmp_path / "ckpt")
     tckpt.save_checkpoint(path, trainer.collection, state.emb)
     loaded = tr.copy_state(state, "cpu")
     fresh = EmbeddingCollection(specs, device="cpu")
-    loaded = dataclasses.replace(loaded,
-                                 emb=tckpt.load_checkpoint(path, fresh))
+    # the trainer's tables took the first half of its key (``split``)
+    loaded = dataclasses.replace(loaded, emb=tckpt.load_checkpoint(
+        path, fresh, rng=ti.split(ti.prng_key(0))[0]))
 
     mesh = create_mesh(1, 1, devices8[:1])
     jspecs, _ = jax_fused_specs(criteo.SPARSE_NAMES, -1, DIM,
                                 hash_capacity=CAPACITY * 4, optimizer=OPT)
-    jemb = jckpt.load_checkpoint(path, JaxCollection(jspecs, mesh))
+    jemb = jckpt.load_checkpoint(path, JaxCollection(jspecs, mesh),
+                                 rng=jax.random.split(jax.random.PRNGKey(0))[0])
     new_keys = batches[4]["sparse"]
     for name, js in jemb.items():
         np.testing.assert_array_equal(loaded.emb[name].keys.numpy(),

@@ -1,8 +1,11 @@
-"""Torch port, per-key init rows: threefry-2x32, ``prng_key`` and
-``fold_in`` (``optim/initializers.py``) against ``jax.random``, and the
-keyed draws (``keyed_rows``, the plain version of the
-init-rows kernel ``ops/init_rows.py``) against the JAX package's
-``hash_table.init_rows`` on the same keys and base key.
+"""Torch port, init rows and arrays: threefry-2x32, ``prng_key`` and
+``fold_in`` (``optim/initializers.py``) against ``jax.random``; the
+keyed draws (``keyed_rows``, the plain version of the init-rows kernel's
+per-key mode, ``ops/init_rows.py``) against the JAX package's
+``hash_table.init_rows`` on the same keys and base key; and the flat
+draws (``flat_rows``, the plain version of its array mode, behind
+``Initializer.init``) against ``jax.jit(initializer.init)`` on the same
+key, whole and in chunks that split rows.
 
 ``uniform`` and ``constant`` rows are bit-identical, float32 and
 bfloat16. ``normal`` and truncated ``normal`` rows pass through XLA's
@@ -153,3 +156,63 @@ def test_init_rows_op_refuses_bad_arguments():
     with pytest.raises(ValueError, match="uint32"):
         tops.init_rows(out, torch.zeros(4, dtype=torch.int32), skip,
                        (0, 2**32), init)
+
+
+def _jax_table(cfg, key, shape, jdt):
+    fn = jax.jit(lambda k: ji.make_initializer(cfg).init(k, shape, jdt))
+    return np.asarray(fn(jnp.asarray(key, jnp.uint32)).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(INITIALIZERS))
+def test_initializer_init_matches_jax(name, dtype):
+    """``Initializer.init(key, shape, dtype)`` on the CPU (the plain flat
+    draw) against JAX's jitted ``init`` on the same key: every draw,
+    float32 and bfloat16 (bfloat16 uniform and constant exact too)."""
+    cfg = INITIALIZERS[name]
+    jdt, tdt = DTYPES[dtype]
+    key = ti.fold_in(ti.fold_in(ti.prng_key(3), 2), 0)
+    want = _jax_table(cfg, key, (300, 9), jdt)
+    got = ti.make_initializer(cfg).init(key, (300, 9), tdt, "cpu")
+    assert got.dtype == tdt and got.shape == (300, 9)
+    _assert_rows(name, cfg, got.float().numpy(), want, tdt)
+
+
+@pytest.mark.parametrize("name", ["default", "normal", "truncated"])
+def test_flat_rows_in_chunks_split_rows(name):
+    """A range of rows drawn from its flat offset, in chunks of 1000
+    elements (a boundary mid-row at dim 9), equals those rows of JAX's
+    whole table."""
+    cfg = INITIALIZERS[name]
+    key = ti.prng_key(11)
+    want = _jax_table(cfg, key, (400, 9), jnp.float32)
+    kind, params = ti.keyed_params(ti.make_initializer(cfg))
+    got = ti.flat_rows(kind, params, key, 100 * 9, 250 * 9, torch.float32,
+                       chunk=1000)
+    _assert_rows(name, cfg, got.reshape(250, 9).numpy(), want[100:350],
+                 torch.float32)
+    whole = ti.flat_rows(kind, params, key, 0, 400 * 9, torch.float32)
+    assert torch.equal(whole.reshape(400, 9)[100:350], got.reshape(250, 9))
+
+
+def test_init_flat_op_contract():
+    """The flat kernel's contract on its plain version: ``out`` of any
+    shape takes elements ``offset ..`` of the draw; counters past 2^32
+    use the block's high word; a negative offset or a bad key raises."""
+    init = ti.make_initializer(INITIALIZERS["default"])
+    kind, params = ti.keyed_params(init)
+    key = ti.prng_key(4)
+    out = torch.empty(6, 5)
+    assert tops.init_flat(out, key, 7, init) is out
+    want = ti.flat_rows(kind, params, key, 7, 30, torch.float32)
+    assert torch.equal(out.reshape(-1), want)
+    hi = torch.empty(3)
+    tops.init_flat(hi, key, 2**32 + 5, init)
+    y0, y1 = ti.threefry2x32(key[0], key[1], torch.tensor([1, 1, 1]),
+                             torch.tensor([5, 6, 7]))
+    assert torch.equal(hi, ti._draw(kind, params, y0 ^ y1))
+    with pytest.raises(ValueError, match="outside"):
+        tops.init_flat(out, key, -1, init)
+    with pytest.raises(ValueError, match="uint32"):
+        tops.init_flat(out, (0, 2**32), 0, init)
+    tops.init_flat(torch.empty(0, 9), key, 0, init)

@@ -20,6 +20,7 @@ from openembedding_tpu.models import deepctr as jax_models
 from openembedding_tpu_torch import interop
 from openembedding_tpu_torch import training as tr
 from openembedding_tpu_torch.models import deepctr as tm
+from openembedding_tpu_torch.optim import initializers as ti
 
 FEATURES = ("C1", "C2", "C3", "C4")
 DIM, NUM_DENSE, BATCH = 4, 13, 32
@@ -115,7 +116,9 @@ def test_forward_and_grads_match_flax(name, fused):
 def test_param_names_and_init_follow_flax():
     """Flax's names, kernels transposed, and flax's initial-value rule:
     lecun_normal kernels (truncated at 2 standard deviations of
-    sqrt(1/fan_in)/0.8796), zero biases, one draw per generator seed."""
+    sqrt(1/fan_in)/0.8796) drawn from flax's keys, so equal to JAX's
+    ``module.init`` within the ``erf_inv`` bound, zero biases, one draw
+    per key."""
     jmod, tmod, _ = _pair("deepfm")
     rng = np.random.RandomState(0)
     jrows = {k: jnp.asarray(v, jnp.float32)
@@ -128,15 +131,20 @@ def test_param_names_and_init_follow_flax():
         {k: v.detach() for k, v in tmod.named_parameters()}))[0]
     assert {".".join(str(getattr(k, "key", k)) for k in path): v.shape
             for path, v in got} == want
-    g = torch.Generator().manual_seed(5)
-    p1 = tm.init_params(tmod, g)
-    p2 = tm.init_params(tmod, torch.Generator().manual_seed(5))
+    # the port draws flax's values from flax's keys: equal to JAX's
+    # module.init(PRNGKey(0)) within the erf_inv bound
+    p1 = tm.init_params(tmod, ti.prng_key(0), "cpu")
+    p2 = tm.init_params(tmod, ti.prng_key(0), "cpu")
+    jp = interop.dense_params_from_flax(tmod, jparams, "cpu")
     for k, v in p1.items():
         assert torch.equal(v, p2[k])
         if k.endswith("weight"):
             std = math.sqrt(1.0 / v.shape[1]) / 0.87962566103423978
             assert float(v.abs().max()) <= 2 * std + 1e-6
-            assert 0.5 * std < float(v.std()) < 1.5 * std
+            bound = 2.0**-21 * (jp[k].abs() + std)
+            assert bool(((v - jp[k]).abs() <= bound).all())
+            if v.numel() >= 256:      # the sample's spread means something
+                assert 0.5 * std < float(v.std()) < 1.5 * std
         else:
             assert torch.equal(v, torch.zeros_like(v))
     with pytest.raises(NotImplementedError, match="xDeepFM and DCN"):

@@ -100,26 +100,26 @@ def test_optimizer_categories():
 
 
 def test_initializers_range_moments_and_determinism():
-    g = torch.Generator().manual_seed(7)
+    key = ti.prng_key(7)
     u = ti.make_initializer({"category": "uniform", "minval": -0.5,
-                             "maxval": 0.25}).init(g, (4000,),
+                             "maxval": 0.25}).init(key, (4000,),
                                                    torch.float32, "cpu")
     assert float(u.min()) >= -0.5 and float(u.max()) < 0.25
     n = ti.make_initializer({"category": "normal", "mean": 1.0,
                              "stddev": 2.0}).init(
-        torch.Generator().manual_seed(7), (20000,), torch.float32, "cpu")
+        ti.prng_key(7), (20000,), torch.float32, "cpu")
     assert abs(float(n.mean()) - 1.0) < 0.1
     assert abs(float(n.std()) - 2.0) < 0.1
     tn = ti.make_initializer({"category": "normal", "truncated": "true"}
-                             ).init(g, (4000,), torch.bfloat16, "cpu")
+                             ).init(key, (4000,), torch.bfloat16, "cpu")
     assert tn.dtype == torch.bfloat16 and float(tn.abs().max()) <= 2.0
     c = ti.make_initializer("constant").init(None, (3, 2), torch.float32,
                                              "cpu")
     assert torch.equal(c, torch.zeros(3, 2))
-    a = ti.make_initializer("normal").init(torch.Generator().manual_seed(1),
-                                           (8,), torch.float32, "cpu")
-    b = ti.make_initializer("normal").init(torch.Generator().manual_seed(1),
-                                           (8,), torch.float32, "cpu")
+    a = ti.make_initializer("normal").init(ti.prng_key(1), (8,),
+                                           torch.float32, "cpu")
+    b = ti.make_initializer("normal").init(ti.prng_key(1), (8,),
+                                           torch.float32, "cpu")
     assert torch.equal(a, b)
     with pytest.raises(ValueError, match="known"):
         ti.make_initializer("xavier")

@@ -31,6 +31,7 @@ from openembedding_tpu_torch.embedding import EmbeddingCollection
 from openembedding_tpu_torch.fused import make_fused_specs
 from openembedding_tpu_torch.models import deepctr as tm
 from openembedding_tpu_torch.optim import dense
+from openembedding_tpu_torch.optim import initializers as ti
 
 VOCAB, DIM, BATCH, STEPS = 64, 4, 32, 5
 UNITS = (16, 8)
@@ -165,7 +166,7 @@ def _tiny_trainer():
 def test_fit_logs_and_model_sign():
     trainer, mapper = _tiny_trainer()
     batches = _batches(mapper, 4, seed=1)
-    state = trainer.init(torch.Generator().manual_seed(0), batches[0])
+    state = trainer.init(ti.prng_key(0), batches[0])
     logs = []
     state, last = trainer.fit(state, batches, log_every=2,
                               log_fn=logs.append)
@@ -175,7 +176,7 @@ def test_fit_logs_and_model_sign():
     uuid, step = trainer.model_sign(state).rsplit("-", 1)
     assert step == "4" and len(uuid) == 12
     with pytest.raises(ValueError, match="not in the collection"):
-        trainer.init(torch.Generator(), {"sparse": {"nope": np.zeros(2)}})
+        trainer.init(ti.prng_key(0), {"sparse": {"nope": np.zeros(2)}})
 
 
 @pytest.mark.parametrize("call,item", [
