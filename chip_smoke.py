@@ -54,14 +54,23 @@ Phases, in order; any failure raises and the run exits nonzero:
    constant exactly, normal ones within ``2^-21 * (|want| + stddev)``),
    and its first step's loss the CPU's from those values within 1e-6;
    its initial state copied to a trainer on
-   the CPU (the plain K1); 4 steps on each must agree (losses rtol 1e-4;
-   touched rows, slots, dense parameters and accumulators atol 1e-5 +
-   rtol 1e-4; a seeded sample of 2^20 untouched ids bit-identical to the
-   initial state); K1 must launch exactly twice a card step; then the
-   training throughput (median of 5 timed blocks of 20 steps), each
+   the CPU (the plain K1); 4 captured steps on the card (``train_step``:
+   the first builds the step program, a CUDA graph, its warm-up being the
+   first step; the others replay it) and 4 on the CPU must agree (losses
+   rtol 1e-4; touched rows, slots, dense parameters and accumulators atol
+   1e-5 + rtol 1e-4; a seeded sample of 2^20 untouched ids bit-identical
+   to the initial state); the program's build seconds and the memory its
+   capture reserved; 4 captured steps equal 4 eager ones
+   (``train_step_eager``) from one state bit for bit
+   (``captured_against_eager``: under deterministic algorithms if two
+   eager runs differ); K1 must launch exactly twice a card step, replays
+   counted; then the throughput of the captured and the eager step (5
+   timed blocks of 20 steps of each, in turns; the median block), each
    stage timed alone (pull, dense, push), a ``torch.profiler`` trace of
-   20 steps (device busy share, launches a step, top device operations,
-   longest idle gaps), the trained tables saved, loaded through
+   20 replayed steps (device busy share, operations and graph launches a
+   step, top device operations, longest idle gaps, idle time by what the
+   host was doing, and K1's launches a step in the trace equal to its
+   counter's), the trained tables saved, loaded through
    ``POST /models`` and served back exactly, and KI's array mode held
    against its plain version (``phase_ki_flat``: the whole ``fields``
    table in one launch, checked in three row ranges, those ranges drawn
@@ -74,26 +83,44 @@ Phases, in order; any failure raises and the run exits nonzero:
    SEED), batch)``; with nothing copied, its dense parameters, hash init
    keys and empty keys arrays equal a CPU trainer's ``init`` from the same
    key, and the two first steps' losses agree within 1e-6; its initial
-   state copied to a CPU trainer; 4 steps on each must agree (the keys arrays and
+   state copied to a CPU trainer; 4 captured steps on the card and 4 on
+   the CPU must agree (the keys arrays and
    insert-failure counts bit-identical; losses rtol 1e-4; every stored
    key's row and slots atol 1e-5 + rtol 1e-4, and its change from its
    init row within ``change_ratio``'s limit, the check shown to flag
-   simulated push faults; free slots still zero); 3 steps that insert
+   simulated push faults; free slots still zero); 4 inserting captured
+   steps equal 4 eager ones bit for bit, keys arrays and failure counts
+   too; 3 eager steps that insert
    keys under ``torch.cuda.set_sync_debug_mode("error")``; the init-rows
    kernel KI held against its plain version on the main path's pulls and
    edges (exact for uniform and constant draws, normal ones within
    ``2^-21 * (|want| + stddev)``), timed beside its bound (the larger of
    bytes over 3.35 TB/s and its threefry and draw operations over the
    instruction rate, 128 lane operations a clock an SM); K2 launched exactly
-   2 and KI 4 times a step; the throughput on ``bench.py``'s 8 cycled
-   batches and on batches the tables have not seen (the open key space,
-   with the keys inserted a step), the stages alone on unseen batches
-   (pull, dense, push, and the push's dedup, insert and update), a
-   ``torch.profiler`` trace of 20 unseen-batch steps, keys inserted and
-   the load factor, and the trained tables served back exactly;
+   2 and KI 4 times a step; the throughput of the captured and the eager
+   step on ``bench.py``'s 8 cycled batches and on batches the tables have
+   not seen (the open key space, with the keys inserted a step), the
+   stages alone on unseen batches (pull, dense, push, and the push's
+   dedup, insert and update), a ``torch.profiler`` trace of 20 replayed
+   unseen-batch steps (K2's and KI's launches a step in it equal to their
+   counters'), keys inserted and the load factor, and the trained tables
+   served back exactly;
+10. xdeepfm training (run after phase 8, printed before phase 9's line):
+   the ``xdeepfm_dim16`` trainer of ``bench.py`` at full width (the 26
+   features fused into ``fields`` ``[27,262,976, 16]`` and
+   ``fields:linear`` ``[27,262,976, 1]`` f32 with Adagrad slots, ~3.7 GB;
+   ``XDeepFM`` with CIN (128, 128) and DNN (256, 128) over 13 dense
+   features, dense Adagrad; batches of 2048 from ``synthetic_criteo(2048,
+   num_buckets=2^20)``, 8 cycled), float32 products without TF32, the
+   earlier phases' tables freed: phase 7's checks (init against the CPU's
+   draws with nothing copied, 4 captured card steps against 4 CPU steps
+   with the change check, captured against eager, K1 twice a step,
+   captured and eager throughput, a trace); then ``DCN`` (3 cross layers,
+   DNN (256, 128)) over the same collection from a fresh init, 4 captured
+   card steps against 4 CPU steps;
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
-10. last line: ``{"ok": true, "device": {...}}``.
+11. last line: ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port, never jax or openembedding_tpu.
 """
@@ -139,6 +166,18 @@ UNTOUCHED_SAMPLE = 1 << 20    # untouched ids checked bit for bit
 CHANGE_RTOL = 1e-3            # of a touched row's largest change
 CHANGE_ULPS = 2               # units at each value's magnitude
 SYNC_STEPS = 3                # hash steps under sync debug mode "error"
+ORACLE_STEPS = 4              # captured steps held against eager steps
+XDEEP_BATCH = 2048            # xdeepfm_dim16 (bench.py): batch ...
+XDEEP_DIM = 16                # ... and embedding width
+CIN_LAYERS = (128, 128)       # XDeepFM's defaults, as bench.py builds it
+DNN_UNITS = (256, 128)
+CROSS_LAYERS = 3              # DCN's default
+TRACE_WINDOW = "chip_smoke.traced_steps"   # the trace's annotation
+# the kernels of each wrapper, by their names in a profiler trace
+KERNEL_NAMES = {"gather_rows": ("gather_fixed", "gather_tile",
+                                "gather_units"),
+                "probe_gather": ("probe_gather_kernel",),
+                "init_rows": ("keyed_rows_kernel",)}
 INIT_ROWS = 4096              # rows of each range held card against CPU
 INIT_LOSS_ATOL = 1e-6         # first losses from the card's and CPU's init
 # H100 SXM: each of an SM's 4 schedulers dispatches one warp instruction a
@@ -983,7 +1022,8 @@ def _fault_reading(faulted, want, initial, rows) -> dict:
             "value_flags": float(value.double().mean())}
 
 
-def check_against_cpu(trainer, state, batches):
+def check_against_cpu(trainer, state, batches, cpu_trainer=None,
+                      what="training"):
     """``CHECK_STEPS`` card steps against the same steps of a CPU trainer
     from a copy of the initial state; untouched rows bit for bit; K1
     launched twice a card step. Every touched row's change, and that of
@@ -991,12 +1031,16 @@ def check_against_cpu(trainer, state, batches):
     shown to flag two simulated push faults: cold rows (seen once) of the
     weights left unwritten, and ``accum`` left unchanged (a slot's cold
     rows may move within the rounding floor, so there it is only read).
-    Returns the per-step losses,
-    the largest differences and the readings."""
+    The card steps are captured (``train_step``: the first builds the
+    step program, its warm-up the first step; the others replay it).
+    ``cpu_trainer``: the same trainer on the CPU (``build_trainer``'s if
+    None). Returns the per-step losses, the largest differences and the
+    readings."""
     from openembedding_tpu_torch.ops.gather import gather_rows
     from openembedding_tpu_torch.training import copy_state
     dev = trainer.device
-    cpu_trainer, _ = build_trainer("cpu")
+    if cpu_trainer is None:
+        cpu_trainer, _ = build_trainer("cpu")
     cstate = copy_state(state, "cpu")
     vocab = state.emb["fields"].capacity
     touched = np.unique(np.concatenate(
@@ -1008,7 +1052,7 @@ def check_against_cpu(trainer, state, batches):
     untouched = torch.from_numpy(
         cand[rng.permutation(cand.size)[:UNTOUCHED_SAMPLE]]).to(dev)
     if untouched.numel() != UNTOUCHED_SAMPLE:
-        raise AssertionError("training: too few untouched ids sampled")
+        raise AssertionError(f"{what}: too few untouched ids sampled")
     initial = {n: [s.weights[untouched].clone()]
                + [v[untouched].clone() for v in s.slots.values()]
                for n, s in state.emb.items()}
@@ -1024,14 +1068,14 @@ def check_against_cpu(trainer, state, batches):
         card.append(m["loss"])
     torch.cuda.synchronize()
     if gather_rows.launches - before != 2 * CHECK_STEPS:
-        raise AssertionError(f"training: {gather_rows.launches - before} "
+        raise AssertionError(f"{what}: {gather_rows.launches - before} "
                              f"K1 launches for {CHECK_STEPS} steps")
     for b in batches[:CHECK_STEPS]:
         cstate, m = cpu_trainer.train_step(cstate, b)
         host.append(float(m["loss"]))
     card = [float(x) for x in card]
     if not np.allclose(card, host, rtol=1e-4, atol=0):
-        raise AssertionError(f"training: losses {card} on the card, {host} "
+        raise AssertionError(f"{what}: losses {card} on the card, {host} "
                              "on the CPU")
     seen = np.concatenate([b["sparse"]["fields"].reshape(-1)
                            for b in batches[:CHECK_STEPS]])
@@ -1048,7 +1092,7 @@ def check_against_cpu(trainer, state, batches):
         now = [s.weights[untouched]] + [v[untouched]
                                         for v in s.slots.values()]
         if not all(torch.equal(a, b) for a, b in zip(now, initial[n])):
-            raise AssertionError(f"training: untouched rows of {n} changed")
+            raise AssertionError(f"{what}: untouched rows of {n} changed")
         for k, v in [("weights", s.weights)] + list(s.slots.items()):
             got = v[ids.to(dev)].cpu()
             want = cs.weights[ids] if k == "weights" else cs.slots[k][ids]
@@ -1057,9 +1101,17 @@ def check_against_cpu(trainer, state, batches):
             change[f"{n}/{k}"] = reading
             if not reading <= 1:
                 raise AssertionError(
-                    f"training: the change of {n} {k} differs between the "
+                    f"{what}: the change of {n} {k} differs between the "
                     f"card and the CPU ({reading:.3g} of its limit)")
             moved = (want != init).reshape(len(want), -1).any(1)
+            if not moved.any():
+                # a table the model does not read (DCN's ``:linear``): its
+                # gradients are zero and no row may move on the card
+                if not torch.equal(got, init):
+                    raise AssertionError(f"{what}: rows of {n} {k}, which "
+                                         "the model does not read, moved")
+                faults[f"{n}/{k} unread"] = {"rows": 0}
+                continue
             # the push skips cold rows: they keep their initial values
             faulted = torch.where(cold.reshape((-1,) + (1,) * (got.dim() - 1)),
                                   init, got)
@@ -1071,7 +1123,7 @@ def check_against_cpu(trainer, state, batches):
                 faults[must] = _fault_reading(init, want, init, moved)
             if not faults[must].get("change_max", 0) > 1:
                 raise AssertionError(
-                    f"training: the change check misses a simulated fault "
+                    f"{what}: the change check misses a simulated fault "
                     f"({must}): {json.dumps(faults[must])}")
     err["dense"] = max(
         [_close(f"parameter {k}", v, cstate.params[k])
@@ -1114,11 +1166,12 @@ def _init_agrees(what, got, want, kind, stddev) -> float:
 def _dense_init_agrees(card, cpu) -> float:
     """Every dense parameter of a card ``Trainer.init`` against the CPU's
     draw: lecun_normal kernels (truncated, ``stddev = sqrt(1 / fan_in) /
-    0.8796``) within the ``erf_inv`` bound, zero biases exactly."""
+    0.8796``) within the ``erf_inv`` bound; glorot_uniform CIN and cross
+    weights and zero biases exactly."""
     from openembedding_tpu_torch.optim import initializers as ti
     errs = [0.0]
     for k, v in cpu.items():
-        if v.dim() == 2:
+        if k.endswith(".weight"):
             std = float(np.sqrt(np.float32(1.0 / v.shape[1]))
                         / np.float32(0.87962566103423978))
             errs.append(_init_agrees(f"parameter {k}", card[k], v,
@@ -1129,7 +1182,8 @@ def _dense_init_agrees(card, cpu) -> float:
     return max(errs)
 
 
-def check_array_init_without_copy(trainer, state, batch) -> dict:
+def check_array_init_without_copy(trainer, state, batch,
+                                  build=None) -> dict:
     """The card's ``Trainer.init(prng_key(SEED), batch)`` against the same
     state drawn on the CPU, nothing copied: the dense parameters
     (``init_params`` under the dense half of ``split(key)``), and each
@@ -1138,11 +1192,12 @@ def check_array_init_without_copy(trainer, state, batch) -> dict:
     chunks; the whole 245 M-element ``fields`` would take minutes on the
     host). Returns the readings and the loss of a first step on ``batch``
     from the CPU's values (the rows of its ids drawn by the plain
-    version), which the card's first step must match."""
+    version), which the card's first step must match. ``build(device)``
+    builds the trainer (``build_trainer`` if None)."""
     from openembedding_tpu_torch.models.deepctr import init_params
     from openembedding_tpu_torch.optim import initializers as ti
     coll = trainer.collection
-    cpu_trainer, _ = build_trainer("cpu")
+    cpu_trainer, _ = (build or build_trainer)("cpu")
     emb_rng, dense_rng = ti.split(ti.prng_key(SEED))
     params = init_params(cpu_trainer.module, dense_rng, "cpu")
     placed = cpu_trainer.place_batch(batch)
@@ -1242,50 +1297,298 @@ def stage_breakdown(trainer, state, batch) -> dict:
         "unique_fraction": float(np.unique(ids).size / ids.size)}
 
 
-def training_trace(trainer, state, batches, trace_path) -> dict:
-    """A ``torch.profiler`` trace of ``TRACE_STEPS`` steps: the device's
-    busy share of the window's wall time (kernels, copies and fills, their
-    union), launches a step, the top 5 device operations by time and the
-    longest idle gaps between device work."""
-    from torch.profiler import ProfilerActivity, profile
+def _kernel_family(name: str):
+    """The wrapper whose kernel a trace event named ``name`` is, or None."""
+    for wrapper, kernels in KERNEL_NAMES.items():
+        if any(f"::{k}<" in name or f"::{k}(" in name for k in kernels):
+            return wrapper
+    return None
+
+
+def _idle_by_host(gaps, host):
+    """Each idle gap of the device attributed to what the host was doing
+    at its midpoint: the innermost host event (op, annotation or runtime
+    call) open then, by name; summed microseconds, the 8 largest."""
+    host = sorted(host)
+    out, active, j = {}, [], 0
+    for a, b in sorted(gaps):
+        mid = (a + b) / 2
+        while j < len(host) and host[j][0] <= mid:
+            active.append(host[j])
+            j += 1
+        active = [e for e in active if e[1] >= mid]
+        name = min(active, key=lambda e: e[1] - e[0])[2] if active \
+            else "(no host event)"
+        out[name[:60]] = out.get(name[:60], 0.0) + (b - a)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:8])
+
+
+def training_trace(trainer, state, batches, trace_path, lead) -> dict:
+    """A ``torch.profiler`` trace of ``TRACE_STEPS`` steps (``train_step``:
+    replays of the captured step) inside an annotated window, after one
+    lead-in step on ``lead`` (the profiler may miss the first kernels of
+    its trace): the device's busy share of the window's wall time
+    (kernels, copies and fills, their union), device operations and graph
+    launches a step, the top 5 device operations by time, the longest
+    idle gaps between device work and the idle time by what the host was
+    doing, and each kernel wrapper's launches a step, from its counter
+    and from the kernels of each replay in the trace (they must
+    agree)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    wrappers = {"gather_rows": gather_rows, "probe_gather": probe_gather,
+                "init_rows": init_rows}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.train_step(state, lead)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TRACE_STEPS):
-            state, _ = trainer.train_step(state, batches[i % len(batches)])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        before = {k: w.launches for k, w in wrappers.items()}
+        with record_function(TRACE_WINDOW):
+            t0 = time.perf_counter()
+            for i in range(TRACE_STEPS):
+                state, _ = trainer.train_step(state,
+                                              batches[i % len(batches)])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    counted = {k: (w.launches - before[k]) / TRACE_STEPS
+               for k, w in wrappers.items()}
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        events = [e for e in json.load(f).get("traceEvents", [])
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        every = json.load(f).get("traceEvents", [])
+    w0, w1 = next((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in every if e.get("name") == TRACE_WINDOW
+                  and e.get("cat") == "user_annotation")
+    every = [e for e in every if "ts" in e and w0 <= float(e["ts"]) <= w1]
+    events = [e for e in every
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+            for e in every if e.get("cat") in (
+                "cpu_op", "cuda_runtime", "cuda_driver")
+            and "dur" in e]
+    # a replay's kernels carry its cudaGraphLaunch's correlation id
+    replays = {e.get("args", {}).get("correlation"):
+               {k: 0 for k in wrappers}
+               for e in every if e.get("cat") == "cuda_runtime"
+               and e["name"] == "cudaGraphLaunch"}
+    window = {k: 0 for k in wrappers}
+    recorded = dict.fromkeys(replays, 0)
     by_name, spans = {}, []
     for e in events:
         dur = float(e.get("dur", 0.0))
         by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + dur
         spans.append((float(e["ts"]), float(e["ts"]) + dur))
+        if e["cat"] != "kernel":
+            continue
+        family = _kernel_family(e["name"])
+        if family:
+            window[family] += 1
+        corr = e.get("args", {}).get("correlation")
+        if corr in replays:
+            recorded[corr] += 1
+            if family:
+                replays[corr][family] += 1
     spans.sort()
     busy, gaps, end = 0.0, [], None
     for a, b in spans:
         if end is None or a > end:
             if end is not None:
-                gaps.append(a - end)
+                gaps.append((end, a))
             busy += b - a
             end = b
         elif b > end:
             busy += b - end
             end = b
+    # each replay whose kernels the profiler recorded holds each kernel
+    # as many times as the counters say a step launches it
+    traced = [v for c, v in replays.items() if recorded[c]] or [
+        {k: n / TRACE_STEPS for k, n in window.items()}]
+    if any({k: float(n) for k, n in v.items()} != counted for v in traced):
+        raise AssertionError(
+            f"trace: kernel launches per replay {traced} in the trace "
+            f"({len(replays)} graph launches), {counted} a step by the "
+            "counters")
     kernels = sum(1 for e in events if e["cat"] == "kernel")
     return {"steps": TRACE_STEPS, "wall_us": wall_us,
             "device_busy_us": busy,
             "device_busy_share": busy / wall_us if spans else None,
             "kernels_per_step": kernels / TRACE_STEPS,
             "device_ops_per_step": len(events) / TRACE_STEPS,
+            "graph_launches_per_step": len(replays) / TRACE_STEPS,
+            "replays_with_kernels_recorded": len(traced),
+            "kernels_per_replay": statistics.mean(recorded.values())
+            if recorded else None,
+            "traced_launches_per_step": {k: n / TRACE_STEPS
+                                         for k, n in window.items()},
+            "launches_per_step": counted,
             "top5_us": dict(sorted(by_name.items(),
                                    key=lambda kv: -kv[1])[:5]),
-            "longest_idle_gaps_us": sorted(gaps, reverse=True)[:5],
-            "idle_gaps_per_step": len(gaps) / TRACE_STEPS}
+            "longest_idle_gaps_us": sorted((b - a for a, b in gaps),
+                                           reverse=True)[:5],
+            "idle_gaps_per_step": len(gaps) / TRACE_STEPS,
+            "idle_us_by_host": _idle_by_host(gaps, host)}
+
+
+def state_tensors(state) -> list:
+    """Every tensor of a train state: step, dense state, each table's
+    weights and slots (a hash table's keys and failure count too)."""
+    from openembedding_tpu_torch.hash_table import HashTableState
+    out = [state.step] + list(state.params.values()) \
+        + list(state.opt_state.values())
+    for st in state.emb.values():
+        out += [st.weights] + list(st.slots.values())
+        if isinstance(st, HashTableState):
+            out += [st.keys, st.insert_failures]
+    return out
+
+
+def _spread(a, b) -> dict:
+    """How two runs' results differ: tensors and elements that differ and
+    the largest absolute difference (0 for bit-identical runs)."""
+    tensors, elements, worst = 0, 0, 0.0
+    for x, y in zip(a, b):
+        if torch.equal(x, y):
+            continue
+        tensors += 1
+        ne = x != y
+        elements += int(ne.sum())
+        if x.is_floating_point():
+            worst = max(worst, float((x[ne].double() - y[ne].double())
+                                     .abs().max()))
+    return {"tensors": tensors, "elements": elements, "max_abs": worst}
+
+
+def captured_against_eager(what, trainer, state, batches) -> dict:
+    """The captured step's oracle: ``ORACLE_STEPS`` captured steps
+    (``train_step`` on a copy of ``state``, which builds its own program)
+    against as many eager ones (``train_step_eager`` on another copy),
+    bit for bit: losses, dense parameters and accumulators, table rows
+    and slots, and a hash table's keys and failure count. The push sums
+    float gradients with ``index_add_``, atomics on the card, so two eager
+    runs go first: if they differ, both sides run under
+    ``torch.use_deterministic_algorithms(True)``; if an op of the step
+    refuses that mode, the two are held at the eager runs' spread and the
+    op is named. The kernel launches of these runs are not counted as the
+    main path's: the counters are put back."""
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    from openembedding_tpu_torch.training import copy_state
+    wrappers = (gather_rows, probe_gather, init_rows)
+    counted = [w.launches for w in wrappers]
+
+    def run(step):
+        s = copy_state(state, trainer.device)
+        losses = []
+        for b in batches[:ORACLE_STEPS]:
+            s, m = step(s, b)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        return [torch.stack(losses)] + state_tensors(s)
+    first = run(trainer.train_step_eager)
+    spread = _spread(first, run(trainer.train_step_eager))
+    deterministic = spread["tensors"] > 0
+    refused = None
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    try:
+        try:
+            captured = run(trainer.train_step)
+            eager = run(trainer.train_step_eager)
+        except RuntimeError as e:
+            if not deterministic or "deterministic" not in str(e):
+                raise
+            refused = str(e).splitlines()[0][:300]
+            torch.use_deterministic_algorithms(False)
+            captured, eager = run(trainer.train_step), first
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for w, n in zip(wrappers, counted):
+            w.launches = n
+    diff = _spread(captured, eager)
+    ok = diff["tensors"] == 0 if refused is None \
+        else diff["max_abs"] <= spread["max_abs"]
+    reading = {"steps": ORACLE_STEPS, "eager_vs_eager": spread,
+               "deterministic_mode": deterministic, "refused_by": refused,
+               "captured_vs_eager": diff,
+               "bit_identical": diff["tensors"] == 0}
+    if not ok:
+        raise AssertionError(f"{what}: captured steps differ from eager "
+                             f"steps: {json.dumps(reading)}")
+    return reading
+
+
+def _block(trainer, state, step, batches, batch_size, table):
+    """One timed block: ``step`` over ``batches``, ended by a
+    synchronize; returns the state, the last metrics, examples/s and the
+    keys ``table`` (a hash table's name, or None) gained a step."""
+    used = state.emb[table].num_used() if table else 0
+    t0 = time.perf_counter()
+    for b in batches:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    eps = len(batches) * batch_size / (time.perf_counter() - t0)
+    gained = (state.emb[table].num_used() - used) / len(batches) \
+        if table else None
+    return state, m, eps, gained
+
+
+def compare_steps(trainer, state, batch_of, batch_size, table=None):
+    """Throughput of the captured step (``train_step``, replays) and of the
+    eager one (``train_step_eager``) on one state: ``WARMUP_STEPS`` of
+    each, then ``BLOCKS`` timed blocks of ``BLOCK_STEPS`` steps of each,
+    in turns (the order flips every block). ``batch_of(kind, k, i)`` is
+    step ``i`` of block ``k``. Returns the state, the last metrics and per
+    kind the median block's examples/s (min, max), its step time and,
+    for a hash table, the keys inserted a step and their share of a
+    step's keys."""
+    steps = {"captured": trainer.train_step,
+             "eager": trainer.train_step_eager}
+    for kind, step in steps.items():
+        for i in range(WARMUP_STEPS):
+            state, m = step(state, batch_of(kind, 0, i))
+    torch.cuda.synchronize()
+    blocks = {kind: [] for kind in steps}
+    gained = {kind: [] for kind in steps}
+    for k in range(BLOCKS):
+        for kind in (list(steps) if k % 2 == 0 else list(steps)[::-1]):
+            state, m, eps, g = _block(
+                trainer, state, steps[kind],
+                [batch_of(kind, k, i) for i in range(BLOCK_STEPS)],
+                batch_size, table)
+            blocks[kind].append(eps)
+            gained[kind].append(g)
+    out = {}
+    for kind, eps in blocks.items():
+        med = statistics.median(eps)
+        out[kind] = {"examples_per_s": med, "eps_min": min(eps),
+                     "eps_max": max(eps), "block_eps": eps,
+                     "step_ms": batch_size / med * 1e3}
+        if table:
+            keys = int(np.prod(batch_of(kind, 0, 0)["sparse"][table]
+                               .shape[:-1]))
+            out[kind]["inserted_per_step"] = gained[kind]
+            out[kind]["inserted_share"] = \
+                statistics.mean(gained[kind]) / keys
+    out["captured_over_eager"] = out["captured"]["examples_per_s"] \
+        / out["eager"]["examples_per_s"]
+    return state, m, out
+
+
+def program_reading(trainer, reserved_before: int) -> dict:
+    """The trainer's step programs: builds, each build's seconds (its
+    warm-up step and capture) and the memory its capture reserved, and
+    the device memory reserved since ``reserved_before``."""
+    dev = trainer.device
+    programs = list(trainer.programs.values())
+    return {"builds": trainer.builds,
+            "build_s": [p.build_s for p in programs],
+            "capture_pool_bytes": [p.pool_bytes for p in programs],
+            "reserved_delta_bytes":
+                torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
+                - reserved_before}
 
 
 def train_then_serve(trainer, state, batch) -> dict:
@@ -1348,25 +1651,22 @@ def phase_training() -> int:
     check_init_launches("training", state, flat_launches)
     nocopy = check_array_init_without_copy(trainer, state, batches[0])
     gather_rows.launches = 0
+    reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
     state, check = check_against_cpu(trainer, state, batches)
+    program = program_reading(trainer, reserved)
     check_first_loss("training", nocopy, check["card_losses"][0])
-    for i in range(WARMUP_STEPS):
-        state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
-    torch.cuda.synchronize()
-    block_eps = []
-    for _ in range(BLOCKS):
-        t0 = time.perf_counter()
-        for i in range(BLOCK_STEPS):
-            state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
-        torch.cuda.synchronize()
-        block_eps.append(BLOCK_STEPS * BATCH / (time.perf_counter() - t0))
+    oracle = captured_against_eager("training", trainer, state, batches)
+    state, m, speed = compare_steps(
+        trainer, state, lambda kind, k, i: batches[i % TRAIN_BATCHES], BATCH)
     trace_path = os.path.join(ROOT, "_smoke_train_trace.json")
     try:
-        trace = training_trace(trainer, state, batches, trace_path)
+        trace = training_trace(trainer, state, batches, trace_path,
+                               batches[-1])
     finally:
         if os.path.exists(trace_path):
             os.remove(trace_path)
-    steps = CHECK_STEPS + WARMUP_STEPS + BLOCKS * BLOCK_STEPS + TRACE_STEPS
+    steps = CHECK_STEPS + 2 * (WARMUP_STEPS + BLOCKS * BLOCK_STEPS) \
+        + 1 + TRACE_STEPS
     launches = gather_rows.launches
     if launches != 2 * steps:
         raise AssertionError(f"training: {launches} K1 launches for {steps} "
@@ -1377,15 +1677,17 @@ def phase_training() -> int:
     stages = stage_breakdown(trainer, state, batches[0])
     served = train_then_serve(trainer, state, batches[1])
     flat_cases = phase_ki_flat(trainer)
-    eps = statistics.median(block_eps)
     log(json.dumps({"training": {
         "config": "deepfm_dim9", "batch": BATCH, "init_s": init_s,
         "init_without_copy": nocopy, "init_flat_launches": flat_launches,
-        "check": check, "steps": steps, "k1_launches": launches,
-        "examples_per_s": eps, "eps_min": min(block_eps),
-        "eps_max": max(block_eps), "block_eps": block_eps,
-        "step_ms": BATCH / eps * 1e3, "last_loss": loss,
-        "stages": stages, "trace": trace, "serve": served,
+        "check": check, "program": program, "captured_vs_eager": oracle,
+        "steps": steps, "k1_launches": launches,
+        "examples_per_s": speed["captured"]["examples_per_s"],
+        "step_ms": speed["captured"]["step_ms"],
+        "eager_examples_per_s": speed["eager"]["examples_per_s"],
+        "eager_step_ms": speed["eager"]["step_ms"], "speed": speed,
+        "last_loss": loss, "stages": stages, "trace": trace,
+        "serve": served,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}))
     return launches, flat_launches, flat_cases
 
@@ -1828,34 +2130,6 @@ def push_stages(trainer, state, batches) -> dict:
     return out
 
 
-def timed_blocks(trainer, state, batch_of):
-    """``BLOCKS`` timed blocks of ``BLOCK_STEPS`` steps, step ``i`` of
-    block ``k`` on ``batch_of(k, i)``, each ended by a synchronize; the
-    ``fields`` keys inserted in a block are read after its time is taken.
-    Returns the state, the last step's metrics and a summary: the median
-    block's examples/s (min, max) and step time, and the keys inserted a
-    step, also as a share of the step's keys."""
-    block_eps, inserted = [], []
-    keys_per_step = None
-    for k in range(BLOCKS):
-        used = state.emb["fields"].num_used()
-        t0 = time.perf_counter()
-        for i in range(BLOCK_STEPS):
-            batch = batch_of(k, i)
-            state, m = trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        block_eps.append(BLOCK_STEPS * BATCH / (time.perf_counter() - t0))
-        inserted.append((state.emb["fields"].num_used() - used)
-                        / BLOCK_STEPS)
-        keys_per_step = int(np.prod(batch["sparse"]["fields"].shape[:-1]))
-    eps = statistics.median(block_eps)
-    return state, m, {
-        "examples_per_s": eps, "eps_min": min(block_eps),
-        "eps_max": max(block_eps), "block_eps": block_eps,
-        "step_ms": BATCH / eps * 1e3, "inserted_per_step": inserted,
-        "inserted_share": statistics.mean(inserted) / keys_per_step}
-
-
 def hash_train_then_serve(trainer, state, batch) -> dict:
     """Save the trained hash tables, load them through ``POST /models`` of
     a ``ControllerServer`` and look one trained batch of pairs up on both
@@ -1905,13 +2179,16 @@ def phase_hash_training():
     trainer, mapper = build_hash_trainer("cuda")
     dev = trainer.device
     # bench.py's 8 cycled batches, then the same stream's next batches,
-    # which the tables have not seen: the open key space
+    # which the tables have not seen (the open key space): a block's worth
+    # for each timed block of each step kind, then the trace's and the
+    # stages'
     stream = synthetic_criteo(BATCH, num_buckets=HASH_VOCAB, seed=SEED)
     batches = [mapper.fuse_batch(next(stream)) for _ in range(TRAIN_BATCHES)]
+    timed = 2 * BLOCKS * BLOCK_STEPS
     fresh = [mapper.fuse_batch(next(stream)) for _ in range(
-        BLOCKS * BLOCK_STEPS + TRACE_STEPS + STAGE_REPS + 2)]
-    trace_batches = fresh[BLOCKS * BLOCK_STEPS:][:TRACE_STEPS]
-    stage_batches = fresh[BLOCKS * BLOCK_STEPS + TRACE_STEPS:]
+        timed + 1 + TRACE_STEPS + STAGE_REPS + 2)]
+    trace_batches = fresh[timed:][:1 + TRACE_STEPS]
+    stage_batches = fresh[timed + 1 + TRACE_STEPS:]
     init_flat.launches = 0
     t0 = time.perf_counter()
     state = trainer.init(prng_key(SEED), batches[0])
@@ -1921,31 +2198,38 @@ def phase_hash_training():
     check_init_launches("hash training", state, flat_launches)
     nocopy = check_hash_init_without_copy(trainer, state, batches[0])
     probe_gather.launches = init_rows.launches = 0
+    reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
     state, check = check_hash_against_cpu(trainer, state, batches)
+    program = program_reading(trainer, reserved)
     check_first_loss("hash training", nocopy, check["card_losses"][0])
-    # steps that insert keys, none reading the device back
+    oracle = captured_against_eager("hash training", trainer, state,
+                                    batches[CHECK_STEPS:])
+    # eager steps that insert keys, none reading the device back (a step
+    # that synchronized could not be captured)
     torch.cuda.set_sync_debug_mode("error")
     try:
         for b in batches[CHECK_STEPS:CHECK_STEPS + SYNC_STEPS]:
-            state, m = trainer.train_step(state, b)
+            state, m = trainer.train_step_eager(state, b)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     cases = phase_ki_kernels(trainer, state, batches[-1])
-    for i in range(WARMUP_STEPS):
-        state, m = trainer.train_step(state, batches[i % TRAIN_BATCHES])
-    torch.cuda.synchronize()
-    state, m, cycled = timed_blocks(
-        trainer, state, lambda k, i: batches[i % TRAIN_BATCHES])
-    state, m, opened = timed_blocks(
-        trainer, state, lambda k, i: fresh[k * BLOCK_STEPS + i])
+    state, m, cycled = compare_steps(
+        trainer, state, lambda kind, k, i: batches[i % TRAIN_BATCHES],
+        BATCH, table="fields")
+    order = {"captured": 0, "eager": 1}
+    state, m, opened = compare_steps(
+        trainer, state,
+        lambda kind, k, i: fresh[(2 * k + order[kind]) * BLOCK_STEPS + i],
+        BATCH, table="fields")
     trace_path = os.path.join(ROOT, "_smoke_train_trace.json")
     try:
-        trace = training_trace(trainer, state, trace_batches, trace_path)
+        trace = training_trace(trainer, state, trace_batches[1:],
+                               trace_path, trace_batches[0])
     finally:
         if os.path.exists(trace_path):
             os.remove(trace_path)
-    steps = CHECK_STEPS + SYNC_STEPS + WARMUP_STEPS \
-        + 2 * BLOCKS * BLOCK_STEPS + TRACE_STEPS
+    steps = CHECK_STEPS + SYNC_STEPS \
+        + 4 * (WARMUP_STEPS + BLOCKS * BLOCK_STEPS) + 1 + TRACE_STEPS
     launches = {"probe_gather": probe_gather.launches,
                 "init_rows": init_rows.launches}
     if launches != {"probe_gather": 2 * steps, "init_rows": 4 * steps}:
@@ -1967,14 +2251,127 @@ def phase_hash_training():
     served = hash_train_then_serve(trainer, state, batches[1])
     log(json.dumps({"hash_training": {
         "config": "deepfm_dim9_hash", "batch": BATCH, "init_s": init_s,
-        "init_without_copy": nocopy, "check": check, "steps": steps, "launches": launches,
+        "init_without_copy": nocopy, "check": check, "program": program,
+        "captured_vs_eager": oracle, "steps": steps, "launches": launches,
         "tables": tables, "cycled": cycled, "fresh": opened,
-        "examples_per_s": opened["examples_per_s"],
-        "step_ms": opened["step_ms"],
+        "examples_per_s": opened["captured"]["examples_per_s"],
+        "step_ms": opened["captured"]["step_ms"],
+        "eager_examples_per_s": opened["eager"]["examples_per_s"],
+        "eager_step_ms": opened["eager"]["step_ms"],
         "last_loss": loss, "stages": stages, "trace": trace,
         "serve": served,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}))
     return cases, launches
+
+
+# --- phase 10: xdeepfm_dim16 training ---------------------------------------
+
+def build_xdeep_trainer(device, model="xdeepfm"):
+    """The ``xdeepfm_dim16`` trainer of ``bench.py`` (``build`` with its
+    config): the 26 features fused into ``fields`` ``[26·2^20 + 26, 16]``
+    and ``fields:linear``, sparse Adagrad (lr 0.01), ``XDeepFM`` with CIN
+    ``CIN_LAYERS`` and DNN ``DNN_UNITS`` over 13 dense features, dense
+    optax-form Adagrad (lr 0.01), on ``device``; with ``model="dcn"``,
+    ``DCN`` with ``CROSS_LAYERS`` cross layers and the same DNN."""
+    from openembedding_tpu_torch.data.criteo import NUM_DENSE, SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models.deepctr import build_model
+    from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.training import Trainer
+    specs, mapper = make_fused_specs(
+        SPARSE_NAMES, VOCAB_PER_FEATURE, XDEEP_DIM,
+        optimizer={"category": "adagrad", "learning_rate": 0.01})
+    extra = {"cin_layer_sizes": CIN_LAYERS} if model == "xdeepfm" \
+        else {"cross_layers": CROSS_LAYERS}
+    module = build_model(model, SPARSE_NAMES, embedding_dim=XDEEP_DIM,
+                         num_dense=NUM_DENSE, dnn_units=DNN_UNITS, **extra)
+    return Trainer(module, EmbeddingCollection(specs, device=device,
+                                               seed=SEED),
+                   dense.adagrad(0.01)), mapper
+
+
+def phase_xdeepfm_training() -> int:
+    """Phase 10; returns K1's launches (XDeepFM's and DCN's steps) and
+    KI's array launches in the two inits."""
+    from openembedding_tpu_torch.data.criteo import synthetic_criteo
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("xdeepfm: float32 products must not run in "
+                             "TF32 (the CPU's values are float32)")
+    trainer, mapper = build_xdeep_trainer("cuda")
+    dev = trainer.device
+    batches = [mapper.fuse_batch(b) for b in synthetic_criteo(
+        XDEEP_BATCH, num_buckets=VOCAB_PER_FEATURE, seed=SEED,
+        num_batches=TRAIN_BATCHES)]
+    init_flat.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.init(prng_key(SEED), batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flat_launches = init_flat.launches
+    check_init_launches("xdeepfm", state, flat_launches)
+    nocopy = check_array_init_without_copy(trainer, state, batches[0],
+                                           build_xdeep_trainer)
+    gather_rows.launches = 0
+    reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
+    state, check = check_against_cpu(
+        trainer, state, batches, build_xdeep_trainer("cpu")[0], "xdeepfm")
+    program = program_reading(trainer, reserved)
+    check_first_loss("xdeepfm", nocopy, check["card_losses"][0])
+    oracle = captured_against_eager("xdeepfm", trainer, state, batches)
+    state, m, speed = compare_steps(
+        trainer, state, lambda kind, k, i: batches[i % TRAIN_BATCHES],
+        XDEEP_BATCH)
+    trace_path = os.path.join(ROOT, "_smoke_train_trace.json")
+    try:
+        trace = training_trace(trainer, state, batches, trace_path,
+                               batches[-1])
+    finally:
+        if os.path.exists(trace_path):
+            os.remove(trace_path)
+    steps = CHECK_STEPS + 2 * (WARMUP_STEPS + BLOCKS * BLOCK_STEPS) \
+        + 1 + TRACE_STEPS
+    if gather_rows.launches != 2 * steps:
+        raise AssertionError(f"xdeepfm: {gather_rows.launches} K1 launches "
+                             f"for {steps} steps, 2 a step expected")
+    launches = gather_rows.launches
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"xdeepfm: loss {loss}")
+    stages = stage_breakdown(trainer, state, batches[0])
+    reading = {
+        "config": "xdeepfm_dim16", "batch": XDEEP_BATCH, "init_s": init_s,
+        "init_without_copy": nocopy, "init_flat_launches": flat_launches,
+        "check": check, "program": program, "captured_vs_eager": oracle,
+        "steps": steps, "k1_launches": launches,
+        "examples_per_s": speed["captured"]["examples_per_s"],
+        "step_ms": speed["captured"]["step_ms"],
+        "eager_examples_per_s": speed["eager"]["examples_per_s"],
+        "eager_step_ms": speed["eager"]["step_ms"], "speed": speed,
+        "last_loss": loss, "stages": stages, "trace": trace,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
+    del trainer, state
+    torch.cuda.empty_cache()
+    # DCN over the same collection, from a fresh init
+    dcn, _ = build_xdeep_trainer("cuda", "dcn")
+    init_flat.launches = 0
+    dstate = dcn.init(prng_key(SEED), batches[0])
+    check_init_launches("dcn", dstate, init_flat.launches)
+    flat_launches += init_flat.launches
+    gather_rows.launches = 0
+    dstate, dcheck = check_against_cpu(
+        dcn, dstate, batches, build_xdeep_trainer("cpu", "dcn")[0], "dcn")
+    if gather_rows.launches != 2 * CHECK_STEPS:
+        raise AssertionError(f"dcn: {gather_rows.launches} K1 launches for "
+                             f"{CHECK_STEPS} steps")
+    launches += gather_rows.launches
+    reading["dcn"] = {"check": dcheck, "builds": dcn.builds,
+                      "k1_launches": gather_rows.launches}
+    log(json.dumps({"xdeepfm_training": reading}))
+    return launches, flat_launches
 
 
 def setup_array():
@@ -2066,6 +2463,10 @@ def main() -> None:
     launches += k1_training
     torch.cuda.empty_cache()
     kcases, hash_launches = phase_hash_training()
+    torch.cuda.empty_cache()
+    k1_xdeep, flat_xdeep = phase_xdeepfm_training()
+    launches += k1_xdeep
+    flat_training += flat_xdeep
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]

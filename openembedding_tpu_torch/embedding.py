@@ -279,10 +279,11 @@ class EmbeddingCollection:
                                           self._optimizers[name], idx, g)
         return states
 
-    def to_device(self, name: str, idx) -> torch.Tensor:
-        """Input column ``name`` as an integer tensor on the collection's
-        device (a copy that does not wait for the device), pair-widened
-        for a wide hash variable."""
+    def host_ids(self, name: str, idx) -> torch.Tensor:
+        """Input column ``name`` as an integer tensor where it lies (a host
+        array becomes a CPU tensor of its own), host int64 ids of a hash
+        variable widened on the host (:meth:`_widen`). The host's half of
+        :meth:`to_device`."""
         spec = self.specs[name]
         idx = self._widen(spec, idx)
         if not isinstance(idx, torch.Tensor):
@@ -290,7 +291,14 @@ class EmbeddingCollection:
         if idx.dtype.is_floating_point or idx.dtype == torch.bool:
             raise TypeError(f"{spec.name!r}: indices must be integers, got "
                             f"{idx.dtype}")
-        idx = idx.to(self.device, non_blocking=True)
+        return idx
+
+    def to_device(self, name: str, idx) -> torch.Tensor:
+        """Input column ``name`` as an integer tensor on the collection's
+        device (a copy that does not wait for the device), pair-widened
+        for a wide hash variable."""
+        spec = self.specs[name]
+        idx = self.host_ids(name, idx).to(self.device, non_blocking=True)
         if spec.use_hash and spec.key_dtype == "wide" and not (
                 idx.ndim >= 2 and idx.shape[-1] == 2):
             idx = hash_lib.widen_ids(idx)

@@ -1,5 +1,5 @@
-"""CTR models: LR, Wide&Deep and DeepFM as ``torch.nn`` modules
-(``openembedding_tpu/models/deepctr.py``).
+"""CTR models: LR, Wide&Deep, DeepFM, xDeepFM and DCN as ``torch.nn``
+modules (``openembedding_tpu/models/deepctr.py``).
 
 The modules hold only the dense maths. The ``EmbeddingCollection`` pulls
 the embedding rows outside the module and passes them in as a dict: per
@@ -11,11 +11,16 @@ modules', term for term.
 Two differences follow from torch. A linear layer takes its input width
 when it is built (torch has no lazy ``nn.Dense``), so a model takes the
 embedding width and the number of dense features. And the parameters keep
-flax's names (``MLP_0.Dense_0``, ``Dense_0``, ``bias``), with a flax
-``kernel`` ``[in, out]`` stored as the torch ``weight`` ``[out, in]``, so
-``interop.dense_params_from_flax`` maps one onto the other by name.
-:func:`init_params` draws flax's initial values from flax's keys:
-``lecun_normal`` kernels, zero biases, equal to ``module.init``'s.
+flax's names (``MLP_0.Dense_0``, ``Dense_0``, ``CIN_0.cin_w_0``,
+``CrossNet_0.cross_w_0``, ``bias``) and shapes, with a flax ``kernel``
+``[in, out]`` stored as the torch ``weight`` ``[out, in]`` (a
+``self.param`` array such as ``cin_w_0`` keeps its flax shape), so
+``interop.dense_params_from_flax`` maps one onto the other by name; a
+module registers its parameters in flax's order of creation.
+:func:`init_params` draws flax's initial values from flax's keys: each
+parameter's flax initializer (``lecun_normal`` kernels,
+``glorot_uniform`` CIN and cross weights, zeros), equal to
+``module.init``'s.
 """
 
 from __future__ import annotations
@@ -26,10 +31,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..embedding import EmbeddingSpec, not_ported
+from ..embedding import EmbeddingSpec
 from ..fused import FUSED_NAME, LINEAR_SUFFIX
 from ..interop import flax_path
-from ..optim.initializers import Normal, flax_param_key
+from ..optim.initializers import Normal, Uniform, flax_param_key
 from ..utils.device import resolve_device
 
 # flax's lecun_normal: the stddev of a normal truncated at +-2 is this
@@ -188,43 +193,185 @@ class DeepFM(nn.Module):
         return linear + fm + deep_logit.to(linear.dtype) + self.bias[0]
 
 
-MODELS = {"lr": LogisticRegression, "wdl": WideDeep, "deepfm": DeepFM}
+class CIN(nn.Module):
+    """Compressed Interaction Network, xDeepFM's core block: each layer
+    takes the outer products of ``x_k`` and ``x_0`` over the fields
+    (``z[b, i, j, d] = x_k[b, i, d] * x_0[b, j, d]``, flattened to
+    ``[B, H_k·F, D]``), compresses them to ``h`` maps with ``cin_w_i``
+    ``[H_k·F, h]`` (``einsum("bnd,nh->bhd")``), applies ReLU and sum-pools
+    over ``d``; the pooled layers are concatenated.
+
+    The maps are kept as ``[B, D, ·]``, so each layer's compression is one
+    ``[B·D, H_k·F] x [H_k·F, h]`` matrix product in float32, the same sums
+    as JAX's ``einsum`` in another order. The layout changes nothing in the
+    values: ``n = i·F + j`` indexes ``z`` as JAX's reshape does."""
+
+    def __init__(self, num_fields: int, layer_sizes: Sequence[int]):
+        super().__init__()
+        self.flax_init = {}
+        hk = num_fields
+        for i, h in enumerate(layer_sizes):
+            name = f"cin_w_{i}"
+            self.register_parameter(
+                name, nn.Parameter(torch.zeros(hk * num_fields, h)))
+            self.flax_init[name] = "glorot_uniform"
+            hk = h
+        self.out_features = sum(layer_sizes)
+
+    def forward(self, x0):                                    # [B, F, D]
+        b, f, d = x0.shape
+        x0t = x0.transpose(1, 2)                              # [B, D, F]
+        xk = x0t
+        pooled = []
+        for w in self.parameters():
+            z = (xk[:, :, :, None] * x0t[:, :, None, :]).reshape(b * d, -1)
+            xk = torch.relu(z.to(w.dtype) @ w).reshape(b, d, -1)  # [B, D, h]
+            pooled.append(torch.sum(xk, dim=1))               # [B, h]
+        return torch.cat(pooled, dim=-1)
+
+
+class XDeepFM(nn.Module):
+    """xDeepFM: the linear term, a ``Dense`` over the CIN's pooled maps
+    and an MLP over the field embeddings and the dense features."""
+
+    def __init__(self, feature_names: Sequence[str], embedding_dim: int,
+                 num_dense: int = 13,
+                 dnn_units: Tuple[int, ...] = (256, 128),
+                 cin_layer_sizes: Tuple[int, ...] = (128, 128)):
+        super().__init__()
+        self.feature_names = tuple(feature_names)
+        num_fields = len(self.feature_names)
+        self.CIN_0 = CIN(num_fields, cin_layer_sizes)
+        self.Dense_0 = nn.Linear(self.CIN_0.out_features, 1)
+        self.MLP_0 = MLP(num_fields * embedding_dim + num_dense, dnn_units)
+        self.Dense_1 = nn.Linear(self.MLP_0.out_features, 1)
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, dense, rows):
+        linear = _linear_term(rows, self.feature_names)
+        fields = _stack_fields(rows, self.feature_names)
+        cin_out = self.CIN_0(fields.to(self.Dense_0.weight.dtype))
+        cin_logit = _dense(self.Dense_0, cin_out).reshape(-1)
+        deep = self.MLP_0(_deep_input(fields, dense))
+        deep_logit = _dense(self.Dense_1, deep).reshape(-1)
+        return (linear + cin_logit.to(linear.dtype)
+                + deep_logit.to(linear.dtype) + self.bias[0])
+
+
+class CrossNet(nn.Module):
+    """DCN's cross layers: ``x_{k+1} = x_0 · (x_k @ cross_w_k) + cross_b_k
+    + x_k``, with ``cross_w_k`` ``[d, 1]`` and ``cross_b_k`` ``[d]``."""
+
+    def __init__(self, width: int, num_layers: int = 3):
+        super().__init__()
+        self.flax_init = {}
+        for k in range(num_layers):
+            self.register_parameter(f"cross_w_{k}",
+                                    nn.Parameter(torch.zeros(width, 1)))
+            self.register_parameter(f"cross_b_{k}",
+                                    nn.Parameter(torch.zeros(width)))
+            self.flax_init[f"cross_w_{k}"] = "glorot_uniform"
+        self.num_layers = num_layers
+
+    def forward(self, x0):                                    # [B, d]
+        x = x0
+        for k in range(self.num_layers):
+            w = getattr(self, f"cross_w_{k}")
+            b = getattr(self, f"cross_b_{k}")
+            xw = (x.to(w.dtype) @ w).to(x0.dtype)             # [B, 1]
+            x = x0 * xw + b.to(x0.dtype) + x
+        return x
+
+
+class DCN(nn.Module):
+    """Deep & Cross Network: a ``CrossNet`` and an MLP over the flattened
+    field embeddings and the dense features, then one ``Dense``."""
+
+    def __init__(self, feature_names: Sequence[str], embedding_dim: int,
+                 num_dense: int = 13, cross_layers: int = 3,
+                 dnn_units: Tuple[int, ...] = (256, 128)):
+        super().__init__()
+        self.feature_names = tuple(feature_names)
+        width = len(self.feature_names) * embedding_dim + num_dense
+        self.CrossNet_0 = CrossNet(width, cross_layers)
+        self.MLP_0 = MLP(width, dnn_units)
+        self.Dense_0 = nn.Linear(width + self.MLP_0.out_features, 1)
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, dense, rows):
+        fields = _stack_fields(rows, self.feature_names)
+        x0 = _deep_input(fields, dense)
+        cross = self.CrossNet_0(x0)
+        deep = self.MLP_0(x0)
+        out = torch.cat([cross, deep.to(cross.dtype)], dim=-1)
+        logit = _dense(self.Dense_0, out).reshape(-1)
+        return logit.to(torch.float32) + self.bias[0]
+
+
+MODELS = {"lr": LogisticRegression, "wdl": WideDeep, "deepfm": DeepFM,
+          "xdeepfm": XDeepFM, "dcn": DCN}
 
 
 def build_model(name: str, feature_names: Sequence[str], **kwargs):
-    """``"lr"``, ``"wdl"`` or ``"deepfm"`` over ``feature_names``; the
-    keywords go to the model's constructor."""
-    if name in ("xdeepfm", "dcn"):
-        raise not_ported(f"model {name!r}", "xDeepFM and DCN models")
+    """``"lr"``, ``"wdl"``, ``"deepfm"``, ``"xdeepfm"`` or ``"dcn"`` over
+    ``feature_names``; the keywords go to the model's constructor."""
     if name not in MODELS:
-        raise ValueError(f"unknown model {name!r}; known: "
-                         f"{sorted(MODELS) + ['dcn', 'xdeepfm']}")
+        raise ValueError(f"unknown model {name!r}; known: {sorted(MODELS)}")
     return MODELS[name](feature_names=tuple(feature_names), **kwargs)
+
+
+def _flax_initializer(owner: nn.Module, leaf: str) -> str:
+    """The flax initializer of parameter ``leaf`` of module ``owner``: a
+    ``Dense`` kernel is ``lecun_normal`` and its bias zeros; a module's own
+    ``self.param`` arrays name theirs in ``flax_init`` (zeros if absent)."""
+    if isinstance(owner, nn.Linear):
+        return "lecun_normal" if leaf == "weight" else "zeros"
+    return getattr(owner, "flax_init", {}).get(leaf, "zeros")
 
 
 def init_params(module: nn.Module, rng, device=None
                 ) -> Dict[str, torch.Tensor]:
     """Initial values for every parameter of ``module`` on ``device``, as
-    flax's ``module.init(rng, ...)`` gives them: each linear layer's
-    kernel is ``lecun_normal`` (a normal truncated at +-2, times
-    ``sqrt(1 / fan_in) / 0.87962566``, in float32 as JAX computes it),
-    drawn from the key flax's ``make_rng`` gives the layer's first
-    parameter (:func:`flax_param_key` of its path, ``interop.flax_path``),
-    as a flat ``[in, out]`` array (KI's array mode on the card), and
-    stored transposed as the torch ``weight``; every bias is zero. ``rng``
-    is a threefry key (``prng_key(seed)``); the values do not depend on
-    the device."""
+    flax's ``module.init(rng, ...)`` gives them. Each parameter is drawn
+    from the key flax's ``make_rng`` hands it (:func:`flax_param_key` of
+    its scope's path, ``interop.flax_path``, and its counter: its place
+    among the scope's ``self.param`` calls, which the torch module
+    registers in that order) by its flax initializer, as a flat array in
+    flax's shape (KI's array mode on the card):
+
+    - ``lecun_normal``: a normal truncated at +-2, times ``sqrt(1 /
+      fan_in) / 0.87962566``, in float32 as JAX computes it; a ``Dense``
+      kernel ``[in, out]``, stored transposed as the torch ``weight``;
+    - ``glorot_uniform``: ``uniform(-1, 1) * sqrt(3 / ((fan_in +
+      fan_out) / 2))``, the uniform draw as ``jax.random.uniform``
+      compiles it and the scale as flax applies it, one float32 multiply
+      (``fan_in, fan_out`` are the last two dims);
+    - ``zeros``.
+
+    ``rng`` is a threefry key (``prng_key(seed)``); the values do not
+    depend on the device."""
     device = resolve_device(device)
     out = {}
     for name, p in module.named_parameters():
         path = flax_path(name)
-        if path[-1] != "kernel":
+        scope, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(scope)
+        kind = _flax_initializer(owner, leaf)
+        if kind == "zeros":
             out[name] = torch.zeros(p.shape, dtype=p.dtype, device=device)
             continue
-        fan_out, fan_in = p.shape
-        std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(_TRUNC_STD)
-        kernel = Normal(stddev=float(std), truncated=True).init(
-            flax_param_key(rng, path[:-1], 1), (fan_in, fan_out), p.dtype,
-            device)
-        out[name] = kernel.t().contiguous()
+        own = [k for k, _ in owner.named_parameters(recurse=False)]
+        key = flax_param_key(rng, path[:-1], own.index(leaf) + 1)
+        if kind == "lecun_normal":
+            fan_out, fan_in = p.shape
+            std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(_TRUNC_STD)
+            kernel = Normal(stddev=float(std), truncated=True).init(
+                key, (fan_in, fan_out), p.dtype, device)
+            out[name] = kernel.t().contiguous()
+            continue
+        fan_in, fan_out = p.shape[-2:]
+        variance = np.float32(1.0 / ((fan_in + fan_out) / 2))
+        scale = np.sqrt(np.float32(3) * variance)
+        out[name] = Uniform(-1.0, 1.0).init(key, tuple(p.shape), p.dtype,
+                                            device) * float(scale)
     return out

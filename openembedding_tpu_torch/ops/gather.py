@@ -22,6 +22,8 @@ import ctypes
 
 import torch
 
+from . import launches
+
 _WORD_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _INDEX_BYTES = {torch.int32: 4, torch.int64: 8}
 _fn = None              # the C entry, once built and loaded
@@ -99,7 +101,7 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{rc}")
-    gather_rows.launches += 1
+    launches.count(gather_rows)
     return out
 
 

@@ -33,6 +33,7 @@ import torch
 
 from ..optim.initializers import (Initializer, flat_rows, key_words,
                                   keyed_params, keyed_rows, threefry_key)
+from . import launches
 
 _WORD_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _INDEX_LIMIT = 2**31        # the per-key kernel's 32-bit element indices
@@ -158,7 +159,7 @@ def init_rows(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
         keys.data_ptr(), skip.data_ptr(), out.data_ptr(), n, dim,
         int(keys.dim() == 2), int(base[0]), int(base[1]), kind, *params,
         _WORD_BYTES[out.dtype]))
-    init_rows.launches += 1
+    launches.count(init_rows)
     return out
 
 
@@ -190,7 +191,7 @@ def init_flat(out: torch.Tensor, key, offset: int,
         _launch(fn, out.device, (
             flat.data_ptr() + lo * step, count, offset + lo, k0, k1, kind,
             *params, _WORD_BYTES[out.dtype]))
-        init_flat.launches += 1
+        launches.count(init_flat)
     return out
 
 

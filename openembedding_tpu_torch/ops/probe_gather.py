@@ -34,6 +34,8 @@ from typing import Tuple
 
 import torch
 
+from . import launches
+
 _WORD_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 _fn = None              # the C entry, once built and loaded
 
@@ -160,7 +162,7 @@ def probe_gather(table_keys: torch.Tensor, weights: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"probe_gather kernel launch failed: CUDA error "
                            f"{rc}")
-    probe_gather.launches += 1
+    launches.count(probe_gather)
     return rows, hit
 
 

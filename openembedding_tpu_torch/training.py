@@ -10,6 +10,22 @@ update the dense parameters, and push the row gradients into the tables
 (``EmbeddingCollection.apply_gradients``). No gradient flows into a table
 through the gather, so the gather needs no backward.
 
+JAX compiles that step into one program (``jax.jit(step_fn,
+donate_argnums=(0,))``) and caches it by the batch's structure, shapes
+and dtypes. The port keeps a cache of step programs with the same key,
+plus the identity of the state's tensors (a CUDA graph is bound to their
+addresses, as a donated JAX state is to its buffers), so ``copy_state``,
+a checkpoint load or a new ``init`` builds a new program. On CUDA a
+program is one captured CUDA graph (``torch.cuda.graphs``) of pull,
+gradients, dense update, push and ``step += 1`` over static input
+buffers; building it takes one eager warm-up step on a side stream (a
+real step, counted as one) and then the capture, and every later step
+copies the batch into the buffers and replays the graph. A capture that
+fails raises; nothing falls back to the eager step. On the CPU a program
+is the eager step, cached and counted the same way, so that
+``fit(retrace_budget=)`` means there what it means on the card.
+``train_step_eager`` is the step without a program, on any device.
+
 The step has static shapes and reads nothing back to the host: no
 ``.item()``, no ``torch.unique``, no Boolean-mask indexing. The batch
 moves to the device with copies that do not wait, and the step counter is
@@ -22,7 +38,9 @@ port's updates the state's tensors in place and returns the same state.
 from __future__ import annotations
 
 import dataclasses
+import time
 import uuid
+import weakref
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -30,8 +48,10 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from .analysis.retrace import RetraceGuard, note_build
 from .embedding import EmbeddingCollection, not_ported
 from .models.deepctr import init_params
+from .ops.launches import CountedGraph
 from .optim.initializers import split
 
 
@@ -77,14 +97,132 @@ def binary_logloss(logits: torch.Tensor, labels: torch.Tensor
     return torch.mean(loss)
 
 
-def _placed(x, device: torch.device):
-    """A host array or tensor as a tensor on ``device``, copied without
-    waiting for the device."""
-    if x is None:
-        return None
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.array(x, copy=True))
-    return x.to(device, non_blocking=True)
+def _host(x):
+    """A host array as a CPU tensor of its own; a tensor (or None) as it
+    is."""
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def _state_leaves(obj, path=()):
+    """``(path, leaf)`` for every leaf of a state: its tensors, and its
+    host values (a hash table's ``init_rng``, baked into its init-rows
+    launches)."""
+    if isinstance(obj, torch.Tensor):
+        return ((path, obj),)
+    if dataclasses.is_dataclass(obj):
+        items = [(f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj)]
+    elif isinstance(obj, dict):
+        items = list(obj.items())
+    else:
+        return ((path, obj),)
+    return tuple(leaf for k, v in items
+                 for leaf in _state_leaves(v, path + (k,)))
+
+
+def _state_key(state) -> tuple:
+    """The identity of a state as a step program sees it: each tensor's
+    path, address, shape and dtype, and each host value."""
+    return tuple((p, v.data_ptr(), tuple(v.shape), v.dtype)
+                 if isinstance(v, torch.Tensor) else (p, v)
+                 for p, v in _state_leaves(state))
+
+
+def _batch_key(host: Dict[str, Any]) -> tuple:
+    """What a ``jax.jit`` cache keys a batch on: its columns, and each
+    array's shape and dtype; whether ``dense`` is present."""
+    def sig(t):
+        return None if t is None else (tuple(t.shape), t.dtype)
+    return (sig(host["label"]), sig(host["dense"]),
+            tuple((k, sig(v)) for k, v in sorted(host["sparse"].items())))
+
+
+class _Program:
+    """A step program, bound to the tensors of the state it was built on.
+    It holds weak references to them: once one is gone the program is
+    stale, so a new state that lands on the same addresses builds its own
+    program, as a new state does in JAX."""
+
+    build_s = 0.0
+    pool_bytes = None
+
+    def __init__(self, state: "TrainState"):
+        self._refs = [weakref.ref(v) for _, v in _state_leaves(state)
+                      if isinstance(v, torch.Tensor)]
+
+    def live(self) -> bool:
+        return all(r() is not None for r in self._refs)
+
+
+class _EagerProgram(_Program):
+    """The step program on the CPU: the eager step."""
+
+    def __init__(self, trainer: "Trainer", state: "TrainState"):
+        super().__init__(state)
+        self.trainer = trainer
+
+    def __call__(self, state: "TrainState", host) -> torch.Tensor:
+        return self.trainer._step(state, self.trainer.place_batch(host))
+
+
+class _CapturedProgram(_Program):
+    """The step program on a CUDA device: one ``CountedGraph`` of the
+    step over static input buffers, bound to the state it was built on.
+
+    Building it copies the first batch into the buffers, takes one eager
+    step on a side stream (``torch.cuda.graphs``' warm-up: lazy
+    initialization and every kernel's first launch happen outside the
+    capture), then captures the step into the graph memory pool of the
+    trainer's other captured programs, which they all share (they replay
+    one at a time, on one stream). ``first_loss`` is the warm-up step's
+    loss; ``build_s`` the seconds the build took; ``pool_bytes`` the
+    memory the capture reserved."""
+
+    def __init__(self, trainer: "Trainer", state: "TrainState", host):
+        super().__init__(state)
+        t0 = time.perf_counter()
+        dev = trainer.device
+
+        def buffer(t):
+            return None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, device=dev)
+        self.inputs = {"label": buffer(host["label"]),
+                       "dense": buffer(host["dense"]),
+                       "sparse": {k: buffer(v)
+                                  for k, v in host["sparse"].items()}}
+        self._load(host)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.first_loss = trainer._step(state, self.inputs)
+        main.wait_stream(side)
+        self.first_loss.record_stream(main)
+        self.graph = CountedGraph()
+        with self.graph.capture(pool=trainer._graph_pool()):
+            reserved = torch.cuda.memory_reserved(dev)
+            self.loss = trainer._step(state, self.inputs)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.build_s = time.perf_counter() - t0
+
+    def _load(self, host) -> None:
+        """Copy a batch into the static buffers, on the current stream and
+        without waiting for the device."""
+        pairs = [(self.inputs["label"], host["label"]),
+                 (self.inputs["dense"], host["dense"])] + [
+            (self.inputs["sparse"][k], v) for k, v in host["sparse"].items()]
+        for buf, x in pairs:
+            if buf is not None:
+                buf.copy_(x, non_blocking=True)
+
+    def __call__(self, state: "TrainState", host) -> torch.Tensor:
+        del state           # the graph holds its tensors' addresses
+        self._load(host)
+        self.graph.replay()
+        # a copy of its own: the next replay overwrites the graph's output
+        return self.loss.clone()
 
 
 class Trainer:
@@ -122,6 +260,10 @@ class Trainer:
         self.loss_fn = loss_fn
         # serving signature "<uuid>-<step>", as the JAX Trainer stamps it
         self.model_uuid = uuid.uuid4().hex[:12]
+        # step programs by (batch signature, state identity), and the
+        # number of programs built
+        self.programs: Dict[tuple, _Program] = {}
+        self.builds = 0
 
     # --- initialization ----------------------------------------------------
     def init(self, rng, sample_batch: Dict[str, Any]) -> TrainState:
@@ -145,28 +287,92 @@ class Trainer:
             emb=self.collection.init(emb_rng))
 
     # --- steps ---------------------------------------------------------------
+    def host_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's arrays as tensors where they lie, host arrays copied
+        into CPU tensors and a hash variable's host ids widened on the
+        host (``EmbeddingCollection.host_ids``): the host's part of placing
+        a batch, done outside any step program."""
+        return {"label": _host(batch["label"]),
+                "dense": _host(batch.get("dense")),
+                "sparse": {k: self.collection.host_ids(k, v)
+                           for k, v in batch["sparse"].items()}}
+
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The batch's arrays on the trainer's device (the JAX
         ``shard_batch``), copied without waiting."""
-        return {"label": _placed(batch["label"], self.device),
-                "dense": _placed(batch.get("dense"), self.device),
+        host = self.host_batch(batch)
+
+        def placed(x):
+            return None if x is None else x.to(self.device,
+                                               non_blocking=True)
+        return {"label": placed(host["label"]),
+                "dense": placed(host["dense"]),
                 "sparse": {k: self.collection.to_device(k, v)
-                           for k, v in batch["sparse"].items()}}
+                           for k, v in host["sparse"].items()}}
 
     def _logits(self, params, dense, rows):
         return functional_call(self.module, params, (dense, rows))
 
-    def train_step(self, state: TrainState, batch) -> tuple:
-        """One step; returns ``(state, {"loss": device scalar})``. The
-        state's tensors are updated in place."""
-        batch = self.place_batch(batch)
+    def _step(self, state: TrainState, batch) -> torch.Tensor:
+        """The step on a placed batch (or a program's static buffers):
+        pull, loss and gradients, dense update, push, ``step += 1``, all
+        in place. Returns the loss, a device scalar."""
         rows = self.collection.pull(state.emb, batch["sparse"])
         loss, row_grads = self.dense_step(state, batch, rows)
         with torch.no_grad():
             self.collection.apply_gradients(state.emb, batch["sparse"],
                                             row_grads)
             state.step.add_(1)
+        return loss
+
+    def train_step(self, state: TrainState, batch) -> tuple:
+        """One step; returns ``(state, {"loss": device scalar})``. The
+        state's tensors are updated in place.
+
+        The step runs the cached step program of the batch's signature and
+        the state's tensors, building it first when there is none (module
+        note): on CUDA the build's warm-up is this step and later calls
+        replay the captured graph; the loss returned is a tensor of its
+        own, which no later step overwrites."""
+        host = self.host_batch(batch)
+        key = (_batch_key(host), _state_key(state))
+        program = self.programs.get(key)
+        if program is not None and program.live():
+            return state, {"loss": program(state, host)}
+        self._drop_stale_programs()
+        if self.device.type == "cuda":
+            program = _CapturedProgram(self, state, host)
+            loss = program.first_loss
+        else:
+            program = _EagerProgram(self, state)
+            loss = program(state, host)
+        self.programs[key] = program
+        self.builds += 1
+        note_build()
         return state, {"loss": loss}
+
+    def _graph_pool(self):
+        """The memory pool of a live captured program, or None (the next
+        capture then takes a pool of its own). A pool lives as long as a
+        graph that uses it, so it is always taken from one."""
+        for p in self.programs.values():
+            if isinstance(p, _CapturedProgram):
+                return p.graph.graph.pool()
+        return None
+
+    def _drop_stale_programs(self) -> None:
+        """Forget the programs of states that are gone, freeing their
+        graphs once the device has finished with them."""
+        stale = [k for k, p in self.programs.items() if not p.live()]
+        if stale and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for k in stale:
+            del self.programs[k]
+
+    def train_step_eager(self, state: TrainState, batch) -> tuple:
+        """One step dispatched op by op, with no step program (the oracle
+        of the captured step); the same result as :meth:`train_step`."""
+        return state, {"loss": self._step(state, self.place_batch(batch))}
 
     def dense_step(self, state: TrainState, batch, rows):
         """The dense half of a step on pulled rows: the loss, its
@@ -208,22 +414,36 @@ class Trainer:
             resume_from: Optional[str] = None):
         """Step through ``batches``; returns ``(state, last metrics)``.
         Every ``log_every`` steps ``log_fn`` gets ``"step N: loss=..."``,
-        the only reads of the loss. The JAX ``fit``'s persist, retrace,
-        autosave and resume keywords raise ``NotImplementedError`` naming
-        their ROADMAP.md items."""
+        the only reads of the loss.
+
+        ``retrace_budget``: step-program builds allowed after a two-step
+        warm-up, as the JAX ``fit`` allows XLA compilations (step 1 builds
+        the program; the guard opens after step 2). A fixed-shape loop on
+        one state needs 0. A trip raises
+        :class:`analysis.retrace.RetraceBudgetExceeded` at the end of the
+        loop. The JAX ``fit``'s persist, autosave and resume keywords
+        raise ``NotImplementedError`` naming their ROADMAP.md items."""
         if persist_dir is not None:
             raise not_ported("fit(persist_dir=)", "host offload")
-        if retrace_budget is not None:
-            raise not_ported("fit(retrace_budget=)",
-                             "captured training step")
         if autosave_every or autosave_dir is not None \
                 or resume_from is not None:
             raise not_ported("fit(autosave_every=, autosave_dir=, "
                              "resume_from=)",
                              "delta checkpoints and other layouts")
-        last = None
-        for i, batch in enumerate(batches):
-            state, last = self.train_step(state, batch)
-            if log_every and (i + 1) % log_every == 0:
-                log_fn(f"step {i + 1}: loss={float(last['loss']):.5f}")
+        last, guard = None, None
+        try:
+            for i, batch in enumerate(batches):
+                state, last = self.train_step(state, batch)
+                if retrace_budget is not None and guard is None and i >= 1:
+                    guard = RetraceGuard(budget=retrace_budget,
+                                         name="Trainer.fit steady state")
+                    guard.__enter__()
+                if log_every and (i + 1) % log_every == 0:
+                    log_fn(f"step {i + 1}: loss={float(last['loss']):.5f}")
+        except BaseException as e:
+            if guard is not None:
+                guard.__exit__(type(e), e, None)
+            raise
+        if guard is not None:
+            guard.__exit__(None, None, None)
         return state, last

@@ -271,7 +271,9 @@ def test_train_step_on_card_matches_cpu_without_host_sync():
     dense parameters and accumulators within atol 1e-5 + rtol 1e-4 (the
     card's scatter-adds sum in any order), and each table row's change
     within rtol 1e-3 of the CPU's; two K1 launches a step; and no
-    step reads anything back to the host (sync debug mode "error")."""
+    step reads anything back to the host (sync debug mode "error"). The
+    steps are eager (``train_step_eager``): a step that synchronized
+    could not be captured."""
     _need_card()
     from openembedding_tpu_torch import training as tr
     from openembedding_tpu_torch.data import criteo
@@ -280,7 +282,7 @@ def test_train_step_on_card_matches_cpu_without_host_sync():
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         512, num_buckets=1000, seed=0, num_batches=4)]
     gstate = gpu.init(prng_key(0), batches[0])
-    gstate, _ = gpu.train_step(gstate, batches[3])     # warm: builds K1
+    gstate, _ = gpu.train_step_eager(gstate, batches[3])   # warm: K1
     torch.cuda.synchronize()
     cstate = tr.copy_state(gstate, "cpu")
     initial = tr.copy_state(gstate, "cpu")
@@ -289,7 +291,7 @@ def test_train_step_on_card_matches_cpu_without_host_sync():
     torch.cuda.set_sync_debug_mode("error")
     try:
         for b in batches[:3]:
-            gstate, m = gpu.train_step(gstate, b)
+            gstate, m = gpu.train_step_eager(gstate, b)
             losses.append(m["loss"])
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -498,7 +500,7 @@ def test_hash_train_step_on_card_matches_cpu_without_host_sync():
     init row when the steps inserted it, else from its row before them,
     within ``_close_change``'s limit); K2 launched twice a step and KI
     four times; no step reads the device back (sync debug mode
-    "error")."""
+    "error"; eager steps, as the array test's)."""
     _need_card()
     from openembedding_tpu_torch import training as tr
     from openembedding_tpu_torch.data import criteo
@@ -508,7 +510,7 @@ def test_hash_train_step_on_card_matches_cpu_without_host_sync():
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         512, num_buckets=1 << 12, seed=0, num_batches=4)]
     gstate = gpu.init(prng_key(0), batches[0])
-    gstate, _ = gpu.train_step(gstate, batches[3])   # warm: builds kernels
+    gstate, _ = gpu.train_step_eager(gstate, batches[3])  # warm: kernels
     torch.cuda.synchronize()
     cstate = tr.copy_state(gstate, "cpu")
     initial = tr.copy_state(gstate, "cpu")
@@ -517,7 +519,7 @@ def test_hash_train_step_on_card_matches_cpu_without_host_sync():
     torch.cuda.set_sync_debug_mode("error")
     try:
         for b in batches[:3]:
-            gstate, m = gpu.train_step(gstate, b)
+            gstate, m = gpu.train_step_eager(gstate, b)
             losses.append(m["loss"])
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -547,3 +549,206 @@ def test_hash_train_step_on_card_matches_cpu_without_host_sync():
             _close_change(a[idx.to(a.device)], b[idx], s0)
     for k in gstate.params:
         _close(gstate.params[k], cstate.params[k])
+
+
+@pytest.mark.gpu
+def test_kernels_captured_in_a_graph_match_eager():
+    """K1, K2 and KI launched into one ``CountedGraph``: each replay equals
+    eager calls on the same inputs exactly, a replay reads what its input
+    buffers hold then, and each replay (not the capture) moves each
+    launch counter by the kernel's launches in the graph."""
+    _need_card()
+    from openembedding_tpu_torch.ops import init_rows as ki
+    from openembedding_tpu_torch.ops.launches import CountedGraph
+    from openembedding_tpu_torch.optim import initializers as ti
+    rng = np.random.RandomState(7)
+    table = torch.randn(1000, 9, device="cuda")
+    ids = torch.from_numpy(rng.randint(-5, 1005, 4099)
+                           .astype(np.int32)).cuda()
+    capacity = 128 * 37
+    keys = torch.from_numpy(_keys(rng, capacity // 2, True)).cuda()
+    st = th.create_hash_table(EmbeddingVariableMeta("float32", 9, 2**63),
+                              "default", capacity=capacity,
+                              key_dtype="wide", device="cuda")
+    th.insert_rows(st, keys, torch.randn(len(keys), 9, device="cuda"))
+    query = torch.cat([keys[:3000], torch.from_numpy(
+        _keys(rng, 1099, True)).cuda()])
+    bsz, _nb, chain = th.table_layout(capacity, th.DEFAULT_MAX_PROBES)
+    init = ti.make_initializer({"category": "normal", "stddev": 1e-4})
+
+    def step():
+        rows = tg.gather_rows(table, ids)
+        found, hit = tp.probe_gather(st.keys, st.weights, query,
+                                     chain=chain, bucket=bsz, empty=EMPTY)
+        ki.init_rows(found, query, hit, (3, 4), init)
+        return rows, found, hit
+
+    for _ in range(2):          # warm: every kernel's first launch
+        step()
+    torch.cuda.synchronize()
+    counters = (tg.gather_rows, tp.probe_gather, ki.init_rows)
+    before = [c.launches for c in counters]
+    graph = CountedGraph()
+    with graph.capture():
+        out = step()
+    assert [c.launches for c in counters] == before
+    assert graph.tally == {c: 1 for c in counters}
+    for replay in range(3):
+        ids.copy_(torch.from_numpy(rng.randint(-5, 1005, 4099)
+                                   .astype(np.int32)))
+        query[:2000] = query[:2000].flip(0)
+        graph.replay()
+        want = step()
+        torch.cuda.synchronize()
+        for got, w in zip(out, want):
+            assert torch.equal(got, w)
+        assert [c.launches for c in counters] == [
+            b + 2 * (replay + 1) for b in before]
+
+
+def _counters():
+    from openembedding_tpu_torch.ops import init_rows as ki
+    return (tg.gather_rows, tp.probe_gather, ki.init_rows)
+
+
+def _tensors(state):
+    """Every tensor of a train state: step, dense state, and each table's
+    weights and slots (a hash table's keys and failure count too)."""
+    out = [state.step] + list(state.params.values()) \
+        + list(state.opt_state.values())
+    for s in state.emb.values():
+        out += [s.weights] + list(s.slots.values())
+        if isinstance(s, th.HashTableState):
+            out += [s.keys, s.insert_failures]
+    return out
+
+
+def _run(state, batches, step):
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return torch.stack(losses), _tensors(state)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a[1], b[1])) \
+        and torch.equal(a[0], b[0])
+
+
+def _captured_against_eager(trainer, state, batches):
+    """The oracle of the captured step: from one state, copied, the
+    captured steps (``train_step``) against the eager ones. Two eager runs
+    go first; if they differ (the push's float scatter-adds use atomics),
+    both sides run under ``torch.use_deterministic_algorithms``. Returns
+    whether the two sides agree bit for bit, whether the deterministic
+    mode was needed, and each launch counter's moves over the captured
+    steps."""
+    import os
+    from openembedding_tpu_torch import training as tr
+
+    def copy():
+        return tr.copy_state(state, state.step.device)
+    first = _run(copy(), batches, trainer.train_step_eager)
+    second = _run(copy(), batches, trainer.train_step_eager)
+    deterministic = not _same(first, second)
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    try:
+        before = {c: c.launches for c in _counters()}
+        captured = _run(copy(), batches, trainer.train_step)
+        launched = {c.__name__: c.launches - before[c] for c in _counters()}
+        eager = _run(copy(), batches, trainer.train_step_eager)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return _same(captured, eager), deterministic, launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["array", "hash"])
+def test_captured_step_matches_eager(kind):
+    """A small DeepFM trainer over array (or hash) tables: 4 captured
+    steps from a state equal 4 eager steps from a copy of it, bit for bit
+    (losses, dense state, tables, slots; hash keys and failure counts;
+    under deterministic algorithms if two eager runs differ); the launch
+    counters move by 2 K1 a step (array) or 2 K2 and 4 KI (hash), the
+    replays included; a ``copy_state`` builds a new program, the same
+    state none; a loss the caller holds stays as it was."""
+    _need_card()
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    build = _tiny_trainer if kind == "array" else _tiny_hash_trainer
+    gpu, mapper = build("cuda")
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        512, num_buckets=1000 if kind == "array" else 1 << 12, seed=0,
+        num_batches=4)]
+    state = gpu.init(prng_key(0), batches[0])
+    same, _deterministic, launched = _captured_against_eager(gpu, state,
+                                                             batches)
+    assert same
+    assert gpu.builds == 1
+    assert launched == ({"gather_rows": 8, "probe_gather": 0,
+                         "init_rows": 0} if kind == "array" else
+                        {"gather_rows": 0, "probe_gather": 8,
+                         "init_rows": 16})
+    # the same state builds nothing; a copy builds its own program
+    state, _ = gpu.train_step(state, batches[0])
+    state, _ = gpu.train_step(state, batches[1])
+    assert gpu.builds == 2
+    other = tr.copy_state(state, "cuda")
+    other, m = gpu.train_step(other, batches[1])
+    assert gpu.builds == 3
+    state, m2 = gpu.train_step(state, batches[1])
+    assert gpu.builds == 3
+    held = m2["loss"].clone()
+    state, _ = gpu.train_step(state, batches[2])
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"]) and torch.equal(m2["loss"], held)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["xdeepfm", "dcn"])
+def test_xdeepfm_and_dcn_steps_on_card_match_cpu(model):
+    """A small xDeepFM (CIN (8, 8)) or DCN (3 cross layers) over fused
+    array tables: 3 captured card steps and 3 CPU steps from the same
+    ``Trainer.init`` agree (losses rtol 1e-4, state atol 1e-5 + rtol
+    1e-4); float32 matrix products stay in float32 (no TF32)."""
+    _need_card()
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models import deepctr as tm
+    from openembedding_tpu_torch.optim import dense
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+    def build(device):
+        specs, mapper = make_fused_specs(
+            criteo.SPARSE_NAMES, 1000, 16,
+            optimizer={"category": "adagrad", "learning_rate": 0.01})
+        extra = {"cin_layer_sizes": (8, 8)} if model == "xdeepfm" else {}
+        module = tm.build_model(model, criteo.SPARSE_NAMES, embedding_dim=16,
+                                dnn_units=(64, 32), **extra)
+        return tr.Trainer(module, EmbeddingCollection(specs, device=device),
+                          dense.adagrad(0.01)), mapper
+
+    gpu, mapper = build("cuda")
+    cpu, _ = build("cpu")
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        256, num_buckets=1000, seed=0, num_batches=3)]
+    gstate = gpu.init(prng_key(0), batches[0])
+    cstate = cpu.init(prng_key(0), batches[0])
+    for b in batches:
+        gstate, gm = gpu.train_step(gstate, b)
+        cstate, cm = cpu.train_step(cstate, b)
+        np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                                   rtol=1e-4)
+    assert gpu.builds == 1
+    for k in cstate.params:
+        _close(gstate.params[k], cstate.params[k])
+        _close(gstate.opt_state[k], cstate.opt_state[k])
+    for n, cs in cstate.emb.items():
+        _close(gstate.emb[n].weights, cs.weights)
+        _close(gstate.emb[n].slots["accum"], cs.slots["accum"])

@@ -7,14 +7,15 @@ against ``jax.random.split``, ``fold_in_static`` against flax's
 ``EmbeddingCollection(seed=s).init()`` against JAX's
 ``collection.init(PRNGKey(s))`` on one shard (array tables, slots and the
 hash tables' init keys), and ``Trainer.init(prng_key(0), batch)`` against
-JAX's ``Trainer.init(PRNGKey(0), batch)`` for DeepFM, Wide&Deep and LR
-(dense parameters, optimizer state, tables, and a 3-step loss
-trajectory).
+JAX's ``Trainer.init(PRNGKey(0), batch)`` for DeepFM, Wide&Deep, LR,
+xDeepFM and DCN (dense parameters, optimizer state, tables, and a 3-step
+loss trajectory).
 
-Tolerances: key words, uniform, constant and bfloat16 (uniform) values
-exact; normal and truncated normal values, drawn through XLA's float32
-``erf_inv`` in JAX and the port's own, within ``2^-21 * (|want| +
-stddev)``; losses at rtol 1e-5 (float32 sums in another order).
+Tolerances: key words, uniform, constant, bfloat16 (uniform) and
+glorot_uniform values exact; normal and truncated normal values, drawn
+through XLA's float32 ``erf_inv`` in JAX and the port's own, within
+``2^-21 * (|want| + stddev)``; losses at rtol 1e-5 (float32 sums in
+another order).
 """
 
 import numpy as np
@@ -40,7 +41,7 @@ from openembedding_tpu_torch.models import deepctr as tm
 from openembedding_tpu_torch.optim import dense
 from openembedding_tpu_torch.optim import initializers as ti
 
-VOCAB, DIM, BATCH, UNITS = 64, 4, 32, (16, 8)
+VOCAB, DIM, BATCH, UNITS, CIN = 64, 4, 32, (16, 8), (8, 8)
 OPT = {"category": "adagrad", "learning_rate": 0.01}
 TRUNC_STD = 0.87962566103423978
 # name, vocabulary (-1: hash), dim, dtype, initializer (None: the
@@ -103,21 +104,27 @@ def test_fold_in_static_refuses_other_parts():
 
 def _jax_module(kind):
     kw = {} if kind == "lr" else {"dnn_units": UNITS}
+    if kind == "xdeepfm":
+        kw["cin_layer_sizes"] = CIN
     return jax_models.build_model(kind, criteo.SPARSE_NAMES, **kw)
 
 
 def _torch_module(kind):
     kw = {} if kind == "lr" else {"embedding_dim": DIM, "dnn_units": UNITS}
+    if kind == "xdeepfm":
+        kw["cin_layer_sizes"] = CIN
     return tm.build_model(kind, criteo.SPARSE_NAMES,
                           num_dense=criteo.NUM_DENSE, **kw)
 
 
-@pytest.mark.parametrize("kind", ["deepfm", "wdl", "lr"])
+@pytest.mark.parametrize("kind", ["deepfm", "wdl", "lr", "xdeepfm", "dcn"])
 def test_flax_param_keys_rebuild_module_init(kind):
     """Each kernel of JAX's ``module.init(PRNGKey(3), ...)`` is
     ``lecun_normal`` drawn from ``flax_param_key(rng, its scope, 1)``, bit
-    for bit (JAX draws both), and the port names every parameter by its
-    flax path."""
+    for bit (JAX draws both), each CIN weight ``cin_w_i`` glorot_uniform
+    from its scope's counter ``i + 1`` and each cross weight ``cross_w_k``
+    from ``2k + 1`` (``cross_b_k`` takes ``2k + 2``), and the port names
+    every parameter by its flax path."""
     rng = jax.random.PRNGKey(3)
     rows = {"fields": jnp.zeros((BATCH, len(criteo.SPARSE_NAMES), DIM)),
             "fields:linear": jnp.zeros((BATCH, len(criteo.SPARSE_NAMES),
@@ -137,6 +144,15 @@ def test_flax_param_keys_rebuild_module_init(kind):
         want = jax.nn.initializers.lecun_normal()(key, leaves[path].shape)
         np.testing.assert_array_equal(np.asarray(leaves[path]),
                                       np.asarray(want))
+    for path, v in leaves.items():
+        name, _, i = path[-1].rpartition("_")
+        if name not in ("cin_w", "cross_w"):
+            continue
+        counter = int(i) + 1 if name == "cin_w" else 2 * int(i) + 1
+        key = jnp.asarray(ti.flax_param_key(_key(rng), path[:-1], counter),
+                          jnp.uint32)
+        want = jax.nn.initializers.glorot_uniform()(key, v.shape)
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(want))
 
 
 def _mixed_pair(devices8, seed):
@@ -209,12 +225,13 @@ def _batches(mapper, n):
         BATCH, num_buckets=VOCAB, seed=0, num_batches=n)]
 
 
-@pytest.mark.parametrize("kind", ["deepfm", "wdl", "lr"])
+@pytest.mark.parametrize("kind", ["deepfm", "wdl", "lr", "xdeepfm", "dcn"])
 def test_trainer_init_equals_jax_without_copy(devices8, kind):
     """``Trainer.init(prng_key(0), batch)`` holds JAX's ``Trainer.init(
     PRNGKey(0), batch)``: dense parameters (lecun_normal kernels within
-    the ``erf_inv`` bound, zero biases), the dense optimizer's state, the
-    tables; and 3 steps from the two states agree at rtol 1e-5."""
+    the ``erf_inv`` bound, glorot_uniform CIN and cross weights and zero
+    biases exactly), the dense optimizer's state, the tables; and 3 steps
+    from the two states agree at rtol 1e-5."""
     jspecs, _ = jax_fused_specs(criteo.SPARSE_NAMES, VOCAB, DIM,
                                 optimizer=OPT)
     tspecs, mapper = make_fused_specs(criteo.SPARSE_NAMES, VOCAB, DIM,
@@ -240,6 +257,8 @@ def test_trainer_init_equals_jax_without_copy(devices8, kind):
             _assert_drawn(got.numpy(), w.numpy(),
                           {"category": "normal", "truncated": True,
                            "stddev": std})
+        elif "cin_w_" in name or "cross_w_" in name:
+            assert torch.equal(w, got)
         else:
             assert torch.equal(got, torch.zeros_like(got)) \
                 and torch.equal(w, got)

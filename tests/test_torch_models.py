@@ -1,9 +1,12 @@
 """Torch port, ``models/deepctr.py`` against the JAX package's flax
-modules: the forward of ``LogisticRegression``, ``WideDeep`` and
-``DeepFM`` on fused and per-feature rows, and the gradients of the loss
-with respect to the dense parameters and the rows
-(``jax.value_and_grad(argnums=(0, 1))`` against ``torch.autograd.grad``),
-with the flax parameters carried over by ``interop``, at rtol 1e-5."""
+modules: the forward of ``LogisticRegression``, ``WideDeep``, ``DeepFM``,
+``XDeepFM`` and ``DCN`` on fused and per-feature rows, with and without
+dense features, and the gradients of the loss with respect to the dense
+parameters and the rows (``jax.value_and_grad(argnums=(0, 1))`` against
+``torch.autograd.grad``), with the flax parameters carried over by
+``interop``, at rtol 1e-5; and each model's parameter names, shapes,
+flax order of creation and initial values (``init_params`` against
+``module.init`` with nothing copied)."""
 
 import math
 
@@ -47,6 +50,18 @@ MODELS = {
     "deepfm": ({"dnn_units": (16, 8)},
                {"embedding_dim": DIM, "num_dense": NUM_DENSE,
                 "dnn_units": (16, 8)}),
+    "xdeepfm": ({"dnn_units": (16, 8), "cin_layer_sizes": (8, 8)},
+                {"embedding_dim": DIM, "num_dense": NUM_DENSE,
+                 "dnn_units": (16, 8), "cin_layer_sizes": (8, 8)}),
+    "xdeepfm_no_dense": ({"dnn_units": (16, 8), "cin_layer_sizes": (8, 8)},
+                         {"embedding_dim": DIM, "num_dense": 0,
+                          "dnn_units": (16, 8), "cin_layer_sizes": (8, 8)}),
+    "dcn": ({"dnn_units": (16, 8)},
+            {"embedding_dim": DIM, "num_dense": NUM_DENSE,
+             "dnn_units": (16, 8)}),
+    "dcn_no_dense": ({"dnn_units": (16, 8)},
+                     {"embedding_dim": DIM, "num_dense": 0,
+                      "dnn_units": (16, 8)}),
 }
 
 
@@ -147,7 +162,60 @@ def test_param_names_and_init_follow_flax():
                 assert 0.5 * std < float(v.std()) < 1.5 * std
         else:
             assert torch.equal(v, torch.zeros_like(v))
-    with pytest.raises(NotImplementedError, match="xDeepFM and DCN"):
-        tm.build_model("xdeepfm", FEATURES)
+    for name, cls in (("xdeepfm", tm.XDeepFM), ("dcn", tm.DCN)):
+        assert type(tm.build_model(name, FEATURES, embedding_dim=DIM)) is cls
     with pytest.raises(ValueError, match="unknown model"):
         tm.build_model("nope", FEATURES)
+
+
+def _flax_order(module) -> dict:
+    """Each torch scope's modules, then its parameters, under flax's
+    names: the order the flax module creates them in when every scope
+    creates its own parameters last (true of all five models)."""
+    out = {}
+    for scope, m in module.named_modules():
+        leaves = [interop.flax_path(n)[-1]
+                  for n, _ in m.named_parameters(recurse=False)]
+        out[scope] = [n for n, _ in m.named_children()] + leaves
+    return out
+
+
+@pytest.mark.parametrize("name", ["xdeepfm", "dcn"])
+def test_new_models_follow_flax_names_order_and_init(name):
+    """xDeepFM and DCN: flax's parameter names and shapes (``cin_w_i``
+    ``[H_k·F, h]`` and ``cross_w_k`` ``[d, 1]`` untransposed), the scopes
+    in flax's order of creation, and ``init_params`` equal to
+    ``module.init(PRNGKey(s))`` with nothing copied: the glorot_uniform
+    weights and the zeros exactly (JAX's uniform draw compiled, its scale
+    applied eagerly, one float32 multiply, as the port does), the
+    lecun_normal kernels within the ``erf_inv`` bound of
+    ``test_param_names_and_init_follow_flax``."""
+    jmod, tmod, _ = _pair(name)
+    rng = np.random.RandomState(0)
+    jrows = {k: jnp.asarray(v, jnp.float32)
+             for k, v in _rows(True, rng).items()}
+    for seed in (0, 7):
+        jparams = jmod.init(jax.random.PRNGKey(seed),
+                            jnp.zeros((BATCH, NUM_DENSE)), jrows)["params"]
+        order = _flax_order(tmod)
+
+        def walk(tree, scope=""):
+            assert list(tree) == order[scope], scope
+            for k, v in tree.items():
+                if not hasattr(v, "shape"):
+                    walk(v, f"{scope}.{k}" if scope else k)
+        walk(jparams)
+        want = interop.dense_params_from_flax(tmod, jparams, "cpu")
+        got = tm.init_params(tmod, ti.prng_key(seed), "cpu")
+        assert set(got) == set(want)
+        glorot = [k for k in got if "cin_w_" in k or "cross_w_" in k]
+        assert glorot
+        for k, v in got.items():
+            assert v.shape == want[k].shape, k
+            if k.endswith(".weight"):
+                std = math.sqrt(1.0 / v.shape[1]) / 0.87962566103423978
+                bound = 2.0**-21 * (want[k].abs() + std)
+                assert bool(((v - want[k]).abs() <= bound).all()), k
+            else:
+                assert torch.equal(v, want[k]), k
+        assert all(float(got[k].abs().max()) > 0 for k in glorot)

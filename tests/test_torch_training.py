@@ -1,7 +1,8 @@
 """Torch port, ``training.Trainer`` against the JAX ``Trainer`` on one
 device: a 5-step trajectory from copied state (tables and slots, dense
 parameters, optax Adagrad state) on ``synthetic_criteo`` batches, fused
-(DeepFM) and per-feature (Wide&Deep through ``add_linear_columns``);
+(DeepFM, xDeepFM) and per-feature (Wide&Deep and DCN through
+``add_linear_columns``);
 ``eval_step``, ``fit(log_every=)``, ``model_sign`` and the arguments that
 raise ``NotImplementedError``.
 
@@ -35,6 +36,7 @@ from openembedding_tpu_torch.optim import initializers as ti
 
 VOCAB, DIM, BATCH, STEPS = 64, 4, 32, 5
 UNITS = (16, 8)
+CIN = (8, 8)
 OPT = {"category": "adagrad", "learning_rate": 0.01}
 PER_FEATURE = criteo.SPARSE_NAMES[:4]
 
@@ -49,7 +51,7 @@ def _batches(fused_mapper, n, seed=0):
     return list(criteo.add_linear_columns(raw))
 
 
-def _pair(devices8, fused):
+def _pair(devices8, kind, fused):
     """The JAX trainer and state, and the port's trainer with the JAX
     state copied over."""
     mesh = create_mesh(1, 1, devices8[:1])
@@ -58,21 +60,23 @@ def _pair(devices8, fused):
                                     optimizer=OPT)
         tspecs, mapper = make_fused_specs(criteo.SPARSE_NAMES, VOCAB, DIM,
                                           optimizer=OPT)
-        names, kind = criteo.SPARSE_NAMES, "deepfm"
+        names = criteo.SPARSE_NAMES
     else:
         jspecs = jax_models.make_feature_specs(PER_FEATURE, VOCAB, DIM,
                                                optimizer=OPT)
         tspecs = tm.make_feature_specs(PER_FEATURE, VOCAB, DIM,
                                        optimizer=OPT)
-        mapper, names, kind = None, PER_FEATURE, "wdl"
+        mapper, names = None, PER_FEATURE
     batches = _batches(mapper, STEPS + 1)
+    extra = {"cin_layer_sizes": CIN} if kind == "xdeepfm" else {}
     jtrainer = JaxTrainer(
-        jax_models.build_model(kind, names, dnn_units=UNITS),
+        jax_models.build_model(kind, names, dnn_units=UNITS, **extra),
         JaxCollection(jspecs, mesh), optax.adagrad(0.01))
     jstate = jtrainer.init(jax.random.PRNGKey(0),
                            jtrainer.shard_batch(batches[0]))
     module = tm.build_model(kind, names, embedding_dim=DIM,
-                            num_dense=criteo.NUM_DENSE, dnn_units=UNITS)
+                            num_dense=criteo.NUM_DENSE, dnn_units=UNITS,
+                            **extra)
     trainer = tr.Trainer(module, EmbeddingCollection(tspecs, device="cpu"),
                          dense.adagrad(0.01))
     emb = {n: interop.table_state_from_numpy(
@@ -92,10 +96,12 @@ def _close(got, want):
                                rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["deepfm_fused",
-                                                      "wdl_per_feature"])
-def test_trajectory_matches_jax_trainer(devices8, fused):
-    jtrainer, jstate, trainer, state, batches = _pair(devices8, fused)
+@pytest.mark.parametrize("kind,fused", [
+    ("deepfm", True), ("wdl", False), ("xdeepfm", True), ("dcn", False)],
+    ids=["deepfm_fused", "wdl_per_feature", "xdeepfm_fused",
+         "dcn_per_feature"])
+def test_trajectory_matches_jax_trainer(devices8, kind, fused):
+    jtrainer, jstate, trainer, state, batches = _pair(devices8, kind, fused)
     jlosses, losses = [], []
     for b in batches[:STEPS]:
         jstate, jm = jtrainer.train_step(jstate, b)
@@ -184,7 +190,6 @@ def test_fit_logs_and_model_sign():
     ("offload", "host offload"),
     ("pipeline_depth", "host offload"),
     ("persist_dir", "host offload"),
-    ("retrace_budget", "captured training step"),
     ("autosave_every", "delta checkpoints"),
     ("autosave_dir", "delta checkpoints"),
     ("resume_from", "delta checkpoints"),
@@ -197,7 +202,6 @@ def test_unported_arguments_raise(call, item):
                        dense.adagrad(0.01), **{call: {"x": 1} if call !=
                                                "pipeline_depth" else 2})
         else:
-            value = {"persist_dir": "d", "retrace_budget": 0,
-                     "autosave_every": 1, "autosave_dir": "d",
-                     "resume_from": "d"}[call]
+            value = {"persist_dir": "d", "autosave_every": 1,
+                     "autosave_dir": "d", "resume_from": "d"}[call]
             trainer.fit(None, [], **{call: value})
