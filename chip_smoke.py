@@ -5,7 +5,9 @@ then the serving and training paths driven end to end at full width.
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
-two versions of the kernel in turns within one call; see ``ki_only``.)
+two versions of the kernel in turns within one call; see ``ki_only``.
+``python3 chip_smoke.py --hybrid`` runs phase 11 alone. Neither prints a
+result line.)
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -118,9 +120,25 @@ Phases, in order; any failure raises and the run exits nonzero:
    captured and eager throughput, a trace); then ``DCN`` (3 cross layers,
    DNN (256, 128)) over the same collection from a fresh init, 4 captured
    card steps against 4 CPU steps;
+11. hybrid training (run after phase 10, printed before phase 9's line):
+   ``criteo_hist_hybrid`` at full width (``build_hybrid_trainer``: the
+   example's ``--no-fused --hist_len 32 --sparse_as_dense 64`` path with
+   the Kaggle Criteo vocabularies, 28 dense-kept tables, 24 array tables
+   and the pooled history in the collection, dense Adam) built on the card
+   by ``Trainer(sparse_as_dense=).init(prng_key(SEED), batch)`` and held
+   against the CPU's draws with nothing copied; phase 7's checks table by
+   table (4 captured card steps against 4 CPU steps, the dense-kept tables
+   and Adam's moments among them), captured against eager, K1 26 times a
+   replayed step (24 tables and the 2 pooled histories) from the counters
+   and the trace, the captured eval against the eager eval bit for bit
+   and against the CPU's scores, captured and eager throughput of steps
+   and evals, the stages alone, a trace, pooled and flat serving exactly;
+   then the history as wide hash variables (the hash twin): 4 captured card
+   steps against 4 CPU steps, keys arrays bit-identical, no EMPTY key
+   inserted;
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
-11. last line: ``{"ok": true, "device": {...}}``.
+12. last line: ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and the port, never jax or openembedding_tpu.
 """
@@ -2374,6 +2392,561 @@ def phase_xdeepfm_training() -> int:
     return launches, flat_launches
 
 
+# --- phase 11: criteo_hist_hybrid ---------------------------------------------
+
+# C1..C26's cardinalities in the public Criteo Display Advertising
+# Challenge (Kaggle) data, as DLRM's Kaggle runs use them
+CRITEO_KAGGLE_VOCABS = (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572)
+HYBRID_DENSE_SIZE = 64        # --sparse_as_dense 64 (exb.py:602's default)
+HIST_LEN = 32                 # --hist_len 32
+HIST_VOCAB = 1 << 20
+HYBRID_BUCKETS = 1 << 24      # synthetic ids, each column then % its vocab
+HIST_HASH_CAPACITY = 1 << 22  # the example's --hash tables
+HYBRID_DENSE_KEPT = 28        # 14 features below the batch size, and twins
+HYBRID_K1_PER_STEP = 26       # 24 array tables + the 2 pooled histories
+
+
+def build_hybrid_trainer(device, hash_hist=False):
+    """``criteo_hist_hybrid``: ``examples/criteo_deepctr.py --model deepfm
+    --no-fused --embedding_dim 9 --batch_size 4096 --optimizer adagrad
+    --learning_rate 0.01 --dense_lr 1e-3 --hist_len 32 --sparse_as_dense
+    64`` with per-feature vocabularies (``CRITEO_KAGGLE_VOCABS``): the
+    split keeps the 14 features below the batch size and their ``:linear``
+    twins dense (28 tables), the other 24 tables and the pooled history
+    (``hist`` mean, ``hist:linear`` sum, vocabulary 2^20) stay in the
+    collection with sparse Adagrad; ``DeepFM`` over 27 fields, DNN (256,
+    128), dense optax-form Adam 1e-3. ``hash_hist``: the history as wide
+    hash variables of ``HIST_HASH_CAPACITY`` slots instead."""
+    from openembedding_tpu_torch.data.criteo import NUM_DENSE, SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                   EmbeddingSpec)
+    from openembedding_tpu_torch.hybrid import split_sparse_dense
+    from openembedding_tpu_torch.models.deepctr import (build_model,
+                                                        make_feature_specs)
+    from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.training import Trainer
+    opt = {"category": "adagrad", "learning_rate": 0.01}
+    hist = {"input_dim": -1, "hash_capacity": HIST_HASH_CAPACITY} \
+        if hash_hist else {"input_dim": HIST_VOCAB}
+    specs = tuple(make_feature_specs(
+        SPARSE_NAMES, list(CRITEO_KAGGLE_VOCABS), 9, optimizer=opt)) + (
+        EmbeddingSpec(name="hist", output_dim=9, optimizer=opt,
+                      pooling="mean", **hist),
+        EmbeddingSpec(name="hist:linear", output_dim=1, optimizer=opt,
+                      pooling="sum", **hist))
+    sparse, kept = split_sparse_dense(specs, HYBRID_DENSE_SIZE,
+                                      batch_size=BATCH)
+    if len(kept) != HYBRID_DENSE_KEPT:
+        raise AssertionError(f"hybrid: {len(kept)} dense-kept tables, "
+                             f"{HYBRID_DENSE_KEPT} expected")
+    module = build_model("deepfm", SPARSE_NAMES + ("hist",), embedding_dim=9,
+                         num_dense=NUM_DENSE, dnn_units=DNN_UNITS)
+    return Trainer(module, EmbeddingCollection(sparse, device=device,
+                                               seed=SEED),
+                   dense.adam(1e-3), sparse_as_dense=kept)
+
+
+def hybrid_batches(count, wide=False):
+    """``count`` batches of 4096 as the example makes them: the stream of
+    ``synthetic_criteo(4096, num_buckets=2^24, seed=SEED)`` (zipf 1.2),
+    each column ``Cj`` taken modulo its vocabulary, ``:linear`` twins, and
+    the history drawn from ``RandomState(7)`` (lengths uniform in [0, 32],
+    ids in [0, 2^20)), padded to ``[4096, 32]`` with -1
+    (``ragged.pad_ragged``), or to ``[4096, 32, 2]`` pairs with EMPTY pairs
+    (``pad_ragged_wide``) for the hash twin."""
+    from openembedding_tpu_torch.data.criteo import (SPARSE_NAMES,
+                                                     synthetic_criteo)
+    from openembedding_tpu_torch.ragged import pad_ragged, pad_ragged_wide
+    rng = np.random.RandomState(7)
+    out = []
+    for b in synthetic_criteo(BATCH, num_buckets=HYBRID_BUCKETS, seed=SEED,
+                              num_batches=count):
+        sparse = {}
+        for name, vocab in zip(SPARSE_NAMES, CRITEO_KAGGLE_VOCABS):
+            sparse[name] = sparse[name + ":linear"] = \
+                (b["sparse"][name] % vocab).astype(np.int32)
+        seqs = [rng.randint(0, HIST_VOCAB, rng.randint(0, HIST_LEN + 1))
+                for _ in range(BATCH)]
+        hist = pad_ragged_wide(seqs, HIST_LEN) if wide \
+            else pad_ragged(seqs, HIST_LEN, pad_id=-1)
+        sparse["hist"] = sparse["hist:linear"] = hist
+        out.append({**b, "sparse": sparse})
+    return out
+
+
+def check_hybrid_init_without_copy(trainer, state, batch) -> dict:
+    """The card's hybrid ``Trainer.init(prng_key(SEED), batch)`` against
+    the CPU's draws, nothing copied: every dense parameter (the dense-kept
+    tables among them, drawn by their specs' initializer) and each
+    collection table's first, a middle and its last ``INIT_ROWS`` rows,
+    as ``check_array_init_without_copy``; and the loss of a first step on
+    ``batch`` from the CPU's values (the rows of its ids drawn by the
+    plain version, zero for padding, the history pooled)."""
+    from openembedding_tpu_torch.hybrid import DENSE_SCOPE
+    from openembedding_tpu_torch.models.deepctr import init_params
+    from openembedding_tpu_torch.optim import initializers as ti
+    coll = trainer.collection
+    cpu = build_hybrid_trainer("cpu")
+    emb_rng, dense_rng = ti.split(ti.prng_key(SEED))
+    params = init_params(cpu.module, dense_rng, "cpu",
+                         dense_ids=set(batch["sparse"]))
+    kept = getattr(cpu.module, DENSE_SCOPE)
+    errs = [0.0]
+    for k, v in params.items():
+        if k.startswith(DENSE_SCOPE + "."):
+            init = kept.initializer(k[len(DENSE_SCOPE) + 1:])
+            kind, _ = ti.keyed_params(init)
+            errs.append(_init_agrees(f"dense-kept {k}", state.params[k], v,
+                                     kind, getattr(init, "stddev", 1.0)))
+        elif k.endswith(".weight"):
+            std = float(np.sqrt(np.float32(1.0 / v.shape[1]))
+                        / np.float32(0.87962566103423978))
+            errs.append(_init_agrees(f"parameter {k}", state.params[k], v,
+                                     ti.TRUNCATED, std))
+        else:
+            errs.append(_init_agrees(f"parameter {k}", state.params[k], v,
+                                     ti.CONSTANT, 0.0))
+    if set(params) != set(state.params):
+        raise AssertionError("init: the card's dense parameters are not "
+                             "the CPU's")
+    placed = cpu.place_batch(batch)
+    pull_inputs, dense_ids = cpu._split_sparse(placed["sparse"])
+    tables, rows = {}, {}
+    for name, st in state.emb.items():
+        init = coll.initializer(name)
+        kind, prm = ti.keyed_params(init)
+        key = coll.table_key(name, emb_rng)
+        vocab, dim = st.weights.shape
+        terr = []
+        for r0 in (0, vocab // 2 - INIT_ROWS // 2, vocab - INIT_ROWS):
+            want = ti.flat_rows(kind, prm, key, r0 * dim, INIT_ROWS * dim,
+                                st.weights.dtype).reshape(INIT_ROWS, dim)
+            terr.append(_init_agrees(f"{name} rows {r0}..",
+                                     st.weights[r0:r0 + INIT_ROWS], want,
+                                     kind, getattr(init, "stddev", 1.0)))
+        ids = pull_inputs[name].to(torch.int64)
+        valid = (ids >= 0) & (ids < vocab)
+        r = ti.flat_draw(kind, prm, key, torch.where(valid, ids, 0)[..., None]
+                         * dim + torch.arange(dim), st.weights.dtype)
+        r = torch.where(valid[..., None], r, torch.zeros_like(r))
+        spec = cpu.collection.specs[name]
+        rows[name] = cpu.collection._pool(spec, r, ids) if spec.pooling \
+            else r
+        tables[name] = {"rows_checked": 3 * INIT_ROWS,
+                        "max_abs_diff": max(terr)}
+    with torch.no_grad():
+        loss = float(cpu.loss_fn(
+            cpu._logits(params, placed["dense"], rows, dense_ids),
+            placed["label"]))
+    return {"dense_max_abs_diff": max(errs), "dense_kept_tables": sum(
+        k.startswith(DENSE_SCOPE + ".") for k in params),
+            "tables": tables, "cpu_first_loss": loss}
+
+
+def _table_ids(batches, name, vocab) -> np.ndarray:
+    """The valid ids of column ``name`` over ``batches``, flat."""
+    ids = np.concatenate([b["sparse"][name].reshape(-1) for b in batches])
+    return ids[(ids >= 0) & (ids < vocab)]
+
+
+def check_hybrid_against_cpu(trainer, state, batches, cpu_trainer):
+    """``CHECK_STEPS`` captured card steps of the hybrid against the same
+    steps of a CPU trainer from a copy of the initial state, phase 7's
+    checks table by table: losses rtol 1e-4; each collection table's
+    touched rows and slots atol 1e-5 + rtol 1e-4 and within
+    ``change_ratio``'s limit, the check shown to flag the two simulated
+    push faults; a sample of untouched ids (up to 2^20) bit for bit; the
+    dense parameters (the dense-kept tables among them), Adam's moments
+    and its count likewise; K1 ``HYBRID_K1_PER_STEP`` times a step."""
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.training import copy_state
+    dev = trainer.device
+    cstate = copy_state(state, "cpu")
+    rng = np.random.RandomState(SEED + 4)
+    plan = {}
+    for n, s in state.emb.items():
+        vocab = s.capacity
+        seen, times = np.unique(_table_ids(batches[:CHECK_STEPS], n, vocab),
+                                return_counts=True)
+        if vocab <= 4 * UNTOUCHED_SAMPLE:
+            cand = np.setdiff1d(np.arange(vocab), seen)
+        else:
+            cand = np.unique(rng.randint(0, vocab, 2 * UNTOUCHED_SAMPLE))
+            cand = cand[~np.isin(cand, seen)]
+        if cand.size < min(UNTOUCHED_SAMPLE, vocab // 4):
+            raise AssertionError(f"hybrid: too few untouched ids of {n}")
+        untouched = torch.from_numpy(
+            cand[rng.permutation(cand.size)[:UNTOUCHED_SAMPLE]]).to(dev)
+        ids = torch.from_numpy(seen)
+        plan[n] = {"ids": ids, "cold": torch.from_numpy(times == 1),
+                   "untouched": untouched,
+                   "initial": [s.weights[untouched].clone()]
+                   + [v[untouched].clone() for v in s.slots.values()],
+                   "before": {"weights": s.weights[ids.to(dev)].cpu(),
+                              **{k: v[ids.to(dev)].cpu()
+                                 for k, v in s.slots.items()}}}
+    card, host = [], []
+    before = gather_rows.launches
+    for b in batches[:CHECK_STEPS]:
+        state, m = trainer.train_step(state, b)
+        card.append(m["loss"])
+    torch.cuda.synchronize()
+    if gather_rows.launches - before != HYBRID_K1_PER_STEP * CHECK_STEPS:
+        raise AssertionError(f"hybrid: {gather_rows.launches - before} K1 "
+                             f"launches for {CHECK_STEPS} steps")
+    for b in batches[:CHECK_STEPS]:
+        cstate, m = cpu_trainer.train_step(cstate, b)
+        host.append(float(m["loss"]))
+    card = [float(x) for x in card]
+    if not np.allclose(card, host, rtol=1e-4, atol=0):
+        raise AssertionError(f"hybrid: losses {card} on the card, {host} on "
+                             "the CPU")
+    err, change, faults = {}, {}, {}
+    for n, s in state.emb.items():
+        cs, p = cstate.emb[n], plan[n]
+        ids, cold = p["ids"], p["cold"]
+        now = [s.weights[p["untouched"]]] + [v[p["untouched"]]
+                                             for v in s.slots.values()]
+        if not all(torch.equal(a, b) for a, b in zip(now, p["initial"])):
+            raise AssertionError(f"hybrid: untouched rows of {n} changed")
+        errs = []
+        for k, v in [("weights", s.weights)] + list(s.slots.items()):
+            got = v[ids.to(dev)].cpu()
+            want = cs.weights[ids] if k == "weights" else cs.slots[k][ids]
+            init = p["before"][k]
+            errs.append(_close(f"{n} {k} of touched rows", got, want))
+            reading = float(change_ratio(got, want, init).max())
+            change[f"{n}/{k}"] = reading
+            if not reading <= 1:
+                raise AssertionError(
+                    f"hybrid: the change of {n} {k} differs between the "
+                    f"card and the CPU ({reading:.3g} of its limit)")
+            moved = (want != init).reshape(len(want), -1).any(1)
+            if not moved.any():
+                # a field no row of which the CPU moved (the history's
+                # ``accum``: mean-pooled gradients square below its
+                # rounding): no fault can show there, and no card row may
+                # move either
+                if not torch.equal(got, init):
+                    raise AssertionError(f"hybrid: rows of {n} {k} moved on "
+                                         "the card, none on the CPU")
+                faults[f"{n}/{k} unmoved"] = {"rows": 0}
+                continue
+            faulted = torch.where(cold.reshape((-1,) + (1,) * (got.dim() - 1)),
+                                  init, got)
+            must = f"{n}/{k} cold rows skipped"
+            faults[must] = _fault_reading(faulted, want, init, moved & cold)
+            if k != "weights":
+                must = f"{n}/{k} unchanged"
+                faults[must] = _fault_reading(init, want, init, moved)
+            if not faults[must].get("change_max", 0) > 1:
+                raise AssertionError(
+                    f"hybrid: the change check misses a simulated fault "
+                    f"({must}): {json.dumps(faults[must])}")
+        err[n] = max(errs)
+    err["dense"] = max(_close(f"parameter {k}", v, cstate.params[k])
+                       for k, v in state.params.items())
+    err["adam"] = max(_close(f"adam {k}", v, cstate.opt_state[k])
+                      for k, v in state.opt_state.items() if k != "count")
+    if not torch.equal(state.opt_state["count"].cpu(),
+                       cstate.opt_state["count"]):
+        raise AssertionError("hybrid: Adam's count differs")
+    return state, cstate, {
+        "card_losses": card, "cpu_losses": host,
+        "touched_ids": {n: int(p["ids"].numel()) for n, p in plan.items()},
+        "untouched_checked": {n: int(p["untouched"].numel())
+                              for n, p in plan.items()},
+        "max_abs_diff": err, "change_ratio_max": change,
+        "simulated_faults": faults}
+
+
+def check_hybrid_eval(trainer, state, cpu_trainer, cstate, batches) -> dict:
+    """The captured eval (``eval_step``) against the eager one
+    (``eval_step_eager``) on every batch, bit for bit, and against the CPU
+    trainer's scores on the same state within rtol 1e-5; one eval program
+    built."""
+    worst = 0.0
+    for i, b in enumerate(batches):
+        got = trainer.eval_step(state, b)
+        eager = trainer.eval_step_eager(state, b)
+        if not torch.equal(got, eager):
+            raise AssertionError(f"hybrid eval: captured scores differ from "
+                                 f"eager ones on batch {i}")
+        if i == 0:
+            want = cpu_trainer.eval_step(cstate, b)
+            if not torch.allclose(got.cpu(), want, rtol=1e-5, atol=0):
+                raise AssertionError("hybrid eval: card scores differ from "
+                                     "the CPU's")
+            worst = float((got.cpu() - want).abs().max())
+    if trainer.eval_builds != 1:
+        raise AssertionError(f"hybrid eval: {trainer.eval_builds} eval "
+                             "programs built, 1 expected")
+    return {"batches": len(batches), "captured_equals_eager": True,
+            "cpu_max_abs_diff": worst,
+            "build_s": [p.build_s for p in trainer.eval_programs.values()],
+            "pool_bytes": [p.pool_bytes
+                           for p in trainer.eval_programs.values()]}
+
+
+def eval_throughput(trainer, state, batches) -> dict:
+    """Examples/s of the captured and the eager eval: ``BLOCKS`` timed
+    blocks of ``BLOCK_STEPS`` evals each, in turns (the median block)."""
+    evals = {"captured": trainer.eval_step,
+             "eager": trainer.eval_step_eager}
+    blocks = {kind: [] for kind in evals}
+    for k in range(BLOCKS):
+        for kind in (list(evals) if k % 2 == 0 else list(evals)[::-1]):
+            t0 = time.perf_counter()
+            for i in range(BLOCK_STEPS):
+                evals[kind](state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            blocks[kind].append(BLOCK_STEPS * BATCH
+                                / (time.perf_counter() - t0))
+    out = {kind: {"examples_per_s": statistics.median(eps),
+                  "eps_min": min(eps), "eps_max": max(eps),
+                  "ms": BATCH / statistics.median(eps) * 1e3}
+           for kind, eps in blocks.items()}
+    out["captured_over_eager"] = out["captured"]["examples_per_s"] \
+        / out["eager"]["examples_per_s"]
+    return out
+
+
+def hybrid_stages(trainer, state, batch) -> dict:
+    """Each stage of a hybrid step timed alone: the collection's pull (24
+    tables and the pooled history), the dense half (the dense-kept
+    lookups, forward, backward, Adam) and the collection's push."""
+    coll = trainer.collection
+    placed = trainer.place_batch(batch)
+    pull_inputs, _ = trainer._split_sparse(placed["sparse"])
+    rows = coll.pull(state.emb, pull_inputs)
+    _, grads = trainer.dense_step(state, placed, rows)
+    return {
+        "pull_ms": _stage_ms(lambda: coll.pull(state.emb, pull_inputs)),
+        "dense_ms": _stage_ms(lambda: trainer.dense_step(state, placed,
+                                                         rows)),
+        "push_ms": _stage_ms(lambda: coll.apply_gradients(
+            state.emb, pull_inputs, grads)),
+        "place_batch_ms": _stage_ms(lambda: trainer.place_batch(batch))}
+
+
+def _pooled_on_host(weights: np.ndarray, ids: np.ndarray,
+                    pooling: str) -> np.ndarray:
+    """A pooled sequence lookup computed on the host: zero rows for
+    padding, the rows added in sequence order, then divided by the valid
+    length for ``mean`` (float32 throughout)."""
+    rows = expected_rows(weights, ids)
+    s = rows[:, 0] + np.float32(0)
+    for i in range(1, ids.shape[1]):
+        s = s + rows[:, i]
+    if pooling == "mean":
+        n = np.maximum(((ids >= 0) & (ids < len(weights))).sum(1), 1)
+        s = s / n.astype(np.float32)[:, None]
+    return s
+
+
+def hybrid_train_then_serve(trainer, state, batch) -> dict:
+    """Save the trained collection's tables (weights only), load them
+    through ``POST /models`` and look up: ``[4096, 32]`` history sequences
+    on ``hist`` and ``hist:linear``, which must come back pooled and equal
+    the host copy pooled on the host; flat ``[n]`` ids of ``hist`` and of
+    ``C3``, one row per id, equal to the host copy."""
+    from openembedding_tpu_torch import checkpoint
+    from openembedding_tpu_torch.serving.rest import ControllerServer
+    ckpt_dir = os.path.join(ROOT, "_smoke_hybrid_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    server = None
+    try:
+        saved = checkpoint.save_checkpoint(
+            ckpt_dir, trainer.collection, state.emb, include_optimizer=False,
+            model_sign=trainer.model_sign(state))
+        server = ControllerServer(port=0).start()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        status, body = _post(conn, "/models", json.dumps(
+            {"model_uri": ckpt_dir, "block": True}).encode())
+        if status != 201:
+            raise AssertionError(f"POST /models: HTTP {status} {body!r}")
+        sign = json.loads(body)["model_sign"]
+        seqs = batch["sparse"]["hist"]
+        ms = {}
+        for var, pooling in (("hist", "mean"), ("hist:linear", "sum")):
+            host = state.emb[var].weights.cpu().numpy()
+            rows, ms[var] = lookup_bin(conn, sign, var, seqs)
+            want = _pooled_on_host(host, seqs, pooling)
+            if rows.shape != want.shape or not np.array_equal(rows, want):
+                raise AssertionError(f"served pooled {var} rows differ from "
+                                     "the host's pooling")
+        for var, ids in (("hist", seqs[:, :4].reshape(-1)),
+                         ("C3", batch["sparse"]["C3"])):
+            rows, _ = lookup_bin(conn, sign, var, ids)
+            want = expected_rows(state.emb[var].weights.cpu().numpy(), ids)
+            if not np.array_equal(rows, want):
+                raise AssertionError(f"served flat {var} rows differ")
+        conn.close()
+        return {"model_sign": sign, "save_s": saved["seconds"],
+                "save_bytes": saved["bytes"], "pooled_exact": True,
+                "flat_exact": True, "pooled_lookup_ms": ms}
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def hybrid_hash_twin() -> dict:
+    """The history as wide hash variables (``HIST_HASH_CAPACITY`` slots,
+    ``[4096, 32, 2]`` pairs padded with EMPTY pairs), correctness only: 4
+    captured card steps against 4 CPU steps from a copy of the initial
+    state; losses rtol 1e-4, the keys arrays and failure counts bit for
+    bit, every stored key a real id of the batches (no EMPTY key inserted
+    from padding), its row within atol 1e-5 + rtol 1e-4; K1 24 times, K2
+    twice and KI four times a step. Returns the reading and the
+    launches."""
+    from openembedding_tpu_torch.hash_table import join64
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    from openembedding_tpu_torch.training import copy_state
+    trainer = build_hybrid_trainer("cuda", hash_hist=True)
+    batches = hybrid_batches(CHECK_STEPS, wide=True)
+    init_flat.launches = 0
+    state = trainer.init(prng_key(SEED), batches[0])
+    flat = init_flat.launches
+    check_init_launches("hybrid hash twin", state, flat)
+    cpu = build_hybrid_trainer("cpu", hash_hist=True)
+    cstate = copy_state(state, "cpu")
+    counters = (gather_rows, probe_gather, init_rows)
+    before = [c.launches for c in counters]
+    card = []
+    for b in batches:
+        state, m = trainer.train_step(state, b)
+        card.append(m["loss"])
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    if launched != [24 * CHECK_STEPS, 2 * CHECK_STEPS, 4 * CHECK_STEPS]:
+        raise AssertionError(f"hybrid hash twin: K1, K2, KI launched "
+                             f"{launched} times in {CHECK_STEPS} steps")
+    host = []
+    for b in batches:
+        cstate, m = cpu.train_step(cstate, b)
+        host.append(float(m["loss"]))
+    card = [float(x) for x in card]
+    if not np.allclose(card, host, rtol=1e-4, atol=0):
+        raise AssertionError(f"hybrid hash twin: losses {card} on the card, "
+                             f"{host} on the CPU")
+    pairs = np.concatenate([b["sparse"]["hist"].reshape(-1, 2)
+                            for b in batches])
+    real = np.unique(join64(pairs[pairs[:, 1] != np.iinfo(np.int32).min]))
+    tables = {}
+    for n in ("hist", "hist:linear"):
+        s, cs = state.emb[n], cstate.emb[n]
+        if not torch.equal(s.keys.cpu(), cs.keys) \
+                or int(s.insert_failures) != int(cs.insert_failures):
+            raise AssertionError(f"hybrid hash twin: the keys of {n} differ "
+                                 "between the card and the CPU")
+        live = cs.live()
+        stored = np.sort(join64(cs.keys[live].numpy()))
+        if not np.array_equal(stored, real):
+            raise AssertionError(f"hybrid hash twin: {n} holds keys that are "
+                                 "not the batches' ids (an EMPTY key from "
+                                 "padding?)")
+        idx = torch.nonzero(live).reshape(-1)
+        err = _close(f"twin {n} rows", s.weights[idx.to(s.weights.device)],
+                     cs.weights[idx])
+        tables[n] = {"keys": int(idx.numel()), "max_abs_diff": err,
+                     "insert_failures": int(cs.insert_failures)}
+    reading = {"steps": CHECK_STEPS, "card_losses": card, "cpu_losses": host,
+               "keys_bit_identical": True, "no_empty_key": True,
+               "tables": tables, "builds": trainer.builds,
+               "launches_per_step": {"gather_rows": 24, "probe_gather": 2,
+                                     "init_rows": 4}}
+    return reading, {"gather_rows": launched[0],
+                     "probe_gather": launched[1],
+                     "init_rows": launched[2], "init_flat": flat}
+
+
+def phase_hybrid_training():
+    """Phase 11; returns the launches of K1, K2 and KI (per key and array)
+    on this phase's main path."""
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    trainer = build_hybrid_trainer("cuda")
+    dev = trainer.device
+    batches = hybrid_batches(TRAIN_BATCHES)
+    init_flat.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.init(prng_key(SEED), batches[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flat_launches = init_flat.launches
+    check_init_launches("hybrid", state, flat_launches)
+    nocopy = check_hybrid_init_without_copy(trainer, state, batches[0])
+    gather_rows.launches = 0
+    reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
+    cpu_trainer = build_hybrid_trainer("cpu")
+    state, cstate, check = check_hybrid_against_cpu(trainer, state, batches,
+                                                    cpu_trainer)
+    program = program_reading(trainer, reserved)
+    check_first_loss("hybrid", nocopy, check["card_losses"][0])
+    oracle = captured_against_eager("hybrid", trainer, state, batches)
+    evals = check_hybrid_eval(trainer, state, cpu_trainer, cstate, batches)
+    del cpu_trainer, cstate
+    state, m, speed = compare_steps(
+        trainer, state, lambda kind, k, i: batches[i % TRAIN_BATCHES], BATCH)
+    eval_speed = eval_throughput(trainer, state, batches)
+    trace_path = os.path.join(ROOT, "_smoke_train_trace.json")
+    try:
+        trace = training_trace(trainer, state, batches, trace_path,
+                               batches[-1])
+    finally:
+        if os.path.exists(trace_path):
+            os.remove(trace_path)
+    steps = CHECK_STEPS + 2 * (WARMUP_STEPS + BLOCKS * BLOCK_STEPS) \
+        + 1 + TRACE_STEPS
+    evals_run = 2 * TRAIN_BATCHES + 2 * BLOCKS * BLOCK_STEPS
+    launches = gather_rows.launches
+    if launches != HYBRID_K1_PER_STEP * (steps + evals_run):
+        raise AssertionError(
+            f"hybrid: {launches} K1 launches for {steps} steps and "
+            f"{evals_run} evals, {HYBRID_K1_PER_STEP} each expected")
+    if trace["launches_per_step"]["gather_rows"] != HYBRID_K1_PER_STEP:
+        raise AssertionError(f"hybrid: K1 {trace['launches_per_step']} a "
+                             "replayed step")
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"hybrid: loss {loss}")
+    stages = hybrid_stages(trainer, state, batches[0])
+    served = hybrid_train_then_serve(trainer, state, batches[1])
+    reading = {
+        "config": "criteo_hist_hybrid", "batch": BATCH, "init_s": init_s,
+        "init_without_copy": nocopy, "init_flat_launches": flat_launches,
+        "check": check, "program": program, "captured_vs_eager": oracle,
+        "eval": evals, "eval_speed": eval_speed,
+        "eval_examples_per_s": eval_speed["captured"]["examples_per_s"],
+        "eager_eval_examples_per_s": eval_speed["eager"]["examples_per_s"],
+        "steps": steps, "evals": evals_run, "k1_launches": launches,
+        "examples_per_s": speed["captured"]["examples_per_s"],
+        "step_ms": speed["captured"]["step_ms"],
+        "eager_examples_per_s": speed["eager"]["examples_per_s"],
+        "eager_step_ms": speed["eager"]["step_ms"], "speed": speed,
+        "last_loss": loss, "stages": stages, "trace": trace,
+        "serve": served,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}
+    del trainer, state
+    torch.cuda.empty_cache()
+    twin, twin_launches = hybrid_hash_twin()
+    reading["hash_twin"] = twin
+    log(json.dumps({"hybrid_training": reading}))
+    return {"gather_rows": launches + twin_launches["gather_rows"],
+            "probe_gather": twin_launches["probe_gather"],
+            "init_rows": twin_launches["init_rows"],
+            "init_flat": flat_launches + twin_launches["init_flat"]}
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -2447,6 +3020,9 @@ def main() -> None:
     if sys.argv[1:] == ["--ki"]:
         ki_only()
         return
+    if sys.argv[1:] == ["--hybrid"]:
+        phase_hybrid_training()
+        return
     coll, states, mapper, host, main_ids = setup_array()
     cases = phase_kernels(states["fields"].weights,
                           states["fields:linear"].weights, main_ids)
@@ -2467,6 +3043,10 @@ def main() -> None:
     k1_xdeep, flat_xdeep = phase_xdeepfm_training()
     launches += k1_xdeep
     flat_training += flat_xdeep
+    torch.cuda.empty_cache()
+    hybrid = phase_hybrid_training()
+    launches += hybrid["gather_rows"]
+    flat_training += hybrid["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -2485,7 +3065,8 @@ def main() -> None:
         "name": "probe_gather", "route": "cuda",
         "source": "openembedding_tpu_torch/csrc/probe_gather.cu",
         "replaces": "openembedding_tpu/ops/pallas_hash.py:40",
-        "launches": plaunches + hash_launches["probe_gather"],
+        "launches": plaunches + hash_launches["probe_gather"]
+        + hybrid["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -2497,9 +3078,9 @@ def main() -> None:
         "replaces": "openembedding_tpu/hash_table.py:300 (init_rows) and "
                     "openembedding_tpu/optim/initializers.py:54-74 "
                     "(Uniform/Normal.init): XLA code, not Pallas kernels",
-        "launches": hash_launches["init_rows"] + flat_training
-        + hash_launches["init_flat"],
-        "launches_per_key": hash_launches["init_rows"],
+        "launches": hash_launches["init_rows"] + hybrid["init_rows"]
+        + flat_training + hash_launches["init_flat"],
+        "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in kcases + fcases),

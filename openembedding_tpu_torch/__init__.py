@@ -10,7 +10,9 @@ And it trains models over array and hash tables (``training.Trainer``):
 each step pulls through the row-gather kernel (array tables) or the
 probe-gather kernel, with the init-rows kernel (``ops/init_rows.py``,
 ``csrc/init_rows.cu``) drawing missing keys' rows (hash tables), and
-pushes the row gradients with static-shape PyTorch ops.
+pushes the row gradients with static-shape PyTorch ops; sequence
+features pool padded id matrices (``ragged.py``) and small vocabularies
+can be kept as dense parameters (``hybrid.py``).
 Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no device named they raise.
 The package imports torch and numpy, never jax or openembedding_tpu.
@@ -18,14 +20,19 @@ The package imports torch and numpy, never jax or openembedding_tpu.
 
 from .embedding import EmbeddingCollection, EmbeddingSpec
 from .hash_table import HashTableState, create_hash_table
+from .hybrid import (DenseEmbeddings, DenseFeatureSpec, HybridModel,
+                     split_sparse_dense)
 from .meta import (EmbeddingVariableMeta, ModelMeta, ModelStatus,
                    ModelVariableMeta)
+from .ragged import pad_id_for, pad_ragged, pool_rows
 from .table import TableState, create_table, pull
 from .training import Trainer, TrainState
 
 __all__ = [
-    "EmbeddingCollection", "EmbeddingSpec", "EmbeddingVariableMeta",
-    "HashTableState", "ModelMeta", "ModelStatus", "ModelVariableMeta",
+    "DenseEmbeddings", "DenseFeatureSpec", "EmbeddingCollection",
+    "EmbeddingSpec", "EmbeddingVariableMeta", "HashTableState",
+    "HybridModel", "ModelMeta", "ModelStatus", "ModelVariableMeta",
     "TableState", "TrainState", "Trainer", "create_hash_table",
-    "create_table", "pull",
+    "create_table", "pad_id_for", "pad_ragged", "pool_rows", "pull",
+    "split_sparse_dense",
 ]

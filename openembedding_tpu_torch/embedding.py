@@ -9,10 +9,13 @@ for array tables and for hash tables (``input_dim=-1``) with ``"wide"``
 pair keys or ``"int32"`` keys, and ``apply_gradients`` (the push) for
 both. A hash pull gives a missing key its deterministic init row (zero
 rows under ``read_only``, the serving contract) and the push inserts it.
-What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: ``key_dtype="int64"``, pooled sequence features, the
-hot-row cache (``cache_k``), and every exchange plane but the one-shard
-``a2a``.
+A pooled spec (``pooling="sum" | "mean" | "sqrtn"``) takes padded ``[B,
+L]`` id matrices (``[B, L, 2]`` pairs on a wide hash variable): the pull
+pools its rows to ``[B, dim]`` and the push expands the pooled gradient
+back (``ragged.py``). What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP.md item: ``key_dtype="int64"``,
+the hot-row cache (``cache_k``), and every exchange plane but the
+one-shard ``a2a``.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ from .optim.initializers import (fold_in, make_initializer, prng_key,
                                  threefry_key)
 from .optim.optimizers import make_optimizer
 from . import hash_table as hash_lib
+from . import ragged
 from . import table as table_lib
 from .utils.device import DeviceLike, resolve_device
 
-POOLINGS = ("sum", "mean", "sqrtn")
+POOLINGS = ragged.POOLINGS
 _LAYOUTS = ("mod", "div")
 _PRECISIONS = ("f32", "bf16", "int8_ef")
 
@@ -92,9 +96,6 @@ class EmbeddingSpec:
             raise ValueError(f"embedding {self.name!r}: unknown key_dtype "
                              f"{self.key_dtype!r}; known: ('wide', "
                              "'int32', 'int64')")
-        if self.pooling is not None:
-            raise not_ported(f"pooled variable {self.name!r}",
-                             "ragged and hybrid features")
         if self.plane != "a2a" or self.num_shards not in (-1, 1) \
                 or self.exchange_precision != "f32" \
                 or self.push_precision != "f32":
@@ -179,6 +180,11 @@ class EmbeddingCollection:
                          variables=variables, num_shards=self.num_shards)
         meta.extra["variable_num_shards"] = {
             name: self.num_shards for name in self.specs}
+        poolings = {name: s.pooling for name, s in self.specs.items()
+                    if s.pooling}
+        if poolings:
+            # serving rebuilds its specs from the meta alone, combiners too
+            meta.extra["variable_pooling"] = poolings
         return meta
 
     # --- state lifecycle ---------------------------------------------------
@@ -234,26 +240,45 @@ class EmbeddingCollection:
              serving_rows: bool = False) -> Dict[str, torch.Tensor]:
         """Rows for every input column: ``name -> rows``, shaped
         ``indices.shape + (dim,)`` (``indices.shape[:-1] + (dim,)`` for
-        pair keys on a wide hash variable).
+        pair keys on a wide hash variable); a pooled variable's ``[B, L]``
+        sequences (``[B, L, 2]`` pairs) pool to ``[B, dim]``.
 
         Inputs are integer tensors or numpy arrays of any shape; they move
         to the collection's device. A hash variable gives a missing key
         its deterministic init row, or a zero row under ``read_only`` (the
-        serving contract). ``batch_sharded`` and ``serving_rows`` keep the
-        JAX signature and select nothing on one device without pooling.
+        serving contract). ``serving_rows`` selects the serving plane's
+        row contract, as in JAX: one row per id, no pooling, and any
+        trailing dim of 2 on a wide variable is a pair axis.
+        ``batch_sharded`` keeps the JAX signature and selects nothing on
+        one device.
         """
-        del batch_sharded, serving_rows
+        del batch_sharded
+        pair_ndim = 2 if serving_rows else None
         rows = {}
         for name, idx in inputs.items():
             spec = self.specs[name]
-            idx = self.to_device(name, idx)
+            idx = self.to_device(name, idx, pair_ndim)
             if spec.use_hash:
-                rows[name] = hash_lib.pull(
+                r = hash_lib.pull(
                     states[name], idx,
                     None if read_only else self._initializers[name])
             else:
-                rows[name] = table_lib.pull(states[name], idx)
+                r = table_lib.pull(states[name], idx)
+            if spec.pooling and not serving_rows:
+                r = self._pool(spec, r, idx)
+            rows[name] = r
         return rows
+
+    def _pool_args(self, spec: EmbeddingSpec) -> dict:
+        """``ragged.pool_rows``' key-space arguments for a pooled spec."""
+        return {"pad_id": ragged.pad_id_for(spec),
+                "vocab": None if spec.use_hash else spec.input_dim,
+                "wide": spec.use_hash and spec.key_dtype == "wide"}
+
+    def _pool(self, spec: EmbeddingSpec, rows: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+        return ragged.pool_rows(rows, idx, spec.pooling,
+                                **self._pool_args(spec))
 
     def apply_gradients(self, states: Dict[str, Any],
                         inputs: Dict[str, Any],
@@ -262,16 +287,23 @@ class EmbeddingCollection:
         """Push and update every column present in ``row_grads``, in place.
 
         ``row_grads[name]`` has the shape of the pulled rows and
-        ``inputs[name]`` the ids they were pulled for. Array tables run
-        ``table.apply_gradients`` (dedup, combine, update the touched rows
-        and slots, scatter back), hash tables ``hash_table.apply_gradients``
-        (the same, inserting missing keys with their init rows); the other
-        variables' states are not touched. Returns ``states``.
+        ``inputs[name]`` the ids they were pulled for; a pooled variable's
+        ``[B, dim]`` gradient is expanded over its sequence slots first
+        (``ragged.expand_pooled_grads``; padding slots hold invalid ids,
+        which the push drops). Array tables run ``table.apply_gradients``
+        (dedup, combine, update the touched rows and slots, scatter back),
+        hash tables ``hash_table.apply_gradients`` (the same, inserting
+        missing keys with their init rows); the other variables' states
+        are not touched. Returns ``states``.
         """
         del batch_sharded
         for name, g in row_grads.items():
+            spec = self.specs[name]
             idx = self.to_device(name, inputs[name])
-            if self.specs[name].use_hash:
+            if spec.pooling:
+                g = ragged.expand_pooled_grads(g, idx, spec.pooling,
+                                               **self._pool_args(spec))
+            if spec.use_hash:
                 hash_lib.apply_gradients(states[name], self._optimizers[name],
                                          self._initializers[name], idx, g)
             else:
@@ -279,13 +311,14 @@ class EmbeddingCollection:
                                           self._optimizers[name], idx, g)
         return states
 
-    def host_ids(self, name: str, idx) -> torch.Tensor:
+    def host_ids(self, name: str, idx,
+                 pair_ndim: Optional[int] = None) -> torch.Tensor:
         """Input column ``name`` as an integer tensor where it lies (a host
         array becomes a CPU tensor of its own), host int64 ids of a hash
         variable widened on the host (:meth:`_widen`). The host's half of
         :meth:`to_device`."""
         spec = self.specs[name]
-        idx = self._widen(spec, idx)
+        idx = self._widen(spec, idx, pair_ndim)
         if not isinstance(idx, torch.Tensor):
             idx = torch.from_numpy(np.array(idx, copy=True))
         if idx.dtype.is_floating_point or idx.dtype == torch.bool:
@@ -293,38 +326,50 @@ class EmbeddingCollection:
                             f"{idx.dtype}")
         return idx
 
-    def to_device(self, name: str, idx) -> torch.Tensor:
+    def to_device(self, name: str, idx,
+                  pair_ndim: Optional[int] = None) -> torch.Tensor:
         """Input column ``name`` as an integer tensor on the collection's
         device (a copy that does not wait for the device), pair-widened
-        for a wide hash variable."""
+        for a wide hash variable. ``pair_ndim``: as in :meth:`_widen`."""
         spec = self.specs[name]
-        idx = self.host_ids(name, idx).to(self.device, non_blocking=True)
-        if spec.use_hash and spec.key_dtype == "wide" and not (
-                idx.ndim >= 2 and idx.shape[-1] == 2):
+        idx = self.host_ids(name, idx, pair_ndim).to(self.device,
+                                                     non_blocking=True)
+        if spec.use_hash and spec.key_dtype == "wide" and not _is_pairs(
+                idx, self._pair_ndim(spec, pair_ndim)):
             idx = hash_lib.widen_ids(idx)
         return idx
 
-    def _widen(self, spec: EmbeddingSpec, idx):
+    @staticmethod
+    def _pair_ndim(spec: EmbeddingSpec, pair_ndim: Optional[int]) -> int:
+        """The least ndim at which a trailing dim of 2 is a pair axis:
+        ``pair_ndim`` if given, else 3 for a pooled spec (its ``[B, L=2]``
+        matrices are sequences) and 2 otherwise, the JAX rule."""
+        if pair_ndim is not None:
+            return pair_ndim
+        return 3 if spec.pooling else 2
+
+    def _widen(self, spec: EmbeddingSpec, idx,
+               pair_ndim: Optional[int] = None):
         """Host int64 ids for a hash variable, before they move to the
         device: (lo, hi) pairs for a wide variable, int32 for an int32 one;
         every other input passes.
 
         The JAX collection's rule (``EmbeddingCollection._widen``): a
-        trailing dim of 2 IS a pair axis (pooled specs, whose ``[B, L=2]``
-        matrices are sequences, are not ported, so the serving rule
-        ``pair_ndim=2`` is the only one). Host int64 ids split on the host
-        (``hash_table.split64``); host pair words typed int64, and int64
-        ids for an int32-key table, must fit int32, never wrap. Narrow ids
-        that reach the device widen there (``hash_table.widen_ids``, in
-        :meth:`pull`).
+        trailing dim of 2 is a pair axis from ndim ``pair_ndim`` on
+        (:meth:`_pair_ndim`: 3 for a pooled spec, 2 otherwise; the serving
+        row plane passes 2, its queries being flat pair lists). Host int64
+        ids split on the host (``hash_table.split64``); host pair words
+        typed int64, and int64 ids for an int32-key table, must fit int32,
+        never wrap. Narrow ids that reach the device widen there
+        (``hash_table.widen_ids``, in :meth:`to_device`).
         """
         if not spec.use_hash or isinstance(idx, torch.Tensor):
             return idx
         arr = np.asarray(idx)
         if arr.dtype.kind not in "iu" or arr.dtype.itemsize != 8:
             return arr
-        pairs = arr.ndim >= 2 and arr.shape[-1] == 2
-        if spec.key_dtype == "wide" and not pairs:
+        if spec.key_dtype == "wide" and not _is_pairs(
+                arr, self._pair_ndim(spec, pair_ndim)):
             return hash_lib.split64(arr)
         if arr.size and (arr.max() > np.iinfo(np.int32).max
                          or arr.min() < np.iinfo(np.int32).min):
@@ -333,3 +378,8 @@ class EmbeddingCollection:
                 "hash_table.split64(ids) pairs to a key_dtype='wide' "
                 "variable, not raw 64-bit ids")
         return arr.astype(np.int32)
+
+
+def _is_pairs(idx, pair_ndim: int) -> bool:
+    """A trailing pair axis at ``pair_ndim`` dims or more."""
+    return idx.ndim >= pair_ndim and idx.shape[-1] == 2

@@ -9,11 +9,13 @@ numpy's opaque ``V2``) cross as their raw 16-bit words: the port never
 imports ml_dtypes, and ``table_state_to_numpy`` returns bfloat16 fields as
 ``uint16`` words (compare with ``jax_array_as_numpy.view(np.uint16)``).
 
-Dense state crosses too: flax parameter trees (nested dicts of arrays)
-become the port's parameter dicts keyed by module name and back, a flax
-``Dense`` ``kernel`` ``[in, out]`` as the torch ``weight`` ``[out, in]``;
-optax's Adagrad state (``ScaleByRssState.sum_of_squares``, the same tree)
-becomes ``optim/dense.py``'s state and back.
+Dense state crosses too: flax parameter trees (nested dicts of arrays,
+a ``HybridModel``'s ``{"inner": ..., "sparse_as_dense": ...}`` among
+them) become the port's parameter dicts keyed by module name and back, a
+flax ``Dense`` ``kernel`` ``[in, out]`` as the torch ``weight`` ``[out,
+in]``; optax's Adagrad state (``ScaleByRssState.sum_of_squares``, the
+same tree) and Adam state (``ScaleByAdamState``: ``count``, ``mu``,
+``nu``) become ``optim/dense.py``'s state and back.
 """
 
 from __future__ import annotations
@@ -108,8 +110,12 @@ def dense_params_from_flax(module: torch.nn.Module, params: Mapping,
                            ) -> Dict[str, torch.Tensor]:
     """A flax parameter tree as ``{module parameter name: tensor}`` on
     ``device``; the tree must hold exactly ``module``'s parameters, at
-    their shapes."""
+    their shapes, but for dense-kept tables, which flax creates only for
+    the columns its init batch held."""
+    from .hybrid import DenseEmbeddings
     want = {k: tuple(v.shape) for k, v in module.named_parameters()}
+    lazy = {f"{scope}.{s.name}" for scope, m in module.named_modules()
+            if isinstance(m, DenseEmbeddings) for s in m.specs}
     out = {}
     for path, leaf in _flax_leaves(params):
         arr = np.asarray(leaf)
@@ -120,9 +126,10 @@ def dense_params_from_flax(module: torch.nn.Module, params: Mapping,
             raise ValueError(f"flax parameter {name} {arr.shape} does not "
                              f"match the module's {want.get(name)}")
         out[name] = tensor_from_numpy(arr, device)
-    if set(out) != set(want):
-        raise ValueError(f"module parameters {sorted(set(want) - set(out))} "
-                         "are not in the flax tree")
+    missing = set(want) - set(out) - lazy
+    if missing:
+        raise ValueError(f"module parameters {sorted(missing)} are not in "
+                         "the flax tree")
     return out
 
 
@@ -155,17 +162,37 @@ def dense_state_from_optax(module: torch.nn.Module, opt_state,
                            device: DeviceLike = None
                            ) -> Dict[str, torch.Tensor]:
     """``optim/dense.py``'s state from an optax state: Adagrad's
-    ``sum_of_squares`` tree, or nothing for a stateless transform (SGD)."""
+    ``sum_of_squares`` tree, Adam's ``count``, ``mu`` and ``nu`` (as
+    ``count``, ``mu/<name>`` and ``nu/<name>``), or nothing for a
+    stateless transform (SGD)."""
     for part in opt_state:
         if hasattr(part, "sum_of_squares"):
             return dense_params_from_flax(module, part.sum_of_squares,
                                           device)
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            out = {"count": torch.tensor(int(part.count), dtype=torch.int32,
+                                         device=resolve_device(device))}
+            for slot in ("mu", "nu"):
+                tree = dense_params_from_flax(module, getattr(part, slot),
+                                              device)
+                out.update({f"{slot}/{k}": v for k, v in tree.items()})
+            return out
     return {}
 
 
 def dense_state_to_optax(state: Mapping[str, torch.Tensor], template):
     """An optax state shaped like ``template`` (``tx.init(params)`` of the
     same transform) holding the port's values, as numpy leaves."""
-    return tuple(
-        part._replace(sum_of_squares=dense_params_to_flax(state))
-        if hasattr(part, "sum_of_squares") else part for part in template)
+    def slot(prefix):
+        return dense_params_to_flax({k[len(prefix):]: v
+                                     for k, v in state.items()
+                                     if k.startswith(prefix)})
+
+    def convert(part):
+        if hasattr(part, "sum_of_squares"):
+            return part._replace(sum_of_squares=dense_params_to_flax(state))
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return part._replace(count=tensor_to_numpy(state["count"]),
+                                 mu=slot("mu/"), nu=slot("nu/"))
+        return part
+    return tuple(convert(part) for part in template)

@@ -329,8 +329,8 @@ def _flax_initializer(owner: nn.Module, leaf: str) -> str:
     return getattr(owner, "flax_init", {}).get(leaf, "zeros")
 
 
-def init_params(module: nn.Module, rng, device=None
-                ) -> Dict[str, torch.Tensor]:
+def init_params(module: nn.Module, rng, device=None, *,
+                dense_ids=None) -> Dict[str, torch.Tensor]:
     """Initial values for every parameter of ``module`` on ``device``, as
     flax's ``module.init(rng, ...)`` gives them. Each parameter is drawn
     from the key flax's ``make_rng`` hands it (:func:`flax_param_key` of
@@ -346,16 +346,33 @@ def init_params(module: nn.Module, rng, device=None
       fan_out) / 2))``, the uniform draw as ``jax.random.uniform``
       compiles it and the scale as flax applies it, one float32 multiply
       (``fan_in, fan_out`` are the last two dims);
-    - ``zeros``.
+    - ``zeros``;
+    - a dense-kept table of a ``hybrid.HybridModel``: its spec's
+      initializer (``DenseEmbeddings.initializer``), as flax's
+      ``DenseEmbeddings`` draws it.
+
+    flax creates a dense-kept table only for a column of the sample
+    batch, so its counter is its place among those columns in spec
+    order: ``dense_ids`` names them (all tables if None), and a table not
+    among them is left out of the result, as out of flax's tree.
 
     ``rng`` is a threefry key (``prng_key(seed)``); the values do not
     depend on the device."""
+    from ..hybrid import DenseEmbeddings
     device = resolve_device(device)
     out = {}
     for name, p in module.named_parameters():
         path = flax_path(name)
         scope, _, leaf = name.rpartition(".")
         owner = module.get_submodule(scope)
+        if isinstance(owner, DenseEmbeddings):
+            made = [s.name for s in owner.specs
+                    if dense_ids is None or s.name in dense_ids]
+            if leaf in made:
+                key = flax_param_key(rng, path[:-1], made.index(leaf) + 1)
+                out[name] = owner.initializer(leaf).init(
+                    key, tuple(p.shape), p.dtype, device)
+            continue
         kind = _flax_initializer(owner, leaf)
         if kind == "zeros":
             out[name] = torch.zeros(p.shape, dtype=p.dtype, device=device)

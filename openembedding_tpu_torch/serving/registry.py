@@ -45,31 +45,46 @@ class ServingModel:
         return self._by_id[variable_id]
 
     def lookup(self, variable: Any, indices) -> torch.Tensor:
-        """Read-only pull for one variable (by name or variable_id): rows
-        shaped ``indices.shape + (dim,)`` on the model's device (for pair
-        queries on a wide hash variable ``indices.shape[:-1] + (dim,)``),
-        zero rows for ids outside ``[0, input_dim)`` and for hash keys the
-        table does not hold."""
+        """Read-only pull for one variable (by name or variable_id), on the
+        model's device: zero rows for ids outside ``[0, input_dim)`` and
+        for hash keys the table does not hold.
+
+        The JAX registry's shape contract, which reads the sequence axis,
+        never the pooled spec's training rule:
+
+        - a flat query (narrow ``[n]`` ids, or ``[n, 2]`` pairs on a wide
+          hash variable) returns one row per id, never pooled;
+        - a sequence query on a pooled variable (``[B, L]``, or ``[B, L,
+          2]`` pairs on a wide one) returns the pooled ``[B, dim]`` rows.
+
+        On a wide variable any trailing dim of 2 is a pair axis, so a
+        narrow ``[B, 2]`` sequence reads as ``B`` pairs: send such
+        sequences padded to another length, or as ``[B, 2, 2]`` pairs."""
         name = (variable if isinstance(variable, str)
                 else self._by_id[int(variable)])
         if name not in self.collection.specs:
             raise KeyError(f"model {self.sign!r} has no variable {name!r}")
+        spec = self.collection.specs[name]
         # ONE reference grab = one consistent version of the states
         states = self.states
-        rows = self.collection.pull(states, {name: indices},
+        idx = self.collection.to_device(name, indices, pair_ndim=2)
+        seq_ndim = 3 if spec.use_hash and spec.key_dtype == "wide" else 2
+        as_rows = spec.pooling is None or idx.dim() < seq_ndim
+        rows = self.collection.pull(states, {name: idx},
                                     batch_sharded=False, read_only=True,
-                                    serving_rows=True)
+                                    serving_rows=as_rows)
         return rows[name]
 
 
 def _specs_from_meta(meta: ModelMeta,
                      hash_capacity: int) -> List[EmbeddingSpec]:
     """Rebuild EmbeddingSpecs from a checkpoint's model_meta alone, with
-    the stateless ``default`` optimizer: serving allocates and loads no
-    slot tensors. Hash capacity and key dtype come from the meta's
+    the stateless ``default`` optimizer (serving allocates and loads no
+    slot tensors) and the combiners of ``variable_pooling``. Hash capacity and key dtype come from the meta's
     ``hash_variables`` extra where the dump recorded them, else
     ``hash_capacity`` and ``"int32"``, as in the JAX registry."""
     hash_info = meta.extra.get("hash_variables", {})
+    poolings = meta.extra.get("variable_pooling", {})
     specs = []
     for v in sorted(meta.variables, key=lambda v: v.variable_id):
         hash_var = v.meta.vocabulary_size >= UNBOUNDED_VOCAB
@@ -79,7 +94,8 @@ def _specs_from_meta(meta: ModelMeta,
             output_dim=v.meta.embedding_dim, dtype=v.meta.datatype,
             optimizer={"category": "default"},
             hash_capacity=int(info.get("hash_capacity", hash_capacity)),
-            key_dtype=info.get("key_dtype", "int32")))
+            key_dtype=info.get("key_dtype", "int32"),
+            pooling=poolings.get(v.name)))
     return specs
 
 

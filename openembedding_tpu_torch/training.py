@@ -25,6 +25,15 @@ fails raises; nothing falls back to the eager step. On the CPU a program
 is the eager step, cached and counted the same way, so that
 ``fit(retrace_budget=)`` means there what it means on the card.
 ``train_step_eager`` is the step without a program, on any device.
+``eval_step`` keeps a cache of eval programs keyed the same way (JAX jits
+it too): on CUDA one captured graph of pull, model and sigmoid, sharing
+the step programs' memory pool (they replay one at a time, on one
+stream); ``eval_step_eager`` is its oracle.
+
+``Trainer(sparse_as_dense=...)`` keeps the small-vocabulary features as
+dense parameters (``hybrid.py``): the module is wrapped in
+``HybridModel``, and each batch column goes to the collection or to the
+dense-kept tables by name, outside and inside the programs alike.
 
 The step has static shapes and reads nothing back to the host: no
 ``.item()``, no ``torch.unique``, no Boolean-mask indexing. The batch
@@ -49,7 +58,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from .analysis.retrace import RetraceGuard, note_build
-from .embedding import EmbeddingCollection, not_ported
+from .embedding import EmbeddingCollection, EmbeddingSpec, not_ported
+from .hybrid import DENSE_SCOPE, HybridModel, to_dense_spec
 from .models.deepctr import init_params
 from .ops.launches import CountedGraph
 from .optim.initializers import split
@@ -157,30 +167,33 @@ class _Program:
 
 
 class _EagerProgram(_Program):
-    """The step program on the CPU: the eager step."""
+    """A program on the CPU: ``fn(state, placed batch)``, eagerly."""
 
-    def __init__(self, trainer: "Trainer", state: "TrainState"):
+    def __init__(self, trainer: "Trainer", state: "TrainState", fn):
         super().__init__(state)
         self.trainer = trainer
+        self.fn = fn
 
     def __call__(self, state: "TrainState", host) -> torch.Tensor:
-        return self.trainer._step(state, self.trainer.place_batch(host))
+        return self.fn(state, self.trainer.place_batch(host))
 
 
 class _CapturedProgram(_Program):
-    """The step program on a CUDA device: one ``CountedGraph`` of the
-    step over static input buffers, bound to the state it was built on.
+    """A program on a CUDA device: one ``CountedGraph`` of ``fn(state,
+    batch)`` (the step, or the eval) over static input buffers, bound to
+    the state it was built on.
 
-    Building it copies the first batch into the buffers, takes one eager
-    step on a side stream (``torch.cuda.graphs``' warm-up: lazy
+    Building it copies the first batch into the buffers, runs ``fn`` once
+    eagerly on a side stream (``torch.cuda.graphs``' warm-up: lazy
     initialization and every kernel's first launch happen outside the
-    capture), then captures the step into the graph memory pool of the
-    trainer's other captured programs, which they all share (they replay
-    one at a time, on one stream). ``first_loss`` is the warm-up step's
-    loss; ``build_s`` the seconds the build took; ``pool_bytes`` the
-    memory the capture reserved."""
+    capture), then captures it into the graph memory pool of the
+    trainer's other captured programs, step and eval alike, which they all
+    share (they replay one at a time, on one stream). ``first`` is the
+    warm-up's output (a step's: its loss, and the step is taken);
+    ``build_s`` the seconds the build took; ``pool_bytes`` the memory the
+    capture reserved."""
 
-    def __init__(self, trainer: "Trainer", state: "TrainState", host):
+    def __init__(self, trainer: "Trainer", state: "TrainState", host, fn):
         super().__init__(state)
         t0 = time.perf_counter()
         dev = trainer.device
@@ -197,13 +210,13 @@ class _CapturedProgram(_Program):
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self.first_loss = trainer._step(state, self.inputs)
+            self.first = fn(state, self.inputs)
         main.wait_stream(side)
-        self.first_loss.record_stream(main)
+        self.first.record_stream(main)
         self.graph = CountedGraph()
         with self.graph.capture(pool=trainer._graph_pool()):
             reserved = torch.cuda.memory_reserved(dev)
-            self.loss = trainer._step(state, self.inputs)
+            self.out = fn(state, self.inputs)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.build_s = time.perf_counter() - t0
 
@@ -222,7 +235,7 @@ class _CapturedProgram(_Program):
         self._load(host)
         self.graph.replay()
         # a copy of its own: the next replay overwrites the graph's output
-        return self.loss.clone()
+        return self.out.clone()
 
 
 class Trainer:
@@ -234,9 +247,13 @@ class Trainer:
     of numpy arrays or tensors. ``dense_optimizer`` is one of
     ``optim/dense.py``'s. The step runs on the collection's device.
 
-    The JAX ``Trainer``'s ``sparse_as_dense``, ``offload`` and
-    ``pipeline_depth`` raise ``NotImplementedError`` naming their ROADMAP.md
-    items.
+    ``sparse_as_dense``: the dense-kept features
+    (``hybrid.split_sparse_dense``'s ``DenseFeatureSpec`` s, or array
+    ``EmbeddingSpec`` s; a hash spec raises ``ValueError``), as in JAX:
+    the module becomes ``HybridModel(module, specs)`` and their columns
+    never reach the collection. The JAX ``Trainer``'s ``offload`` and
+    ``pipeline_depth`` raise ``NotImplementedError`` naming their
+    ROADMAP.md item.
     """
 
     def __init__(self, module: torch.nn.Module,
@@ -246,13 +263,17 @@ class Trainer:
                  sparse_as_dense: Optional[Any] = None,
                  offload: Optional[Dict[str, Any]] = None,
                  pipeline_depth: Optional[int] = None):
-        if sparse_as_dense:
-            raise not_ported("Trainer(sparse_as_dense=)",
-                             "ragged and hybrid features")
         if offload:
             raise not_ported("Trainer(offload=)", "host offload")
         if pipeline_depth is not None:
             raise not_ported("Trainer(pipeline_depth=)", "host offload")
+        if sparse_as_dense:
+            specs = tuple(to_dense_spec(x) if isinstance(x, EmbeddingSpec)
+                          else x for x in sparse_as_dense)
+            module = HybridModel(module, specs)
+            self._dense_names = frozenset(x.name for x in specs)
+        else:
+            self._dense_names = frozenset()
         self.collection = collection
         self.device = collection.device
         self.module = module.to(self.device)
@@ -264,6 +285,9 @@ class Trainer:
         # number of programs built
         self.programs: Dict[tuple, _Program] = {}
         self.builds = 0
+        # eval programs, keyed the same way
+        self.eval_programs: Dict[tuple, _Program] = {}
+        self.eval_builds = 0
 
     # --- initialization ----------------------------------------------------
     def init(self, rng, sample_batch: Dict[str, Any]) -> TrainState:
@@ -273,14 +297,18 @@ class Trainer:
         into the tables' key and the dense key (``split``), the tables
         come from ``collection.init(emb_rng)`` and the dense parameters
         from flax's keys under the dense key (``models.deepctr.
-        init_params``). The same values on every device. The sample
-        batch's sparse columns must be the collection's."""
-        unknown = set(sample_batch["sparse"]) - set(self.collection.specs)
+        init_params``; a dense-kept table only for a column of the sample
+        batch, as flax creates it). The same values on every device. The
+        sample batch's sparse columns must be the collection's or
+        dense-kept."""
+        unknown = set(sample_batch["sparse"]) - set(self.collection.specs) \
+            - self._dense_names
         if unknown:
             raise ValueError(f"batch columns {sorted(unknown)} are not in "
                              "the collection")
         emb_rng, dense_rng = split(rng)
-        params = init_params(self.module, dense_rng, self.device)
+        params = init_params(self.module, dense_rng, self.device,
+                             dense_ids=set(sample_batch["sparse"]))
         return TrainState(
             step=torch.zeros((), dtype=torch.int64, device=self.device),
             params=params, opt_state=self.tx.init(params),
@@ -290,11 +318,13 @@ class Trainer:
     def host_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The batch's arrays as tensors where they lie, host arrays copied
         into CPU tensors and a hash variable's host ids widened on the
-        host (``EmbeddingCollection.host_ids``): the host's part of placing
-        a batch, done outside any step program."""
+        host (``EmbeddingCollection.host_ids``; dense-kept columns pass as
+        they are): the host's part of placing a batch, done outside any
+        program."""
         return {"label": _host(batch["label"]),
                 "dense": _host(batch.get("dense")),
-                "sparse": {k: self.collection.host_ids(k, v)
+                "sparse": {k: _host(v) if k in self._dense_names
+                           else self.collection.host_ids(k, v)
                            for k, v in batch["sparse"].items()}}
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
@@ -307,23 +337,79 @@ class Trainer:
                                                non_blocking=True)
         return {"label": placed(host["label"]),
                 "dense": placed(host["dense"]),
-                "sparse": {k: self.collection.to_device(k, v)
+                "sparse": {k: placed(v) if k in self._dense_names
+                           else self.collection.to_device(k, v)
                            for k, v in host["sparse"].items()}}
 
-    def _logits(self, params, dense, rows):
-        return functional_call(self.module, params, (dense, rows))
+    def _split_sparse(self, sparse: Dict[str, Any]):
+        """A batch's columns split by name: the collection's, and the
+        dense-kept ids (None without ``sparse_as_dense``)."""
+        if not self._dense_names:
+            return sparse, None
+        return ({k: v for k, v in sparse.items()
+                 if k not in self._dense_names},
+                {k: v for k, v in sparse.items() if k in self._dense_names})
+
+    def _check_dense_ids(self, state: TrainState, host) -> None:
+        """A dense-kept column needs its table: flax has none for a column
+        its init batch lacked, and its apply fails; so does this."""
+        _, dense_ids = self._split_sparse(host["sparse"])
+        for k in dense_ids or ():
+            if f"{DENSE_SCOPE}.{k}" not in state.params:
+                raise ValueError(
+                    f"dense-kept column {k!r} has no table: the sample "
+                    "batch given to init lacked it")
+
+    def _logits(self, params, dense, rows, dense_ids=None):
+        args = (dense, rows) if dense_ids is None \
+            else (dense, rows, dense_ids)
+        return functional_call(self.module, params, args)
 
     def _step(self, state: TrainState, batch) -> torch.Tensor:
         """The step on a placed batch (or a program's static buffers):
         pull, loss and gradients, dense update, push, ``step += 1``, all
         in place. Returns the loss, a device scalar."""
-        rows = self.collection.pull(state.emb, batch["sparse"])
+        pull_inputs, _ = self._split_sparse(batch["sparse"])
+        rows = self.collection.pull(state.emb, pull_inputs)
         loss, row_grads = self.dense_step(state, batch, rows)
         with torch.no_grad():
-            self.collection.apply_gradients(state.emb, batch["sparse"],
+            self.collection.apply_gradients(state.emb, pull_inputs,
                                             row_grads)
             state.step.add_(1)
         return loss
+
+    @torch.no_grad()
+    def _scores(self, state: TrainState, batch) -> torch.Tensor:
+        """The eval on a placed batch (or a program's static buffers):
+        pull, model, ``sigmoid``; scores ``[B]``."""
+        pull_inputs, dense_ids = self._split_sparse(batch["sparse"])
+        rows = self.collection.pull(state.emb, pull_inputs)
+        logits = self._logits(state.params, batch["dense"], rows, dense_ids)
+        return torch.sigmoid(logits.reshape(-1))
+
+    def _run(self, cache: Dict[tuple, _Program], fn, state: TrainState,
+             batch) -> tuple:
+        """``fn`` on ``batch`` through its program in ``cache`` (batch
+        signature and state identity), building the program first when
+        there is none: on CUDA a captured graph, whose warm-up is this
+        call, on the CPU the eager ``fn``. Returns the output and whether
+        a program was built."""
+        host = self.host_batch(batch)
+        self._check_dense_ids(state, host)
+        key = (_batch_key(host), _state_key(state))
+        program = cache.get(key)
+        if program is not None and program.live():
+            return program(state, host), False
+        self._drop_stale_programs()
+        if self.device.type == "cuda":
+            program = _CapturedProgram(self, state, host, fn)
+            out = program.first
+        else:
+            program = _EagerProgram(self, state, fn)
+            out = program(state, host)
+        cache[key] = program
+        note_build()
+        return out, True
 
     def train_step(self, state: TrainState, batch) -> tuple:
         """One step; returns ``(state, {"loss": device scalar})``. The
@@ -334,58 +420,52 @@ class Trainer:
         note): on CUDA the build's warm-up is this step and later calls
         replay the captured graph; the loss returned is a tensor of its
         own, which no later step overwrites."""
-        host = self.host_batch(batch)
-        key = (_batch_key(host), _state_key(state))
-        program = self.programs.get(key)
-        if program is not None and program.live():
-            return state, {"loss": program(state, host)}
-        self._drop_stale_programs()
-        if self.device.type == "cuda":
-            program = _CapturedProgram(self, state, host)
-            loss = program.first_loss
-        else:
-            program = _EagerProgram(self, state)
-            loss = program(state, host)
-        self.programs[key] = program
-        self.builds += 1
-        note_build()
+        loss, built = self._run(self.programs, self._step, state, batch)
+        self.builds += built
         return state, {"loss": loss}
 
     def _graph_pool(self):
-        """The memory pool of a live captured program, or None (the next
-        capture then takes a pool of its own). A pool lives as long as a
-        graph that uses it, so it is always taken from one."""
-        for p in self.programs.values():
+        """The memory pool of a live captured program, step or eval, or
+        None (the next capture then takes a pool of its own). A pool lives
+        as long as a graph that uses it, so it is always taken from one."""
+        for p in list(self.programs.values()) \
+                + list(self.eval_programs.values()):
             if isinstance(p, _CapturedProgram):
                 return p.graph.graph.pool()
         return None
 
     def _drop_stale_programs(self) -> None:
-        """Forget the programs of states that are gone, freeing their
-        graphs once the device has finished with them."""
-        stale = [k for k, p in self.programs.items() if not p.live()]
+        """Forget the step and eval programs of states that are gone,
+        freeing their graphs once the device has finished with them."""
+        caches = (self.programs, self.eval_programs)
+        stale = [(c, k) for c in caches for k, p in c.items()
+                 if not p.live()]
         if stale and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        for k in stale:
-            del self.programs[k]
+        for c, k in stale:
+            del c[k]
 
     def train_step_eager(self, state: TrainState, batch) -> tuple:
         """One step dispatched op by op, with no step program (the oracle
         of the captured step); the same result as :meth:`train_step`."""
-        return state, {"loss": self._step(state, self.place_batch(batch))}
+        placed = self.place_batch(batch)
+        self._check_dense_ids(state, placed)
+        return state, {"loss": self._step(state, placed)}
 
     def dense_step(self, state: TrainState, batch, rows):
         """The dense half of a step on pulled rows: the loss, its
-        gradients with respect to the dense parameters and the rows, and
-        the dense update (in place). ``batch`` is placed
-        (:meth:`place_batch`). Returns ``(loss, row gradients)``; a column
-        the model does not read gets zero gradients, as ``jax.grad`` gives
-        them."""
+        gradients with respect to the dense parameters (the dense-kept
+        tables among them) and the rows, and the dense update (in place).
+        ``batch`` is placed (:meth:`place_batch`). Returns ``(loss, row
+        gradients)``; a column the model does not read gets zero
+        gradients, as ``jax.grad`` gives them."""
+        _, dense_ids = self._split_sparse(batch["sparse"])
         params = {k: v.detach().requires_grad_()
                   for k, v in state.params.items()}
         rows = {k: v.detach().requires_grad_() for k, v in rows.items()}
-        loss = self.loss_fn(self._logits(params, batch["dense"], rows),
-                            batch["label"])
+        loss = self.loss_fn(
+            self._logits(params, batch["dense"], rows, dense_ids),
+            batch["label"])
         grads = torch.autograd.grad(
             loss, list(params.values()) + list(rows.values()),
             allow_unused=True, materialize_grads=True)
@@ -393,13 +473,22 @@ class Trainer:
                       state.opt_state)
         return loss.detach(), dict(zip(rows, grads[len(params):]))
 
-    @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
-        """Scores ``sigmoid(logits)`` for a batch, ``[B]``."""
-        batch = self.place_batch(batch)
-        rows = self.collection.pull(state.emb, batch["sparse"])
-        logits = self._logits(state.params, batch["dense"], rows)
-        return torch.sigmoid(logits.reshape(-1))
+        """Scores ``sigmoid(logits)`` for a batch, ``[B]``, through the
+        cached eval program of the batch's signature and the state's
+        tensors (built at the first call, as a JAX ``jit``: on CUDA one
+        captured graph, replayed by later calls; a failed capture
+        raises). The scores are a tensor of their own."""
+        scores, built = self._run(self.eval_programs, self._scores, state,
+                                  batch)
+        self.eval_builds += built
+        return scores
+
+    def eval_step_eager(self, state: TrainState, batch) -> torch.Tensor:
+        """The eval dispatched op by op (the oracle of :meth:`eval_step`)."""
+        placed = self.place_batch(batch)
+        self._check_dense_ids(state, placed)
+        return self._scores(state, placed)
 
     def model_sign(self, state: TrainState) -> str:
         """Version-stamped serving signature for this state (reads the

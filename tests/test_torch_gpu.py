@@ -752,3 +752,134 @@ def test_xdeepfm_and_dcn_steps_on_card_match_cpu(model):
     for n, cs in cstate.emb.items():
         _close(gstate.emb[n].weights, cs.weights)
         _close(gstate.emb[n].slots["accum"], cs.slots["accum"])
+
+
+def _hybrid_trainer(device, hash_hist=False):
+    """A small ``criteo_hist_hybrid``: 4 features with their own
+    vocabularies and ``:linear`` twins, those of vocabulary <= 16 kept
+    dense (``sparse_as_dense``), a pooled history (``hist`` mean,
+    ``hist:linear`` sum; wide hash variables with ``hash_hist``), DeepFM,
+    sparse Adagrad and dense Adam."""
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                   EmbeddingSpec)
+    from openembedding_tpu_torch.hybrid import split_sparse_dense
+    from openembedding_tpu_torch.models import deepctr as tm
+    from openembedding_tpu_torch.optim import dense
+    opt = {"category": "adagrad", "learning_rate": 0.01}
+    names = criteo.SPARSE_NAMES[:4]
+    hist = {"input_dim": -1, "hash_capacity": 1 << 12} if hash_hist \
+        else {"input_dim": 1000}
+    specs = tuple(tm.make_feature_specs(names, [8, 400, 600, 16], 4,
+                                        optimizer=opt)) + (
+        EmbeddingSpec(name="hist", output_dim=4, optimizer=opt,
+                      pooling="mean", **hist),
+        EmbeddingSpec(name="hist:linear", output_dim=1, optimizer=opt,
+                      pooling="sum", **hist))
+    sparse, kept = split_sparse_dense(specs, 16)
+    module = tm.build_model("deepfm", names + ("hist",), embedding_dim=4,
+                            num_dense=criteo.NUM_DENSE, dnn_units=(32, 16))
+    return tr.Trainer(module, EmbeddingCollection(sparse, device=device),
+                      dense.adam(1e-3), sparse_as_dense=kept)
+
+
+def _hybrid_batches(n, wide=False):
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.ragged import pad_ragged, pad_ragged_wide
+    rng = np.random.RandomState(7)
+    out = []
+    for b in criteo.add_linear_columns(criteo.synthetic_criteo(
+            256, num_buckets=1 << 12, seed=0, num_batches=n)):
+        sparse = {}
+        for name, v in zip(criteo.SPARSE_NAMES[:4], (8, 400, 600, 16)):
+            sparse[name] = sparse[name + ":linear"] = \
+                (b["sparse"][name] % v).astype(np.int32)
+        seqs = [rng.randint(0, 1000, rng.randint(0, 9)) for _ in range(256)]
+        h = pad_ragged_wide([s * (1 << 33) + s for s in seqs], 8) if wide \
+            else pad_ragged(seqs, 8)
+        sparse["hist"] = sparse["hist:linear"] = h
+        out.append({**b, "sparse": sparse})
+    return out
+
+
+@pytest.mark.gpu
+def test_hybrid_pooled_captured_step_and_eval_match_eager():
+    """The hybrid with a pooled history on the card: 4 captured steps
+    equal 4 eager ones bit for bit (under deterministic algorithms if two
+    eager runs differ: the dense-kept tables' gradient is an
+    ``index_add_``), K1 launched once a step per collection table (4
+    tables and 2 pooled histories: 6), and 3 card steps agree with 3 CPU
+    steps (losses rtol 1e-4, state atol 1e-5 + rtol 1e-4). The captured
+    eval equals the eager eval bit for bit, builds once, and leaves the
+    step's graph replaying as before."""
+    _need_card()
+    from openembedding_tpu_torch import training as tr
+    gpu = _hybrid_trainer("cuda")
+    batches = _hybrid_batches(4)
+    state = gpu.init(prng_key(0), batches[0])
+    same, _deterministic, launched = _captured_against_eager(gpu, state,
+                                                             batches)
+    assert same
+    assert launched == {"gather_rows": 6 * 4, "probe_gather": 0,
+                        "init_rows": 0}
+    cpu = _hybrid_trainer("cpu")
+    cstate = tr.copy_state(state, "cpu")
+    for b in batches[:3]:
+        state, gm = gpu.train_step(state, b)
+        cstate, cm = cpu.train_step(cstate, b)
+        np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                                   rtol=1e-4)
+    for k in cstate.params:
+        _close(state.params[k], cstate.params[k])
+    for k in cstate.opt_state:
+        _close(state.opt_state[k], cstate.opt_state[k])
+    for n, cs in cstate.emb.items():
+        _close(state.emb[n].weights, cs.weights)
+    builds = gpu.builds
+    scores = [gpu.eval_step(state, b) for b in batches]
+    eager = [gpu.eval_step_eager(state, b) for b in batches]
+    assert all(torch.equal(a, b) for a, b in zip(scores, eager))
+    assert gpu.eval_builds == 1
+    np.testing.assert_allclose(scores[0].cpu().numpy(),
+                               cpu.eval_step(cstate, batches[0]).numpy(),
+                               rtol=1e-5, atol=1e-7)
+    # the step's graph replays as before the eval program was built
+    copy = tr.copy_state(state, "cuda")
+    state, m = gpu.train_step(state, batches[3])
+    copy, me = gpu.train_step_eager(copy, batches[3])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(float(m["loss"]), float(me["loss"]),
+                               rtol=1e-6)
+    assert gpu.builds == builds
+
+
+@pytest.mark.gpu
+def test_pooled_wide_hash_push_inserts_no_empty_key():
+    """A pooled wide-hash history padded with EMPTY pairs: 3 captured
+    card steps and 3 CPU steps leave the same keys arrays, every stored
+    key a real id of the batches (no EMPTY key inserted from padding),
+    and K2 2 / KI 4 launches a step."""
+    _need_card()
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.hash_table import join64
+    gpu = _hybrid_trainer("cuda", hash_hist=True)
+    cpu = _hybrid_trainer("cpu", hash_hist=True)
+    batches = _hybrid_batches(3, wide=True)
+    state = gpu.init(prng_key(0), batches[0])
+    cstate = tr.copy_state(state, "cpu")
+    before = {c: c.launches for c in _counters()}
+    for b in batches:
+        state, _ = gpu.train_step(state, b)
+        cstate, _ = cpu.train_step(cstate, b)
+    torch.cuda.synchronize()
+    moved = {c.__name__: c.launches - before[c] for c in _counters()}
+    assert moved["probe_gather"] == 2 * 3 and moved["init_rows"] == 4 * 3
+    pairs = np.concatenate([b["sparse"]["hist"].reshape(-1, 2)
+                            for b in batches])
+    real = set(join64(pairs[pairs[:, 1] != EMPTY]).tolist())
+    for name in ("hist", "hist:linear"):
+        keys = state.emb[name].keys.cpu()
+        assert torch.equal(keys, cstate.emb[name].keys)
+        stored = keys[keys[:, 1] != EMPTY].numpy()
+        assert set(join64(stored).tolist()) == real

@@ -150,7 +150,10 @@ def test_spec_fields_and_validation_match_jax():
     jhashed = oe.EmbeddingSpec(name="h", input_dim=-1, output_dim=4)
     assert hashed.key_dtype == jhashed.key_dtype == "wide"
     assert hashed.meta().to_json() == jhashed.meta().to_json()
-    for later in ({"input_dim": -1, "key_dtype": "int64"}, {"pooling": "sum"},
+    for pooling in ("sum", "mean", "sqrtn"):
+        assert EmbeddingSpec(name="a", input_dim=10, output_dim=4,
+                             pooling=pooling).pooling == pooling
+    for later in ({"input_dim": -1, "key_dtype": "int64"},
                   {"plane": "psum"}, {"plane": "a2a+bf16"},
                   {"num_shards": 4}, {"push_precision": "int8_ef"},
                   {"cache_k": 8}):

@@ -28,7 +28,8 @@ from openembedding_tpu.parallel.mesh import create_mesh
 from openembedding_tpu_torch import interop
 from openembedding_tpu_torch import training as tr
 from openembedding_tpu_torch.data import criteo
-from openembedding_tpu_torch.embedding import EmbeddingCollection
+from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                EmbeddingSpec)
 from openembedding_tpu_torch.fused import make_fused_specs
 from openembedding_tpu_torch.models import deepctr as tm
 from openembedding_tpu_torch.optim import dense
@@ -186,7 +187,9 @@ def test_fit_logs_and_model_sign():
 
 
 @pytest.mark.parametrize("call,item", [
-    ("sparse_as_dense", "ragged and hybrid features"),
+    # no longer unported: a hash spec kept dense raises as in JAX
+    pytest.param("sparse_as_dense", "hash", id="sparse_as_dense-ragged and "
+                 "hybrid features"),
     ("offload", "host offload"),
     ("pipeline_depth", "host offload"),
     ("persist_dir", "host offload"),
@@ -196,8 +199,14 @@ def test_fit_logs_and_model_sign():
 ])
 def test_unported_arguments_raise(call, item):
     trainer, mapper = _tiny_trainer()
+    if call == "sparse_as_dense":
+        hashed = EmbeddingSpec(name="h", input_dim=-1, output_dim=DIM)
+        with pytest.raises(ValueError, match=item):
+            tr.Trainer(trainer.module, trainer.collection,
+                       dense.adagrad(0.01), sparse_as_dense=[hashed])
+        return
     with pytest.raises(NotImplementedError, match=item):
-        if call in ("sparse_as_dense", "offload", "pipeline_depth"):
+        if call in ("offload", "pipeline_depth"):
             tr.Trainer(trainer.module, trainer.collection,
                        dense.adagrad(0.01), **{call: {"x": 1} if call !=
                                                "pipeline_depth" else 2})
