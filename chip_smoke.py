@@ -6,8 +6,8 @@ then the serving and training paths driven end to end at full width.
 
 (``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
 two versions of the kernel in turns within one call; see ``ki_only``.
-``python3 chip_smoke.py --hybrid`` runs phase 11 alone. Neither prints a
-result line.)
+``python3 chip_smoke.py --hybrid`` runs phase 11 alone, ``--delta``
+phase 12. None of them prints a result line.)
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -136,6 +136,21 @@ Phases, in order; any failure raises and the run exits nonzero:
    then the history as wide hash variables (the hash twin): 4 captured card
    steps against 4 CPU steps, keys arrays bit-identical, no EMPTY key
    inserted;
+12. delta checkpoints, elastic fit and hot-swap (run after phase 11,
+   printed before phase 9's line): ``ckpt_delta_ab`` (bench.py:1694: a
+   ``[2^22, 9]`` Adagrad table saved full, 5 % of its rows pushed and 3
+   delta saves of their chunks, the chain replayed exactly); then
+   ``deepfm_dim9`` and ``deepfm_dim9_hash`` at full width with dirty
+   tracking armed: the dirty chunk share after 1, 4 and 8 steps,
+   ``fit(autosave_every=4, retrace_budget=0)`` over 12 captured steps,
+   a fit killed after 8 and resumed by a fresh trainer bit for bit (one
+   program build each; hash keys arrays too, no insert failure), the
+   base served after step 4 and each published delta hot-swapped
+   through ``POST /models/<sign>/delta`` with lookups equal to the
+   trainer's rows at that step (K1 or K2 once a lookup, from the
+   counters and a trace; KI never in an apply), a re-sent delta a
+   no-op, a skipped one 409, and the captured step with tracking armed
+   and off (``phase_delta``);
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
 12. last line: ``{"ok": true, "device": {...}}``.
@@ -1374,11 +1389,11 @@ def training_trace(trainer, state, batches, trace_path, lead) -> dict:
                for k, w in wrappers.items()}
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        every = json.load(f).get("traceEvents", [])
+        whole = json.load(f).get("traceEvents", [])
     w0, w1 = next((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                  for e in every if e.get("name") == TRACE_WINDOW
+                  for e in whole if e.get("name") == TRACE_WINDOW
                   and e.get("cat") == "user_annotation")
-    every = [e for e in every if "ts" in e and w0 <= float(e["ts"]) <= w1]
+    every = [e for e in whole if "ts" in e and w0 <= float(e["ts"]) <= w1]
     events = [e for e in every
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     host = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
@@ -1402,9 +1417,14 @@ def training_trace(trainer, state, batches, trace_path, lead) -> dict:
         family = _kernel_family(e["name"])
         if family:
             window[family] += 1
+    # a replay's kernels are found by correlation, not by their device
+    # timestamps: the device clock, mapped onto the host's, can place the
+    # first replay's first kernels a little before the window opens
+    for e in whole:
         corr = e.get("args", {}).get("correlation")
-        if corr in replays:
+        if e.get("cat") == "kernel" and corr in replays:
             recorded[corr] += 1
+            family = _kernel_family(e["name"])
             if family:
                 replays[corr][family] += 1
     spans.sort()
@@ -2947,6 +2967,426 @@ def phase_hybrid_training():
             "init_flat": flat_launches + twin_launches["init_flat"]}
 
 
+# --- phase 12: delta checkpoints, elastic fit, hot-swap -----------------------
+
+AB_VOCAB, AB_DIM = 1 << 22, 9  # ckpt_delta_ab (bench.py:1694): one table,
+AB_DIRTY = 0.05                # 5 % of its rows dirty, 1024 chunks, 3
+AB_CHUNKS, AB_REPEATS = 1024, 3    # delta saves
+ELASTIC_STEPS = 12             # the uninterrupted fit(autosave_every=4)
+AUTOSAVE_EVERY = 4
+KILLED_AT = 8                  # the interrupted fit's steps
+SHARE_AT = (1, 4, 8)           # steps after which the dirty share is read
+
+
+def ckpt_delta_ab(tmp: str) -> dict:
+    """``ckpt_delta_ab`` on the card: a ``[2^22, 9]`` Adagrad table saved
+    full (parallel writers), then 5 % of its rows pushed and 3 delta saves
+    of those rows' chunks (1024 chunks; each repeat re-marks the same
+    rows, as bench.py does), then the base and chain loaded (replayed) and
+    held against the live table exactly, weights and slots."""
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                    EmbeddingSpec)
+    coll = EmbeddingCollection((EmbeddingSpec(
+        name="big", input_dim=AB_VOCAB, output_dim=AB_DIM,
+        optimizer={"category": "adagrad", "learning_rate": 0.01}),),
+        seed=SEED)
+    states = coll.init()
+    torch.cuda.synchronize()
+    full = ck.save_checkpoint(os.path.join(tmp, "ab_full"), coll, states)
+    shutil.rmtree(os.path.join(tmp, "ab_full"))
+    coll.enable_dirty_tracking(target_chunks=AB_CHUNKS)
+    ddir = os.path.join(tmp, "ab_delta")
+    ck.save_checkpoint(ddir, coll, states, mode="delta", step=0)
+    n_dirty = int(AB_VOCAB * AB_DIRTY)
+    ids = torch.arange(n_dirty, device=coll.device)
+    rows = coll.pull(states, {"big": ids})
+    coll.apply_gradients(states, {"big": ids},
+                         {"big": torch.ones_like(rows["big"])})
+    deltas = []
+    for r in range(AB_REPEATS):
+        if r:
+            coll.mark_dirty({"big": np.arange(n_dirty)})
+        info = cd.save_delta(ddir, coll, states, step=r + 1,
+                             compact_chain_len=10 ** 6,
+                             compact_bytes_ratio=float("inf"),
+                             background_compact=False)
+        deltas.append({"seconds": info["seconds"], "bytes": info["bytes"],
+                       "rows": info["rows"]})
+    t0 = time.perf_counter()
+    info: dict = {}
+    loaded = ck.load_checkpoint(ddir, coll, info=info)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    exact = torch.equal(loaded["big"].weights, states["big"].weights) \
+        and torch.equal(loaded["big"].slots["accum"],
+                        states["big"].slots["accum"])
+    if not exact or info["applied_seq"] != AB_REPEATS:
+        raise AssertionError(f"ckpt_delta_ab: replay exact={exact}, "
+                             f"applied_seq {info['applied_seq']}")
+    return {"vocab": AB_VOCAB, "dim": AB_DIM, "dirty_rows": n_dirty,
+            "full_s": full["seconds"], "full_bytes": full["bytes"],
+            "full_gbps": full["bytes"] / full["seconds"] / 1e9,
+            "deltas": deltas,
+            "full_over_delta_bytes": full["bytes"] / deltas[-1]["bytes"],
+            "load_replay_s": load_s, "replay_exact": exact}
+
+
+def _dirty_share(trainer, state, batches) -> dict:
+    """The share of each table's chunks marked after 1, 4 and 8 steps from
+    clean trackers (default chunking), on a copy of ``state``; the
+    trackers are cleared again after."""
+    from openembedding_tpu_torch.training import copy_state
+    trackers = trainer.collection.dirty_trackers
+    for t in trackers.values():
+        t.clear_all()
+    s = copy_state(state, trainer.device)
+    out = {}
+    for i, b in enumerate(batches[:max(SHARE_AT)]):
+        s, _ = trainer.train_step(s, b)
+        if i + 1 in SHARE_AT:
+            out[str(i + 1)] = {n: t.dirty_count / t.num_chunks
+                               for n, t in trackers.items()}
+    for t in trackers.values():
+        t.clear_all()
+    del s
+    return out
+
+
+def _tracking_cost(trainer, state, batches) -> dict:
+    """Captured step ms with dirty tracking armed and off, ``BLOCKS``
+    blocks of ``BLOCK_STEPS`` steps each, in turns (``_block``; off takes
+    the trackers away for the block), on a copy of ``state`` whose program
+    is built here, outside the deterministic mode the elastic checks ran
+    in; and the host's marking of one batch alone (``mark_dirty`` on its
+    host ids, median of ``REPS``)."""
+    from openembedding_tpu_torch.training import copy_state
+    coll = trainer.collection
+    trackers = coll._dirty_trackers
+    host = [trainer.host_batch(b)["sparse"] for b in batches]
+    mark_ms = []
+    for i in range(REPS):
+        t0 = time.perf_counter()
+        coll.mark_dirty(host[i % len(host)])
+        mark_ms.append((time.perf_counter() - t0) * 1e3)
+    state = copy_state(state, trainer.device)
+    for b in batches[:WARMUP_STEPS]:
+        state, _ = trainer.train_step(state, b)
+
+    def armed(s, b):
+        coll._dirty_trackers = trackers
+        return trainer.train_step(s, b)
+
+    def off(s, b):
+        coll._dirty_trackers = {}
+        return trainer.train_step(s, b)
+    steps = {"armed": armed, "off": off}
+    ms = {k: [] for k in steps}
+    try:
+        for k in range(BLOCKS):
+            for kind in (list(steps) if k % 2 == 0 else list(steps)[::-1]):
+                state, _, eps, _ = _block(
+                    trainer, state, steps[kind],
+                    [batches[i % len(batches)] for i in range(BLOCK_STEPS)],
+                    BATCH, None)
+                ms[kind].append(BATCH / eps * 1e3)
+    finally:
+        coll._dirty_trackers = trackers
+    out = {k: {"step_ms": statistics.median(v), "block_ms": v}
+           for k, v in ms.items()}
+    out["mark_ms"] = statistics.median(mark_ms)
+    return out
+
+
+def _expected(state, var, ids: np.ndarray, hashed: bool) -> np.ndarray:
+    """The trainer's rows for served ids, read from its tables on the host
+    (no kernel): an array table's rows by id, a hash table's by key."""
+    st = state.emb[var]
+    if not hashed:
+        return st.weights.index_select(
+            0, torch.from_numpy(ids.reshape(-1)).to(st.weights.device)
+        ).reshape(ids.shape + (-1,)).cpu().numpy()
+    from openembedding_tpu_torch.hash_table import join64
+    live = st.live()
+    table = HostRows(join64(st.keys[live].cpu().numpy()),
+                     st.weights[live].cpu().numpy())
+    return table.expect(ids)
+
+
+def _serve_check(conn, sign, state, probe, hashed, what) -> int:
+    """``lookup_bin`` of the probe batch on both tables, each response
+    equal to the trainer's rows exactly; returns the requests made."""
+    for var in ("fields", "fields:linear"):
+        rows, _ = lookup_bin(conn, sign, var, probe)
+        if not np.array_equal(rows, _expected(state, var, probe, hashed)):
+            raise AssertionError(f"{what}: served {var} rows differ from "
+                                 "the trainer's")
+    return 2
+
+
+def elastic_and_swap(kind: str, tmp: str) -> dict:
+    """Phase 12's training half for ``deepfm_dim9`` (``kind="array"``) or
+    ``deepfm_dim9_hash`` (from empty tables), at full width, with dirty
+    tracking armed at the default chunking, under deterministic
+    algorithms (two runs must be bit-identical; the push's atomics are
+    not):
+
+    * the dirty chunk share after 1, 4 and 8 steps (on a copy);
+    * uninterrupted: ``fit(autosave_every=4, retrace_budget=0)`` over 12
+      captured steps; its deltas are published from memory
+      (``save_delta(return_payload=True)``, compaction parked so the
+      chain stays whole); after step 4 the base (version 0) is loaded
+      through ``POST /models`` and served exactly;
+    * interrupted: a fresh trainer fits 8 steps (autosaves at 4 and 8,
+      default compaction) and is dropped; a fresh trainer and collection
+      ``fit(resume_from=, retrace_budget=0)`` the remaining 4 and must
+      equal the uninterrupted run bit for bit: every table, slot, dense
+      parameter and optimizer state, a hash table's keys and failure
+      count (0, no EMPTY key stored); one program build each;
+    * hot-swap: each delta's ``encode_delta`` bytes through ``POST
+      /models/<sign>/delta``, lookups after each equal to the trainer's
+      rows at that step, a re-sent delta a no-op, a skipped one refused
+      with 409; K1 (array) or K2 (hash) launched once a lookup request,
+      from the counters and a profiler trace, KI never in a hash apply;
+      the swap's seconds, rows and peak device memory;
+    * captured step ms with tracking armed and off, in turns, and the
+      host's marking of one batch alone."""
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    from openembedding_tpu_torch.analysis import scope
+    from openembedding_tpu_torch.data.criteo import synthetic_criteo
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    from openembedding_tpu_torch.serving.rest import ControllerServer
+    hashed = kind == "hash"
+    build = build_hash_trainer if hashed else build_trainer
+    kernel = probe_gather if hashed else gather_rows
+
+    def fresh():
+        trainer, mapper = build("cuda")
+        trainer.collection.enable_dirty_tracking()
+        return trainer, mapper
+    trainer, mapper = fresh()
+    batches = [mapper.fuse_batch(b) for b in synthetic_criteo(
+        BATCH, num_buckets=HASH_VOCAB if hashed else VOCAB_PER_FEATURE,
+        seed=SEED, num_batches=ELASTIC_STEPS)]
+    probe = batches[-1]["sparse"]["fields"]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    server = ControllerServer(port=0).start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+    published, saves, seen = [], [], {}
+    orig_save_delta = cd.save_delta
+
+    def publishing_save_delta(*a, **k):
+        info = orig_save_delta(*a, **{**k, "return_payload": True,
+                                      "compact_chain_len": 10 ** 6,
+                                      "compact_bytes_ratio": float("inf")})
+        saves.append({f: info[f] for f in ("mode", "seconds", "bytes")})
+        if "delta" in info:
+            published.append(info.pop("delta"))
+        return info
+    try:
+        state = trainer.init(prng_key(SEED), batches[0])
+        share = _dirty_share(trainer, state, batches)
+        auto = os.path.join(tmp, f"{kind}_auto")
+
+        def hooked():
+            for i, b in enumerate(batches):
+                if i == AUTOSAVE_EVERY:
+                    # after step 4 and its (full) autosave: serve the base
+                    status, body = _post(conn, "/models", json.dumps(
+                        {"model_uri": auto, "model_sign": f"{kind}-auto",
+                         "block": True}).encode())
+                    if status != 201:
+                        raise AssertionError(
+                            f"POST /models: HTTP {status} {body!r}")
+                    seen["sign"] = json.loads(body)["model_sign"]
+                    seen["requests"] = _serve_check(
+                        conn, seen["sign"], state, probe, hashed,
+                        f"{kind} base")
+                    seen["version0"] = server.registry.find_model(
+                        seen["sign"]).version
+                if i == KILLED_AT:
+                    seen["rows8"] = {v: _expected(state, v, probe, hashed)
+                                     for v in ("fields", "fields:linear")}
+                yield b
+        scope.reset()
+        builds0 = trainer.builds
+        cd.save_delta = publishing_save_delta
+        try:
+            state, m = trainer.fit(state, hooked(),
+                                   autosave_every=AUTOSAVE_EVERY,
+                                   autosave_dir=auto, retrace_budget=0)
+        finally:
+            cd.save_delta = orig_save_delta
+        builds_u = trainer.builds - builds0
+
+        # interrupted after 8 steps, then resumed by a fresh trainer
+        killed = os.path.join(tmp, f"{kind}_killed")
+        t1, _ = fresh()
+        s1 = t1.init(prng_key(SEED), batches[0])
+        t1.fit(s1, batches[:KILLED_AT], autosave_every=AUTOSAVE_EVERY,
+               autosave_dir=killed)
+        del t1, s1
+        torch.cuda.empty_cache()
+        t2, _ = fresh()
+        s2 = t2.init(prng_key(SEED), batches[0])
+        resume0 = scope.HISTOGRAMS.sum("span_trainer_resume_seconds")
+        s2, m2 = t2.fit(s2, batches, resume_from=killed,
+                        autosave_every=AUTOSAVE_EVERY, autosave_dir=killed,
+                        retrace_budget=0)
+        torch.cuda.synchronize()
+        resume_s = scope.HISTOGRAMS.sum("span_trainer_resume_seconds") \
+            - resume0
+        diff = _spread(state_tensors(state), state_tensors(s2))
+        reading = {"config": "deepfm_dim9" + ("_hash" if hashed else ""),
+                   "dirty_share": share, "steps": ELASTIC_STEPS,
+                   "autosave_every": AUTOSAVE_EVERY, "saves": saves,
+                   "builds_uninterrupted": builds_u,
+                   "builds_resumed": t2.builds, "resume_s": resume_s,
+                   "resumed_vs_uninterrupted": diff,
+                   "chain_killed": cd.chain_state(killed)}
+        if diff["tensors"] or builds_u != 1 or t2.builds != 1 \
+                or int(s2.step) != ELASTIC_STEPS:
+            raise AssertionError(f"{kind} elastic fit: {json.dumps(reading)}")
+        if hashed:
+            for name, st in s2.emb.items():
+                stored = st.keys[st.live()]
+                empty = (stored == EMPTY32).all(dim=1).sum()
+                if int(st.insert_failures) or int(empty):
+                    raise AssertionError(f"{kind} {name}: "
+                                         f"{int(st.insert_failures)} insert "
+                                         f"failures, {int(empty)} EMPTY keys")
+            reading["keys_stored"] = {n: st.num_used()
+                                      for n, st in s2.emb.items()}
+        del t2, s2
+        torch.cuda.empty_cache()
+
+        # hot-swap the published deltas into the served base, on a new
+        # connection (the server closes one idle for 5 s)
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        sign = seen["sign"]
+        if seen["version0"] != 0 or len(published) != 2:
+            raise AssertionError(f"{kind}: base version {seen['version0']}"
+                                 f", {len(published)} deltas published")
+        swaps, requests = [], seen["requests"]
+        launches0, ki0 = kernel.launches, init_rows.launches
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for delta, want in zip(published, (seen["rows8"], None)):
+                raw = cd.encode_delta(delta)
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ki = init_rows.launches
+                t0 = time.perf_counter()
+                status, body = _post(conn, f"/models/{sign}/delta", raw)
+                swap_s = time.perf_counter() - t0
+                res = json.loads(body)
+                if status != 200 or not res["applied"] \
+                        or res["version"] != delta.seq:
+                    raise AssertionError(f"{kind} swap {delta.seq}: HTTP "
+                                         f"{status} {body!r}")
+                swaps.append({"seq": delta.seq, "seconds": swap_s,
+                              "wire_bytes": len(raw), "rows": res["rows"],
+                              "peak_bytes":
+                                  torch.cuda.max_memory_allocated(),
+                              "peak_over_before_bytes":
+                                  torch.cuda.max_memory_allocated()
+                                  - before,
+                              "ki_launches": init_rows.launches - ki})
+                for var in ("fields", "fields:linear"):
+                    rows, _ = lookup_bin(conn, sign, var, probe)
+                    expect = want[var] if want is not None \
+                        else _expected(state, var, probe, hashed)
+                    requests += 1
+                    if not np.array_equal(rows, expect):
+                        raise AssertionError(
+                            f"{kind} after swap {delta.seq}: served {var} "
+                            "rows differ from the trainer's")
+            torch.cuda.synchronize()
+        trace_path = os.path.join(tmp, f"{kind}_swap_trace.json")
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            traced = sum(1 for e in json.load(f).get("traceEvents", [])
+                         if e.get("cat") == "kernel"
+                         and _kernel_family(e.get("name", ""))
+                         == kernel.__name__)
+        swap_launches = kernel.launches - launches0
+        lookups = requests - seen["requests"]
+        if swap_launches != lookups or traced != lookups \
+                or init_rows.launches != ki0:
+            raise AssertionError(
+                f"{kind} swap: {swap_launches} {kernel.__name__} launches "
+                f"({traced} traced) for {lookups} lookups, "
+                f"{init_rows.launches - ki0} KI launches")
+        conn.close()        # idle through the trace's export
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        status, body = _post(conn, f"/models/{sign}/delta", raw)
+        stale = json.loads(body)
+        gap = cd.Delta(seq=published[-1].seq + 2, step=0, vars={})
+        gap_status, _ = _post(conn, f"/models/{sign}/delta",
+                              cd.encode_delta(gap))
+        if status != 200 or stale["applied"] or gap_status != 409:
+            raise AssertionError(f"{kind}: re-sent delta HTTP {status} "
+                                 f"{stale}, skipped one HTTP {gap_status}")
+        reading["swap"] = {"swaps": swaps, "lookups": requests,
+                           "kernel_launches": swap_launches,
+                           "traced_launches": traced, "resent": stale,
+                           "skipped_status": gap_status}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        conn.close()
+        server.stop()
+    reading["tracking"] = _tracking_cost(trainer, state, batches)
+    reading["last_loss"] = float(m["loss"])
+    return reading
+
+
+def phase_delta() -> dict:
+    """Phase 12: ``ckpt_delta_ab``, then the elastic fit and hot-swap of
+    ``deepfm_dim9`` and ``deepfm_dim9_hash`` (``elastic_and_swap``), every
+    checkpoint under a ``tempfile.mkdtemp()`` removed at the end. Prints
+    one ``{"delta": {...}}`` line; returns the kernels' launches of the
+    phase (counters zeroed at its start)."""
+    import tempfile
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    wrappers = (gather_rows, probe_gather, init_rows, init_flat)
+    for w in wrappers:
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="oe_smoke_delta_")
+    t0 = time.perf_counter()
+    try:
+        reading = {"ckpt_delta_ab": ckpt_delta_ab(tmp)}
+        torch.cuda.empty_cache()
+        for kind in ("array", "hash"):
+            reading[kind] = elastic_and_swap(kind, tmp)
+            torch.cuda.empty_cache()
+    finally:
+        # a background compaction may still fold a chain under tmp
+        for d in os.listdir(tmp):
+            try:
+                cd.join_compactor(os.path.join(tmp, d))
+            except RuntimeError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+    reading["phase_s"] = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    reading["launches"] = launches
+    log(json.dumps({"delta": reading}))
+    return launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -3023,6 +3463,9 @@ def main() -> None:
     if sys.argv[1:] == ["--hybrid"]:
         phase_hybrid_training()
         return
+    if sys.argv[1:] == ["--delta"]:
+        phase_delta()
+        return
     coll, states, mapper, host, main_ids = setup_array()
     cases = phase_kernels(states["fields"].weights,
                           states["fields:linear"].weights, main_ids)
@@ -3047,6 +3490,10 @@ def main() -> None:
     hybrid = phase_hybrid_training()
     launches += hybrid["gather_rows"]
     flat_training += hybrid["init_flat"]
+    torch.cuda.empty_cache()
+    delta = phase_delta()
+    launches += delta["gather_rows"]
+    flat_training += delta["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -3066,7 +3513,7 @@ def main() -> None:
         "source": "openembedding_tpu_torch/csrc/probe_gather.cu",
         "replaces": "openembedding_tpu/ops/pallas_hash.py:40",
         "launches": plaunches + hash_launches["probe_gather"]
-        + hybrid["probe_gather"],
+        + hybrid["probe_gather"] + delta["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -3079,8 +3526,9 @@ def main() -> None:
                     "openembedding_tpu/optim/initializers.py:54-74 "
                     "(Uniform/Normal.init): XLA code, not Pallas kernels",
         "launches": hash_launches["init_rows"] + hybrid["init_rows"]
-        + flat_training + hash_launches["init_flat"],
-        "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"],
+        + delta["init_rows"] + flat_training + hash_launches["init_flat"],
+        "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"]
+        + delta["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in kcases + fcases),

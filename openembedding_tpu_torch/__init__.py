@@ -12,7 +12,10 @@ probe-gather kernel, with the init-rows kernel (``ops/init_rows.py``,
 ``csrc/init_rows.cu``) drawing missing keys' rows (hash tables), and
 pushes the row gradients with static-shape PyTorch ops; sequence
 features pool padded id matrices (``ragged.py``) and small vocabularies
-can be kept as dense parameters (``hybrid.py``).
+can be kept as dense parameters (``hybrid.py``). Checkpoints chain deltas
+of dirty chunks over a full base (``checkpoint_delta.py``), ``fit``
+autosaves and resumes from them, and the serving registry hot-swaps
+them in.
 Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no device named they raise.
 The package imports torch and numpy, never jax or openembedding_tpu.

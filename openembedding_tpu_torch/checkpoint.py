@@ -1,8 +1,8 @@
 """Checkpoint save/load in the JAX package's on-disk layout
 (``openembedding_tpu/checkpoint.py``).
 
-This slice reads and writes the local, uncompressed, single-process,
-``mode="full"`` layout:
+The port reads and writes the local, uncompressed, single-process
+layout, and delta chains over it:
 
 * ``<path>/model_meta`` — the ``ModelMeta`` JSON, with ``extra`` keys
   ``include_optimizer``, ``storage_dtypes`` (per-field numpy dtype names),
@@ -16,37 +16,59 @@ This slice reads and writes the local, uncompressed, single-process,
   variable ``keys.npy`` (``[n]`` int32 or ``[n, 2]`` int32 pairs) beside
   them, holding the live rows only, in slot order. bfloat16 fields are
   stored as numpy's opaque ``'<V2'`` descr, as the JAX package stores
-  them, and decoded through the recorded storage dtype.
+  them, and decoded through the recorded storage dtype;
+* ``<path>/dense_state.msgpack`` — ``save_checkpoint(dense_state=(params,
+  opt_state))``: the bytes ``flax.serialization.to_bytes`` writes for the
+  JAX ``Trainer``'s pair (``utils/msgpack_state.py``);
+* ``<path>/delta_manifest`` and ``delta_<seq>_<vid>.npz`` — a delta chain
+  (``checkpoint_delta.py``): a full save with the collection's dirty
+  tracking armed writes a fresh manifest over its base, ``mode="delta"``
+  appends the dirty chunks, and ``load_checkpoint`` replays the committed
+  chain over the base.
+
+A full save snapshots the trackers, resets any chain (manifest first),
+then writes every field through a pool of writer threads
+(``_run_writers``, ``OE_CKPT_WRITERS`` or ``max_workers``), each task
+owning a disjoint file region: a window of rows of an array field, or a
+whole field of a hash variable. The device is synchronized once before
+the writers copy anything, so no copy can read a table before the step
+that writes it has finished.
 
 Loads validate the meta before touching a table. Array fields stream in
-bounded blocks into a tensor on the collection's device, so host memory
-stays at one block whatever the table size; hash variables load by
-inserting chunks of ``_LOAD_CHUNK`` rows into an empty table on the device
-(``hash_table.insert_rows``) that carries the collection's init key for
-the variable, and a load that cannot place every row fails. An int32-key dump loads into a wide table as (lo, hi) pairs, and
-a wide dump into an int32 table when every key fits int32. Slot
-files are skipped when the collection's optimizer has no slots (serving's
-``default``). What the JAX package also writes or reads — delta chains,
-multi-host part files, compressed streams, legacy ``.npz`` files, remote
-URIs, hash<->array conversion on load — is refused with
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+bounded blocks into a tensor on the collection's device; hash variables
+load by inserting chunks of ``_LOAD_CHUNK`` rows into an empty table on
+the device (``hash_table.insert_rows``) that carries the collection's init
+key for the variable, and a load that cannot place every row fails. An
+int32-key dump loads into a wide table as (lo, hi) pairs, and a wide dump
+into an int32 table when every key fits int32. Slot files are skipped when
+the collection's optimizer has no slots (serving's ``default``). What the
+JAX package also writes or reads — multi-host part files, compressed
+streams, legacy ``.npz`` files, remote URIs, hash<->array conversion on
+load — is refused with ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
+from collections import deque
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from . import hash_table as hash_lib
+from .analysis import scope
+from .analysis.concurrency import sync_point
 from .embedding import EmbeddingCollection, not_ported
 from .meta import UNBOUNDED_VOCAB, ModelMeta
 from .utils import fs
 
 MODEL_META_FILE = "model_meta"
+DENSE_FILE = "dense_state.msgpack"
 DELTA_MANIFEST_FILE = "delta_manifest"
 # rows move between disk and device in windows of about this many bytes
 _BLOCK_BYTES = 32 << 20
@@ -56,6 +78,7 @@ _LOAD_CHUNK = 1 << 16
 
 _NP_NAMES = {torch.float32: "float32", torch.float64: "float64",
              torch.bfloat16: "bfloat16", torch.int32: "int32"}
+_LAYOUTS_ITEM = "delta checkpoints and other layouts"
 
 
 def _var_dir(variable_id: int, name: str) -> str:
@@ -66,6 +89,66 @@ def _var_dir(variable_id: int, name: str) -> str:
 def _block_rows(t: torch.Tensor) -> int:
     row_bytes = max(1, t[0].numel() * t.element_size()) if len(t) else 1
     return max(1, _BLOCK_BYTES // row_bytes)
+
+
+def _sync_device(collection: EmbeddingCollection) -> None:
+    """Wait for the collection's device: the writer threads then copy
+    tables whose last update has finished, whatever stream wrote it."""
+    if collection.device.type == "cuda":
+        torch.cuda.synchronize(collection.device)
+
+
+# --- parallel writers --------------------------------------------------------
+
+def _default_writers() -> int:
+    """Writer-thread pool width (``OE_CKPT_WRITERS`` overrides; 1 runs
+    the tasks in order on the caller's thread)."""
+    env = os.environ.get("OE_CKPT_WRITERS", "")
+    if env:
+        return max(1, int(env))
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def _run_writers(tasks, *, max_workers: Optional[int] = None) -> None:
+    """Run writer callables on a bounded pool of named, joined threads.
+
+    Every task owns a disjoint file region, so tasks contend only on the
+    device-to-host copies and the disk. The first task error is re-raised
+    after the join; queued tasks are abandoned (their files are debris a
+    later save overwrites or collects)."""
+    tasks = deque(tasks)
+    if not tasks:
+        return
+    n = min(len(tasks), max_workers or _default_writers())
+    if n <= 1:
+        while tasks:
+            sync_point("ckpt.writer.run")
+            tasks.popleft()()
+        return
+    errs: list = []
+
+    def _drain():
+        while not errs:
+            try:
+                task = tasks.popleft()   # deque.popleft is atomic
+            except IndexError:
+                return
+            try:
+                sync_point("ckpt.writer.run")
+                task()
+            except BaseException as e:  # noqa: BLE001 — re-raised at join
+                errs.append(e)
+                return
+
+    threads = [threading.Thread(target=_drain, daemon=False,
+                                name=f"oe-ckpt-writer-{i}")
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
 
 
 # --- save --------------------------------------------------------------------
@@ -97,38 +180,67 @@ def _host_words(block: torch.Tensor) -> np.ndarray:
     return block.numpy()
 
 
-def _write_field(npy: str, t: torch.Tensor, mask: Optional[torch.Tensor],
-                 rows: Optional[int]) -> int:
-    """Write ``t`` (only its rows where ``mask`` holds, ``rows`` of them,
-    in order) to ``npy`` block by block; returns the bytes written."""
-    if mask is None:
-        rows = t.shape[0]
+def _row_bytes(t: torch.Tensor) -> int:
+    return (t[0].numel() if len(t) else 0) * t.element_size()
+
+
+def _array_field_tasks(npy: str, t: torch.Tensor):
+    """Tasks writing ``t`` to ``npy``, one a window of rows; returns
+    ``(tasks, finish, bytes)``."""
+    mm = _open_npy_for_write(npy, t.dtype, tuple(t.shape))
+    step = _block_rows(t)
+
+    def _write(lo: int, hi: int) -> None:
+        mm[lo:hi] = _host_words(t[lo:hi])
+
+    tasks = [partial(_write, lo, min(t.shape[0], lo + step))
+             for lo in range(0, t.shape[0], step)]
+    return tasks, mm.flush, t.shape[0] * _row_bytes(t)
+
+
+def _hash_field_task(npy: str, t: torch.Tensor, mask: torch.Tensor,
+                     rows: int):
+    """A task writing ``t``'s rows where ``mask`` holds (``rows`` of
+    them), in slot order, to ``npy``; returns ``(task, bytes)``."""
     mm = _open_npy_for_write(npy, t.dtype, (rows,) + tuple(t.shape[1:]))
     step = _block_rows(t)
-    o = 0
-    for lo in range(0, t.shape[0], step):
-        block = t[lo:lo + step]
-        if mask is not None:
-            block = block[mask[lo:lo + step]]
-        mm[o:o + block.shape[0]] = _host_words(block)
-        o += block.shape[0]
-    mm.flush()
-    del mm
-    return rows * (t[0].numel() if len(t) else 0) * t.element_size()
+
+    def _write() -> None:
+        o = 0
+        for lo in range(0, t.shape[0], step):
+            block = t[lo:lo + step][mask[lo:lo + step]]
+            mm[o:o + block.shape[0]] = _host_words(block)
+            o += block.shape[0]
+        if o != rows:
+            raise RuntimeError(f"{npy}: wrote {o} rows, expected {rows}")
+        mm.flush()
+
+    return _write, rows * _row_bytes(t)
 
 
 def _prev_meta_last_seq(path: str) -> int:
     """Burn counter a previous save recorded in this directory (0 when
     the dir is fresh or its meta unreadable)."""
     mpath = fs.join(path, MODEL_META_FILE)
-    if not fs.exists(mpath):
-        return 0
     try:
+        if not fs.exists(mpath):
+            return 0
         with fs.open_file(mpath, "rb") as f:
             meta = ModelMeta.loads(f.read().decode("utf-8"))
-    except ValueError:
-        return 0    # a corrupt old meta never blocks a full save
-    return int(meta.extra.get("delta_last_seq", 0))
+        return int(meta.extra.get("delta_last_seq", 0))
+    except Exception:  # noqa: BLE001 — a corrupt old meta never blocks
+        return 0       # a full save, which rewrites it
+
+
+def _dense_bytes(dense_state) -> bytes:
+    """The dense-state file's bytes of a ``(params, opt_state)`` pair."""
+    from .utils.msgpack_state import dense_state_to_bytes
+    try:
+        params, opt_state = dense_state
+    except (TypeError, ValueError) as e:
+        raise TypeError("dense_state must be the (params, opt_state) "
+                        "pair of a TrainState") from e
+    return dense_state_to_bytes(params, opt_state)
 
 
 def save_checkpoint(path: str, collection: EmbeddingCollection,
@@ -136,32 +248,88 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
                     dense_state: Any = None,
                     include_optimizer: bool = True,
                     model_sign: str = "",
-                    mode: str = "full") -> Dict[str, Any]:
-    """Dump every variable under ``path``; returns
-    ``{"mode", "bytes", "seconds", "seq"}`` like the JAX package.
-    ``dense_state`` (the JAX package's flax-msgpack dense file) is not
-    written yet."""
-    if dense_state is not None:
-        raise not_ported("save_checkpoint(dense_state=)",
-                         "delta checkpoints and other layouts")
-    if mode == "delta":
-        raise not_ported("delta checkpoints (mode='delta')",
-                         "delta checkpoints and other layouts")
-    if mode != "full":
-        raise ValueError(f"unknown checkpoint mode {mode!r}; use 'full'")
-    t0 = time.perf_counter()
+                    compress: str = "",
+                    mode: str = "full",
+                    step: int = 0,
+                    max_workers: Optional[int] = None,
+                    extra: Optional[Dict[str, Any]] = None
+                    ) -> Dict[str, Any]:
+    """Dump every variable (and ``dense_state``, a ``(params,
+    opt_state)`` pair, when given) under ``path``; returns an info dict
+    (``mode``, ``bytes``, ``seconds``, ``seq``; a delta's also ``rows``,
+    ``chain_len``, ``skipped``) like the JAX package.
+
+    ``mode="delta"`` writes only the chunks dirtied since the last save
+    (``collection.enable_dirty_tracking()`` must be armed) as one entry of
+    the checkpoint's chain (``checkpoint_delta.save_delta``), or a full
+    save recorded as ``forced_full`` when no armed base exists yet. A full
+    save with tracking armed arms a chain over its base. ``step`` stamps
+    the save; ``extra`` (JSON) is committed with it and comes back from
+    ``load_checkpoint(info=)`` as ``resume_extra``. ``compress`` other
+    than ``""`` raises: compressed streams are a later slice."""
+    if mode not in ("full", "delta"):
+        raise ValueError(f"unknown checkpoint mode {mode!r}; "
+                         "use 'full' or 'delta'")
+    from .utils import compress as compress_lib
+    from .utils import observability
+    if compress_lib.check(compress) and mode == "full":
+        raise not_ported(f"compressed checkpoint streams "
+                         f"(compress={compress!r})", _LAYOUTS_ITEM)
+    with scope.span("checkpoint.save", detail={"mode": mode}):
+        if mode == "delta":
+            from . import checkpoint_delta as cd
+            return cd.save_delta(
+                path, collection, states, step=step,
+                dense_state=dense_state,
+                include_optimizer=include_optimizer, compress=compress,
+                model_sign=model_sign, max_workers=max_workers,
+                extra=extra)
+        t0 = time.perf_counter()
+        nbytes = _save_checkpoint_impl(
+            path, collection, states, dense_state=dense_state,
+            include_optimizer=include_optimizer, model_sign=model_sign,
+            step=step, max_workers=max_workers, extra=extra)
+        dt = time.perf_counter() - t0
+        observability.record_ckpt_save("full", nbytes, dt, chain_len=0)
+        return {"mode": "full", "bytes": int(nbytes), "seconds": dt,
+                "seq": 0}
+
+
+def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
+                          states: Dict[str, Any], *, dense_state: Any,
+                          include_optimizer: bool, model_sign: str,
+                          step: int = 0,
+                          max_workers: Optional[int] = None,
+                          extra: Optional[Dict[str, Any]] = None) -> int:
+    """Full dump; returns the bytes of the fields written (keys, rows and
+    slots)."""
+    from . import checkpoint_delta as cd
     fs.makedirs(path)
-    if fs.exists(fs.join(path, DELTA_MANIFEST_FILE)):
-        raise not_ported(f"{path!r} holds a delta chain",
-                         "delta checkpoints and other layouts")
+    # a background compactor owns this directory's base files: join it
+    # before touching anything
+    cd.join_compactor(path)
+    # the chain is reset FIRST (manifest removed before any base file
+    # changes); its burned seqs are carried into the re-armed manifest
+    try:
+        prev_manifest = cd.read_manifest(path)
+    except ValueError:
+        prev_manifest = None      # an unknown-format manifest: reset anyway
+    carried_seq = int(prev_manifest.get("last_seq", 0)) if prev_manifest \
+        else _prev_meta_last_seq(path)
+    sync_point("ckpt.full.reset")
+    cd.reset_chain(path)
+    # trackers snapshot at the START: marks landing during the save refer
+    # to later pushes and must survive for the next delta
+    for tracker in collection.dirty_trackers.values():
+        tracker.snapshot_clear()
     meta = collection.model_meta(model_sign=model_sign, model_uri=path)
     meta.extra["include_optimizer"] = bool(include_optimizer)
-    meta.extra["delta_last_seq"] = _prev_meta_last_seq(path)
     hash_info = {name: {"hash_capacity": spec.hash_capacity,
                         "key_dtype": spec.key_dtype}
                  for name, spec in collection.specs.items() if spec.use_hash}
     if hash_info:
         meta.extra["hash_variables"] = hash_info
+    meta.extra["delta_last_seq"] = int(carried_seq)
     targets, live = {}, {}
     for name, spec in collection.specs.items():
         state = states[name]
@@ -179,6 +347,8 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
         for name, fields in targets.items()}
     with fs.open_file(fs.join(path, MODEL_META_FILE), "wb") as f:
         f.write(meta.dumps().encode("utf-8"))
+    _sync_device(collection)
+    tasks, finals = [], []
     nbytes = 0
     for name, fields in targets.items():
         vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
@@ -190,10 +360,29 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
         mask = live.get(name)
         rows = int(mask.sum()) if mask is not None else None
         for fname, t in fields.items():
-            nbytes += _write_field(os.path.join(vdir, fname + ".npy"), t,
-                                   mask, rows)
-    return {"mode": "full", "bytes": int(nbytes),
-            "seconds": time.perf_counter() - t0, "seq": 0}
+            npy = os.path.join(vdir, fname + ".npy")
+            if mask is None:
+                ts, fin, b = _array_field_tasks(npy, t)
+                tasks += ts
+                finals.append(fin)
+            else:
+                task, b = _hash_field_task(npy, t, mask, rows)
+                tasks.append(task)
+            nbytes += b
+    _run_writers(tasks, max_workers=max_workers)
+    for fin in finals:
+        fin()
+    if dense_state is not None:
+        with fs.open_file(fs.join(path, DENSE_FILE), "wb") as f:
+            f.write(_dense_bytes(dense_state))
+    if collection.dirty_trackers:
+        # arm the delta chain over this base (the manifest is the single
+        # commit point of the chain)
+        sync_point("ckpt.full.arm")
+        cd.init_manifest(path, step=step,
+                         include_optimizer=include_optimizer,
+                         last_seq=carried_seq, extra=extra)
+    return nbytes
 
 
 # --- load --------------------------------------------------------------------
@@ -219,8 +408,7 @@ def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
                 f"loading the {'hash' if _is_hash(g) else 'array'} dump of "
                 f"{v.name!r} in {path!r} into an "
                 f"{'array' if _is_hash(g) else 'hash'} variable "
-                "(hash<->array conversion)",
-                "delta checkpoints and other layouts")
+                "(hash<->array conversion)", _LAYOUTS_ITEM)
         if g == v.meta:
             continue
         dtype_ok = (g.datatype == v.meta.datatype
@@ -234,23 +422,20 @@ def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
 
 
 def _check_layout(path: str, collection: EmbeddingCollection) -> None:
-    """Refuse the layouts this slice does not read."""
-    if fs.exists(fs.join(path, DELTA_MANIFEST_FILE)):
-        raise not_ported(f"{path!r} holds a delta chain",
-                         "delta checkpoints and other layouts")
+    """Refuse the layouts the port does not read yet."""
     for name in collection.specs:
         vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
         if not fs.isdir(vdir):
             raise not_ported(f"variable {name!r} has no var_<id>_<name>.d "
                              f"directory in {path!r} (a legacy .npz dump?)",
-                             "delta checkpoints and other layouts")
+                             _LAYOUTS_ITEM)
         for f in fs.listdir(vdir):
             if f.startswith("part"):
                 raise not_ported(f"multi-host part file {f!r} in {vdir!r}",
                                  "multi-shard exchange planes")
             if f.endswith(".npyz"):
                 raise not_ported(f"compressed file {f!r} in {vdir!r}",
-                                 "delta checkpoints and other layouts")
+                                 _LAYOUTS_ITEM)
 
 
 def _decode(block: np.ndarray, true_dtype: Optional[str],
@@ -353,14 +538,55 @@ def _load_hash_var(vdir: str, name: str, spec, collection, with_opt: bool,
 
 
 def load_checkpoint(path: str, collection: EmbeddingCollection, *,
-                    rng=None, info: Optional[Dict[str, Any]] = None
-                    ) -> Dict[str, Any]:
-    """Rebuild every variable's ``TableState`` from ``path`` on the
-    collection's device. ``rng``: the collection key whose hash init keys
-    the loaded hash tables take (``collection.init(rng)``'s, as JAX's
+                    dense_state_template: Any = None,
+                    rng=None, info: Optional[Dict[str, Any]] = None):
+    """Rebuild every variable's state from ``path`` on the collection's
+    device; returns ``states``, or ``(states, (params, opt_state))`` when
+    ``dense_state_template`` (a ``(params, opt_state)`` pair of the
+    port's, whose tensors give names, shapes and device) is given.
+
+    A delta chain is replayed over the base (``checkpoint_delta.
+    replay_chain``): committed entries checksum-verified and applied in
+    order; a torn final entry is discarded whole, a torn middle one
+    raises. A load that races the writer's compactor retries once when
+    the manifest's ``base_id`` moved under it. ``rng``: the collection key
+    whose hash init keys the loaded hash tables take (as JAX's
     ``load_checkpoint(rng=)``; None: ``prng_key(collection.seed)``).
-    ``info`` (a caller's dict) receives ``applied_seq`` — always 0 here,
-    since delta chains are refused."""
+    ``info`` (a caller's dict) receives ``applied_seq``, the chain version
+    the returned states reflect, and ``resume_extra``, the ``extra``
+    committed with that version, both from the verify pass the replay
+    used."""
+    from . import checkpoint_delta as cd
+    with scope.span("checkpoint.load"):
+        last_err = None
+        for _attempt in range(2):
+            m0 = cd.read_manifest(path)
+            id0 = m0["base_id"] if m0 else None
+            try:
+                out = _load_checkpoint_impl(
+                    path, collection,
+                    dense_state_template=dense_state_template, rng=rng,
+                    info=info)
+            except RuntimeError as e:
+                m1 = cd.read_manifest(path)
+                if (m1["base_id"] if m1 else None) != id0:
+                    last_err = e
+                    continue
+                raise
+            m1 = cd.read_manifest(path)
+            if (m1["base_id"] if m1 else None) == id0:
+                return out
+            last_err = RuntimeError("chain compacted under the load")
+        raise RuntimeError(
+            f"checkpoint at {path!r} kept changing under the load "
+            "(background compaction); quiesce the writer or retry"
+        ) from last_err
+
+
+def _load_checkpoint_impl(path: str, collection: EmbeddingCollection, *,
+                          dense_state_template: Any, rng,
+                          info: Optional[Dict[str, Any]]):
+    from . import checkpoint_delta as cd
     from .table import TableState, resolve_dtype
     meta = _check_meta(path, collection)
     _check_layout(path, collection)
@@ -393,6 +619,17 @@ def load_checkpoint(path: str, collection: EmbeddingCollection, *,
                 _load_field(npy, tensor, stored.get(f"slot_{sname}"),
                             legacy)
         out[name] = TableState(weights=weights, slots=slots)
-    if info is not None:
-        info["applied_seq"] = 0
+    manifest = cd.read_manifest(path)
+    if manifest and manifest.get("chain"):
+        out = cd.replay_chain(path, collection, out, manifest=manifest,
+                              with_opt=with_opt, info=info)
+    elif info is not None:
+        # chainless: the base reflects content_seq (0 for plain dumps)
+        info["applied_seq"] = cd.verified_seq(manifest, [])
+        info["resume_extra"] = cd.resume_extra(manifest, [])
+    if dense_state_template is not None:
+        from .utils.msgpack_state import dense_state_from_bytes
+        with fs.open_file(fs.join(path, DENSE_FILE), "rb") as f:
+            dense = dense_state_from_bytes(f.read(), dense_state_template)
+        return out, dense
     return out

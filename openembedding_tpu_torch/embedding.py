@@ -9,6 +9,9 @@ for array tables and for hash tables (``input_dim=-1``) with ``"wide"``
 pair keys or ``"int32"`` keys, and ``apply_gradients`` (the push) for
 both. A hash pull gives a missing key its deterministic init row (zero
 rows under ``read_only``, the serving contract) and the push inserts it.
+``enable_dirty_tracking`` arms one chunk bitmap per variable
+(``dirty.py``) for delta checkpoints: ``apply_gradients`` marks the
+chunks its ids touch, and the ``Trainer`` marks each step's host batch.
 A pooled spec (``pooling="sum" | "mean" | "sqrtn"``) takes padded ``[B,
 L]`` id matrices (``[B, L, 2]`` pairs on a wide hash variable): the pull
 pools its rows to ``[B, dim]`` and the push expands the pooled gradient
@@ -145,6 +148,7 @@ class EmbeddingCollection:
         self._variable_ids: Dict[str, int] = {}
         self._optimizers = {}
         self._initializers = {}
+        self._dirty_trackers: Dict[str, Any] = {}
         for i, spec in enumerate(specs):
             if spec.name in self.specs:
                 raise ValueError(f"duplicate embedding name {spec.name!r}")
@@ -186,6 +190,77 @@ class EmbeddingCollection:
             # serving rebuilds its specs from the meta alone, combiners too
             meta.extra["variable_pooling"] = poolings
         return meta
+
+    # --- dirty tracking (delta checkpoints) ---------------------------------
+    def enable_dirty_tracking(self, *, target_chunks: int = 1024,
+                              names=None) -> None:
+        """Arm chunk-level dirty bitmaps for every variable (idempotent),
+        or for the variables in ``names`` (an unknown name raises
+        ``ValueError``): about ``target_chunks`` chunks of contiguous rows
+        an array variable, ``min(target_chunks, hash_capacity)`` key
+        chunks a hash variable, as in JAX. Required before
+        ``checkpoint.save_checkpoint(mode="delta")``, which writes only
+        the marked chunks. A delta save writes tracked variables only: an
+        untracked variable that trains reverts to its base rows on a
+        restore. A loop that runs its own pushes without
+        :meth:`apply_gradients` must call :meth:`mark_dirty` with each
+        step's ids, as ``Trainer.train_step`` does."""
+        from .dirty import make_array_tracker, make_hash_tracker
+        if names is not None:
+            unknown = set(names) - set(self.specs)
+            if unknown:
+                raise ValueError(
+                    f"enable_dirty_tracking: unknown variable(s) "
+                    f"{sorted(unknown)}; known: {sorted(self.specs)}")
+        for name, spec in self.specs.items():
+            if name in self._dirty_trackers:
+                continue
+            if names is not None and name not in names:
+                continue
+            if spec.use_hash:
+                self._dirty_trackers[name] = make_hash_tracker(
+                    name, spec.hash_capacity, target_chunks)
+            else:
+                self._dirty_trackers[name] = make_array_tracker(
+                    name, spec.input_dim, target_chunks)
+
+    @property
+    def dirty_trackers(self) -> Dict[str, Any]:
+        """``name -> DirtyTracker`` (empty unless tracking is enabled)."""
+        return self._dirty_trackers
+
+    def mark_dirty(self, sparse_inputs: Dict[str, Any]) -> None:
+        """Mark the chunks a batch's pushes touch, from its ids (numpy
+        arrays or tensors; a no-op unless tracking is enabled). Over-
+        marking is safe. Hash keys are the joined 64-bit values of wide
+        pairs (``hash_table.join64``) or the ids themselves; array ids
+        outside ``[0, input_dim)`` are dropped. Ids on a CUDA device are
+        read back (a synchronization); nothing is marked while a CUDA
+        graph is captured, where the push runs once per capture, not
+        once per replay: the ``Trainer`` marks its host batch after each
+        step instead."""
+        if not self._dirty_trackers:
+            return
+        for name, idx in sparse_inputs.items():
+            tracker = self._dirty_trackers.get(name)
+            if tracker is None or idx is None:
+                continue
+            if isinstance(idx, torch.Tensor):
+                if idx.is_cuda and torch.cuda.is_current_stream_capturing():
+                    continue
+                idx = idx.detach().cpu().numpy()
+            arr = np.asarray(idx)
+            spec = self.specs[name]
+            if spec.use_hash:
+                if spec.key_dtype == "wide" and arr.ndim >= 2 \
+                        and arr.shape[-1] == 2:
+                    keys = hash_lib.join64(arr.reshape(-1, 2))
+                else:
+                    keys = arr.astype(np.int64).ravel()
+                tracker.mark_keys(keys)
+            else:
+                ids = arr.astype(np.int64).ravel()
+                tracker.mark_rows(ids[(ids >= 0) & (ids < spec.input_dim)])
 
     # --- state lifecycle ---------------------------------------------------
     def variable_key(self, name: str, rng=None) -> Tuple[int, int]:
@@ -283,7 +358,8 @@ class EmbeddingCollection:
     def apply_gradients(self, states: Dict[str, Any],
                         inputs: Dict[str, Any],
                         row_grads: Dict[str, torch.Tensor], *,
-                        batch_sharded: bool = True) -> Dict[str, Any]:
+                        batch_sharded: bool = True,
+                        mark: bool = True) -> Dict[str, Any]:
         """Push and update every column present in ``row_grads``, in place.
 
         ``row_grads[name]`` has the shape of the pulled rows and
@@ -294,9 +370,15 @@ class EmbeddingCollection:
         (dedup, combine, update the touched rows and slots, scatter back),
         hash tables ``hash_table.apply_gradients`` (the same, inserting
         missing keys with their init rows); the other variables' states
-        are not touched. Returns ``states``.
+        are not touched. Returns ``states``. With dirty tracking armed the
+        push marks its ids' chunks first (:meth:`mark_dirty`); ``mark=
+        False`` leaves that to the caller (the ``Trainer``'s step, which
+        marks its host batch outside the step program, as JAX marks
+        outside its jit).
         """
         del batch_sharded
+        if mark:
+            self.mark_dirty({n: inputs.get(n) for n in row_grads})
         for name, g in row_grads.items():
             spec = self.specs[name]
             idx = self.to_device(name, inputs[name])

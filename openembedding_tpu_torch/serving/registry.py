@@ -8,8 +8,16 @@ the registry's device: through the CUDA row-gather kernel
 (``ops/gather.py``) for an array variable, through the CUDA probe-gather
 kernel (``ops/probe_gather.py``) for a hash variable, whose table the load
 fills by inserting the dump's rows. Wide hash variables take ``[..., 2]``
-int32 (lo, hi) pair queries or narrow ids, which the lookup widens. Shard
-slices, delta hot-swaps and micro-batching are later slices and raise
+int32 (lo, hi) pair queries or narrow ids, which the lookup widens.
+
+A model loaded from a delta chain starts at the version its load
+replayed (``applied_seq``). ``apply_delta`` hot-swaps a trainer-published
+delta (``checkpoint_delta.Delta`` or its wire bytes) under version
+gating: the next seq applies, a stale one is acknowledged as a no-op, a
+gap raises. The patched states are built from copies of the touched
+tensors (copy-on-write) and published by one reference swap under the
+registry lock, so a lookup in flight keeps the snapshot it took. Shard
+slices and micro-batching are later slices and raise
 ``NotImplementedError`` when asked for.
 """
 
@@ -22,6 +30,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .. import checkpoint as ckpt_lib
+from ..analysis import scope
+from ..analysis.concurrency import make_lock, sync_point
 from ..embedding import EmbeddingCollection, EmbeddingSpec, not_ported
 from ..meta import ModelMeta, ModelStatus, UNBOUNDED_VOCAB
 from ..utils import fs
@@ -38,6 +48,9 @@ class ServingModel:
         self.states = states
         self.meta = meta
         self.version = int(version)
+        # serializes hot-swaps of this model (the version check and the
+        # build); lookups never take it
+        self.swap_lock = make_lock(f"serving.swap.{sign}")
         self._by_id = {collection.variable_id(name): name
                        for name in collection.specs}
 
@@ -65,8 +78,10 @@ class ServingModel:
         if name not in self.collection.specs:
             raise KeyError(f"model {self.sign!r} has no variable {name!r}")
         spec = self.collection.specs[name]
-        # ONE reference grab = one consistent version of the states
+        # ONE reference grab = one consistent version of the states: a
+        # hot-swap publishes a new dict and never mutates this one
         states = self.states
+        sync_point("serving.lookup.snapshot")
         idx = self.collection.to_device(name, indices, pair_ndim=2)
         seq_ndim = 3 if spec.use_hash and spec.key_dtype == "wide" else 2
         as_rows = spec.pooling is None or idx.dim() < seq_ndim
@@ -108,7 +123,7 @@ class ModelRegistry:
                  default_hash_capacity: int = 2**20):
         self.device = resolve_device(device)
         self.default_hash_capacity = default_hash_capacity
-        self._lock = threading.Lock()
+        self._lock = make_lock("serving.registry")
         self._models: Dict[str, ServingModel] = {}
         self._status: Dict[str, Dict[str, Any]] = {}
         # async create_model load threads, joined by close()
@@ -145,18 +160,25 @@ class ModelRegistry:
 
         def _load():
             try:
-                coll = EmbeddingCollection(
-                    _specs_from_meta(meta, self.default_hash_capacity),
-                    device=self.device)
-                load_info: Dict[str, Any] = {}
-                states = ckpt_lib.load_checkpoint(model_uri, coll,
-                                                  info=load_info)
-                if self.device.type == "cuda":
-                    # a failed copy must surface here, as an ERROR
-                    # status, not under the first lookup
-                    torch.cuda.synchronize(self.device)
-                model = ServingModel(sign, coll, states, meta,
-                                     version=load_info["applied_seq"])
+                sync_point("registry.load.start")
+                with scope.span("registry.load", detail={"sign": sign}):
+                    coll = EmbeddingCollection(
+                        _specs_from_meta(meta, self.default_hash_capacity),
+                        device=self.device)
+                    # the hot-swap version is the chain seq THIS load
+                    # replayed, as the load reports it: a separate read
+                    # could see a delta committed after the replay
+                    load_info: Dict[str, Any] = {}
+                    states = ckpt_lib.load_checkpoint(model_uri, coll,
+                                                      info=load_info)
+                    if self.device.type == "cuda":
+                        # a failed copy must surface here, as an ERROR
+                        # status, not under the first lookup
+                        torch.cuda.synchronize(self.device)
+                    model = ServingModel(
+                        sign, coll, states, meta,
+                        version=int(load_info.get("applied_seq", 0)))
+                sync_point("registry.load.commit")
                 with self._lock:
                     self._models[sign] = model
                     self._status[sign]["model_status"] = ModelStatus.NORMAL
@@ -194,8 +216,49 @@ class ModelRegistry:
         raise not_ported("micro-batched serving", "serving micro-batching")
 
     def apply_delta(self, sign: str, delta) -> Dict[str, Any]:
-        raise not_ported("delta hot-swap",
-                         "delta checkpoints and other layouts")
+        """Hot-swap a loaded model's rows from a trainer-published delta
+        (``checkpoint_delta.Delta`` or its ``encode_delta`` bytes; garbage
+        bytes raise ``DeltaDecodeError``, a ``ValueError``).
+
+        Version-gated: the delta's ``seq`` must be ``model.version + 1``;
+        a stale seq is acknowledged as a no-op (``applied: False``), a gap
+        raises ``RuntimeError``. The new states are built from copies of
+        the touched variables' tensors (``apply_delta_to_states(donate=
+        False)``; a hash insert draws no init rows) and published by one
+        swap under the registry lock: lookups in flight keep their
+        snapshot, later ones see the new version whole."""
+        from .. import checkpoint_delta as cd
+        from ..utils import observability
+        if isinstance(delta, (bytes, bytearray)):
+            delta = cd.decode_delta(bytes(delta))
+        model = self.find_model(sign)
+        with model.swap_lock:
+            if delta.seq <= model.version:
+                return {"applied": False, "version": model.version,
+                        "reason": f"stale delta seq {delta.seq}"}
+            if delta.seq != model.version + 1:
+                raise RuntimeError(
+                    f"model {sign!r} is at version {model.version}; "
+                    f"delta seq {delta.seq} leaves a gap — apply the "
+                    "chain in order (read_deltas_since) or reload")
+            sync_point("registry.swap.build")
+            with scope.span("registry.apply_delta",
+                            detail={"sign": sign, "seq": delta.seq}):
+                new_states = cd.apply_delta_to_states(
+                    model.collection, model.states, delta.vars,
+                    with_opt=False, donate=False)
+                if self.device.type == "cuda":
+                    # apply errors surface here, not under a reader
+                    torch.cuda.synchronize(self.device)
+            sync_point("registry.swap.commit")
+            with self._lock:
+                model.states = new_states
+                model.version = int(delta.seq)
+                if sign in self._status:
+                    self._status[sign]["version"] = model.version
+        observability.record_swap(delta.rows, delta.seq)
+        return {"applied": True, "version": int(delta.seq),
+                "rows": int(delta.rows)}
 
     def join_loads(self, timeout: float = 60.0) -> None:
         with self._lock:
@@ -218,6 +281,7 @@ class ModelRegistry:
     def find_model(self, sign: str) -> ServingModel:
         """NORMAL-status model, KeyError when unknown, RuntimeError while
         it is CREATING or after a failed load."""
+        sync_point("registry.find")
         with self._lock:
             st = self._status.get(sign)
             if st is None:

@@ -12,6 +12,10 @@ Routes, bodies and status codes follow the JAX package's controller:
   ``{"variable", "dtype", "shape"}`` then the raw ids; the response is a
   header line ``{"shape"}`` then raw float32 rows (byte-compatible with
   the JAX server; response compression is not offered)
+* ``POST /models/<sign>/delta``: the bytes of
+  ``checkpoint_delta.encode_delta`` -> ``{"applied", "version", ...}``
+  (hot-swap; a stale seq 200 with ``applied: false``, a gap 409, garbage
+  bytes 400)
 * ``GET /health`` -> liveness + model catalog
 
 Unknown routes are 404. In a GET or DELETE an unknown sign is 404; in a
@@ -121,6 +125,12 @@ def make_handler(registry: ModelRegistry):
                                    if req.get("int64") else np.int32))
                     return self._send(200,
                                       {"rows": _host_f32(rows).tolist()})
+                m = re.fullmatch(r"/models/([^/]+)/delta", self.path)
+                if m:
+                    # a trainer-published delta (encode_delta frame)
+                    # patched into the loaded model under version gating
+                    return self._send(200, registry.apply_delta(
+                        m.group(1), self._raw()))
                 m = re.fullmatch(r"/models/([^/]+)/lookup_bin", self.path)
                 if m:
                     raw = self._raw()

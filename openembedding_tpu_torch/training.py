@@ -42,6 +42,18 @@ a device tensor. ``fit`` reads the loss only on its ``log_every`` steps.
 
 The JAX ``train_step`` donates its input state and returns a new one; the
 port's updates the state's tensors in place and returns the same state.
+
+With the collection's dirty tracking armed, each step marks the chunks
+its batch touches from the host batch, after the step and outside any
+program (JAX marks outside its jit), so a replayed step is marked as
+often as an eager one. ``fit(autosave_every=, autosave_dir=)`` writes a
+blocking delta autosave of the whole ``TrainState`` every N steps (its
+tables by chunks, its dense parameters and optimizer state as
+``dense_state.msgpack``) with the trained-batch cursor in the manifest;
+``fit(resume_from=)`` restores the newest committed autosave into a new
+state and skips the batches it holds. An autosave only reads the state,
+so a captured program survives it; a resumed state builds its program
+once, inside ``fit``'s two-step warm-up.
 """
 
 from __future__ import annotations
@@ -57,6 +69,8 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from .analysis import scope
+from .analysis.concurrency import sync_point
 from .analysis.retrace import RetraceGuard, note_build
 from .embedding import EmbeddingCollection, EmbeddingSpec, not_ported
 from .hybrid import DENSE_SCOPE, HybridModel, to_dense_spec
@@ -288,6 +302,8 @@ class Trainer:
         # eval programs, keyed the same way
         self.eval_programs: Dict[tuple, _Program] = {}
         self.eval_builds = 0
+        # host step counter of the step spans (advances on errors too)
+        self._host_step = 0
 
     # --- initialization ----------------------------------------------------
     def init(self, rng, sample_batch: Dict[str, Any]) -> TrainState:
@@ -373,8 +389,9 @@ class Trainer:
         rows = self.collection.pull(state.emb, pull_inputs)
         loss, row_grads = self.dense_step(state, batch, rows)
         with torch.no_grad():
+            # dirty marks come from the host batch, outside the step
             self.collection.apply_gradients(state.emb, pull_inputs,
-                                            row_grads)
+                                            row_grads, mark=False)
             state.step.add_(1)
         return loss
 
@@ -388,13 +405,12 @@ class Trainer:
         return torch.sigmoid(logits.reshape(-1))
 
     def _run(self, cache: Dict[tuple, _Program], fn, state: TrainState,
-             batch) -> tuple:
-        """``fn`` on ``batch`` through its program in ``cache`` (batch
-        signature and state identity), building the program first when
-        there is none: on CUDA a captured graph, whose warm-up is this
-        call, on the CPU the eager ``fn``. Returns the output and whether
-        a program was built."""
-        host = self.host_batch(batch)
+             host) -> tuple:
+        """``fn`` on the host batch ``host`` (:meth:`host_batch`) through
+        its program in ``cache`` (batch signature and state identity),
+        building the program first when there is none: on CUDA a captured
+        graph, whose warm-up is this call, on the CPU the eager ``fn``.
+        Returns the output and whether a program was built."""
         self._check_dense_ids(state, host)
         key = (_batch_key(host), _state_key(state))
         program = cache.get(key)
@@ -419,10 +435,25 @@ class Trainer:
         the state's tensors, building it first when there is none (module
         note): on CUDA the build's warm-up is this step and later calls
         replay the captured graph; the loss returned is a tensor of its
-        own, which no later step overwrites."""
-        loss, built = self._run(self.programs, self._step, state, batch)
-        self.builds += built
+        own, which no later step overwrites. With dirty tracking armed the
+        batch's chunks are marked from the host batch after the step."""
+        try:
+            with scope.step_span(self._host_step):
+                host = self.host_batch(batch)
+                loss, built = self._run(self.programs, self._step, state,
+                                        host)
+                self.builds += built
+                self._mark_dirty(host)
+        finally:
+            self._host_step += 1
         return state, {"loss": loss}
+
+    def _mark_dirty(self, host) -> None:
+        """Mark the chunks of a stepped batch's collection columns, from
+        its host arrays (a no-op unless tracking is armed)."""
+        if self.collection.dirty_trackers:
+            cols, _ = self._split_sparse(host["sparse"])
+            self.collection.mark_dirty(cols)
 
     def _graph_pool(self):
         """The memory pool of a live captured program, step or eval, or
@@ -448,9 +479,12 @@ class Trainer:
     def train_step_eager(self, state: TrainState, batch) -> tuple:
         """One step dispatched op by op, with no step program (the oracle
         of the captured step); the same result as :meth:`train_step`."""
-        placed = self.place_batch(batch)
+        host = self.host_batch(batch)
+        placed = self.place_batch(host)
         self._check_dense_ids(state, placed)
-        return state, {"loss": self._step(state, placed)}
+        loss = self._step(state, placed)
+        self._mark_dirty(host)
+        return state, {"loss": loss}
 
     def dense_step(self, state: TrainState, batch, rows):
         """The dense half of a step on pulled rows: the loss, its
@@ -480,7 +514,7 @@ class Trainer:
         captured graph, replayed by later calls; a failed capture
         raises). The scores are a tensor of their own."""
         scores, built = self._run(self.eval_programs, self._scores, state,
-                                  batch)
+                                  self.host_batch(batch))
         self.eval_builds += built
         return scores
 
@@ -510,25 +544,60 @@ class Trainer:
         the program; the guard opens after step 2). A fixed-shape loop on
         one state needs 0. A trip raises
         :class:`analysis.retrace.RetraceBudgetExceeded` at the end of the
-        loop. The JAX ``fit``'s persist, autosave and resume keywords
-        raise ``NotImplementedError`` naming their ROADMAP.md items."""
+        loop.
+
+        ``autosave_every=N`` with ``autosave_dir``: every N steps the loop
+        blocks on a delta autosave of the whole state (``save_checkpoint(
+        mode="delta")`` of the tables, ``(params, opt_state)`` as the
+        dense state; the first save into an empty directory is full),
+        committing ``{"fit": {"step", "epoch", "cursor"}}``, ``cursor``
+        the batches trained so far. The collection's dirty tracking must
+        be armed. ``resume_from=DIR``: before the loop, restore the state
+        from the newest committed autosave under DIR (a torn last delta
+        resumes one autosave earlier, a missing or unarmed DIR starts
+        fresh at cursor 0) and skip the batches it holds
+        (``batches.skip_batches(cursor)`` where the source has it, else
+        ``cursor`` batches consumed). A killed and resumed ``fit`` then
+        trains bit for bit as an uninterrupted one from that autosave.
+        ``persist_dir`` (offloaded tables) raises ``NotImplementedError``
+        naming its ROADMAP.md item."""
         if persist_dir is not None:
             raise not_ported("fit(persist_dir=)", "host offload")
-        if autosave_every or autosave_dir is not None \
-                or resume_from is not None:
-            raise not_ported("fit(autosave_every=, autosave_dir=, "
-                             "resume_from=)",
-                             "delta checkpoints and other layouts")
+        if autosave_every and not autosave_dir:
+            raise ValueError("fit(autosave_every=) requires autosave_dir=")
         last, guard = None, None
+        it = iter(batches)
+        base_cursor = 0
+        if resume_from is not None:
+            state, base_cursor = self._restore_fit(state, resume_from)
+            if base_cursor:
+                skip = getattr(batches, "skip_batches", None)
+                if skip is not None:
+                    skip(base_cursor)
+                else:
+                    for k in range(base_cursor):
+                        if next(it, None) is None:
+                            raise ValueError(
+                                f"resume cursor {base_cursor} is past the "
+                                f"batch source (exhausted after {k}): "
+                                "wrong source for this checkpoint?")
+        i = 0
         try:
-            for i, batch in enumerate(batches):
+            for batch in it:
+                # the chaos injection site for "kill the trainer between
+                # two steps"
+                sync_point("trainer.fit.step")
                 state, last = self.train_step(state, batch)
                 if retrace_budget is not None and guard is None and i >= 1:
                     guard = RetraceGuard(budget=retrace_budget,
                                          name="Trainer.fit steady state")
                     guard.__enter__()
+                if autosave_every and (i + 1) % autosave_every == 0:
+                    self._autosave_fit(state, autosave_dir,
+                                       base_cursor + i + 1)
                 if log_every and (i + 1) % log_every == 0:
                     log_fn(f"step {i + 1}: loss={float(last['loss']):.5f}")
+                i += 1
         except BaseException as e:
             if guard is not None:
                 guard.__exit__(type(e), e, None)
@@ -536,3 +605,50 @@ class Trainer:
         if guard is not None:
             guard.__exit__(None, None, None)
         return state, last
+
+    def _restore_fit(self, state: TrainState, path: str):
+        """``(state, cursor)`` restored from the delta chain at ``path``
+        (``fit``'s ``resume_from``). No manifest means nothing was ever
+        committed: the caller's state at cursor 0. The restored state is
+        new tensors; each hash table keeps ``state``'s init key (the init
+        key is the trainer's, not the checkpoint's), so keys first seen
+        after the resume draw the rows they draw in an uninterrupted
+        run."""
+        from . import checkpoint as ckpt_mod
+        from . import checkpoint_delta as cd
+        cd.join_compactor(path)
+        if cd.read_manifest(path) is None:
+            sync_point("trainer.resume.restore")
+            return state, 0
+        info: Dict[str, Any] = {}
+        with scope.span("trainer.resume"):
+            emb, (params, opt_state) = ckpt_mod.load_checkpoint(
+                path, self.collection,
+                dense_state_template=(state.params, state.opt_state),
+                info=info)
+        for name, st in emb.items():
+            if hasattr(st, "init_rng"):
+                st.init_rng = state.emb[name].init_rng
+        fit_extra = (info.get("resume_extra") or {}).get("fit") or {}
+        step = int(fit_extra.get("step", 0))
+        cursor = int(fit_extra.get("cursor", 0))
+        sync_point("trainer.resume.restore")
+        return TrainState(
+            step=torch.tensor(step, dtype=state.step.dtype,
+                              device=self.device),
+            params=params, opt_state=opt_state, emb=emb), cursor
+
+    def _autosave_fit(self, state: TrainState, path: str,
+                      cursor: int) -> None:
+        """One blocking delta autosave of the whole state with the resume
+        extra ``{"fit": {step, epoch, cursor}}`` (``cursor`` spans epochs
+        of the batch sequence, so ``epoch`` is informational). It reads
+        the state and changes none of its tensors."""
+        from . import checkpoint as ckpt_mod
+        step = int(state.step)
+        extra = {"fit": {"step": step, "epoch": 0, "cursor": int(cursor)}}
+        with scope.span("trainer.autosave", step=str(step)):
+            ckpt_mod.save_checkpoint(
+                path, self.collection, state.emb,
+                dense_state=(state.params, state.opt_state),
+                mode="delta", step=step, extra=extra)

@@ -86,7 +86,8 @@ def test_jax_save_loads_bit_equal_in_port(jax_trained, tmp_path):
                              model_sign="m-1")
     info = {}
     states = tck.load_checkpoint(path, _port_coll(), info=info)
-    assert info == {"applied_seq": 0}
+    # what JAX's load reports for a chainless dump
+    assert info == {"applied_seq": 0, "resume_extra": {}}
     for name, vocab, dim, dtype in VARS:
         w, slots = _jax_numpy(jcoll, jstates, name, vocab)
         tw, tslots = interop.table_state_to_numpy(states[name])
@@ -202,7 +203,9 @@ def test_refusals(tmp_path, devices8):
     with pytest.raises(ValueError, match="no variable"):
         tck.load_checkpoint(path, EmbeddingCollection(
             [EmbeddingSpec("other", 3, 2)], device="cpu"))
-    with pytest.raises(NotImplementedError, match="delta"):
+    # delta saves are ported: without dirty tracking they refuse as
+    # JAX's do
+    with pytest.raises(ValueError, match="dirty tracking"):
         tck.save_checkpoint(path, coll, states, mode="delta")
     with pytest.raises(NotImplementedError, match="local"):
         tck.load_checkpoint("gs://bucket/ck", coll)
@@ -215,9 +218,15 @@ def test_refusals(tmp_path, devices8):
     with pytest.raises(NotImplementedError, match="compressed"):
         tck.load_checkpoint(path, coll)
     os.remove(os.path.join(vdir, "weights.npyz"))
+    # a delta chain loads now; a garbage manifest raises what JAX raises
     open(os.path.join(path, "delta_manifest"), "w").close()
-    with pytest.raises(NotImplementedError, match="delta chain"):
+    jmesh = create_mesh(2, 4, devices8)
+    with pytest.raises(ValueError) as want:
+        jax_ckpt.load_checkpoint(path, _jax_coll(jmesh))
+    with pytest.raises(ValueError) as got:
         tck.load_checkpoint(path, coll)
+    assert type(got.value) is type(want.value)
+    os.remove(os.path.join(path, "delta_manifest"))
     # a JAX hash-table dump loads into a hash variable; into an array
     # variable (hash<->array conversion) it is refused before any table
     # is touched
@@ -469,7 +478,8 @@ def test_trained_port_tables_load_in_jax(devices8, tmp_path):
     """Train, save, load in JAX: a port trainer takes 3 steps of a tiny
     fused DeepFM, saves with the port's ``save_checkpoint``, and JAX
     ``load_checkpoint`` reads tables and slots equal to the port's, byte
-    for byte. The dense state is not written yet and says so."""
+    for byte, and the dense state (``dense_state=(params, opt_state)``)
+    into flax params and optax Adagrad state equal to the port's."""
     from openembedding_tpu.fused import make_fused_specs as jax_fused_specs
     from openembedding_tpu_torch import training as tr
     from openembedding_tpu_torch.data import criteo
@@ -489,12 +499,25 @@ def test_trained_port_tables_load_in_jax(devices8, tmp_path):
     state, _ = trainer.fit(state, batches)
     path = str(tmp_path / "trained")
     tck.save_checkpoint(path, coll, state.emb, model_sign="t-3")
-    with pytest.raises(NotImplementedError, match="delta checkpoints"):
-        tck.save_checkpoint(str(tmp_path / "d"), coll, state.emb,
+    import optax
+    dpath = str(tmp_path / "d")
+    with pytest.raises(TypeError, match="pair"):
+        tck.save_checkpoint(dpath, coll, state.emb,
                             dense_state=state.params)
+    tck.save_checkpoint(dpath, coll, state.emb,
+                        dense_state=(state.params, state.opt_state))
+    tree = interop.dense_params_to_flax(state.params)
+    template = (tree, interop.dense_state_to_optax(
+        state.opt_state, optax.adagrad(0.01).init(tree)))
     jspecs, _ = jax_fused_specs(criteo.SPARSE_NAMES, 64, 4,
                                 optimizer=ADAGRAD)
     jcoll = oe.EmbeddingCollection(jspecs, create_mesh(1, 1, devices8[:1]))
+    _, (jparams, jopt) = jax_ckpt.load_checkpoint(
+        dpath, jcoll, dense_state_template=jax.tree.map(
+            np.zeros_like, template))
+    for a, b in zip(jax.tree.leaves((jparams, jopt)),
+                    jax.tree.leaves(template)):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
     jstates = jax_ckpt.load_checkpoint(path, jcoll)
     for name in ("fields", "fields:linear"):
         w, slots = _jax_numpy(jcoll, jstates, name, 26 * 64)

@@ -474,7 +474,7 @@ def test_trainer_init_same_on_card_and_cpu():
                 assert torch.equal(gs.slots[s].cpu(), v)
 
 
-def _tiny_hash_trainer(device):
+def _tiny_hash_trainer(device, capacity=1 << 14):
     from openembedding_tpu_torch import training as tr
     from openembedding_tpu_torch.data import criteo
     from openembedding_tpu_torch.embedding import EmbeddingCollection
@@ -482,7 +482,7 @@ def _tiny_hash_trainer(device):
     from openembedding_tpu_torch.models import deepctr as tm
     from openembedding_tpu_torch.optim import dense
     specs, mapper = make_fused_specs(
-        criteo.SPARSE_NAMES, -1, 9, hash_capacity=1 << 14,
+        criteo.SPARSE_NAMES, -1, 9, hash_capacity=capacity,
         optimizer={"category": "adagrad", "learning_rate": 0.01})
     module = tm.build_model("deepfm", criteo.SPARSE_NAMES, embedding_dim=9,
                             dnn_units=(64, 32))
@@ -883,3 +883,83 @@ def test_pooled_wide_hash_push_inserts_no_empty_key():
         assert torch.equal(keys, cstate.emb[name].keys)
         stored = keys[keys[:, 1] != EMPTY].numpy()
         assert set(join64(stored).tolist()) == real
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["array", "hash"])
+def test_save_right_after_a_replay_holds_the_step(kind, tmp_path):
+    """A delta save issued right after a captured step's replay (no
+    synchronize in between) writes the rows that step wrote: the loaded
+    base and chain equal the live state, and the eager state, bit for
+    bit."""
+    _need_card()
+    import os
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.data import criteo
+    # a hash table at a low load: a load re-inserts every key, and at a
+    # load near 1 a window can overflow where the trained table's did not
+    gpu, mapper = _tiny_trainer("cuda") if kind == "array" \
+        else _tiny_hash_trainer("cuda", capacity=1 << 17)
+    gpu.collection.enable_dirty_tracking(target_chunks=64)
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        512, num_buckets=1000 if kind == "array" else 1 << 12, seed=2,
+        num_batches=4)]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = gpu.init(prng_key(0), batches[0])
+        eager = tr.copy_state(state, "cuda")
+        path = str(tmp_path / "ck")
+        for i, b in enumerate(batches):
+            state, _ = gpu.train_step(state, b)       # a replay from i = 1
+            eager, _ = gpu.train_step_eager(eager, b)
+            info = ck.save_checkpoint(path, gpu.collection, state.emb,
+                                      mode="delta", step=i + 1)
+            assert info["mode"] == ("full" if i == 0 else "delta")
+        loaded = ck.load_checkpoint(path, gpu.collection)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in state.emb:
+        for got, live, other in ((loaded[name].weights,
+                                  state.emb[name].weights,
+                                  eager.emb[name].weights),
+                                 (loaded[name].slots["accum"],
+                                  state.emb[name].slots["accum"],
+                                  eager.emb[name].slots["accum"])):
+            assert torch.equal(got, live) and torch.equal(live, other)
+
+
+@pytest.mark.gpu
+def test_resume_after_a_replay_matches_uninterrupted(tmp_path):
+    """``fit`` resumed from autosaves taken between replayed steps ends
+    where the uninterrupted fit ends, bit for bit, with one program build
+    each (``retrace_budget=0``)."""
+    _need_card()
+    import os
+    from openembedding_tpu_torch.data import criteo
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def fresh():
+            trainer, mapper = _tiny_trainer("cuda")
+            trainer.collection.enable_dirty_tracking(target_chunks=64)
+            return trainer, mapper
+        t0, mapper = fresh()
+        batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+            512, num_buckets=1000, seed=3, num_batches=6)]
+        base, _ = t0.fit(t0.init(prng_key(0), batches[0]), batches,
+                         retrace_budget=0)
+        path = str(tmp_path / "auto")
+        t1, _ = fresh()
+        t1.fit(t1.init(prng_key(0), batches[0]), batches[:4],
+               autosave_every=2, autosave_dir=path, retrace_budget=0)
+        t2, _ = fresh()
+        resumed, _ = t2.fit(t2.init(prng_key(0), batches[0]), batches,
+                            resume_from=path, retrace_budget=0)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert t0.builds == t1.builds == t2.builds == 1
+    for a, b in zip(_tensors(base), _tensors(resumed)):
+        assert torch.equal(a, b)

@@ -184,7 +184,9 @@ def test_registry_refuses_later_slices(served, tmp_path, devices8):
     reg = ModelRegistry(device="cpu")
     with pytest.raises(NotImplementedError, match="micro-batch"):
         reg.enable_batching(max_batch_rows=64)
-    with pytest.raises(NotImplementedError, match="delta"):
+    # delta hot-swap is ported: garbage bytes refuse typed, as in JAX
+    from openembedding_tpu_torch.checkpoint_delta import DeltaDecodeError
+    with pytest.raises(DeltaDecodeError, match="no header line"):
         reg.apply_delta(SIGN, b"")
     with pytest.raises(NotImplementedError, match="shard"):
         reg.create_model(served["path"], shard_count=2)

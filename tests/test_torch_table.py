@@ -267,7 +267,7 @@ def test_entry_points_raise_without_gpu(monkeypatch, entry):
         obj.stop()
 
 
-_BANNED = ("jax", "jaxlib", "flax", "optax", "openembedding_tpu")
+_BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "openembedding_tpu")
 
 
 def _imports(path):

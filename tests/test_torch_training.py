@@ -193,11 +193,13 @@ def test_fit_logs_and_model_sign():
     ("offload", "host offload"),
     ("pipeline_depth", "host offload"),
     ("persist_dir", "host offload"),
+    # no longer unported: fit's autosave and resume keywords behave as the
+    # JAX fit's (tests/test_torch_elastic.py trains through them)
     ("autosave_every", "delta checkpoints"),
     ("autosave_dir", "delta checkpoints"),
     ("resume_from", "delta checkpoints"),
 ])
-def test_unported_arguments_raise(call, item):
+def test_unported_arguments_raise(call, item, tmp_path):
     trainer, mapper = _tiny_trainer()
     if call == "sparse_as_dense":
         hashed = EmbeddingSpec(name="h", input_dim=-1, output_dim=DIM)
@@ -205,12 +207,26 @@ def test_unported_arguments_raise(call, item):
             tr.Trainer(trainer.module, trainer.collection,
                        dense.adagrad(0.01), sparse_as_dense=[hashed])
         return
+    if call == "autosave_every":
+        # as JAX's fit: autosave_every needs autosave_dir
+        with pytest.raises(ValueError, match="requires autosave_dir"):
+            trainer.fit(None, [], autosave_every=1)
+        return
+    if call in ("autosave_dir", "resume_from"):
+        # autosave_dir alone saves nothing; resume_from a directory that
+        # was never armed starts fresh at cursor 0: the state and every
+        # batch go through untouched
+        batches = _batches(mapper, 2, seed=1)
+        state = trainer.init(ti.prng_key(0), batches[0])
+        path = str(tmp_path / "never-written")
+        state, last = trainer.fit(state, batches, **{call: path})
+        assert int(state.step) == 2 and last is not None
+        assert not (tmp_path / "never-written").exists()
+        return
     with pytest.raises(NotImplementedError, match=item):
         if call in ("offload", "pipeline_depth"):
             tr.Trainer(trainer.module, trainer.collection,
                        dense.adagrad(0.01), **{call: {"x": 1} if call !=
                                                "pipeline_depth" else 2})
         else:
-            value = {"persist_dir": "d", "autosave_every": 1,
-                     "autosave_dir": "d", "resume_from": "d"}[call]
-            trainer.fit(None, [], **{call: value})
+            trainer.fit(None, [], persist_dir="d")
