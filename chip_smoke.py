@@ -7,7 +7,7 @@ then the serving and training paths driven end to end at full width.
 (``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
 two versions of the kernel in turns within one call; see ``ki_only``.
 ``python3 chip_smoke.py --hybrid`` runs phase 11 alone, ``--delta``
-phase 12. None of them prints a result line.)
+phase 12, ``--ingest`` phase 13. None of them prints a result line.)
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -151,6 +151,33 @@ Phases, in order; any failure raises and the run exits nonzero:
    counters and a trace; KI never in an apply), a re-sent delta a
    no-op, a skipped one 409, and the captured step with tracking armed
    and off (``phase_delta``);
+13. ingest and checkpoint layouts (run after phase 12, printed before
+   phase 9's line): 8 TSV shards of 65,536 rows written by
+   ``write_synthetic_shards`` into a temporary directory, the hash
+   twin's shards meanwhile by two child processes joined before any
+   fit; under deterministic algorithms ``deepfm_dim9`` at full width
+   fits 64 steps from a ``ShardStream`` over the first 4 shards (fused on the readers,
+   the default 2 readers) and 64 steps over the same batches read by a
+   second stream into memory: losses and every tensor bit-equal, the
+   two reads identical, one program build each; a stream with 4 mangled
+   lines a shard counts exactly 8 bad rows; a fit with autosaves every 16
+   steps is killed by the chaos plan before step 41 and a fresh trainer
+   resumes it on a fresh stream through ``skip_batches(32)``, bit-equal
+   in its last 32 losses and final state; then 64 streamed steps over
+   all 8 shards and 64 in memory outside deterministic mode and outside
+   the profiler; each with examples/s, the stall series and its
+   p50/p95/max, reader rows/s and the ``ingest.*`` span totals, the
+   deterministic pair also with the device's busy share (a
+   ``torch.profiler`` trace of the card's activity); the
+   ``deepfm_dim9_hash`` twin fits 16 steps from 2 TFRecord shards of
+   32,768 rows (K2 and KI), its labels and dense features equal to a
+   TSV stream of the same seed; the streamed state saved local, zlib-compressed and (the hash twin) into ``memory://``,
+   zlib and a legacy npz repack, each reloaded bit for bit (hash tables
+   key by key), served through ``POST /models`` and ``lookup_bin`` with
+   K1 or K2 once a lookup, hash -> array and array -> hash conversion
+   rows per key, and the native reader's rows equal to the registry's
+   (``phase_ingest``; one ``{"ingest": ...}`` and one ``{"layouts":
+   ...}`` line);
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
 12. last line: ``{"ok": true, "device": {...}}``.
@@ -3387,6 +3414,657 @@ def phase_delta() -> dict:
     return launches
 
 
+# --- phase 13: ingest from shard files, checkpoint layouts ---------------------
+
+INGEST_SHARDS = 8             # TSV shards of INGEST_ROWS rows: 128 batches
+INGEST_ROWS = 1 << 16
+INGEST_STEPS = 64             # the gated fits run over the first 4 shards
+INGEST_AUTOSAVE = 16
+INGEST_KILLED_AT = 40         # steps the killed fit takes
+BAD_ROWS_PER_SHARD = 4        # the short bad-row stream: 2 x 8192 rows
+TFR_SHARDS, TFR_ROWS = 2, 1 << 15   # the hash twin's TFRecord shards
+HASH_INGEST_STEPS = 16
+MEMORY_URI = "memory://oe-smoke-ingest"
+
+
+def _write_shards(out_dir: str, num_shards: int, rows: int, fmt: str):
+    """``write_synthetic_shards`` at the smoke's seed: paths, seconds."""
+    from openembedding_tpu_torch.data.stream import write_synthetic_shards
+    t0 = time.perf_counter()
+    paths = write_synthetic_shards(out_dir, num_shards=num_shards,
+                                   rows_per_shard=rows, fmt=fmt, seed=SEED)
+    return paths, time.perf_counter() - t0
+
+
+def _shard_reading(paths: list, seconds: float, rows: int) -> dict:
+    return {"files": len(paths), "rows": len(paths) * rows,
+            "seconds": seconds,
+            "bytes": sum(os.path.getsize(p) for p in paths)}
+
+
+_SHARD_WRITER = (
+    "import json, sys\n"
+    "import chip_smoke\n"
+    "print(json.dumps(chip_smoke._write_shards(*json.loads(sys.argv[1]))))\n")
+
+
+def _spawn_shard_writer(out_dir: str, num_shards: int, rows: int,
+                        fmt: str) -> subprocess.Popen:
+    """A child process running ``_write_shards`` beside this process's
+    work (the shard writers are pure Python, so threads would only take
+    turns); ``_join_shard_writer`` returns its paths and reading."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _SHARD_WRITER,
+         json.dumps([out_dir, num_shards, rows, fmt])],
+        cwd=ROOT, stdout=subprocess.PIPE, text=True)
+
+
+def _join_shard_writer(child: subprocess.Popen) -> tuple:
+    out, _ = child.communicate(timeout=300)
+    if child.returncode:
+        raise RuntimeError(f"shard writer {child.args[-1]} exited "
+                           f"{child.returncode}")
+    paths, seconds = json.loads(out.strip().splitlines()[-1])
+    return paths, _shard_reading(paths, seconds,
+                                 json.loads(child.args[-1])[2])
+
+
+def _ingest_stream(paths, mapper, buckets, fmt="tsv", **kw):
+    from openembedding_tpu_torch.data.stream import ShardStream
+    return ShardStream(paths, batch_size=BATCH, fmt=fmt,
+                       num_buckets=buckets, transform=mapper.fuse_batch,
+                       **kw)
+
+
+def _device_busy_us(trace_path: str) -> float:
+    """Device time in a ``torch.profiler`` trace: the union of its
+    kernel, memcpy and memset intervals, in microseconds."""
+    with open(trace_path) as f:
+        spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in json.load(f).get("traceEvents", [])
+                       if e.get("cat") in ("kernel", "gpu_memcpy",
+                                           "gpu_memset") and "dur" in e)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy
+
+
+def _recorded_fit(trainer, state, source, trace=None, **kw):
+    """``trainer.fit(state, source, retrace_budget=0, **kw)`` with every
+    step's batch and loss kept; returns ``(state, reading, record)``. The
+    steady window starts at step 2 (step 1 builds the program):
+    examples/s over it and, with ``trace`` (a path), the device's busy
+    share, the device time a ``torch.profiler`` trace of the card (CUDA
+    activity only, started at step 2) holds over the window's wall time.
+    A fit that raises leaves its partial record in the exception's
+    ``record`` attribute."""
+    from torch.profiler import ProfilerActivity, profile
+    rec = {"seen": [], "losses": [], "marks": []}
+    prof = profile(activities=[ProfilerActivity.CUDA]) if trace else None
+    orig = trainer.train_step
+
+    def step(st, batch):
+        if len(rec["marks"]) == 1 and prof is not None:
+            prof.start()
+        rec["marks"].append(time.perf_counter())
+        st, m = orig(st, batch)
+        rec["seen"].append(batch)
+        rec["losses"].append(m["loss"])
+        return st, m
+    trainer.train_step = step
+    t0 = time.perf_counter()
+    try:
+        state, _ = trainer.fit(state, source, retrace_budget=0, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()     # before the profiler's flush
+    except BaseException as e:
+        e.record = rec
+        raise
+    finally:
+        del trainer.train_step
+        if prof is not None and len(rec["marks"]) > 1:
+            prof.stop()
+    steps = len(rec["seen"])
+    steady = t1 - rec["marks"][1]
+    reading = {"steps": steps, "wall_s": t1 - t0,
+               "examples_per_s": (steps - 1) * BATCH / steady,
+               "step_ms": steady / (steps - 1) * 1e3,
+               "builds": trainer.builds}
+    if prof is not None:
+        prof.export_chrome_trace(trace)
+        busy = _device_busy_us(trace) / 1e6
+        os.remove(trace)
+        reading.update({"device_busy_s": busy,
+                        "busy_share": busy / steady})
+    return state, reading, rec
+
+
+def _stream_reading(stream, t_open: float, t_end: float) -> dict:
+    from openembedding_tpu_torch.analysis import scope
+    mem = stream.memory_stats()
+    spans = {}
+    for kind, labels in (("read", {"stream": stream.name,
+                                   "fmt": stream.fmt}),
+                         ("hash", {"stream": stream.name}),
+                         ("ring", {"stream": stream.name})):
+        name = f"span_ingest_{kind}_seconds"
+        spans[f"ingest.{kind}"] = {
+            "count": scope.HISTOGRAMS.count(name, **labels),
+            "total_s": scope.HISTOGRAMS.sum(name, **labels)}
+    return {"stall": stream.stall_summary(),
+            "stall_series_ms": [float(x) for x in stream.stall_stats()],
+            "rows_read": mem["rows_read"],
+            "reader_rows_per_s": mem["rows_read"] / (t_end - t_open),
+            "readers": stream.readers, "spans": spans,
+            "bad_rows": stream.bad_rows()}
+
+
+def _same_batch(a, b) -> bool:
+    return (np.array_equal(a["label"], b["label"])
+            and np.array_equal(a["dense"], b["dense"])
+            and a["sparse"].keys() == b["sparse"].keys()
+            and all(np.array_equal(a["sparse"][k], b["sparse"][k])
+                    and a["sparse"][k].dtype == b["sparse"][k].dtype
+                    for k in a["sparse"]))
+
+
+def _states_equal(a, b) -> dict:
+    spread = _spread(state_tensors(a), state_tensors(b))
+    spread["equal"] = spread["tensors"] == 0
+    return spread
+
+
+def ingest_fits(tmp: str, tsv: list) -> dict:
+    """Phase 13's training half over the TSV shards ``tsv``, under
+    deterministic algorithms (the bit gates need them): the streamed
+    ``deepfm_dim9`` fit against the same batches in memory, a second read
+    of the stream, the bad-row stream, the kill and the resume from the
+    stream, then both fits again outside deterministic mode for their
+    throughput. Returns the reading and the streamed run's trainer and
+    state (for the layouts)."""
+    import itertools
+    from openembedding_tpu_torch.analysis import chaos
+    from openembedding_tpu_torch.data.stream import ShardStream, \
+        write_synthetic_shards
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    from openembedding_tpu_torch.utils import observability
+    reading = {}
+    gated = tsv[:INGEST_STEPS * BATCH // INGEST_ROWS]   # 64 batches
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the streamed fit
+        trainer, mapper = build_trainer("cuda")
+        t_open = time.perf_counter()
+        stream = _ingest_stream(gated, mapper, VOCAB_PER_FEATURE,
+                                name="smoke_stream")
+        with _ingest_stream(gated, mapper, VOCAB_PER_FEATURE,
+                            name="smoke_first") as head:
+            first = next(head)
+        state = trainer.init(prng_key(SEED), first)
+        records0 = observability.ingest_stall_records()
+        state, fit_s, rec_s = _recorded_fit(
+            trainer, state, stream, os.path.join(tmp, "streamed.json"))
+        fit_s["stall_records"] = observability.ingest_stall_records() \
+            - records0
+        fit_s.update(_stream_reading(stream, t_open, time.perf_counter()))
+        stream.close()
+        # the same batches in memory, from a second stream of the shards
+        mem_trainer, _ = build_trainer("cuda")
+        t1 = time.perf_counter()
+        second = _ingest_stream(gated, mapper, VOCAB_PER_FEATURE,
+                                name="smoke_second")
+        batches = list(second)
+        materialize_s = time.perf_counter() - t1
+        second.close()
+        same_reads = len(batches) == len(rec_s["seen"]) and all(
+            _same_batch(a, b) for a, b in zip(batches, rec_s["seen"]))
+        mstate = mem_trainer.init(prng_key(SEED), batches[0])
+        mstate, fit_m, rec_m = _recorded_fit(
+            mem_trainer, mstate, batches, os.path.join(tmp, "memory.json"))
+        fit_m["materialize_s"] = materialize_s
+        losses_s = torch.stack(rec_s["losses"])
+        losses_m = torch.stack(rec_m["losses"])
+        reading["deterministic"] = {
+            "streamed": fit_s, "in_memory": fit_m,
+            "second_read_identical": same_reads,
+            "losses_equal": bool(torch.equal(losses_s, losses_m)),
+            "tables": _states_equal(state, mstate)}
+        if not (same_reads and torch.equal(losses_s, losses_m)
+                and reading["deterministic"]["tables"]["equal"]
+                and fit_s["steps"] == fit_m["steps"] == INGEST_STEPS
+                and fit_s["builds"] == fit_m["builds"] == 1
+                and fit_s["bad_rows"] == 0
+                and fit_s["stall_records"] == fit_s["stall"]["pops"]):
+            raise AssertionError("streamed fit against in-memory: "
+                                 + json.dumps(_brief(reading)))
+        del mem_trainer, mstate, rec_m
+        torch.cuda.empty_cache()
+
+        # bad rows: each shard's mangled lines skipped and counted exactly
+        bad = write_synthetic_shards(os.path.join(tmp, "bad"), num_shards=2,
+                                     rows_per_shard=8192, fmt="tsv",
+                                     seed=SEED + 1,
+                                     bad_rows_per_shard=BAD_ROWS_PER_SHARD)
+        with ShardStream(bad, batch_size=BATCH, name="smoke_bad") as bs:
+            nbad = sum(1 for _ in bs)
+            reading["bad_rows"] = {"batches": nbad, "counted": bs.bad_rows(),
+                                   "written": 2 * BAD_ROWS_PER_SHARD}
+        if reading["bad_rows"]["counted"] != 2 * BAD_ROWS_PER_SHARD:
+            raise AssertionError(f"bad rows: {reading['bad_rows']}")
+
+        # killed after step 40 (autosaves at 16 and 32), resumed from the
+        # stream by a fresh trainer
+        auto = os.path.join(tmp, "auto")
+        killed, _ = build_trainer("cuda")
+        killed.collection.enable_dirty_tracking()
+        kstate = killed.init(prng_key(SEED), first)
+        plan = chaos.FaultPlan([chaos.FaultSpec(
+            point="trainer.fit.step", action="kill_thread",
+            hit=INGEST_KILLED_AT + 1)])
+        kstream = _ingest_stream(gated, mapper, VOCAB_PER_FEATURE,
+                                 name="smoke_killed")
+        try:
+            with chaos.active_plan(plan):
+                _recorded_fit(killed, kstate, kstream,
+                              autosave_every=INGEST_AUTOSAVE,
+                              autosave_dir=auto)
+            raise AssertionError("the chaos kill did not fire")
+        except chaos.ChaosKill as e:
+            killed_steps = len(e.record["seen"])
+        kstream.close()
+        from openembedding_tpu_torch import checkpoint_delta as cd
+        chain = cd.chain_state(auto)
+        del killed, kstate
+        torch.cuda.empty_cache()
+        resumed, _ = build_trainer("cuda")
+        resumed.collection.enable_dirty_tracking()
+        rstate = resumed.init(prng_key(SEED), first)
+        rstream = _ingest_stream(gated, mapper, VOCAB_PER_FEATURE,
+                                 name="smoke_resumed")
+        skips = []
+        real_skip = rstream.skip_batches
+
+        def spy(n):
+            skips.append({"n": int(n), "cursor_before": rstream.cursor()})
+            t = time.perf_counter()
+            out = real_skip(n)
+            skips[-1]["seconds"] = time.perf_counter() - t
+            return out
+        rstream.skip_batches = spy
+        rstate, fit_r, rec_r = _recorded_fit(resumed, rstate, rstream,
+                                             resume_from=auto)
+        rstream.close()
+        tail = losses_s[INGEST_STEPS - len(rec_r["losses"]):]
+        resume = {"killed_after": killed_steps, "chain": chain,
+                  "skips": skips, "steps": fit_r["steps"],
+                  "builds": fit_r["builds"],
+                  "losses_equal": bool(torch.equal(
+                      torch.stack(rec_r["losses"]), tail)),
+                  "tables": _states_equal(state, rstate),
+                  "cursor": rstream.cursor()}
+        reading["resume"] = resume
+        if not (killed_steps == INGEST_KILLED_AT
+                and [s["n"] for s in skips] == [2 * INGEST_AUTOSAVE]
+                and skips[0]["cursor_before"] == 0
+                and fit_r["steps"] == INGEST_STEPS - 2 * INGEST_AUTOSAVE
+                and resume["losses_equal"] and resume["tables"]["equal"]
+                and fit_r["builds"] == 1
+                and rstream.cursor() == INGEST_STEPS):
+            raise AssertionError("kill and resume: "
+                                 + json.dumps(_brief(reading)))
+        del resumed, rstate
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # throughput outside deterministic mode and outside the profiler
+    # (its tracing adds ~0.5 ms of host time a step), each on a program
+    # built outside it: 64 steps over the whole shard set (8 shards, the
+    # default readers) against the 64 batches held in memory
+    tput = {}
+    for kind in ("streamed", "in_memory"):
+        tr, _ = build_trainer("cuda")
+        t_open = time.perf_counter()
+        st = tr.init(prng_key(SEED), first)
+        if kind == "streamed":
+            src = _ingest_stream(tsv, mapper, VOCAB_PER_FEATURE,
+                                 name="smoke_tput")
+            st, fit_t, _ = _recorded_fit(
+                tr, st, itertools.islice(src, INGEST_STEPS))
+            fit_t.update(_stream_reading(src, t_open, time.perf_counter()))
+            src.close()
+        else:
+            st, fit_t, _ = _recorded_fit(tr, st, batches)
+        tput[kind] = fit_t
+        del tr, st
+        torch.cuda.empty_cache()
+    reading["throughput"] = tput
+    reading["stream_over_memory"] = (tput["streamed"]["examples_per_s"]
+                                     / tput["in_memory"]["examples_per_s"])
+    return reading, trainer, state, rec_s["seen"][-1]
+
+
+def _brief(reading: dict) -> dict:
+    """A reading without its long series (for an error message)."""
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()
+                    if k != "stall_series_ms"}
+        return x
+    return cut(reading)
+
+
+def hash_ingest(tmp: str, tfr: list, twin: list) -> tuple:
+    """The ``deepfm_dim9_hash`` twin trained from the TFRecord shards
+    ``tfr`` (K2 and KI on its steps), its batches held against a stream
+    of the TSV shards ``twin`` of the same seed where the JAX package's
+    own streams agree (labels and dense features; the TSV reader adds 1
+    to each categorical before hashing, the TFRecord one does not, in
+    both packages). ``Trainer.init`` reads only the sample batch's column
+    names, so the first TSV batch serves as the sample."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    reading = {}
+    trainer, mapper = build_hash_trainer("cuda")
+    with _ingest_stream(twin, mapper, HASH_VOCAB,
+                        name="smoke_twin") as tsv_stream:
+        tsv_batches = list(tsv_stream)
+    state = trainer.init(prng_key(SEED), tsv_batches[0])
+    t_open = time.perf_counter()
+    stream = _ingest_stream(tfr, mapper, HASH_VOCAB, fmt="tfrecord",
+                            name="smoke_tfrecord")
+    state, fit_h, rec = _recorded_fit(trainer, state, stream,
+                                      os.path.join(tmp, "hash.json"))
+    fit_h.update(_stream_reading(stream, t_open, time.perf_counter()))
+    stream.close()
+    agree = [np.array_equal(a["label"], b["label"])
+             and np.array_equal(a["dense"], b["dense"])
+             for a, b in zip(rec["seen"], tsv_batches)]
+    sparse_equal = sum(np.array_equal(a["sparse"]["fields"],
+                                      b["sparse"]["fields"])
+                       for a, b in zip(rec["seen"], tsv_batches))
+    failures = {n: int(st.insert_failures) for n, st in state.emb.items()}
+    reading.update({"fit": fit_h, "label_dense_equal_tsv": all(agree),
+                    "batches_compared": len(agree),
+                    "sparse_equal_tsv_batches": int(sparse_equal),
+                    "keys_stored": {n: st.num_used()
+                                    for n, st in state.emb.items()},
+                    "insert_failures": failures})
+    if not (fit_h["steps"] == HASH_INGEST_STEPS and all(agree)
+            and len(agree) == HASH_INGEST_STEPS and fit_h["builds"] == 1
+            and not any(failures.values())):
+        raise AssertionError("hash twin from TFRecord: "
+                             + json.dumps(_brief(reading)))
+    return reading, trainer, state, rec["seen"][-1]
+
+
+def _dir_bytes(path: str) -> int:
+    from openembedding_tpu_torch.utils import fs
+    if fs.is_remote(path):
+        return int(fs._fs(path).du(path, total=True))
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _d, names in os.walk(path) for f in names)
+
+
+def _hash_rows_by_key(st):
+    """A hash table's live keys (joined, sorted) and rows in that order,
+    on its device."""
+    live = st.live()
+    k = st.keys[live].to(torch.int64)
+    k64 = (k[:, 1] << 32) | (k[:, 0] & 0xFFFFFFFF)
+    order = torch.argsort(k64)
+    return (k64[order], st.weights[live][order],
+            {n: v[live][order] for n, v in st.slots.items()})
+
+
+def _tables_equal(a, b, hashed: bool) -> bool:
+    for name in a:
+        if hashed:
+            ka, wa, sa = _hash_rows_by_key(a[name])
+            kb, wb, sb = _hash_rows_by_key(b[name])
+            if not (torch.equal(ka, kb) and torch.equal(wa, wb)
+                    and all(torch.equal(sa[n], sb[n]) for n in sa)):
+                return False
+        elif not (torch.equal(a[name].weights, b[name].weights)
+                  and all(torch.equal(a[name].slots[n], b[name].slots[n])
+                          for n in a[name].slots)):
+            return False
+    return True
+
+
+def _legacy_npz(path: str) -> None:
+    """Repack a local dump's ``var_*.d`` directories as the legacy
+    single-file ``var_*.npz`` dumps."""
+    for d in sorted(os.listdir(path)):
+        if not d.endswith(".d"):
+            continue
+        vdir = os.path.join(path, d)
+        np.savez(os.path.join(path, d[:-2] + ".npz"),
+                 **{f[:-4]: np.load(os.path.join(vdir, f))
+                    for f in os.listdir(vdir) if f.endswith(".npy")})
+        shutil.rmtree(vdir)
+
+
+def ingest_layouts(tmp: str, trainer, state, probe, htrainer, hstate,
+                   hprobe) -> dict:
+    """Phase 13's layouts: the streamed ``deepfm_dim9`` state saved
+    uncompressed and zlib-compressed, the hash twin into ``memory://``,
+    compressed and as a legacy npz repack; each reloaded into a fresh
+    collection (every tensor equal; hash tables key by key) and served
+    through ``POST /models`` and ``lookup_bin`` (K1 or K2 once a lookup);
+    hash -> array and array -> hash conversion, rows per key; the
+    uncompressed dump through the native reader."""
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch.embedding import EmbeddingCollection, \
+        EmbeddingSpec
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    from openembedding_tpu_torch.serving.native import NativeModel
+    from openembedding_tpu_torch.serving.rest import ControllerServer
+    from openembedding_tpu_torch.utils import fs
+    reading = {"saves": {}, "reloads": {}, "served": {}}
+    coll, hcoll = trainer.collection, htrainer.collection
+    dumps = {"array_local": (os.path.join(tmp, "dump"), {}, coll, state),
+             "array_zlib": (os.path.join(tmp, "dump_zlib"),
+                            {"compress": "zlib"}, coll, state),
+             "hash_memory": (f"{MEMORY_URI}/hash", {}, hcoll, hstate),
+             "hash_zlib": (os.path.join(tmp, "hdump_zlib"),
+                           {"compress": "zlib"}, hcoll, hstate),
+             "hash_local": (os.path.join(tmp, "hdump"), {}, hcoll, hstate)}
+    for what, (path, kw, c, st) in dumps.items():
+        info = ck.save_checkpoint(path, c, st.emb, model_sign=what, **kw)
+        nbytes = _dir_bytes(path)
+        reading["saves"][what] = {
+            "seconds": info["seconds"], "row_bytes": info["bytes"],
+            "file_bytes": nbytes,
+            "gb_per_s": info["bytes"] / info["seconds"] / 1e9}
+    saves = reading["saves"]
+    saves["zlib_over_local_bytes"] = (saves["array_zlib"]["file_bytes"]
+                                      / saves["array_local"]["file_bytes"])
+    saves["hash_zlib_over_local_bytes"] = (
+        saves["hash_zlib"]["file_bytes"]
+        / saves["hash_local"]["file_bytes"])
+    legacy = os.path.join(tmp, "hdump_legacy")
+    shutil.copytree(dumps["hash_local"][0], legacy)
+    _legacy_npz(legacy)
+    dumps["hash_legacy"] = (legacy, {}, hcoll, hstate)
+    for what, (path, _kw, c, st) in dumps.items():
+        fresh = EmbeddingCollection(list(c.specs.values()), device="cuda",
+                                    seed=SEED)
+        t0 = time.perf_counter()
+        loaded = ck.load_checkpoint(path, fresh)
+        torch.cuda.synchronize()
+        equal = _tables_equal(st.emb, loaded, what.startswith("hash"))
+        reading["reloads"][what] = {"seconds": time.perf_counter() - t0,
+                                    "equal": equal}
+        del loaded
+        torch.cuda.empty_cache()
+        if not equal:
+            raise AssertionError(f"{what}: the reload differs from the "
+                                 "saved tables")
+
+    # serving every reload: K1 or K2 once a lookup
+    server = ControllerServer(port=0).start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=600)
+    try:
+        for what, (path, _kw, _c, st) in dumps.items():
+            hashed = what.startswith("hash")
+            ids = hprobe if hashed else probe
+            kernel = probe_gather if hashed else gather_rows
+            t0 = time.perf_counter()
+            status, body = _post(conn, "/models", json.dumps(
+                {"model_uri": path, "model_sign": f"smoke-{what}",
+                 "block": True}).encode())
+            load_s = time.perf_counter() - t0
+            if status != 201:
+                raise AssertionError(f"POST /models {what}: HTTP {status} "
+                                     f"{body!r}")
+            sign = json.loads(body)["model_sign"]
+            launches = kernel.launches
+            for var in ("fields", "fields:linear"):
+                rows, _ = lookup_bin(conn, sign, var, ids)
+                if not np.array_equal(rows, _expected(st, var, ids,
+                                                      hashed)):
+                    raise AssertionError(f"{what}: served {var} rows "
+                                         "differ from the trainer's")
+            got = kernel.launches - launches
+            reading["served"][what] = {"load_s": load_s, "lookups": 2,
+                                       "kernel": kernel.__name__,
+                                       "launches": got}
+            if got != 2:
+                raise AssertionError(f"{what}: {got} {kernel.__name__} "
+                                     "launches for 2 lookups")
+            if what == "array_local":
+                served = {v: server.registry.lookup(sign, v, ids).cpu()
+                          .numpy() for v in ("fields", "fields:linear")}
+            server.registry.delete_model(sign)
+            torch.cuda.empty_cache()
+            conn.close()
+            conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                              timeout=600)
+    finally:
+        conn.close()
+        server.stop()
+
+    # the native reader over the uncompressed deepfm_dim9 dump
+    t0 = time.perf_counter()
+    with NativeModel(dumps["array_local"][0]) as nm:
+        open_s = time.perf_counter() - t0
+        native_equal = all(
+            np.array_equal(nm.lookup(v, probe.astype(np.int64)), served[v])
+            for v in served)
+    reading["native"] = {"open_s": open_s, "equal_registry": native_equal}
+    if not native_equal:
+        raise AssertionError("native reader rows differ from the "
+                             "registry's")
+
+    # hash -> array: the hash twin's dump into array variables over the
+    # fused key space (26 x 2^22 ids), rows per key
+    from openembedding_tpu_torch.data.criteo import SPARSE_NAMES
+    vocab = len(SPARSE_NAMES) * HASH_VOCAB
+    arr_coll = EmbeddingCollection(
+        [EmbeddingSpec(name=n, input_dim=vocab, output_dim=s.output_dim,
+                       optimizer={"category": "default"})
+         for n, s in hcoll.specs.items()], device="cuda")
+    t0 = time.perf_counter()
+    arr = ck.load_checkpoint(dumps["hash_zlib"][0], arr_coll)
+    torch.cuda.synchronize()
+    conv = {"hash_to_array_s": time.perf_counter() - t0}
+    ok = True
+    for name, st in hstate.emb.items():
+        k64, w, _ = _hash_rows_by_key(st)
+        ok &= bool(k64.min() >= 0) and bool(k64.max() < vocab) \
+            and torch.equal(arr[name].weights.index_select(0, k64), w)
+    conv["hash_to_array_equal"] = ok
+    del arr, arr_coll
+    torch.cuda.empty_cache()
+    # array -> hash: the streamed deepfm_dim9 dump (27,262,976 rows) into
+    # wide hash variables of twice as many slots, rounded up to a power
+    # of two (2^26: load 0.41), each row id a key
+    hash_coll = EmbeddingCollection(
+        [EmbeddingSpec(name=n, input_dim=-1, output_dim=s.output_dim,
+                       hash_capacity=1 << (2 * s.input_dim - 1).bit_length(),
+                       optimizer={"category": "default"})
+         for n, s in coll.specs.items()], device="cuda", seed=SEED)
+    t0 = time.perf_counter()
+    hashed = ck.load_checkpoint(dumps["array_local"][0], hash_coll)
+    torch.cuda.synchronize()
+    conv["array_to_hash_s"] = time.perf_counter() - t0
+    launches = probe_gather.launches
+    flat = probe.reshape(-1).astype(np.int64)
+    rows = hash_coll.pull(hashed, {n: flat for n in hashed},
+                          read_only=True)
+    ok = all(torch.equal(rows[n], state.emb[n].weights.index_select(
+        0, torch.from_numpy(flat).to(rows[n].device))) for n in hashed)
+    conv["array_to_hash_equal"] = ok
+    conv["array_to_hash_keys"] = {n: st.num_used()
+                                  for n, st in hashed.items()}
+    conv["array_to_hash_k2"] = probe_gather.launches - launches
+    reading["conversion"] = conv
+    del hashed, hash_coll, rows
+    torch.cuda.empty_cache()
+    if not (conv["hash_to_array_equal"] and conv["array_to_hash_equal"]
+            and all(v == coll.specs[n].input_dim
+                    for n, v in conv["array_to_hash_keys"].items())):
+        raise AssertionError(f"conversion: {conv}")
+    fs.rmtree(MEMORY_URI)
+    return reading
+
+
+def phase_ingest() -> dict:
+    """Phase 13: ``deepfm_dim9`` trained from TSV shard files through a
+    ``ShardStream`` (``ingest_fits``), its hash twin from TFRecord shards
+    (``hash_ingest``) and every single-process checkpoint layout
+    (``ingest_layouts``), files under a ``tempfile.mkdtemp()`` removed at
+    the end. Prints one ``{"ingest": ...}`` and one ``{"layouts": ...}``
+    line; returns the kernels' launches of the phase (counters zeroed at
+    its start)."""
+    import tempfile
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    wrappers = (gather_rows, probe_gather, init_rows, init_flat)
+    for w in wrappers:
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="oe_smoke_ingest_")
+    t0 = time.perf_counter()
+    # the hash twin's shards are written by two child processes while
+    # this one writes the TSV shards; all are joined before any fit
+    children = [_spawn_shard_writer(os.path.join(tmp, d), TFR_SHARDS,
+                                    TFR_ROWS, fmt)
+                for d, fmt in (("tfr", "tfrecord"), ("twin", "tsv"))]
+    try:
+        tsv, seconds = _write_shards(os.path.join(tmp, "tsv"),
+                                     INGEST_SHARDS, INGEST_ROWS, "tsv")
+        shards_tsv = _shard_reading(tsv, seconds, INGEST_ROWS)
+        (tfr, shards_tfr), (twin, _) = [_join_shard_writer(c)
+                                        for c in children]
+        ingest, trainer, state, probe = ingest_fits(tmp, tsv)
+        hash_reading, htrainer, hstate, hbatch = hash_ingest(tmp, tfr,
+                                                             twin)
+        ingest["shards_tsv"] = shards_tsv
+        ingest["hash_twin"] = {"shards_tfrecord": shards_tfr,
+                               **hash_reading}
+        layouts = ingest_layouts(tmp, trainer, state,
+                                 probe["sparse"]["fields"], htrainer,
+                                 hstate, hbatch["sparse"]["fields"])
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    ingest["phase_s"] = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    ingest["launches"] = launches
+    log(json.dumps({"ingest": ingest}))
+    log(json.dumps({"layouts": layouts}))
+    return launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -3466,6 +4144,9 @@ def main() -> None:
     if sys.argv[1:] == ["--delta"]:
         phase_delta()
         return
+    if sys.argv[1:] == ["--ingest"]:
+        phase_ingest()
+        return
     coll, states, mapper, host, main_ids = setup_array()
     cases = phase_kernels(states["fields"].weights,
                           states["fields:linear"].weights, main_ids)
@@ -3494,6 +4175,10 @@ def main() -> None:
     delta = phase_delta()
     launches += delta["gather_rows"]
     flat_training += delta["init_flat"]
+    torch.cuda.empty_cache()
+    ingest = phase_ingest()
+    launches += ingest["gather_rows"]
+    flat_training += ingest["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -3513,7 +4198,8 @@ def main() -> None:
         "source": "openembedding_tpu_torch/csrc/probe_gather.cu",
         "replaces": "openembedding_tpu/ops/pallas_hash.py:40",
         "launches": plaunches + hash_launches["probe_gather"]
-        + hybrid["probe_gather"] + delta["probe_gather"],
+        + hybrid["probe_gather"] + delta["probe_gather"]
+        + ingest["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -3526,9 +4212,10 @@ def main() -> None:
                     "openembedding_tpu/optim/initializers.py:54-74 "
                     "(Uniform/Normal.init): XLA code, not Pallas kernels",
         "launches": hash_launches["init_rows"] + hybrid["init_rows"]
-        + delta["init_rows"] + flat_training + hash_launches["init_flat"],
+        + delta["init_rows"] + ingest["init_rows"] + flat_training
+        + hash_launches["init_flat"],
         "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"]
-        + delta["init_rows"],
+        + delta["init_rows"] + ingest["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in kcases + fcases),

@@ -1,8 +1,5 @@
-"""Checkpoint save/load in the JAX package's on-disk layout
-(``openembedding_tpu/checkpoint.py``).
-
-The port reads and writes the local, uncompressed, single-process
-layout, and delta chains over it:
+"""Checkpoint save/load in the JAX package's on-disk layouts
+(``openembedding_tpu/checkpoint.py``), at one process.
 
 * ``<path>/model_meta`` — the ``ModelMeta`` JSON, with ``extra`` keys
   ``include_optimizer``, ``storage_dtypes`` (per-field numpy dtype names),
@@ -11,41 +8,59 @@ layout, and delta chains over it:
   hash variables, ``hash_variables`` (``hash_capacity`` and ``key_dtype``,
   so a loader that has only the dump, the serving registry, sizes tables
   that hold every row);
-* ``<path>/var_<id>_<name>.d/{weights,slot_*}.npy`` — for an array
-  variable exactly ``input_dim`` rows in logical id order; for a hash
-  variable ``keys.npy`` (``[n]`` int32 or ``[n, 2]`` int32 pairs) beside
-  them, holding the live rows only, in slot order. bfloat16 fields are
-  stored as numpy's opaque ``'<V2'`` descr, as the JAX package stores
-  them, and decoded through the recorded storage dtype;
+* ``<path>/var_<id>_<name>.d/{weights,slot_*}.npy`` — the local layout:
+  for an array variable exactly ``input_dim`` rows in logical id order;
+  for a hash variable ``keys.npy`` (``[n]`` int32 or ``[n, 2]`` int32
+  pairs) beside them, holding the live rows only, in slot order. bfloat16
+  fields are stored as numpy's opaque ``'<V2'`` descr, as the JAX package
+  stores them, and decoded through the recorded storage dtype;
+* ``part<k>_{ids,keys,weights,slot_*}.npy[z]`` in the same directories —
+  the part layout, keyed rows written as sequential streams: what
+  ``save_checkpoint(compress=)`` writes (``.npyz`` framed, compressed
+  streams, ``fs.NpyzWriter``), and every save to a ``scheme://`` URI
+  (fsspec; ``memory://`` among them). An array variable's part carries
+  its logical ids (``ids``), a hash variable's its keys. One process
+  writes ``part0_``; a dump written by several JAX hosts has one part
+  per host, and the port loads them all;
+* ``<path>/var_<id>_<name>.npz`` — the legacy single-file dump, read only;
 * ``<path>/dense_state.msgpack`` — ``save_checkpoint(dense_state=(params,
   opt_state))``: the bytes ``flax.serialization.to_bytes`` writes for the
   JAX ``Trainer``'s pair (``utils/msgpack_state.py``);
 * ``<path>/delta_manifest`` and ``delta_<seq>_<vid>.npz`` — a delta chain
-  (``checkpoint_delta.py``): a full save with the collection's dirty
-  tracking armed writes a fresh manifest over its base, ``mode="delta"``
-  appends the dirty chunks, and ``load_checkpoint`` replays the committed
-  chain over the base.
+  (``checkpoint_delta.py``): a local uncompressed full save with the
+  collection's dirty tracking armed writes a fresh manifest over its
+  base, ``mode="delta"`` appends the dirty chunks, and
+  ``load_checkpoint`` replays the committed chain over the base. A part
+  base (compressed or remote) arms no chain, as in JAX: the compactor
+  folds into raw ``.npy`` files, and a delta save into such a directory
+  stays a forced full save.
 
-A full save snapshots the trackers, resets any chain (manifest first),
-then writes every field through a pool of writer threads
+A local full save snapshots the trackers, resets any chain (manifest
+first), then writes every field through a pool of writer threads
 (``_run_writers``, ``OE_CKPT_WRITERS`` or ``max_workers``), each task
 owning a disjoint file region: a window of rows of an array field, or a
-whole field of a hash variable. The device is synchronized once before
-the writers copy anything, so no copy can read a table before the step
-that writes it has finished.
+whole field of a hash variable; a part save gives each field's stream a
+task of its own. The device is synchronized once before the writers copy
+anything, so no copy can read a table before the step that writes it has
+finished. Part streams frame their rows in JAX's 4 MiB blocks, so a
+compressed dump of a one-device table is byte-identical to JAX's.
 
-Loads validate the meta before touching a table. Array fields stream in
-bounded blocks into a tensor on the collection's device; hash variables
+Loads validate the meta before touching a table. A local array dump
+streams from its memmap in bounded blocks into a tensor on the
+collection's device; keyed, compressed, remote and legacy dumps stream in
+chunks of ``_LOAD_CHUNK`` rows through the same delivery
+(``_deliver_rows``: a copy into a row window, or an ``index_copy_`` at
+the chunk's ids), so no whole table is held on the host. Hash variables
 load by inserting chunks of ``_LOAD_CHUNK`` rows into an empty table on
 the device (``hash_table.insert_rows``) that carries the collection's init
 key for the variable, and a load that cannot place every row fails. An
 int32-key dump loads into a wide table as (lo, hi) pairs, and a wide dump
-into an int32 table when every key fits int32. Slot files are skipped when
-the collection's optimizer has no slots (serving's ``default``). What the
-JAX package also writes or reads — multi-host part files, compressed
-streams, legacy ``.npz`` files, remote URIs, hash<->array conversion on
-load — is refused with ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.
+into an int32 table when every key fits int32. A hash dump loads into an
+array variable (keys become row ids; a key outside the vocabulary fails
+the load) and an array dump into a hash variable (row ids become keys),
+the JAX package's ``copy_from`` conversions. Slot files are skipped when
+the collection's optimizer has no slots (serving's ``default``). Writing
+from several processes is a later slice (ROADMAP.md Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -54,6 +69,7 @@ import os
 import threading
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from typing import Any, Dict, Optional
 
@@ -63,7 +79,7 @@ import torch
 from . import hash_table as hash_lib
 from .analysis import scope
 from .analysis.concurrency import sync_point
-from .embedding import EmbeddingCollection, not_ported
+from .embedding import EmbeddingCollection
 from .meta import UNBOUNDED_VOCAB, ModelMeta
 from .utils import fs
 
@@ -72,13 +88,21 @@ DENSE_FILE = "dense_state.msgpack"
 DELTA_MANIFEST_FILE = "delta_manifest"
 # rows move between disk and device in windows of about this many bytes
 _BLOCK_BYTES = 32 << 20
-# hash rows load in chunks of this many keys (the JAX loader's chunk, so
+# rows load in chunks of this many keys (the JAX loader's chunk, so hash
 # keys land in the same slots as a JAX load of the same dump)
 _LOAD_CHUNK = 1 << 16
+# the block of a part stream (JAX's _BLOCK_BYTES): each block one .npyz
+# frame, so a compressed dump frames its rows as JAX's does
+_PART_BLOCK_BYTES = 4 << 20
 
 _NP_NAMES = {torch.float32: "float32", torch.float64: "float64",
              torch.bfloat16: "bfloat16", torch.int32: "int32"}
-_LAYOUTS_ITEM = "delta checkpoints and other layouts"
+
+
+def _var_file(variable_id: int, name: str) -> str:
+    """The legacy single-file dump of one variable."""
+    safe = name.replace("/", "_").replace(":", "__")
+    return f"var_{variable_id}_{safe}.npz"
 
 
 def _var_dir(variable_id: int, name: str) -> str:
@@ -153,15 +177,21 @@ def _run_writers(tasks, *, max_workers: Optional[int] = None) -> None:
 
 # --- save --------------------------------------------------------------------
 
-def _open_npy_for_write(path: str, dtype: torch.dtype, shape) -> np.memmap:
-    """A writable memmap behind a ``.npy`` header. bfloat16 has no numpy
-    dtype: its header says ``'<V2'`` (what numpy writes for ml_dtypes'
-    bfloat16) and the memmap holds the raw 16-bit words."""
+def _word_descr(dtype) -> tuple:
+    """``(numpy word dtype, .npy descr)`` a field of ``dtype`` (a torch
+    or numpy dtype) is stored under. bfloat16 has no numpy dtype: its
+    header says ``'<V2'`` (what numpy writes for ml_dtypes' bfloat16) over
+    the raw 16-bit words."""
     if dtype == torch.bfloat16:
-        descr, word = "<V2", np.dtype(np.uint16)
-    else:
-        word = np.dtype(_NP_NAMES[dtype])
-        descr = np.lib.format.dtype_to_descr(word)
+        return np.dtype(np.uint16), "<V2"
+    word = np.dtype(_NP_NAMES[dtype]) if isinstance(dtype, torch.dtype) \
+        else np.dtype(dtype)
+    return word, np.lib.format.dtype_to_descr(word)
+
+
+def _open_npy_for_write(path: str, dtype: torch.dtype, shape) -> np.memmap:
+    """A writable memmap behind a ``.npy`` header (``_word_descr``)."""
+    word, descr = _word_descr(dtype)
     with open(path, "wb") as f:
         np.lib.format.write_array_header_1_0(
             f, {"descr": descr, "fortran_order": False,
@@ -218,6 +248,76 @@ def _hash_field_task(npy: str, t: torch.Tensor, mask: torch.Tensor,
     return _write, rows * _row_bytes(t)
 
 
+def _seq_writer(path_npy: str, dtype, shape, compress: str, pool):
+    """Sequential block writer: raw ``.npy`` or, with a codec, the framed
+    compressed ``.npyz`` container (``fs.NpyzWriter``, its blocks
+    compressed on ``pool``'s threads; ``pool`` is None without one)."""
+    word, descr = _word_descr(dtype)
+    if compress:
+        return fs.NpyzWriter(path_npy + "z", word, shape, compress,
+                             descr=descr, pool=pool)
+    return fs.NpyWriter(path_npy, word, shape, descr=descr)
+
+
+def _part_block(row_bytes: int) -> int:
+    return max(1, _PART_BLOCK_BYTES // max(1, row_bytes))
+
+
+def _array_part_tasks(vdir: str, part: str, fields: Dict[str, torch.Tensor],
+                      compress: str, pool):
+    """Tasks streaming one array variable's rows (``fields``, each
+    ``[input_dim, ...]``) to ``<part>{ids,weights,slot_*}.npy[z]``, one
+    task a file; returns ``(tasks, bytes)``. Each field is framed in
+    blocks of its own row size, the ids in the weights' blocks (JAX's
+    ``_save_array_var_part`` over a one-device table)."""
+    vocab = int(fields["weights"].shape[0])
+
+    def _field(fname: str, t: torch.Tensor, step: int) -> None:
+        with _seq_writer(fs.join(vdir, f"{part}{fname}.npy"), t.dtype,
+                         tuple(t.shape), compress, pool) as w:
+            for lo in range(0, vocab, step):
+                w.write(_host_words(t[lo:lo + step]))
+
+    def _ids(step: int) -> None:
+        with _seq_writer(fs.join(vdir, f"{part}ids.npy"), np.int64,
+                         (vocab,), compress, pool) as w:
+            for lo in range(0, vocab, step):
+                w.write(np.arange(lo, min(vocab, lo + step),
+                                  dtype=np.int64))
+
+    tasks = [partial(_ids, _part_block(_row_bytes(fields["weights"])))]
+    nbytes = 0
+    for fname, t in fields.items():
+        tasks.append(partial(_field, fname, t, _part_block(_row_bytes(t))))
+        nbytes += vocab * _row_bytes(t)
+    return tasks, nbytes
+
+
+def _hash_part_tasks(vdir: str, part: str, fields: Dict[str, torch.Tensor],
+                     mask: torch.Tensor, rows: int, compress: str,
+                     pool):
+    """Tasks streaming one hash variable's live rows (``mask``, ``rows``
+    of them, in slot order) of every field (``keys`` among them) to
+    ``<part><field>.npy[z]``, one task a file; returns ``(tasks,
+    bytes)``. The slots are walked in blocks sized by all the fields'
+    row bytes together and each block's live rows are one frame (JAX's
+    ``_save_hash_var`` over a one-device table)."""
+    cap = int(mask.shape[0])
+    step = _part_block(sum(_row_bytes(t) for t in fields.values()))
+
+    def _field(fname: str, t: torch.Tensor) -> None:
+        with _seq_writer(fs.join(vdir, f"{part}{fname}.npy"), t.dtype,
+                         (rows,) + tuple(t.shape[1:]), compress,
+                         pool) as w:
+            for lo in range(0, cap, step):
+                block = t[lo:lo + step][mask[lo:lo + step]]
+                if block.shape[0]:
+                    w.write(_host_words(block))
+
+    return ([partial(_field, f, t) for f, t in fields.items()],
+            rows * sum(_row_bytes(t) for t in fields.values()))
+
+
 def _prev_meta_last_seq(path: str) -> int:
     """Burn counter a previous save recorded in this directory (0 when
     the dir is fresh or its meta unreadable)."""
@@ -265,16 +365,17 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
     save recorded as ``forced_full`` when no armed base exists yet. A full
     save with tracking armed arms a chain over its base. ``step`` stamps
     the save; ``extra`` (JSON) is committed with it and comes back from
-    ``load_checkpoint(info=)`` as ``resume_extra``. ``compress`` other
-    than ``""`` raises: compressed streams are a later slice."""
+    ``load_checkpoint(info=)`` as ``resume_extra``.
+
+    ``compress`` (``""``, ``"zlib"``, ``"zstd"`` where a zstd binding is
+    installed, else a ``ValueError`` before anything is written) and any
+    ``scheme://`` path write the part layout (module note), which arms
+    no delta chain. The bytes reported are the rows' own, before
+    compression."""
     if mode not in ("full", "delta"):
         raise ValueError(f"unknown checkpoint mode {mode!r}; "
                          "use 'full' or 'delta'")
-    from .utils import compress as compress_lib
     from .utils import observability
-    if compress_lib.check(compress) and mode == "full":
-        raise not_ported(f"compressed checkpoint streams "
-                         f"(compress={compress!r})", _LAYOUTS_ITEM)
     with scope.span("checkpoint.save", detail={"mode": mode}):
         if mode == "delta":
             from . import checkpoint_delta as cd
@@ -288,7 +389,8 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
         nbytes = _save_checkpoint_impl(
             path, collection, states, dense_state=dense_state,
             include_optimizer=include_optimizer, model_sign=model_sign,
-            step=step, max_workers=max_workers, extra=extra)
+            compress=compress, step=step, max_workers=max_workers,
+            extra=extra)
         dt = time.perf_counter() - t0
         observability.record_ckpt_save("full", nbytes, dt, chain_len=0)
         return {"mode": "full", "bytes": int(nbytes), "seconds": dt,
@@ -298,24 +400,33 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
 def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
                           states: Dict[str, Any], *, dense_state: Any,
                           include_optimizer: bool, model_sign: str,
+                          compress: str = "",
                           step: int = 0,
                           max_workers: Optional[int] = None,
                           extra: Optional[Dict[str, Any]] = None) -> int:
     """Full dump; returns the bytes of the fields written (keys, rows and
-    slots)."""
+    slots, before compression)."""
     from . import checkpoint_delta as cd
+    from .utils import compress as compress_lib
+    compress = compress_lib.check(compress)
+    remote = fs.is_remote(path)
+    # the part layout: compressed streams and remote paths
+    part = "part0_" if (remote or compress) else ""
     fs.makedirs(path)
-    # a background compactor owns this directory's base files: join it
-    # before touching anything
-    cd.join_compactor(path)
-    # the chain is reset FIRST (manifest removed before any base file
-    # changes); its burned seqs are carried into the re-armed manifest
-    try:
-        prev_manifest = cd.read_manifest(path)
-    except ValueError:
-        prev_manifest = None      # an unknown-format manifest: reset anyway
-    carried_seq = int(prev_manifest.get("last_seq", 0)) if prev_manifest \
-        else _prev_meta_last_seq(path)
+    carried_seq = 0
+    if not remote:
+        # a background compactor owns this directory's base files: join
+        # it before touching anything
+        cd.join_compactor(path)
+        # the chain is reset FIRST (manifest removed before any base file
+        # changes); its burned seqs are carried into the re-armed
+        # manifest, or into the meta of a base that arms none
+        try:
+            prev_manifest = cd.read_manifest(path)
+        except ValueError:
+            prev_manifest = None  # an unknown-format manifest: reset anyway
+        carried_seq = int(prev_manifest.get("last_seq", 0)) \
+            if prev_manifest else _prev_meta_last_seq(path)
     sync_point("ckpt.full.reset")
     cd.reset_chain(path)
     # trackers snapshot at the START: marks landing during the save refer
@@ -350,6 +461,10 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
     _sync_device(collection)
     tasks, finals = [], []
     nbytes = 0
+    # the compression of every .npyz stream, spread over one pool
+    pool = ThreadPoolExecutor(max_workers or _default_writers(),
+                              thread_name_prefix="oe-ckpt-zlib") \
+        if compress else None
     for name, fields in targets.items():
         vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
         if fs.isdir(vdir):
@@ -359,6 +474,14 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
         fs.makedirs(vdir)
         mask = live.get(name)
         rows = int(mask.sum()) if mask is not None else None
+        if part:
+            ts, b = (_array_part_tasks(vdir, part, fields, compress, pool)
+                     if mask is None else
+                     _hash_part_tasks(vdir, part, fields, mask, rows,
+                                      compress, pool))
+            tasks += ts
+            nbytes += b
+            continue
         for fname, t in fields.items():
             npy = os.path.join(vdir, fname + ".npy")
             if mask is None:
@@ -369,15 +492,20 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
                 task, b = _hash_field_task(npy, t, mask, rows)
                 tasks.append(task)
             nbytes += b
-    _run_writers(tasks, max_workers=max_workers)
+    try:
+        _run_writers(tasks, max_workers=max_workers)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
     for fin in finals:
         fin()
     if dense_state is not None:
         with fs.open_file(fs.join(path, DENSE_FILE), "wb") as f:
             f.write(_dense_bytes(dense_state))
-    if collection.dirty_trackers:
+    if collection.dirty_trackers and not part:
         # arm the delta chain over this base (the manifest is the single
-        # commit point of the chain)
+        # commit point of the chain); a part base has no raw .npy files
+        # for the compactor to fold, so it arms none
         sync_point("ckpt.full.arm")
         cd.init_manifest(path, step=step,
                          include_optimizer=include_optimizer,
@@ -392,9 +520,11 @@ def _is_hash(m) -> bool:
 
 
 def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
-    """Validate the dump's variable metas against the collection's: dim
-    and vocab must match, the datatype may differ within {float32,
-    bfloat16} (rows are cast on load), as in the JAX package."""
+    """Validate the dump's variable metas against the collection's, as in
+    the JAX package: dim must match, the datatype may differ within
+    {float32, bfloat16} (rows are cast on load), and the vocabulary may
+    differ only when the table category does (a hash dump into an array
+    variable or the reverse, converted on load)."""
     with fs.open_file(fs.join(path, MODEL_META_FILE), "rb") as f:
         meta = ModelMeta.loads(f.read().decode("utf-8"))
     got_vars = {v.name: v for v in meta.variables}
@@ -403,44 +533,152 @@ def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
             raise ValueError(f"checkpoint at {path!r} has no variable "
                              f"{v.name!r}")
         g = got_vars[v.name].meta
-        if _is_hash(g) != _is_hash(v.meta):
-            raise not_ported(
-                f"loading the {'hash' if _is_hash(g) else 'array'} dump of "
-                f"{v.name!r} in {path!r} into an "
-                f"{'array' if _is_hash(g) else 'hash'} variable "
-                "(hash<->array conversion)", _LAYOUTS_ITEM)
         if g == v.meta:
             continue
         dtype_ok = (g.datatype == v.meta.datatype
                     or {g.datatype, v.meta.datatype}
                     <= {"float32", "bfloat16"})
-        if not (dtype_ok and g.embedding_dim == v.meta.embedding_dim
-                and g.vocabulary_size == v.meta.vocabulary_size):
+        same_shape = g.embedding_dim == v.meta.embedding_dim and dtype_ok
+        category_swap = _is_hash(g) != _is_hash(v.meta)
+        if not (same_shape and (category_swap or g.vocabulary_size
+                                == v.meta.vocabulary_size)):
             raise ValueError(f"variable {v.name!r} meta mismatch: "
                              f"checkpoint {g} vs model {v.meta}")
     return meta
 
 
-def _check_layout(path: str, collection: EmbeddingCollection) -> None:
-    """Refuse the layouts the port does not read yet."""
-    for name in collection.specs:
-        vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
-        if not fs.isdir(vdir):
-            raise not_ported(f"variable {name!r} has no var_<id>_<name>.d "
-                             f"directory in {path!r} (a legacy .npz dump?)",
-                             _LAYOUTS_ITEM)
+class _InflatePool:
+    """The executor that decompresses a load's ``.npyz`` frames ahead,
+    started at the first compressed stream the load opens (``get``) and
+    shut down when the load ends (``with``)."""
+
+    def __init__(self):
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def get(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                _default_writers(), thread_name_prefix="oe-ckpt-unzlib")
+        return self._pool
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+
+class _NpyDirReader:
+    """Dict-like lazy reader over one part of a ``var_*.d`` directory.
+
+    Local ``.npy`` files open memmapped (``__getitem__``, the random-
+    access load path); remote URIs and compressed ``.npyz`` files expose
+    only sequential ``rows``/``chunks`` streaming, the latter inflated on
+    ``inflate``'s pool. ``prefix`` selects a part (``"part0_"``); the
+    empty prefix reads the local layout's unprefixed files."""
+
+    def __init__(self, vdir: str, prefix: str, inflate: _InflatePool):
+        self._vdir = vdir
+        self._prefix = prefix
+        self._inflate = inflate
+        self._remote = fs.is_remote(vdir)
+        self._suffix: Dict[str, str] = {}
         for f in fs.listdir(vdir):
-            if f.startswith("part"):
-                raise not_ported(f"multi-host part file {f!r} in {vdir!r}",
-                                 "multi-shard exchange planes")
-            if f.endswith(".npyz"):
-                raise not_ported(f"compressed file {f!r} in {vdir!r}",
-                                 _LAYOUTS_ITEM)
+            sfx = ".npy" if f.endswith(".npy") else \
+                ".npyz" if f.endswith(".npyz") else None
+            if sfx and f.startswith(prefix) \
+                    and (prefix or not f.startswith("part")):
+                self._suffix[f[len(prefix):-len(sfx)]] = sfx
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._suffix
+
+    @property
+    def streaming(self) -> bool:
+        """True when this part has no random-access representation
+        (remote URI or compressed frames)."""
+        return self._remote or ".npyz" in self._suffix.values()
+
+    def _path(self, name: str) -> str:
+        if name not in self._suffix:
+            raise KeyError(name)
+        return fs.join(self._vdir, self._prefix + name + self._suffix[name])
+
+    def __getitem__(self, name: str):
+        if self._remote or self._suffix.get(name) == ".npyz":
+            raise TypeError(
+                "remote/compressed readers stream; use rows()/chunks()")
+        return np.load(self._path(name), mmap_mode="r")
+
+    def rows(self, name: str) -> int:
+        if self._suffix.get(name) == ".npyz":
+            return fs.npyz_shape(self._path(name))[1][0]
+        if self._remote:
+            return fs.npy_shape(self._path(name))[1][0]
+        return self[name].shape[0]
+
+    def chunks(self, name: str, size: int):
+        if self._suffix.get(name) == ".npyz":
+            return fs.iter_npyz_chunks(self._path(name), size,
+                                       pool=self._inflate.get())
+        if self._remote:
+            return fs.iter_npy_chunks(self._path(name), size)
+        arr = self[name]
+        return (arr[lo:lo + size] for lo in range(0, arr.shape[0], size))
+
+
+def _reader_rows(reader, name: str) -> int:
+    # a legacy npz handle has no .rows: its member decompresses whole
+    return reader.rows(name) if hasattr(reader, "rows") \
+        else reader[name].shape[0]
+
+
+def _aligned_reader_chunks(reader, names, size: int):
+    """Dicts of row-aligned chunks of several fields of one reader: the
+    streams of a ``_NpyDirReader``, or slices of a legacy npz handle's
+    members, each decompressed once."""
+    if hasattr(reader, "chunks"):
+        iters = {n: iter(reader.chunks(n, size)) for n in names}
+        while True:
+            out = {}
+            for n in names:
+                try:
+                    out[n] = next(iters[n])
+                except StopIteration:
+                    if out:
+                        raise ValueError(f"field {n} is shorter than "
+                                         f"{names[0]}") from None
+                    return
+            yield out
+    else:
+        arrs = {m: reader[m] for m in names}
+        for lo in range(0, arrs[names[0]].shape[0], size):
+            yield {m: a[lo:lo + size] for m, a in arrs.items()}
+
+
+def _open_var(path: str, vid: int, name: str,
+              inflate: _InflatePool) -> list:
+    """Readers of one variable: one per dump part (a dump written by N
+    processes has N), one for the local layout, or the legacy npz
+    handle."""
+    vdir = fs.join(path, _var_dir(vid, name))
+    if fs.isdir(vdir):
+        prefixes = sorted({f.split("_", 1)[0] + "_"
+                           for f in fs.listdir(vdir)
+                           if f.startswith("part")})
+        if prefixes:
+            return [_NpyDirReader(vdir, p, inflate) for p in prefixes]
+        return [_NpyDirReader(vdir, "", inflate)]
+    legacy = fs.join(path, _var_file(vid, name))
+    if fs.is_remote(legacy):
+        return [np.load(fs.open_file(legacy, "rb"))]
+    return [np.load(legacy)]
 
 
 def _decode(block: np.ndarray, true_dtype: Optional[str],
             target: torch.dtype, legacy_dtype: Optional[str]) -> torch.Tensor:
-    """One stored block as a CPU tensor castable to ``target``. Opaque
+    """One stored block as a CPU tensor of ``target``'s dtype. Opaque
     ``V2`` blocks are bfloat16 words when the recorded storage dtype (or,
     for "tpu-1" dumps without one, the target or the dump's table dtype)
     says so."""
@@ -448,93 +686,231 @@ def _decode(block: np.ndarray, true_dtype: Optional[str],
         for cand in (true_dtype, _NP_NAMES.get(target), legacy_dtype):
             if cand == "bfloat16" and block.dtype.itemsize == 2:
                 return torch.from_numpy(
-                    np.array(block).view(np.int16)).view(torch.bfloat16)
+                    np.array(block).view(np.int16)).view(
+                        torch.bfloat16).to(target)
         raise ValueError(
             f"stored void block of itemsize {block.dtype.itemsize} "
             f"matches none of (recorded={true_dtype!r}, target={target}, "
             f"dump table dtype={legacy_dtype!r})")
-    return torch.from_numpy(np.array(block))
+    return torch.from_numpy(np.array(block)).to(target)
 
 
-def _load_field(npy: str, target: torch.Tensor, true_dtype: Optional[str],
-                legacy_dtype: Optional[str]) -> None:
-    """Stream ``npy`` into ``target`` block by block (rows past the end of
-    the file keep their fill)."""
-    arr = np.load(npy, mmap_mode="r")
+def _deliver_rows(target: torch.Tensor, where, rows: torch.Tensor) -> None:
+    """Rows of one block into ``target`` on its device: ``where`` is a
+    ``slice`` (a window of logical rows) or the block's row ids (an
+    ``index_copy_``). Every load of an array variable goes through it."""
+    rows = rows.to(target.device, non_blocking=True)
+    if isinstance(where, slice):
+        target[where].copy_(rows)
+    else:
+        target.index_copy_(0, torch.from_numpy(where).to(target.device),
+                           rows)
+
+
+def _load_field(arr: np.ndarray, target: torch.Tensor,
+                true_dtype: Optional[str], legacy_dtype: Optional[str],
+                what: str) -> None:
+    """Stream a local memmapped field into ``target`` block by block
+    (rows past the end of the file keep their fill)."""
     if tuple(arr.shape[1:]) != tuple(target.shape[1:]):
-        raise ValueError(f"{npy}: rows of shape {arr.shape[1:]}, expected "
+        raise ValueError(f"{what}: rows of shape {arr.shape[1:]}, expected "
                          f"{tuple(target.shape[1:])}")
     rows = min(target.shape[0], arr.shape[0])
     step = _block_rows(target)
     for lo in range(0, rows, step):
         hi = min(rows, lo + step)
-        target[lo:hi].copy_(_decode(arr[lo:hi], true_dtype, target.dtype,
-                                    legacy_dtype))
+        _deliver_rows(target, slice(lo, hi), _decode(
+            arr[lo:hi], true_dtype, target.dtype, legacy_dtype))
 
 
-def _load_hash_var(vdir: str, name: str, spec, collection, with_opt: bool,
-                   stored: Dict[str, str], legacy: Optional[str], rng):
-    """An empty hash table on the collection's device, filled by inserting
-    the dump's live rows chunk by chunk; refuses a dump whose rows do not
-    all fit. The fresh table takes the collection's init key for the
-    variable under ``rng`` (``EmbeddingCollection.hash_init_rng``), as
-    JAX's loader takes ``collection.init(rng)``'s, so a loaded model that
-    trains on draws JAX's init rows for keys the dump lacks."""
-    state = collection.init(rng, only=[name])[name]
+def _load_array_var_stream(readers, name: str, spec, collection,
+                           with_opt: bool, stored: Dict[str, str],
+                           legacy: Optional[str], from_hash: bool = False):
+    """An array variable streamed from keyed parts, compressed frames, a
+    remote URI or a legacy npz, chunk by chunk through
+    ``_deliver_rows``. Ids at or past the vocabulary are dropped, as in
+    JAX; ``from_hash`` converts a hash dump (its keys become row ids, and
+    a key outside ``[0, input_dim)`` fails the load: a conversion must
+    deliver every row or fail)."""
+    from .table import TableState, resolve_dtype
+    vocab, dim = spec.input_dim, spec.output_dim
+    dtype = resolve_dtype(spec.meta())
+    weights = torch.zeros((vocab, dim), dtype=dtype,
+                          device=collection.device)
+    slots = collection.optimizer(name).init_slots(vocab, dim, dtype,
+                                                  collection.device)
+    targets = {"weights": weights, **{f"slot_{s}": t
+                                      for s, t in slots.items()}}
+    for r in readers:
+        id_field = "keys" if from_hash else ("ids" if "ids" in r else None)
+        fields = ["weights"] + [f for f in targets
+                                if f != "weights" and with_opt and f in r]
+        names = ([id_field] if id_field else []) + fields
+        size = min(_LOAD_CHUNK, max(_reader_rows(r, names[0]), 1))
+        offset = 0
+        for chunk in _aligned_reader_chunks(r, names, size):
+            if id_field:
+                ids = np.asarray(chunk[id_field])
+                if ids.ndim == 2:
+                    ids = hash_lib.join64(ids)
+                ids = ids.astype(np.int64)
+                if from_hash and ids.size and (ids.min() < 0
+                                               or ids.max() >= vocab):
+                    bad = ids[(ids < 0) | (ids >= vocab)][0]
+                    raise ValueError(
+                        f"hash->array conversion of {name!r}: stored key "
+                        f"{bad} is outside the bounded vocab {vocab}; a "
+                        "load must deliver every row or fail")
+            else:
+                # a logical-order file: row i is id i
+                got = chunk["weights"].shape[0]
+                ids = np.arange(offset, offset + got, dtype=np.int64)
+                offset += got
+            keep = (ids >= 0) & (ids < vocab)
+            for f in fields:
+                block = chunk[f]
+                if tuple(block.shape[1:]) != tuple(targets[f].shape[1:]):
+                    raise ValueError(
+                        f"{name!r} {f}: rows of shape {block.shape[1:]}, "
+                        f"expected {tuple(targets[f].shape[1:])}")
+                rows = _decode(block, stored.get(f), targets[f].dtype,
+                               legacy)
+                if not keep.all():
+                    rows = rows[torch.from_numpy(keep)]
+                _deliver_rows(targets[f], ids[keep], rows)
+    return TableState(weights=weights, slots=slots)
+
+
+def _hash_chunk_keys(ck: np.ndarray, state, name: str,
+                     from_array: bool) -> np.ndarray:
+    """One chunk's dump keys (or, ``from_array``, logical row ids) in the
+    table's key form: int32 ids, or ``[n, 2]`` int32 pairs on a wide
+    table."""
     empty = hash_lib.empty_key(torch.int32)
-    keys = np.load(fs.join(vdir, "keys.npy"), mmap_mode="r")
-    fields = {"weights": state.weights}
-    if with_opt:
-        fields.update({s: t for s, t in state.slots.items()
-                       if fs.exists(fs.join(vdir, f"slot_{s}.npy"))})
-    stores = {f: np.load(fs.join(vdir, ("weights" if f == "weights"
-                                        else f"slot_{f}") + ".npy"),
-                         mmap_mode="r") for f in fields}
-    for f, arr in stores.items():
-        if arr.shape[0] != keys.shape[0] \
-                or tuple(arr.shape[1:]) != tuple(fields[f].shape[1:]):
-            raise ValueError(f"{vdir}: {f} of shape {arr.shape} does not "
-                             f"match keys {keys.shape}")
-    n = keys.shape[0]
-    for lo in range(0, n, _LOAD_CHUNK):
-        hi = min(n, lo + _LOAD_CHUNK)
-        ck = np.array(keys[lo:hi])
-        if state.wide and ck.ndim == 1:
-            # an int32 (or int64) dump into a wide table: narrow keys
-            # become the pairs of the same 64-bit values; keys in the
-            # wide EMPTY band (hi == INT32_MIN) would read as free slots
-            ck = hash_lib.split64(ck.astype(np.int64))
-            banded = ck[:, 1] == empty
-            if banded.any():
-                raise ValueError(
-                    f"{int(banded.sum())} dump keys of {name!r} fall in "
-                    "the wide-key EMPTY band (hi word == INT32_MIN, keys "
-                    "in [-2^63, -2^63+2^32)); the wide pair encoding "
-                    "excludes that range")
-        elif not state.wide and ck.ndim == 2:
-            # a wide dump into an int32 table: join, refuse truncation
-            joined = hash_lib.join64(ck)
-            if joined.size and (joined.max() > np.iinfo(np.int32).max
-                                or joined.min() < np.iinfo(np.int32).min):
-                raise ValueError(
-                    f"wide-key dump of {name!r} holds keys outside the "
-                    "table's int32 range; load into a key_dtype='wide' "
-                    "variable instead")
-            ck = joined.astype(np.int32)
-        rows = {f: _decode(arr[lo:hi], stored.get(
-                    "weights" if f == "weights" else f"slot_{f}"),
-                    fields[f].dtype, legacy).to(collection.device)
-                for f, arr in stores.items()}
-        weights = rows.pop("weights")
-        hash_lib.insert_rows(state, torch.from_numpy(ck).to(
-            collection.device), weights, rows)
+    if from_array:
+        ck = ck.astype(np.int64)
+        if state.wide:
+            # logical id i becomes the pair (lo=i, hi=0), the 64-bit key i
+            return hash_lib.split64(ck)
+        if ck.size and int(ck.max()) > np.iinfo(np.int32).max:
+            raise ValueError(f"array->hash conversion of {name!r}: logical "
+                             f"id {ck.max()} does not fit key dtype int32")
+        return ck.astype(np.int32)
+    if state.wide and ck.ndim == 1:
+        # an int32 (or int64) dump into a wide table: narrow keys become
+        # the pairs of the same 64-bit values; keys in the wide EMPTY
+        # band (hi == INT32_MIN) would read as free slots
+        ck = hash_lib.split64(ck.astype(np.int64))
+        banded = ck[:, 1] == empty
+        if banded.any():
+            raise ValueError(
+                f"{int(banded.sum())} dump keys of {name!r} fall in the "
+                "wide-key EMPTY band (hi word == INT32_MIN, keys in "
+                "[-2^63, -2^63+2^32)); the wide pair encoding excludes "
+                "that range")
+    elif not state.wide and ck.ndim == 2:
+        # a wide dump into an int32 table: join, refuse truncation
+        joined = hash_lib.join64(ck)
+        if joined.size and (joined.max() > np.iinfo(np.int32).max
+                            or joined.min() < np.iinfo(np.int32).min):
+            raise ValueError(
+                f"wide-key dump of {name!r} holds keys outside the "
+                "table's int32 range; load into a key_dtype='wide' "
+                "variable instead")
+        ck = joined.astype(np.int32)
+    return ck
+
+
+def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
+                   stored: Dict[str, str], legacy: Optional[str], rng,
+                   from_array: bool = False):
+    """An empty hash table on the collection's device, filled by inserting
+    every part's rows chunk by chunk; refuses a dump whose rows do not all
+    fit. ``from_array`` converts an array dump (its ids, or its logical
+    row order, become keys). The fresh table takes the collection's init
+    key for the variable under ``rng`` (``EmbeddingCollection.
+    hash_init_rng``), as JAX's loader takes ``collection.init(rng)``'s, so
+    a loaded model that trains on draws JAX's init rows for keys the dump
+    lacks."""
+    state = collection.init(rng, only=[name])[name]
+    targets = {"weights": state.weights,
+               **{f"slot_{s}": t for s, t in state.slots.items()}}
+    total = 0
+    for r in readers:
+        id_field = ("ids" if "ids" in r else None) if from_array \
+            else "keys"
+        fields = ["weights"] + [f for f in targets
+                                if f != "weights" and with_opt and f in r]
+        names = ([id_field] if id_field else []) + fields
+        n = _reader_rows(r, names[0])
+        total += n
+        offset = 0
+        for chunk in _aligned_reader_chunks(r, names,
+                                            min(_LOAD_CHUNK, max(n, 1))):
+            got = chunk["weights"].shape[0]
+            if id_field:
+                ck = np.array(chunk[id_field])
+            else:
+                ck = np.arange(offset, offset + got, dtype=np.int64)
+                offset += got
+            ck = _hash_chunk_keys(ck, state, name, from_array)
+            rows = {}
+            for f in fields:
+                block = chunk[f]
+                if block.shape[0] != got or tuple(block.shape[1:]) \
+                        != tuple(targets[f].shape[1:]):
+                    raise ValueError(
+                        f"{name!r} {f}: a chunk of shape {block.shape} "
+                        f"does not match its {got} keys")
+                rows[f] = _decode(block, stored.get(f), targets[f].dtype,
+                                  legacy).to(collection.device)
+            weights = rows.pop("weights")
+            hash_lib.insert_rows(
+                state, torch.from_numpy(ck).to(collection.device), weights,
+                {f[len("slot_"):]: v for f, v in rows.items()})
     failed = int(state.insert_failures)
     if failed:
         raise RuntimeError(
-            f"hash variable {name!r}: {failed} of {n} checkpoint rows did "
-            f"not fit (hash_capacity={spec.hash_capacity}); increase "
+            f"hash variable {name!r}: {failed} of {total} checkpoint rows "
+            f"did not fit (hash_capacity={spec.hash_capacity}); increase "
             "hash_capacity — a load must deliver every row or fail")
     return state
+
+
+def _load_var(path: str, name: str, spec, collection, meta: ModelMeta,
+              with_opt: bool, inflate: _InflatePool, rng):
+    """One variable's state from any layout of its dump (module note)."""
+    from .table import TableState, resolve_dtype
+    readers = _open_var(path, collection.variable_id(name), name, inflate)
+    stored = meta.extra.get("storage_dtypes", {}).get(name, {})
+    dump = {v.name: v.meta for v in meta.variables}[name]
+    legacy, dump_hash = dump.datatype, _is_hash(dump)
+    if spec.use_hash:
+        return _load_hash_var(readers, name, spec, collection, with_opt,
+                              stored, legacy, rng, from_array=not dump_hash)
+    local = readers[0]
+    if dump_hash or len(readers) > 1 \
+            or not isinstance(local, _NpyDirReader) \
+            or local.streaming or "ids" in local:
+        return _load_array_var_stream(readers, name, spec, collection,
+                                      with_opt, stored, legacy,
+                                      from_hash=dump_hash)
+    device = collection.device
+    dtype = resolve_dtype(spec.meta())
+    weights = torch.zeros((spec.input_dim, spec.output_dim), dtype=dtype,
+                          device=device)
+    _load_field(local["weights"], weights, stored.get("weights"), legacy,
+                f"{name!r} weights")
+    slots = collection.optimizer(name).init_slots(
+        spec.input_dim, spec.output_dim, dtype, device)
+    for sname, tensor in slots.items():
+        # absent from the dump (saved without optimizer state, or under
+        # another optimizer): the slot keeps its fresh init
+        if with_opt and f"slot_{sname}" in local:
+            _load_field(local[f"slot_{sname}"], tensor,
+                        stored.get(f"slot_{sname}"), legacy,
+                        f"{name!r} slot_{sname}")
+    return TableState(weights=weights, slots=slots)
 
 
 def load_checkpoint(path: str, collection: EmbeddingCollection, *,
@@ -587,38 +963,13 @@ def _load_checkpoint_impl(path: str, collection: EmbeddingCollection, *,
                           dense_state_template: Any, rng,
                           info: Optional[Dict[str, Any]]):
     from . import checkpoint_delta as cd
-    from .table import TableState, resolve_dtype
     meta = _check_meta(path, collection)
-    _check_layout(path, collection)
     with_opt = bool(meta.extra.get("include_optimizer", True))
-    stored_all = meta.extra.get("storage_dtypes", {})
-    dump_meta = {v.name: v.meta for v in meta.variables}
-    device = collection.device
     out = {}
-    for name, spec in collection.specs.items():
-        vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
-        stored = stored_all.get(name, {})
-        legacy = dump_meta[name].datatype
-        if spec.use_hash:
-            out[name] = _load_hash_var(vdir, name, spec, collection,
-                                       with_opt, stored, legacy, rng)
-            continue
-        dtype = resolve_dtype(spec.meta())
-        weights = torch.zeros((spec.input_dim, spec.output_dim),
-                              dtype=dtype, device=device)
-        _load_field(fs.join(vdir, "weights.npy"), weights,
-                    stored.get("weights"), legacy)
-        optimizer = collection.optimizer(name)
-        slots = optimizer.init_slots(spec.input_dim, spec.output_dim, dtype,
-                                     device)
-        for sname, tensor in slots.items():
-            npy = fs.join(vdir, f"slot_{sname}.npy")
-            # absent from the dump (saved without optimizer state, or
-            # under another optimizer): the slot keeps its fresh init
-            if with_opt and fs.exists(npy):
-                _load_field(npy, tensor, stored.get(f"slot_{sname}"),
-                            legacy)
-        out[name] = TableState(weights=weights, slots=slots)
+    with _InflatePool() as inflate:
+        for name, spec in collection.specs.items():
+            out[name] = _load_var(path, name, spec, collection, meta,
+                                  with_opt, inflate, rng)
     manifest = cd.read_manifest(path)
     if manifest and manifest.get("chain"):
         out = cd.replay_chain(path, collection, out, manifest=manifest,

@@ -1,6 +1,8 @@
 """Serving-side model registry (``openembedding_tpu/serving/registry.py``).
 
-Loads a checkpoint for serving and answers read-only lookups: models are
+Loads a checkpoint for serving, in any layout ``checkpoint.load_checkpoint``
+reads (local, compressed part files, fsspec URIs, legacy ``.npz``, any
+number of parts), and answers read-only lookups: models are
 keyed by ``model_sign``, carry CREATING/NORMAL/DELETING/ERROR status, load
 synchronously or on a thread (CREATING while it runs), and a lookup takes
 one snapshot of the model's states per request. Every lookup is a pull on

@@ -77,6 +77,7 @@ from .hybrid import DENSE_SCOPE, HybridModel, to_dense_spec
 from .models.deepctr import init_params
 from .ops.launches import CountedGraph
 from .optim.initializers import split
+from .utils import observability
 
 
 @dataclasses.dataclass
@@ -560,7 +561,17 @@ class Trainer:
         ``cursor`` batches consumed). A killed and resumed ``fit`` then
         trains bit for bit as an uninterrupted one from that autosave.
         ``persist_dir`` (offloaded tables) raises ``NotImplementedError``
-        naming its ROADMAP.md item."""
+        naming its ROADMAP.md item.
+
+        Ingest accounting (JAX's ``fit``): the next batch is fetched after
+        each step is launched, so on the card the fetch overlaps the
+        step, and the fetch's wall time is recorded as that step's stall
+        (``observability.record_ingest_stall``; the first fetch, the
+        warm-up, is not). A source that records its own waits (a
+        ``ShardStream``, marked ``ingest_accounted``, or one wrapped so
+        that the mark is hidden but which still records) is not counted
+        twice. The window holds one batch: ``pipeline_depth`` is a later
+        slice."""
         if persist_dir is not None:
             raise not_ported("fit(persist_dir=)", "host offload")
         if autosave_every and not autosave_dir:
@@ -581,9 +592,15 @@ class Trainer:
                                 f"resume cursor {base_cursor} is past the "
                                 f"batch source (exhausted after {k}): "
                                 "wrong source for this checkpoint?")
+        # a source that records its own waits (ShardStream) must not have
+        # them counted twice; a wrapper hides the mark, so each fetch also
+        # checks whether the source recorded an entry of its own
+        self_accounted = bool(getattr(batches, "ingest_accounted", False)
+                              or getattr(it, "ingest_accounted", False))
         i = 0
         try:
-            for batch in it:
+            batch = next(it, None)   # the first fetch: warm-up, unrecorded
+            while batch is not None:
                 # the chaos injection site for "kill the trainer between
                 # two steps"
                 sync_point("trainer.fit.step")
@@ -598,6 +615,16 @@ class Trainer:
                 if log_every and (i + 1) % log_every == 0:
                     log_fn(f"step {i + 1}: loss={float(last['loss']):.5f}")
                 i += 1
+                # the next batch, fetched while the device runs this step;
+                # its wall time is the step's ingest stall
+                pops0 = None if self_accounted \
+                    else observability.ingest_stall_records()
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if not self_accounted \
+                        and observability.ingest_stall_records() == pops0:
+                    observability.record_ingest_stall(
+                        time.perf_counter() - t0)
         except BaseException as e:
             if guard is not None:
                 guard.__exit__(type(e), e, None)

@@ -169,6 +169,15 @@ def record_ingest_stall(seconds: float, *,
     scope.HISTOGRAMS.observe("ingest_stall_ms", seconds * 1e3, **labels)
 
 
+def ingest_stall_records(accumulator: Optional[Accumulator] = None) -> int:
+    """Number of ``ingest_stall`` entries recorded so far. ``Trainer.fit``
+    reads it around each batch fetch to see, through any iterator
+    wrapper, whether the source recorded its own wait (a ``ShardStream``
+    behind ``itertools.chain`` loses its ``ingest_accounted`` mark but
+    still records each pop), so no wait is counted twice."""
+    return (accumulator or GLOBAL).calls("ingest_stall")
+
+
 def under_trace(tree=None) -> bool:
     """True while the current CUDA stream captures a graph: host-side
     timers and counters must not record there (the host code runs once

@@ -192,6 +192,12 @@ def test_precision_migration_matches_jax(devices8, tmp_path):
 
 
 def test_refusals(tmp_path, devices8):
+    """What a load or save still refuses: a meta mismatch, a missing
+    variable, delta saves without tracking, damaged part and compressed
+    files, an unknown codec, a garbage manifest, and a hash->array
+    conversion whose keys fall outside the vocabulary. The layouts that
+    were refused before this slice (part files, compressed streams,
+    fsspec URIs, hash<->array conversion) load."""
     coll = _port_coll()
     states = coll.init()
     path = str(tmp_path / "ck")
@@ -207,15 +213,22 @@ def test_refusals(tmp_path, devices8):
     # JAX's do
     with pytest.raises(ValueError, match="dirty tracking"):
         tck.save_checkpoint(path, coll, states, mode="delta")
-    with pytest.raises(NotImplementedError, match="local"):
-        tck.load_checkpoint("gs://bucket/ck", coll)
+    with pytest.raises(ValueError, match="codec"):
+        tck.save_checkpoint(str(tmp_path / "lz4"), coll, states,
+                            compress="lz4")
+    # an fsspec URI (the in-process memory filesystem) round-trips
+    mem = f"memory://refusals-{os.getpid()}/ck"
+    tck.save_checkpoint(mem, coll, states)
+    back = tck.load_checkpoint(mem, coll)
+    for n, _, _, _ in VARS:
+        assert torch.equal(back[n].weights, states[n].weights)
     vdir = os.path.join(path, tck._var_dir(0, "fields"))
     open(os.path.join(vdir, "part0_weights.npy"), "wb").close()
-    with pytest.raises(NotImplementedError, match="part file"):
+    with pytest.raises((ValueError, EOFError, OSError)):
         tck.load_checkpoint(path, coll)
     os.remove(os.path.join(vdir, "part0_weights.npy"))
     open(os.path.join(vdir, "weights.npyz"), "wb").close()
-    with pytest.raises(NotImplementedError, match="compressed"):
+    with pytest.raises(ValueError, match="npyz"):
         tck.load_checkpoint(path, coll)
     os.remove(os.path.join(vdir, "weights.npyz"))
     # a delta chain loads now; a garbage manifest raises what JAX raises
@@ -227,24 +240,35 @@ def test_refusals(tmp_path, devices8):
         tck.load_checkpoint(path, coll)
     assert type(got.value) is type(want.value)
     os.remove(os.path.join(path, "delta_manifest"))
-    # a JAX hash-table dump loads into a hash variable; into an array
-    # variable (hash<->array conversion) it is refused before any table
-    # is touched
+    # hash<->array conversion: a JAX hash dump loads into an array
+    # variable and the port's array dump into a hash variable; a stored
+    # key outside the array's vocabulary fails the load, in both
+    # packages
     mesh = create_mesh(2, 4, devices8)
     hcoll = oe.EmbeddingCollection(
         [oe.EmbeddingSpec(name="fields", input_dim=-1, output_dim=9,
                           hash_capacity=64)], mesh)
+    hstates = hcoll.init(jax.random.PRNGKey(0))
+    keys = jnp.asarray(np.array([3, 36, 40], np.int32))
+    hrows = hcoll.pull(hstates, {"fields": keys}, batch_sharded=False)
+    hstates = hcoll.apply_gradients(
+        hstates, {"fields": keys},
+        {"fields": jnp.ones_like(hrows["fields"])}, batch_sharded=False)
     hpath = str(tmp_path / "hash")
-    jax_ckpt.save_checkpoint(hpath, hcoll, hcoll.init(jax.random.PRNGKey(0)))
+    jax_ckpt.save_checkpoint(hpath, hcoll, hstates)
     loaded = tck.load_checkpoint(hpath, EmbeddingCollection(
         [EmbeddingSpec("fields", -1, 9, hash_capacity=64)], device="cpu"))
-    assert loaded["fields"].num_used() == 0
-    with pytest.raises(NotImplementedError, match="hash<->array"):
+    assert loaded["fields"].num_used() == 3
+    with pytest.raises(ValueError, match="outside the bounded vocab"):
+        jax_ckpt.load_checkpoint(hpath, oe.EmbeddingCollection(
+            [oe.EmbeddingSpec(name="fields", input_dim=37, output_dim=9)],
+            mesh))
+    with pytest.raises(ValueError, match="outside the bounded vocab"):
         tck.load_checkpoint(hpath, EmbeddingCollection(
             [EmbeddingSpec("fields", 37, 9)], device="cpu"))
-    with pytest.raises(NotImplementedError, match="hash<->array"):
-        tck.load_checkpoint(path, EmbeddingCollection(
-            [EmbeddingSpec("fields", -1, 9)], device="cpu"))
+    wide = tck.load_checkpoint(path, EmbeddingCollection(
+        [EmbeddingSpec("fields", -1, 9)], device="cpu"))
+    assert wide["fields"].num_used() == 37
 
 
 # --- hash variables -----------------------------------------------------------

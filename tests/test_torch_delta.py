@@ -150,9 +150,18 @@ def test_delta_requires_tracking_and_matching_optimizer(tmp_path):
     info = ck.save_checkpoint(str(tmp_path / "m"), coll, states,
                               mode="delta", step=2)
     assert info["skipped"] and info["seq"] == 0
-    with pytest.raises(NotImplementedError, match="compressed"):
-        ck.save_checkpoint(str(tmp_path / "z"), coll, states,
-                           compress="zlib")
+    # a compressed base writes the part layout and arms no chain: a
+    # delta save into it stays a forced full save, as in JAX
+    info = ck.save_checkpoint(str(tmp_path / "z"), coll, states,
+                              compress="zlib")
+    assert info["mode"] == "full" and info["bytes"] > 0
+    assert not (tmp_path / "z" / "delta_manifest").exists()
+    assert any(f.startswith("part0_") and f.endswith(".npyz")
+               for _root, _dirs, files in os.walk(tmp_path / "z")
+               for f in files)
+    info = ck.save_checkpoint(str(tmp_path / "z"), coll, states,
+                              mode="delta", step=3)
+    assert info["forced_full"]
 
 
 def test_delta_bytes_ratio_10x(tmp_path):

@@ -963,3 +963,92 @@ def test_resume_after_a_replay_matches_uninterrupted(tmp_path):
     assert t0.builds == t1.builds == t2.builds == 1
     for a, b in zip(_tensors(base), _tensors(resumed)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_streamed_fit_on_card_matches_in_memory(tmp_path):
+    """``fit`` over a ``ShardStream`` of TSV shards on the card equals
+    ``fit`` over the same batches held in memory, bit for bit (one
+    program build each, K1 on every pull); the stream records one stall
+    a pop and the loop none."""
+    _need_card()
+    import os
+    from openembedding_tpu_torch.data import stream
+    from openembedding_tpu_torch.utils import observability as obs
+    stream.write_synthetic_shards(str(tmp_path), num_shards=2,
+                                  rows_per_shard=1536, seed=4)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(source_of):
+            trainer, mapper = _tiny_trainer("cuda")
+            src = source_of(mapper)
+            state = trainer.init(prng_key(0), stream.ShardStream(
+                str(tmp_path), batch_size=512, num_buckets=1000,
+                transform=mapper.fuse_batch).__next__())
+            k1 = tg.gather_rows.launches
+            records = obs.ingest_stall_records()
+            state, _ = trainer.fit(state, src, retrace_budget=0)
+            torch.cuda.synchronize()
+            return (state, trainer.builds, tg.gather_rows.launches - k1,
+                    obs.ingest_stall_records() - records, src)
+
+        def streamed(mapper):
+            return stream.ShardStream(str(tmp_path), batch_size=512,
+                                      num_buckets=1000,
+                                      transform=mapper.fuse_batch)
+        got, builds, k1, records, src = run(streamed)
+        want, wbuilds, _, _, _ = run(lambda m: list(streamed(m)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert builds == wbuilds == 1
+    assert int(got.step) == 6 and k1 == 2 * 6
+    assert records == src.stall_summary()["pops"] == 6
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(got),
+                                                 _tensors(want)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["array", "hash"])
+def test_compressed_reload_on_card(kind, tmp_path):
+    """Tables trained on the card, saved compressed (``.npyz`` part
+    files), reload on the card bit for bit and serve through the registry
+    with K1 (array) or K2 (hash) once a lookup."""
+    _need_card()
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.serving.registry import ModelRegistry
+    trainer, mapper = _tiny_trainer("cuda") if kind == "array" \
+        else _tiny_hash_trainer("cuda", capacity=1 << 17)
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        512, num_buckets=1000 if kind == "array" else 1 << 12, seed=5,
+        num_batches=3)]
+    state = trainer.init(prng_key(0), batches[0])
+    for b in batches:
+        state, _ = trainer.train_step(state, b)
+    path = str(tmp_path / "z")
+    info = ck.save_checkpoint(path, trainer.collection, state.emb,
+                              compress="zlib", model_sign="z")
+    assert info["bytes"] > 0
+    loaded = ck.load_checkpoint(path, EmbeddingCollection(
+        list(trainer.collection.specs.values()), device="cuda"))
+    for name, st in state.emb.items():
+        if kind == "array":
+            assert torch.equal(loaded[name].weights, st.weights)
+            assert torch.equal(loaded[name].slots["accum"],
+                               st.slots["accum"])
+        else:
+            assert loaded[name].num_used() == st.num_used()
+    reg = ModelRegistry(device="cuda")
+    sign = reg.create_model(path)
+    kernel = tg.gather_rows if kind == "array" else tp.probe_gather
+    ids = batches[-1]["sparse"]["fields"]
+    for name in state.emb:
+        before = kernel.launches
+        got = reg.lookup(sign, name, ids)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = trainer.collection.pull(state.emb, {name: ids},
+                                       read_only=True)[name]
+        assert torch.equal(got, want)

@@ -265,7 +265,13 @@ def _lock_run(conc):
 def test_traced_locks_equal():
     for conc in (jconc, tconc):
         conc.reset_runtime()
-    jout, tout = _lock_run(jconc), _lock_run(tconc)
+    try:
+        jout, tout = _lock_run(jconc), _lock_run(tconc)
+    finally:
+        # the lock counters are process-wide: leave none behind for the
+        # next test file of this worker
+        for conc in (jconc, tconc):
+            conc.reset_runtime()
     assert jout == tout
     assert len(tout[0]) == 1 and "potential deadlock" in tout[0][0]
     assert tout[1]["t.r"]["acquires"] == 1
@@ -277,7 +283,8 @@ def test_traced_locks_equal():
 SLICE = ["analysis/concurrency.py", "analysis/scope.py", "analysis/chaos.py",
          "utils/observability.py", "utils/compress.py", "utils/fs.py",
          "dirty.py", "embedding.py", "checkpoint.py", "checkpoint_delta.py",
-         "training.py", "serving/registry.py", "serving/rest.py"]
+         "training.py", "serving/registry.py", "serving/rest.py",
+         "data/stream.py"]
 LATER = {"trainer.prep.run"}     # the offload pipeline (host offload)
 
 
@@ -300,4 +307,4 @@ def test_sync_points_match_jax(tmp_path):
     assert whole <= set(jchaos.discover_sync_points())
     assert whole == port_names
     assert {tchaos.subsystem_of(p) for p in whole} == {
-        "ckpt", "serving", "report"}
+        "ckpt", "serving", "report", "ingest"}
