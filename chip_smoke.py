@@ -7,7 +7,8 @@ then the serving and training paths driven end to end at full width.
 (``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
 two versions of the kernel in turns within one call; see ``ki_only``.
 ``python3 chip_smoke.py --hybrid`` runs phase 11 alone, ``--delta``
-phase 12, ``--ingest`` phase 13. None of them prints a result line.)
+phase 12, ``--ingest`` phase 13, ``--serving`` phase 14. None of them
+prints a result line.)
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -178,6 +179,30 @@ Phases, in order; any failure raises and the run exits nonzero:
    rows per key, and the native reader's rows equal to the registry's
    (``phase_ingest``; one ``{"ingest": ...}`` and one ``{"layouts":
    ...}`` line);
+14. micro-batched, captured and replicated serving (run after phase
+   13, printed before phase 9's line; ``--serving`` alone): the
+   ``deepfm_dim9`` tables (no slots) saved as a delta chain (base, then
+   4096 changed rows as delta 1) and the ``deepfm_dim9_hash`` tables
+   of phase 5; in this process a batched ``ModelRegistry`` (rows 1024,
+   200 µs) on each: ``warm_batch_programs`` (count, seconds, graphs,
+   pool bytes), mixed concurrent requests of 1–1024 int32, int64 (and,
+   hashed, pair) ids whose batched rows equal the unbatched ones and the
+   host's bit for bit, every bucket's captured pull equal to the eager
+   one and timed against it (CUDA events, median of 20), the delta
+   hot-swapped and the buckets captured anew equal to the new version's
+   rows; then three batched replica daemons, one unbatched and one
+   batched hash replica (``ha.spawn_replica``, each its own process and
+   CUDA context), their rows checked; open-loop storms through
+   ``RoutingClient`` (``serving/load.py``: Poisson arrivals, 16 uniform
+   ids a ``lookup_bin``) from 200 QPS, x1.5 a step, 10 s a rate, until
+   ``find_knee`` reports saturation, batched then unbatched, with p50,
+   p95, p99, achieved QPS, rejections, the senders' lateness and the
+   batchers' flush sizes from ``/metrics``; a 10 s storm at half the
+   batched knee with one replica SIGKILLed 3 s in (no read may fail);
+   the killed replica respawned with ``--peers`` while the dump is
+   unreadable, its rows restored from a peer equal to a survivor's; one
+   storm of the hash replica. K1 and K2 counted in this process and in
+   each replica (reported at its SIGTERM shutdown);
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
 12. last line: ``{"ok": true, "device": {...}}``.
@@ -1642,6 +1667,43 @@ def compare_steps(trainer, state, batch_of, batch_size, table=None):
     return state, m, out
 
 
+STATS_BLOCKS, STATS_STEPS = 6, 100
+
+
+def batch_stats_cost(trainer, state, batches):
+    """The captured step with the batch-shape stats ``train_step``
+    records (the always-on ``_last`` gauges: one ``np.unique`` a table a
+    second) against the same step with the recorder stubbed out:
+    ``STATS_BLOCKS`` blocks of ``STATS_STEPS`` steps each way, in turns;
+    the median block's step ms. Also one forced scan of a batch (the
+    throttle cleared), the cost the gauges pay once a second."""
+    from openembedding_tpu_torch.utils import observability as obs
+    real = obs.record_batch_stats
+    ms = {"on": [], "off": []}
+    try:
+        for k in range(STATS_BLOCKS):
+            for kind in (("on", "off") if k % 2 == 0 else ("off", "on")):
+                obs.record_batch_stats = real if kind == "on" \
+                    else (lambda *a, **kw: None)
+                t0 = time.perf_counter()
+                for i in range(STATS_STEPS):
+                    state, _ = trainer.train_step(
+                        state, batches[i % len(batches)])
+                torch.cuda.synchronize()
+                ms[kind].append((time.perf_counter() - t0)
+                                / STATS_STEPS * 1e3)
+    finally:
+        obs.record_batch_stats = real
+    obs._BATCH_GAUGE_LAST.clear()
+    t0 = time.perf_counter()
+    real({k: np.asarray(v) for k, v in batches[0]["sparse"].items()})
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    on, off = statistics.median(ms["on"]), statistics.median(ms["off"])
+    return state, {"step_ms_on": on, "step_ms_off": off,
+                   "on_over_off": on / off, "blocks_on_ms": ms["on"],
+                   "blocks_off_ms": ms["off"], "forced_scan_ms": scan_ms}
+
+
 def program_reading(trainer, reserved_before: int) -> dict:
     """The trainer's step programs: builds, each build's seconds (its
     warm-up step and capture) and the memory its capture reserved, and
@@ -1740,6 +1802,9 @@ def phase_training() -> int:
     if not np.isfinite(loss):
         raise AssertionError(f"training: loss {loss}")
     stages = stage_breakdown(trainer, state, batches[0])
+    before = gather_rows.launches
+    state, stats_cost = batch_stats_cost(trainer, state, batches)
+    launches += gather_rows.launches - before
     served = train_then_serve(trainer, state, batches[1])
     flat_cases = phase_ki_flat(trainer)
     log(json.dumps({"training": {
@@ -1752,7 +1817,7 @@ def phase_training() -> int:
         "eager_examples_per_s": speed["eager"]["examples_per_s"],
         "eager_step_ms": speed["eager"]["step_ms"], "speed": speed,
         "last_loss": loss, "stages": stages, "trace": trace,
-        "serve": served,
+        "batch_stats_cost": stats_cost, "serve": served,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev)}}))
     return launches, flat_launches, flat_cases
 
@@ -4065,6 +4130,634 @@ def phase_ingest() -> dict:
     return launches
 
 
+# --- phase 14: micro-batched, captured and replicated serving -----------------
+
+SERVE_SIGN = "deepfm_dim9-serve"
+HASH_SERVE_SIGN = "deepfm_dim9_hash-serve"
+SERVE_DEVICE = "cuda"         # the device of the registries and replicas
+SERVE_BATCH_ROWS = 1024       # --batch-rows of the batched replicas
+SERVE_WAIT_US = 200           # the batcher's default window
+SERVE_BATCHED_REPLICAS = 3
+PARITY_REQUESTS = 96          # mixed-size requests of the parity gate
+PARITY_THREADS = 16
+DELTA_ROWS = 4096             # rows the hot-swap changes (one or two chunks)
+DELTA_FIRST = 1 << 20
+BUCKET_REPS = 20
+STORM_IDS = 16                # ids a lookup_bin request (graftload's)
+STORM_QPS0 = 200.0            # the sweep's first offered rate ...
+STORM_STEP = 1.5              # ... times this a step, until saturated
+STORM_RATE_S = 10.0
+STORM_MIN_SAMPLES = 2000      # arrivals at each rate above the first
+STORM_MAX_RATES = 9
+STORM_WORKERS = 64
+FAILOVER_S = 10.0
+KILL_AT_S = 3.0
+RESTORE_PROBE = 1 << 16       # ids compared after the peer restore
+REPLICA_BOOT_S = 300.0
+METRIC_NAMES = ("oe_serving_lookup_rows_bucket",
+                "oe_serving_lookup_requests_total",
+                "oe_serving_lookup_ids_total", "oe_batch_flushes_total",
+                "oe_serving_batch_rows_bucket", "oe_serving_requests_total",
+                "oe_span_http_seconds_bucket",
+                "oe_span_serving_lookup_seconds_bucket")
+
+
+def _event_ms(fn, reps: int = BUCKET_REPS) -> float:
+    """Median over ``reps`` calls of ``fn`` (a host call that ends by
+    copying to the host) between two CUDA events on the current stream:
+    the call's wall time on the device's clock."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_dump(tmp: str):
+    """The ``deepfm_dim9`` tables (no slots: serving loads none) from the
+    seed, saved as the base of a delta chain (copied to ``<path>_v0``);
+    then ``DELTA_ROWS`` consecutive rows of each table changed and saved
+    as delta 1 (its payload kept for ``apply_delta``). Returns the dump's
+    path, the host rows of version 0 and 1, the delta and the save
+    seconds."""
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    from openembedding_tpu_torch.data.criteo import SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    specs, mapper = make_fused_specs(SPARSE_NAMES, VOCAB_PER_FEATURE, 9,
+                                     optimizer={"category": "default"})
+    coll = EmbeddingCollection(specs, device=SERVE_DEVICE, seed=SEED)
+    coll.enable_dirty_tracking()
+    states = coll.init()
+    path = os.path.join(tmp, "dim9")
+    t0 = time.perf_counter()
+    ck.save_checkpoint(path, coll, states, mode="delta", step=0,
+                       model_sign=SERVE_SIGN)
+    save_s = time.perf_counter() - t0
+    # version 0 alone, for the in-process hot-swap
+    shutil.copytree(path, path + "_v0")
+    host0 = {n: st.weights.to("cpu", copy=True).numpy()
+             for n, st in states.items()}
+    ids = np.arange(DELTA_FIRST, DELTA_FIRST + DELTA_ROWS, dtype=np.int64)
+    tids = torch.from_numpy(ids).to(coll.device)
+    for st in states.values():
+        st.weights.index_add_(0, tids, torch.full(
+            (ids.size, st.weights.shape[1]), 0.25, device=coll.device))
+    coll.mark_dirty({n: ids for n in states})
+    delta = cd.save_delta(path, coll, states, step=1, return_payload=True,
+                          compact_bytes_ratio=1e18,
+                          background_compact=False)["delta"]
+    host1 = {n: st.weights.cpu().numpy() for n, st in states.items()}
+    return path, mapper, host0, host1, delta, save_s
+
+
+def _hash_dump(tmp: str):
+    """The ``deepfm_dim9_hash`` tables filled to load 0.5 (phase 5's
+    keys and seeded rows), saved without slots. Returns the path, the
+    served request batches, the stored keys and each table's host
+    dictionary."""
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch.data.criteo import SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.hash_table import split64
+    from openembedding_tpu_torch.optim.initializers import fold_in, prng_key
+    specs, mapper = make_fused_specs(
+        SPARSE_NAMES, -1, 9, hash_capacity=HASH_CAPACITY,
+        optimizer={"category": "adagrad", "learning_rate": 0.01})
+    coll = EmbeddingCollection(specs, device=SERVE_DEVICE, seed=SEED)
+    states = coll.init()
+    batches, keys64 = hash_keys(mapper)
+    pairs = torch.from_numpy(split64(keys64)).to(coll.device)
+    host = {name: HostRows(keys64, fill_hash(
+        st, pairs, fold_in(prng_key(SEED), coll.variable_id(name)))
+        .cpu().numpy()) for name, st in states.items()}
+    path = os.path.join(tmp, "hash")
+    ck.save_checkpoint(path, coll, states, include_optimizer=False,
+                       model_sign=HASH_SERVE_SIGN)
+    return path, batches, keys64, host
+
+
+def _concurrent(calls):
+    """Run ``calls`` (thunks) from ``PARITY_THREADS`` threads started
+    together; their results in order (an exception re-raises)."""
+    import threading
+    out = [None] * len(calls)
+    errors = []
+    barrier = threading.Barrier(PARITY_THREADS)
+
+    def worker(k):
+        barrier.wait()
+        for i in range(k, len(calls), PARITY_THREADS):
+            try:
+                out[i] = calls[i]()
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(PARITY_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _parity_requests(vocab: int, rng) -> list:
+    """Mixed-size flat requests (1 to 1024 ids, int32 and int64, invalid
+    ids among them) for both variables."""
+    sizes = [1, 2, 15, 16, 17, 63, 64, 65, 200, 511, 1000, 1024]
+    out = []
+    for i in range(PARITY_REQUESTS):
+        n = sizes[i % len(sizes)] if i < 2 * len(sizes) \
+            else int(rng.randint(1, SERVE_BATCH_ROWS + 1))
+        ids = rng.randint(-2, vocab + 2, n).astype(
+            (np.int32, np.int64)[(i // 2) % 2])
+        out.append((("fields", "fields:linear")[i % 2], ids))
+    return out
+
+
+def _buckets() -> list:
+    out, cap = [], 64
+    while cap <= SERVE_BATCH_ROWS:
+        out.append(cap)
+        cap <<= 1
+    return out
+
+
+def _bucket_reading(model, cases, want_of, timed: bool) -> list:
+    """Each case ``(variable, ids)`` (a whole bucket) through the captured
+    bucket pull and the eager pull on the model's current snapshot: rows
+    equal bit for bit and equal to ``want_of(variable, ids)``. The
+    captured pull runs twice: a bucket first met on this snapshot is
+    captured by its first call, and replayed by the second. With
+    ``timed``, each call's median time (``_event_ms``)."""
+    out = []
+    for name, ids in cases:
+        states = model.states
+        first = model.pull_bucket(name, ids, states, span=False)
+        captured = model.pull_bucket(name, ids, states, span=False)
+        eager = model._lookup_impl(name, ids, states, record=False,
+                                   span=False).cpu().numpy()
+        if not (np.array_equal(first, eager)
+                and np.array_equal(captured, eager)
+                and np.array_equal(eager, want_of(name, ids))):
+            raise AssertionError(f"bucket pull of {name} {ids.dtype} "
+                                 f"{ids.shape}: captured, eager and host "
+                                 "rows differ")
+        row = {"variable": name, "dtype": str(ids.dtype),
+               "shape": list(ids.shape)}
+        if timed:
+            row["captured_ms"] = _event_ms(
+                lambda: model.pull_bucket(name, ids, states, span=False))
+            row["eager_ms"] = _event_ms(
+                lambda: model._lookup_impl(name, ids, states, record=False,
+                                           span=False).cpu())
+        out.append(row)
+    return out
+
+
+def serve_in_process(path: str, host0, host1, delta) -> dict:
+    """Phase 14's in-process gates on the ``deepfm_dim9`` dump at version
+    0 (``<path>_v0``; the replicas load ``path`` at version 1):
+    ``warm_batch_programs``; concurrent mixed requests whose batched
+    rows equal the unbatched ones and the host's; each bucket's captured
+    pull against the eager one, timed; the delta hot-swapped and the
+    captured pulls (captured anew) equal the new version's rows."""
+    from openembedding_tpu_torch.serving.registry import ModelRegistry
+    from openembedding_tpu_torch.utils import observability as obs
+    base = path + "_v0"
+    reg = ModelRegistry(device=SERVE_DEVICE)
+    reg.enable_batching(max_batch_rows=SERVE_BATCH_ROWS,
+                        max_wait_us=SERVE_WAIT_US)
+    try:
+        sign = reg.create_model(base, model_sign=SERVE_SIGN)
+        model = reg.find_model(sign)
+        if model.version != 0:
+            raise AssertionError(f"base loaded at version {model.version}")
+        t0 = time.perf_counter()
+        warmed = reg.warm_batch_programs()
+        warm_s = time.perf_counter() - t0
+        graphs = model.graph_reading()
+        vocab = host0["fields"].shape[0]
+        rng = np.random.RandomState(SEED + 14)
+        reqs = _parity_requests(vocab, rng)
+        flushes0 = obs.GLOBAL.snapshot().get("batch_flushes",
+                                             {}).get("count", 0)
+        batched = _concurrent([lambda v=v, ids=ids: reg.lookup(sign, v, ids)
+                               for v, ids in reqs])
+        flushes = obs.GLOBAL.snapshot()["batch_flushes"]["count"] - flushes0
+        for (v, ids), got in zip(reqs, batched):
+            direct = model.lookup(v, ids).cpu().numpy()
+            if not (np.array_equal(got, direct)
+                    and np.array_equal(got, expected_rows(host0[v], ids))):
+                raise AssertionError(f"batched {v} {ids.dtype} "
+                                     f"[{ids.size}] differs")
+        cases = [(v, rng.randint(0, vocab, cap).astype(dt))
+                 for cap in _buckets() for dt in (np.int32, np.int64)
+                 for v in ("fields", "fields:linear")]
+        buckets = _bucket_reading(
+            model, cases, lambda v, ids: expected_rows(host0[v], ids), True)
+        res = reg.apply_delta(sign, delta)
+        if not res["applied"] or model.version != 1:
+            raise AssertionError(f"apply_delta: {res}")
+        # the first flushes on the new snapshot capture its buckets while
+        # other threads launch eager lookups above the row cap
+        touched = np.arange(DELTA_FIRST - 8, DELTA_FIRST + 56,
+                            dtype=np.int32)
+        reqs = _parity_requests(vocab, rng) + [
+            (v, np.concatenate([touched, rng.randint(
+                0, vocab, 4 * SERVE_BATCH_ROWS).astype(np.int32)]))
+            for v in ("fields", "fields:linear") for _ in range(8)]
+        got = _concurrent([lambda v=v, ids=ids: reg.lookup(sign, v, ids)
+                           for v, ids in reqs])
+        for (v, ids), rows in zip(reqs, got):
+            if isinstance(rows, torch.Tensor):
+                rows = rows.cpu().numpy()
+            if not np.array_equal(rows, expected_rows(host1[v], ids)):
+                raise AssertionError(f"{v} [{ids.size}] after the swap, "
+                                     "beside captures, differs")
+        after = [(v, np.concatenate([touched, rng.randint(
+            0, vocab, cap - touched.size).astype(np.int32)]))
+            for cap in _buckets() for v in ("fields", "fields:linear")]
+        after += [(v, ids.astype(np.int64)) for v, ids in after]
+        swapped = _bucket_reading(
+            model, after, lambda v, ids: expected_rows(host1[v], ids), False)
+        batched1 = reg.lookup(sign, "fields", touched)
+        if not np.array_equal(batched1, expected_rows(host1["fields"],
+                                                      touched)):
+            raise AssertionError("batched lookup after the swap differs")
+        return {"warm_batch_programs": warmed, "warm_s": warm_s,
+                "graphs": graphs, "graphs_after_swap": model.graph_reading(),
+                "parity_requests": PARITY_REQUESTS,
+                "parity_flushes": flushes, "buckets": buckets,
+                "swap_requests": len(reqs), "swap_cases": len(swapped)}
+    finally:
+        reg.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def serve_hash_in_process(path: str, batches, keys64, host) -> dict:
+    """The hash twin's gates in process: batched pair, narrow int32 and
+    int64 requests equal to the unbatched rows and the host dictionary;
+    each bucket's captured pull against the eager one, timed."""
+    from openembedding_tpu_torch.hash_table import split64
+    from openembedding_tpu_torch.serving.registry import ModelRegistry
+    reg = ModelRegistry(device=SERVE_DEVICE)
+    reg.enable_batching(max_batch_rows=SERVE_BATCH_ROWS,
+                        max_wait_us=SERVE_WAIT_US)
+    try:
+        sign = reg.create_model(path, model_sign=HASH_SERVE_SIGN)
+        model = reg.find_model(sign)
+        t0 = time.perf_counter()
+        warmed = reg.warm_batch_programs()
+        warm_s = time.perf_counter() - t0
+        rng = np.random.RandomState(SEED + 15)
+        flat = np.concatenate([b.reshape(-1, 2) for b in batches[:2]])
+        narrow_keys = keys64[keys64 < 2**31]
+        reqs = []
+        for i in range(PARITY_REQUESTS):
+            n = int(rng.randint(1, SERVE_BATCH_ROWS + 1))
+            v = ("fields", "fields:linear")[i % 2]
+            pick = flat[rng.randint(0, flat.shape[0], n)].copy()
+            pick[::9] = split64(rng.randint(1 << 40, 1 << 41, pick[::9]
+                                            .shape[0]))     # misses
+            kind = (i // 2) % 3
+            if kind == 0:
+                reqs.append((v, pick))
+            else:
+                j = narrow_keys[rng.randint(0, narrow_keys.size, n)]
+                reqs.append((v, j.astype(np.int32 if kind == 1
+                                         else np.int64)))
+        got = _concurrent([lambda v=v, q=q: reg.lookup(sign, v, q)
+                           for v, q in reqs])
+        for (v, q), rows in zip(reqs, got):
+            want = host[v].expect(q if q.ndim == 2 else q.astype(np.int64))
+            if not (np.array_equal(rows, model.lookup(v, q).cpu().numpy())
+                    and np.array_equal(rows, want)):
+                raise AssertionError(f"hash batched {v} {q.dtype} "
+                                     f"{q.shape} differs")
+        cases = []
+        for cap in _buckets():
+            pick = flat[rng.randint(0, flat.shape[0], cap)]
+            narrow = narrow_keys[rng.randint(0, narrow_keys.size, cap)]
+            cases += [("fields", pick), ("fields", narrow.astype(np.int32)),
+                      ("fields:linear", pick)]
+        buckets = _bucket_reading(
+            model, cases,
+            lambda v, q: host[v].expect(q if q.ndim == 2
+                                        else q.astype(np.int64)), True)
+        return {"warm_batch_programs": warmed, "warm_s": warm_s,
+                "graphs": model.graph_reading(),
+                "parity_requests": len(reqs), "buckets": buckets}
+    finally:
+        reg.close()
+
+
+def _replica_output(proc) -> str:
+    """A replica's whole output, after it has ended."""
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return out or ""
+
+
+def _stop_replicas(procs) -> dict:
+    """SIGTERM every live replica (an orderly shutdown that reports its
+    kernel launches), SIGKILL a straggler; the launch sums."""
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    sums = {"gather_rows": 0, "probe_gather": 0}
+    for p in procs:
+        for line in _replica_output(p).splitlines():
+            if line.startswith("replica: kernel launches "):
+                for k, v in json.loads(line.split("launches ", 1)[1]).items():
+                    sums[k] += v
+    return sums
+
+
+def _await_replicas(procs, eps, sign) -> list:
+    from openembedding_tpu_torch.serving.ha import wait_ready
+    t0 = time.perf_counter()
+    ready = []
+    for p, ep in zip(procs, eps):
+        if not wait_ready(ep, REPLICA_BOOT_S, sign=sign):
+            p.kill()
+            raise AssertionError(f"replica {ep} not ready: "
+                                 f"{_replica_output(p)[-3000:]}")
+        ready.append(time.perf_counter() - t0)
+    return ready
+
+
+def _storm_line(label: str, res, extra=None) -> dict:
+    s = res.summary()
+    s.update(extra or {})
+    log(f"storm {label}: offered {s['offered_qps']:.1f} QPS, achieved "
+        f"{s['achieved_qps']:.1f}, p50 {s['p50_ms']:.3f} p95 "
+        f"{s['p95_ms']:.3f} p99 {s['p99_ms']:.3f} ms, {s['calls']} calls, "
+        f"{s['errors']} errors, {s['rejected']} rejected, sender late p99 "
+        f"{s['late_p99_ms']:.3f} ms")
+    return s
+
+
+def sweep(router, label: str, vocab: int, eps, seed: int):
+    """Offered rates from ``STORM_QPS0``, x ``STORM_STEP`` a step, until a
+    rate is not sustained (``find_knee``): each ``STORM_RATE_S`` seconds
+    (and ``STORM_MIN_SAMPLES`` arrivals above the first) of Poisson
+    ``lookup_bin`` requests of ``STORM_IDS`` uniform ids. Returns the
+    storms' summaries (with the batcher counters each moved) and the
+    knee's summary."""
+    from openembedding_tpu_torch.serving import load
+    results, out = [], []
+    rate = STORM_QPS0
+    for k in range(STORM_MAX_RATES):
+        duration = STORM_RATE_S if k == 0 \
+            else max(STORM_RATE_S, STORM_MIN_SAMPLES / rate)
+        before = load.scrape_batch_stats(eps)
+        res = load.run_storm(
+            load.make_rest_sender(router, SERVE_SIGN, "fields", vocab,
+                                  STORM_IDS, seed=seed + k),
+            load.poisson_arrivals(rate, duration, seed=seed + k),
+            route=label, offered_qps=rate, duration=duration,
+            workers=STORM_WORKERS)
+        after = load.scrape_batch_stats(eps)
+        moved = {key: after.get(key, 0.0) - before.get(key, 0.0)
+                 for key in after}
+        if moved.get("batch_flushes"):
+            moved["requests_per_flush"] = moved["batch_requests"] \
+                / moved["batch_flushes"]
+            moved["rows_per_flush"] = moved["batch_rows"] \
+                / moved["batch_flushes"]
+        results.append(res)
+        out.append(_storm_line(f"{label} #{k}", res, {"batcher": moved}))
+        if load.find_knee(results) is not res:
+            break
+        rate *= STORM_STEP
+    knee = load.find_knee(results)
+    return out, (knee.summary() if knee is not None else None)
+
+
+def _check_rows(ep: str, sign: str, host, rng, vocab: int) -> int:
+    """Lookups through one replica equal the host rows (``host``: the
+    version the replica loaded): int32 and int64 requests, a bucket-sized
+    one and one above the row cap (the direct path), each with ids the
+    delta changed."""
+    from openembedding_tpu_torch.serving.ha import RoutingClient
+    n = 0
+    touched = np.arange(DELTA_FIRST - 4, DELTA_FIRST + 12)
+    with RoutingClient([ep], timeout=60) as rc:
+        for size, dt in ((16, np.int32), (1000, np.int64),
+                         (4 * SERVE_BATCH_ROWS, np.int32)):
+            ids = np.concatenate([touched, rng.randint(
+                -1, vocab + 1, size - touched.size)]).astype(dt)
+            for v in ("fields", "fields:linear"):
+                if not np.array_equal(rc.lookup(sign, v, ids),
+                                      expected_rows(host[v], ids)):
+                    raise AssertionError(f"replica {ep}: {v} {dt} "
+                                         f"[{size}] differs")
+                n += 1
+    return n
+
+
+def failover(router, procs, eps, rate: float, vocab: int) -> dict:
+    """A ``FAILOVER_S`` storm at ``rate`` through the batched replicas,
+    one of them SIGKILLed ``KILL_AT_S`` seconds in: no read may fail."""
+    import signal
+    import threading
+    from openembedding_tpu_torch.serving import load
+    victim = procs[1]
+    timer = threading.Timer(KILL_AT_S + 0.05,
+                            lambda: victim.send_signal(signal.SIGKILL))
+    timer.start()
+    try:
+        res = load.run_storm(
+            load.make_rest_sender(router, SERVE_SIGN, "fields", vocab,
+                                  STORM_IDS, seed=SEED + 99),
+            load.poisson_arrivals(rate, FAILOVER_S, seed=SEED + 99),
+            route="failover", offered_qps=rate, duration=FAILOVER_S,
+            workers=STORM_WORKERS)
+    finally:
+        timer.cancel()
+    victim.wait(60)
+    _replica_output(victim)
+    reading = _storm_line("failover", res, {"killed": eps[1],
+                                            "kill_at_s": KILL_AT_S})
+    if res.errors:
+        raise AssertionError(f"failover storm: {res.errors} failed reads "
+                             f"({getattr(res, 'first_error', '')})")
+    return reading
+
+
+def restore_from_peers_reading(path: str, eps, ports, rng, vocab) -> tuple:
+    """Respawn the killed replica with ``--peers`` while the dump is
+    unreadable: it restores from a living peer's rows; its rows must
+    equal a survivor's for ``RESTORE_PROBE`` ids of each variable."""
+    from openembedding_tpu_torch.serving.ha import RoutingClient, spawn_replica
+    gone = path + "_gone"
+    os.rename(path, gone)
+    try:
+        t0 = time.perf_counter()
+        proc = spawn_replica(ports[1], peers=[eps[0], eps[2]],
+                             batch_rows=SERVE_BATCH_ROWS,
+                             device=SERVE_DEVICE)
+        _await_replicas([proc], [eps[1]], SERVE_SIGN)
+        restore_s = time.perf_counter() - t0
+    finally:
+        os.rename(gone, path)
+    probe = np.concatenate([
+        np.arange(0, 64), np.arange(DELTA_FIRST - 8, DELTA_FIRST + 56),
+        np.arange(vocab - 64, vocab),
+        rng.randint(0, vocab, RESTORE_PROBE - 192)]).astype(np.int64)
+    with RoutingClient([eps[1]], timeout=120) as fresh, \
+            RoutingClient([eps[0]], timeout=120) as survivor:
+        for v in ("fields", "fields:linear"):
+            got = fresh.lookup(SERVE_SIGN, v, probe)
+            if not np.array_equal(got, survivor.lookup(SERVE_SIGN, v,
+                                                       probe)):
+                raise AssertionError(f"peer-restored {v} rows differ from "
+                                     "the survivor's")
+    return proc, {"restore_s": restore_s, "probed_ids": int(probe.size)}
+
+
+def _metric_names(ep: str) -> list:
+    import urllib.request
+    with urllib.request.urlopen(f"http://{ep}/metrics", timeout=30) as r:
+        body = r.read().decode()
+    missing = [n for n in METRIC_NAMES if n not in body]
+    if missing:
+        raise AssertionError(f"/metrics of {ep} lacks {missing}")
+    return [n for n in METRIC_NAMES]
+
+
+def _hash_storm(router, keys64, rate: float) -> dict:
+    """One storm on the hash replica: 16 stored keys a request, as
+    int32 pairs."""
+    from openembedding_tpu_torch.hash_table import split64
+    from openembedding_tpu_torch.serving import load
+    rng = np.random.RandomState(SEED + 7)
+    pool = split64(keys64[rng.randint(0, keys64.size, (256, STORM_IDS))])
+
+    def send(i):
+        rows = router.lookup(HASH_SERVE_SIGN, "fields", pool[i % 256])
+        if rows.shape[0] != STORM_IDS:
+            raise RuntimeError(f"short read: {rows.shape}")
+
+    res = load.run_storm(send, load.poisson_arrivals(rate, STORM_RATE_S,
+                                                     seed=SEED + 7),
+                         route="hash", offered_qps=rate,
+                         duration=STORM_RATE_S, workers=STORM_WORKERS)
+    return _storm_line("hash", res)
+
+
+def phase_serving_batched() -> dict:
+    """Phase 14: micro-batched, captured and replicated serving of
+    ``deepfm_dim9`` (and one storm of ``deepfm_dim9_hash``) under open
+    load (module docstring). Prints one ``{"serving_batched": ...}``
+    line; returns the kernels' launches: in this process (its counters
+    zeroed at the start) plus the replicas' own, as each reports them
+    at its orderly shutdown."""
+    import tempfile
+    from openembedding_tpu_torch.hash_table import split64
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    from openembedding_tpu_torch.serving.ha import RoutingClient, spawn_replica
+    wrappers = (gather_rows, probe_gather)
+    for w in wrappers:
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="oe_smoke_serve_")
+    t0 = time.perf_counter()
+    procs, routers = [], []
+    reading = {}
+    try:
+        path, _mapper, host0, host1, delta, save_s = _serve_dump(tmp)
+        hpath, hbatches, keys64, hhost = _hash_dump(tmp)
+        torch.cuda.empty_cache()
+        reading["dump_save_s"] = save_s
+        reading["in_process"] = serve_in_process(path, host0, host1, delta)
+        reading["hash_in_process"] = serve_hash_in_process(
+            hpath, hbatches, keys64, hhost)
+        in_process = {w.__name__: w.launches for w in wrappers}
+        del host0
+        torch.cuda.empty_cache()
+        vocab = host1["fields"].shape[0]
+        ports = [_free_port() for _ in range(SERVE_BATCHED_REPLICAS + 2)]
+        eps = [f"127.0.0.1:{p}" for p in ports]
+        load_arg = [f"{SERVE_SIGN}={path}"]
+        for p in ports[:SERVE_BATCHED_REPLICAS]:
+            procs.append(spawn_replica(p, load=load_arg,
+                                       batch_rows=SERVE_BATCH_ROWS,
+                                       device=SERVE_DEVICE))
+        procs.append(spawn_replica(ports[-2], load=load_arg,
+                                   device=SERVE_DEVICE))
+        procs.append(spawn_replica(
+            ports[-1], load=[f"{HASH_SERVE_SIGN}={hpath}"],
+            batch_rows=SERVE_BATCH_ROWS, device=SERVE_DEVICE))
+        reading["replicas_ready_s"] = _await_replicas(
+            procs[:-1], eps[:-1], SERVE_SIGN) + _await_replicas(
+            procs[-1:], eps[-1:], HASH_SERVE_SIGN)
+        rng = np.random.RandomState(SEED + 16)
+        reading["replica_lookups_checked"] = sum(
+            _check_rows(ep, SERVE_SIGN, host1, rng, vocab)
+            for ep in eps[:-1])
+        batched_eps = eps[:SERVE_BATCHED_REPLICAS]
+        batched = RoutingClient(batched_eps, timeout=30)
+        unbatched = RoutingClient([eps[-2]], timeout=30)
+        routers += [batched, unbatched]
+        reading["batched"], knee_b = sweep(batched, "batched", vocab,
+                                           batched_eps, SEED + 20)
+        reading["unbatched"], knee_u = sweep(unbatched, "unbatched", vocab,
+                                             [eps[-2]], SEED + 40)
+        reading["knee_batched"], reading["knee_unbatched"] = knee_b, knee_u
+        reading["metrics"] = _metric_names(batched_eps[0])
+        rate = (knee_b["offered_qps"] if knee_b else STORM_QPS0) / 2
+        reading["failover"] = failover(batched, procs, eps, rate, vocab)
+        procs[1], reading["peer_restore"] = restore_from_peers_reading(
+            path, eps, ports, rng, vocab)
+        hrouter = RoutingClient([eps[-1]], timeout=30)
+        routers.append(hrouter)
+        pairs = split64(keys64[rng.randint(0, keys64.size, 4096)])
+        for v in ("fields", "fields:linear"):
+            if not np.array_equal(hrouter.lookup(HASH_SERVE_SIGN, v, pairs),
+                                  hhost[v].expect(pairs)):
+                raise AssertionError(f"hash replica {v} rows differ")
+        reading["hash_storm"] = _hash_storm(hrouter, keys64, rate)
+    finally:
+        for r in routers:
+            r.close()
+        replica_launches = _stop_replicas(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    reading["phase_s"] = time.perf_counter() - t0
+    reading["launches_in_process"] = in_process
+    reading["launches_replicas"] = replica_launches
+    launches = {k: in_process[k] + replica_launches[k] for k in in_process}
+    reading["launches"] = launches
+    log(json.dumps({"serving_batched": reading}))
+    idle = [f"{where} {k}" for where, counts in (
+        ("in process", in_process), ("in the replicas", replica_launches))
+        for k, n in counts.items() if not n]
+    if idle:
+        raise AssertionError(f"phase 14 launched no {', no '.join(idle)}")
+    return launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -4147,6 +4840,9 @@ def main() -> None:
     if sys.argv[1:] == ["--ingest"]:
         phase_ingest()
         return
+    if sys.argv[1:] == ["--serving"]:
+        phase_serving_batched()
+        return
     coll, states, mapper, host, main_ids = setup_array()
     cases = phase_kernels(states["fields"].weights,
                           states["fields:linear"].weights, main_ids)
@@ -4179,6 +4875,9 @@ def main() -> None:
     ingest = phase_ingest()
     launches += ingest["gather_rows"]
     flat_training += ingest["init_flat"]
+    torch.cuda.empty_cache()
+    served = phase_serving_batched()
+    launches += served["gather_rows"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -4199,7 +4898,7 @@ def main() -> None:
         "replaces": "openembedding_tpu/ops/pallas_hash.py:40",
         "launches": plaunches + hash_launches["probe_gather"]
         + hybrid["probe_gather"] + delta["probe_gather"]
-        + ingest["probe_gather"],
+        + ingest["probe_gather"] + served["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],

@@ -16,22 +16,31 @@ Nothing here touches CUDA at import.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Dict, List
 
 import torch
 
-_tallies: List[Dict[Callable, int]] = []    # captures in progress
+_local = threading.local()      # .tallies: this thread's captures in progress
+
+
+def _tallies() -> List[Dict[Callable, int]]:
+    tallies = getattr(_local, "tallies", None)
+    if tallies is None:
+        tallies = _local.tallies = []
+    return tallies
 
 
 def count(wrapper: Callable) -> None:
     """One launch of ``wrapper``'s kernel on the current CUDA stream."""
     if torch.cuda.is_current_stream_capturing():
-        if not _tallies:
+        tallies = _tallies()
+        if not tallies:
             raise RuntimeError(
                 f"{wrapper.__name__} launched into a CUDA graph captured "
                 "outside ops.launches.CountedGraph, whose replays would go "
                 "uncounted")
-        tally = _tallies[-1]
+        tally = tallies[-1]
         tally[wrapper] = tally.get(wrapper, 0) + 1
         return
     wrapper.launches += 1
@@ -51,13 +60,14 @@ class CountedGraph:
         on its side stream, into the memory ``pool`` if one is given).
         Errors only for unsafe calls of this thread, so a server thread
         of the same process may go on using the card."""
-        _tallies.append(self.tally)
+        tallies = _tallies()
+        tallies.append(self.tally)
         try:
             with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 yield self
         finally:
-            _tallies.remove(self.tally)
+            tallies.remove(self.tally)
 
     def replay(self) -> None:
         """Launch the graph on the current stream; every wrapper's count

@@ -12,6 +12,10 @@ Compressed payloads (``.npyz`` part files, deflated delta npz members)
 are refused by the library with a typed error, which ``NativeModel``
 raises as ``RuntimeError``.
 
+``lookup`` and ``lookup_batched`` count each request in the serving
+lookup metrics (``record_serving_lookup``), as the registry does;
+``make_batcher`` puts the micro-batcher in front of the reader.
+
 Build: ``make -C native`` (g++ only, no dependencies); ``build_library``
 runs it at first use when the library is absent.
 """
@@ -26,6 +30,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..analysis import scope
+from ..utils.observability import record_serving_lookup
+from .batcher import LookupBatcher, dedup_keys
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
@@ -159,7 +165,11 @@ class NativeModel:
         v = self._var(variable)
         dim = self._lib.oe_variable_dim(v)
         name = self._lib.oe_variable_name(v).decode()
-        arr = _join_keys(np.asarray(keys))
+        arr = np.asarray(keys)
+        # recorded before the pair join: the registry counts the raw
+        # elements (2n for [n, 2] pairs), and both feed one series
+        record_serving_lookup(name, arr.size)
+        arr = _join_keys(arr)
         k = np.ascontiguousarray(arr.astype(np.int64).ravel())
         out = np.zeros((k.size, dim), np.float32)
         with scope.span("serving.native_lookup", table=name):
@@ -201,11 +211,14 @@ class NativeModel:
         name = (variable if isinstance(variable, str)
                 else self._lib.oe_variable_name(
                     self._var(variable)).decode())
-        joined = [_join_keys(np.asarray(r)) for r in requests]
+        arrs = [np.asarray(r) for r in requests]
+        for a in arrs:
+            record_serving_lookup(name, a.size)
+        joined = [_join_keys(a) for a in arrs]
         cat = np.concatenate([j.astype(np.int64).ravel()
                               for j in joined]) if joined \
             else np.zeros(0, np.int64)
-        uniq, inverse = np.unique(cat, return_inverse=True)
+        uniq, inverse = dedup_keys(cat)
         rows = self.pull_gather(name, uniq, inverse)
         out, off = [], 0
         for j in joined:
@@ -213,3 +226,14 @@ class NativeModel:
             out.append(rows[off:off + n].reshape(j.shape + (rows.shape[1],)))
             off += n
         return out
+
+    def make_batcher(self, **cfg):
+        """A :class:`~.batcher.LookupBatcher` over this model: concurrent
+        native lookups coalesce into one ``oe_pull_weights_gather`` a
+        flush. The mapped view never changes after open, so the snapshot
+        hook returns nothing. ``cfg``: the batcher's sizing knobs."""
+        def _pull_scatter(_snap, name, uniq, inverse):
+            return self.pull_gather(name, uniq, inverse)
+
+        return LookupBatcher(self.sign or "native", lambda: None, None,
+                             pull_scatter=_pull_scatter, **cfg)

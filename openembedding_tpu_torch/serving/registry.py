@@ -18,17 +18,41 @@ delta (``checkpoint_delta.Delta`` or its wire bytes) under version
 gating: the next seq applies, a stale one is acknowledged as a no-op, a
 gap raises. The patched states are built from copies of the touched
 tensors (copy-on-write) and published by one reference swap under the
-registry lock, so a lookup in flight keeps the snapshot it took. Shard
-slices and micro-batching are later slices and raise
-``NotImplementedError`` when asked for.
+registry lock, so a lookup in flight keeps the snapshot it took.
+
+Micro-batching (``enable_batching``, ``serving/batcher.py``): concurrent
+flat lookups against one model coalesce into one deduplicated pull per
+flush. Each flush pads its unique keys to a power-of-two bucket of at
+least 64 rows, as JAX pads them for its jitted pull. On a CUDA device
+each (variable, bucket, id dtype and shape) then replays one captured
+CUDA graph (``ops.launches.CountedGraph``): its static id buffer is
+filled by a copy, its rows sliced to the flush's keys. A captured graph
+holds the addresses of the state tensors it read, and a hot-swap
+publishes copies of the touched ones, so a model's graphs are bound to
+the ONE states snapshot they were captured on: a flush reading another
+snapshot captures anew for it and frees the old graphs (JAX's jitted
+pull takes the states as arguments and never meets this). On the CPU
+the bucket pull runs eagerly. ``warm_batch_programs`` captures the
+ladder JAX compiles. Serving a shard slice is a later slice and raises
+``NotImplementedError``.
+
+The registry records JAX's serving metrics: each lookup request counts
+in ``record_serving_lookup`` (and ``record_batch_stats`` when the
+evaluate-performance gate is on) under a ``serving.lookup`` span, and
+the registry is the ``serving`` memory source (``loaded_models``,
+``model_bytes``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import threading
+import time
 import traceback
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import checkpoint as ckpt_lib
@@ -38,6 +62,115 @@ from ..embedding import EmbeddingCollection, EmbeddingSpec, not_ported
 from ..meta import ModelMeta, ModelStatus, UNBOUNDED_VOCAB
 from ..utils import fs
 from ..utils.device import DeviceLike, resolve_device
+
+MIN_BUCKET = 64         # the smallest flush bucket, as in JAX
+
+
+def bucket_rows(n: int) -> int:
+    """The flush bucket of ``n`` unique keys: the next power of two, at
+    least :data:`MIN_BUCKET`."""
+    return 1 << max(MIN_BUCKET.bit_length() - 1, (n - 1).bit_length())
+
+
+def _host_view(indices) -> np.ndarray:
+    """A query as a host numpy array (a tensor copied to the host)."""
+    if isinstance(indices, torch.Tensor):
+        return indices.detach().cpu().numpy()
+    return np.asarray(indices)
+
+
+def _num_elements(indices) -> int:
+    if isinstance(indices, torch.Tensor):
+        return int(indices.numel())
+    return int(np.asarray(indices).size)
+
+
+def _tensors(obj):
+    """Every tensor of a table state (weights, slots, keys, counters)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+class _BucketGraphs:
+    """The captured bucket pulls of one model on ONE states snapshot.
+
+    One ``CountedGraph`` per (variable, id dtype, id shape), all captured
+    into one memory pool and replayed one at a time under the owner's
+    lock (their static buffers, and the pool's scratch, are shared).
+    ``build_s`` sums the captures' seconds, ``pool_bytes`` the memory they
+    reserved."""
+
+    def __init__(self, collection: EmbeddingCollection,
+                 states: Dict[str, Any]):
+        self.collection = collection
+        self.states = states
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[Tuple, Tuple[Any, torch.Tensor, torch.Tensor]] = {}
+        self.build_s = 0.0
+        self.pool_bytes = 0
+
+    def _fn(self, name: str, ids: torch.Tensor):
+        coll, states = self.collection, self.states
+
+        def fn():
+            rows = coll.pull(states, {name: ids}, batch_sharded=False,
+                             read_only=True, serving_rows=True)[name]
+            return rows.to(torch.float32)
+        return fn
+
+    def _build(self, key, name: str, host: torch.Tensor) -> np.ndarray:
+        """Capture the pull of ``host``'s shape: one eager run on a side
+        stream first (every kernel's first launch happens outside the
+        capture), whose rows answer this call. The ``CountedGraph``
+        captures on a side stream of its own with ``thread_local`` error
+        mode, so other threads go on launching."""
+        from ..ops.launches import CountedGraph
+        t0 = time.perf_counter()
+        dev = self.collection.device
+        ids = torch.empty(host.shape, dtype=host.dtype, device=dev)
+        ids.copy_(host, non_blocking=True)
+        fn = self._fn(name, ids)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = fn()
+        main.wait_stream(side)
+        first.record_stream(main)
+        graph = CountedGraph()
+        with graph.capture(pool=self.pool):
+            # inside the capture: entering it empties the allocator's cache
+            reserved = torch.cuda.memory_reserved(dev)
+            out = fn()
+        self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        self.graphs[key] = (graph, ids, out)
+        rows = first.cpu().numpy()
+        self.build_s += time.perf_counter() - t0
+        return rows
+
+    def pull(self, name: str, host: torch.Tensor) -> np.ndarray:
+        """Float32 host rows of the host ids ``host`` (a whole bucket)."""
+        key = (name, host.dtype, tuple(host.shape))
+        entry = self.graphs.get(key)
+        if entry is None:
+            return self._build(key, name, host)
+        graph, ids, out = entry
+        ids.copy_(host, non_blocking=True)
+        graph.replay()
+        # the copy to the host waits for the replay, so the static
+        # buffers are free again when it returns
+        return out.cpu().numpy()
+
+    def release(self) -> None:
+        """Free the graphs once the device has finished with them."""
+        torch.cuda.synchronize(self.collection.device)
+        self.graphs.clear()
 
 
 class ServingModel:
@@ -53,11 +186,54 @@ class ServingModel:
         # serializes hot-swaps of this model (the version check and the
         # build); lookups never take it
         self.swap_lock = make_lock(f"serving.swap.{sign}")
+        # the captured bucket pulls (CUDA only) of one states snapshot,
+        # and the lock that serializes their captures and replays
+        self._graphs: Optional[_BucketGraphs] = None
+        self._graph_lock = make_lock(f"serving.graphs.{sign}")
         self._by_id = {collection.variable_id(name): name
                        for name in collection.specs}
 
     def variable_name(self, variable_id: int) -> str:
         return self._by_id[variable_id]
+
+    def _name(self, variable: Any) -> str:
+        name = (variable if isinstance(variable, str)
+                else self._by_id[int(variable)])
+        if name not in self.collection.specs:
+            raise KeyError(f"model {self.sign!r} has no variable {name!r}")
+        return name
+
+    def export_rows(self, variable: Any, offset: int, limit: int):
+        """Page through this replica's live rows: ``(ids, rows, total)``.
+
+        The peer restore's reader (JAX ``ServingModel.export_rows``): a
+        respawned replica pages ``offset`` from 0 to ``total`` on a living
+        peer and rebuilds its state from the pages alone. ``ids`` are
+        int64 (a wide key travels joined), ``rows`` a CPU tensor in the
+        table's dtype. A hash variable pages its slots (``total`` is the
+        capacity; free slots are skipped), an array variable its rows."""
+        name = self._name(variable)
+        spec = self.collection.specs[name]
+        state = self.states[name]
+        if spec.use_hash:
+            from .. import hash_table as hash_lib
+            total = int(state.keys.shape[0])
+            hi = min(offset + limit, total)
+            keys = state.keys[offset:hi].cpu().numpy()
+            empty = hash_lib.empty_key(torch.int32)
+            if keys.ndim == 2:
+                live = keys[:, 1] != empty
+                ids = hash_lib.join64(keys[live])
+            else:
+                live = keys != empty
+                ids = keys[live].astype(np.int64)
+            rows = state.weights[offset:hi].cpu()[torch.from_numpy(live)]
+            return ids, rows, total
+        total = int(spec.input_dim)
+        hi = min(offset + limit, total)
+        ids = np.arange(offset, hi, dtype=np.int64)
+        rows = state.weights[offset:hi].cpu()
+        return ids, rows, total
 
     def lookup(self, variable: Any, indices) -> torch.Tensor:
         """Read-only pull for one variable (by name or variable_id), on the
@@ -75,22 +251,108 @@ class ServingModel:
         On a wide variable any trailing dim of 2 is a pair axis, so a
         narrow ``[B, 2]`` sequence reads as ``B`` pairs: send such
         sequences padded to another length, or as ``[B, 2, 2]`` pairs."""
-        name = (variable if isinstance(variable, str)
-                else self._by_id[int(variable)])
-        if name not in self.collection.specs:
-            raise KeyError(f"model {self.sign!r} has no variable {name!r}")
-        spec = self.collection.specs[name]
+        name = self._name(variable)
         # ONE reference grab = one consistent version of the states: a
         # hot-swap publishes a new dict and never mutates this one
         states = self.states
         sync_point("serving.lookup.snapshot")
+        return self._lookup_impl(name, indices, states)
+
+    def batchable(self, variable: Any, indices) -> Optional[str]:
+        """The variable NAME when this query can ride the micro-batcher
+        (a flat row query: narrow ``[n]`` integer ids, or ``[n, 2]``
+        int32 pairs on a wide hash variable), else None: sequence and
+        pooled queries take the direct path, since batching concatenates
+        key streams."""
+        name = (variable if isinstance(variable, str)
+                else self._by_id.get(int(variable)))
+        if name is None or name not in self.collection.specs:
+            return None
+        spec = self.collection.specs[name]
+        idx = np.asarray(indices)
+        if not np.issubdtype(idx.dtype, np.integer):
+            return None
+        if idx.ndim == 1:
+            return name
+        if idx.ndim == 2 and idx.shape[-1] == 2 and spec.use_hash \
+                and spec.key_dtype == "wide" and idx.dtype == np.int32:
+            return name
+        return None
+
+    def _lookup_impl(self, name: str, indices, states,
+                     record: bool = True, span: bool = True
+                     ) -> torch.Tensor:
+        """The pull against an explicit states snapshot, shared by the
+        direct path (one snapshot a lookup) and the bucket pulls (one a
+        flush). ``record=False`` where the batcher already recorded each
+        request at its offer; ``span=False`` keeps warm-up pulls out of
+        the ``serving.lookup`` histogram."""
+        from ..utils import observability
+        if record:
+            observability.record_serving_lookup(name, _num_elements(indices))
+            if observability.evaluate_performance():
+                observability.record_batch_stats(
+                    {name: _host_view(indices)})
+        spec = self.collection.specs[name]
         idx = self.collection.to_device(name, indices, pair_ndim=2)
         seq_ndim = 3 if spec.use_hash and spec.key_dtype == "wide" else 2
         as_rows = spec.pooling is None or idx.dim() < seq_ndim
-        rows = self.collection.pull(states, {name: idx},
-                                    batch_sharded=False, read_only=True,
-                                    serving_rows=as_rows)
+        ctx = (scope.span("serving.lookup", table=name) if span
+               else contextlib.nullcontext())
+        with ctx:
+            rows = self.collection.pull(states, {name: idx},
+                                        batch_sharded=False, read_only=True,
+                                        serving_rows=as_rows)
         return rows[name]
+
+    def pull_bucket(self, name: str, keys: np.ndarray, states, *,
+                    span: bool = True) -> np.ndarray:
+        """Float32 host rows of a flush's unique ``keys`` against the
+        snapshot ``states``: the keys padded to their bucket
+        (:func:`bucket_rows`) by repeating the last, pulled (one captured
+        graph's replay on CUDA, eagerly on the CPU), the pad rows sliced
+        off. Records no lookup (the batcher recorded each request)."""
+        n = int(keys.shape[0])
+        if n:
+            cap = bucket_rows(n)
+            if cap != n:
+                keys = np.concatenate(
+                    [keys, np.repeat(keys[-1:], cap - n, axis=0)])
+        if n == 0 or self.collection.device.type != "cuda":
+            rows = self._lookup_impl(name, keys, states, record=False,
+                                     span=span)
+            return rows.to(torch.float32).cpu().numpy()[:n]
+        host = self.collection.host_ids(name, keys, pair_ndim=2)
+        ctx = (scope.span("serving.lookup", table=name) if span
+               else contextlib.nullcontext())
+        with ctx, self._graph_lock:
+            graphs = self._graphs
+            if graphs is None or graphs.states is not states:
+                # captured on another snapshot: its graphs read tensors
+                # a hot-swap may have replaced
+                if graphs is not None:
+                    graphs.release()
+                graphs = self._graphs = _BucketGraphs(self.collection,
+                                                      states)
+            rows = graphs.pull(name, host)
+        return rows[:n]
+
+    def graph_reading(self) -> Dict[str, float]:
+        """The captured bucket pulls of the current snapshot: their count,
+        build seconds and pool bytes (all 0 without captures)."""
+        with self._graph_lock:
+            g = self._graphs
+            if g is None:
+                return {"graphs": 0, "build_s": 0.0, "pool_bytes": 0}
+            return {"graphs": len(g.graphs), "build_s": g.build_s,
+                    "pool_bytes": g.pool_bytes}
+
+    def release_graphs(self) -> None:
+        """Free the captured bucket pulls (a retired model's)."""
+        with self._graph_lock:
+            if self._graphs is not None:
+                self._graphs.release()
+                self._graphs = None
 
 
 def _specs_from_meta(meta: ModelMeta,
@@ -130,6 +392,26 @@ class ModelRegistry:
         self._status: Dict[str, Dict[str, Any]] = {}
         # async create_model load threads, joined by close()
         self._loaders: Dict[str, threading.Thread] = {}
+        # micro-batching: enable_batching arms the config; each model's
+        # batcher is made at its first batched lookup and drained at
+        # delete/close; with an online plan each batcher gets a tuner
+        self._batch_cfg: Optional[Dict[str, Any]] = None
+        self._batchers: Dict[str, Any] = {}
+        self._batch_plan: Optional[Any] = None
+        self._tuners: Dict[str, Any] = {}
+        from ..utils import observability
+        observability.register_memory_source("serving", "registry", self)
+
+    def memory_stats(self) -> Dict[str, float]:
+        """The ``serving`` memory gauges: the loaded models and the bytes
+        of their state tensors."""
+        with self._lock:
+            models = list(self._models.values())
+        total = sum(int(t.numel()) * t.element_size()
+                    for m in models for st in m.states.values()
+                    for t in _tensors(st))
+        return {"loaded_models": float(len(models)),
+                "model_bytes": float(total)}
 
     def create_model(self, model_uri: str, *,
                      model_sign: Optional[str] = None,
@@ -182,9 +464,16 @@ class ModelRegistry:
                         version=int(load_info.get("applied_seq", 0)))
                 sync_point("registry.load.commit")
                 with self._lock:
+                    replaced = self._models.get(sign)
                     self._models[sign] = model
                     self._status[sign]["model_status"] = ModelStatus.NORMAL
                     self._status[sign]["version"] = model.version
+                # a same-sign reload replaced the model: drain the batcher
+                # bound to the old one (keep_model spares a batcher a
+                # racing lookup already bound to the new one)
+                self._close_batchers([sign], keep_model=model)
+                if replaced is not None:
+                    replaced.release_graphs()
             except Exception as e:  # noqa: BLE001 — recorded as ERROR status
                 with self._lock:
                     self._status[sign]["model_status"] = ModelStatus.ERROR
@@ -210,12 +499,180 @@ class ModelRegistry:
                 t.start()
         return sign
 
-    def lookup(self, sign: str, variable: Any, indices) -> torch.Tensor:
-        """Serve one lookup against a NORMAL model."""
-        return self.find_model(sign).lookup(variable, indices)
+    # --- micro-batched lookups (serving/batcher.py) ------------------------
+    def enable_batching(self, *, max_batch_rows: int = 0,
+                        max_wait_us: Optional[int] = None,
+                        max_queue_rows: int = 0,
+                        timeout: float = 30.0,
+                        plan: Optional[Any] = None) -> None:
+        """Arm the micro-batching lookup scheduler: concurrent flat
+        lookups against one model coalesce into one deduplicated pull a
+        flush, with responses bit-identical to unbatched lookups. Zero or
+        None keeps a knob's default (``batcher.knob_defaults``); an
+        explicit ``max_wait_us=0`` flushes at once. ``plan`` (an
+        ``envconfig.PlanConfig``) with its ``online`` switch set gives
+        every batcher an :class:`batcher.AdaptiveBatchTuner`."""
+        from . import batcher as batcher_mod
+        defaults = batcher_mod.knob_defaults()
+        cfg = {"max_batch_rows": max_batch_rows
+               or defaults["max_batch_rows"],
+               "max_wait_us": defaults["max_wait_us"]
+               if max_wait_us is None else max_wait_us,
+               "max_queue_rows": max_queue_rows
+               or defaults["max_queue_rows"],
+               "timeout": timeout}
+        with self._lock:
+            self._batch_cfg = cfg
+            self._batch_plan = plan
 
-    def enable_batching(self, **_kwargs) -> None:
-        raise not_ported("micro-batched serving", "serving micro-batching")
+    @property
+    def batching_enabled(self) -> bool:
+        with self._lock:
+            return self._batch_cfg is not None
+
+    def _batcher_for(self, sign: str, model: ServingModel):
+        """This sign's batcher, made at first use and bound to ONE
+        ServingModel object: a same-sign replacement (create_model or
+        register_model) gets a fresh batcher and the stale one is drained.
+        None when batching is off or the model is no longer live."""
+        from . import batcher as batcher_mod
+        stale = None
+        stale_tuner = None
+        try:
+            with self._lock:
+                entry = self._batchers.get(sign)
+                if entry is not None:
+                    if entry[0] is model:
+                        return entry[1]
+                    stale = self._batchers.pop(sign)[1]
+                    stale_tuner = self._tuners.pop(sign, None)
+                if self._batch_cfg is None \
+                        or self._models.get(sign) is not model:
+                    return None
+                b = self._make_batcher(sign, model, self._batch_cfg)
+                self._batchers[sign] = (model, b)
+                if self._batch_plan is not None \
+                        and getattr(self._batch_plan, "online", False):
+                    self._tuners[sign] = batcher_mod.AdaptiveBatchTuner(
+                        b, self._batch_plan)
+                return b
+        finally:
+            if stale_tuner is not None:
+                stale_tuner.stop(restore=False)
+            if stale is not None:
+                # outside the registry lock: the drain flush pulls
+                stale.close()
+
+    def _make_batcher(self, sign: str, model: ServingModel, cfg):
+        from . import batcher as batcher_mod
+
+        def _snap(model=model):
+            # the flush's one reference grab
+            return model.states
+
+        def _pull(states, name, uniq, model=model):
+            return model.pull_bucket(name, uniq, states)
+
+        return batcher_mod.LookupBatcher(sign, _snap, _pull, **cfg)
+
+    def warm_batch_programs(self, *, dtypes=("int32", "int64")) -> int:
+        """Build every bucket pull the NORMAL models' flushes can run
+        (each power-of-two bucket from 64 up to ``max_batch_rows``, or the
+        plan's ``rows_ceiling`` in online mode, for each id dtype and,
+        on a wide hash variable, for int32 pairs), so the first storm
+        meets no capture. On CUDA each is a captured graph (an int64
+        narrow query of a wide variable shares its pairs' graph);
+        on the CPU each runs once eagerly. Returns the count JAX's
+        registry returns for the same model. No-op unless batching is
+        armed."""
+        with self._lock:
+            cfg = self._batch_cfg
+            plan = self._batch_plan
+            models = list(self._models.values())
+        if cfg is None:
+            return 0
+        warm_rows = cfg["max_batch_rows"]
+        if plan is not None and getattr(plan, "online", False):
+            warm_rows = max(warm_rows, plan.rows_ceiling)
+        n = 0
+        for model in models:
+            states = model.states
+            for name, spec in model.collection.specs.items():
+                wide = spec.use_hash and spec.key_dtype == "wide"
+                cap = MIN_BUCKET
+                while True:
+                    for dt in dtypes:
+                        model.pull_bucket(name, np.zeros(cap, np.dtype(dt)),
+                                          states, span=False)
+                        n += 1
+                    if wide:
+                        model.pull_bucket(name, np.zeros((cap, 2), np.int32),
+                                          states, span=False)
+                        n += 1
+                    if cap >= warm_rows:
+                        break
+                    cap <<= 1
+        return n
+
+    def lookup(self, sign: str, variable: Any, indices):
+        """Serve one lookup against a NORMAL model: micro-batched (host
+        float32 rows) when batching is armed and the query is flat and no
+        larger than the batcher's live row cap, else direct (rows on the
+        device). Raises ``batcher.BusyError`` when the bounded queue
+        refuses the offer (REST answers 429)."""
+        model = self.find_model(sign)
+        with self._lock:
+            cfg = self._batch_cfg
+        if cfg is not None and not isinstance(indices, torch.Tensor):
+            idx = np.asarray(indices)
+            name = model.batchable(variable, idx)
+            if name is not None:
+                b = self._batcher_for(sign, model)
+                if b is not None and int(idx.shape[0]) <= b.max_batch_rows:
+                    return b.lookup(name, idx)
+            indices = idx
+        return model.lookup(variable, indices)
+
+    def _close_batchers(self, signs=None, keep_model=None) -> None:
+        """Drain and drop batchers (``signs``, or all). ``keep_model``
+        spares a batcher already bound to that model object."""
+        with self._lock:
+            if signs is None:
+                entries, self._batchers = list(self._batchers.values()), {}
+                tuners, self._tuners = list(self._tuners.values()), {}
+            else:
+                entries = []
+                tuners = []
+                for s in signs:
+                    entry = self._batchers.get(s)
+                    if entry is None or entry[0] is keep_model:
+                        continue
+                    entries.append(self._batchers.pop(s))
+                    t = self._tuners.pop(s, None)
+                    if t is not None:
+                        tuners.append(t)
+        for t in tuners:
+            t.stop(restore=False)
+        for _model, b in entries:
+            # outside the registry lock: a drain flush pulls
+            b.close()
+
+    def register_model(self, model: ServingModel, *,
+                       replica_num: int = 3) -> str:
+        """Install an externally assembled model (the peer restore: its
+        states were streamed from a living replica, not a dump)."""
+        with self._lock:
+            self._models[model.sign] = model
+            self._status[model.sign] = {
+                "model_sign": model.sign,
+                "model_uri": model.meta.model_uri or "",
+                "model_status": ModelStatus.NORMAL, "model_error": "",
+                "replica_num": replica_num,
+                "shard_index": 0, "shard_count": 1,
+                "version": model.version,
+            }
+        self._close_batchers([model.sign], keep_model=model)
+        return model.sign
 
     def apply_delta(self, sign: str, delta) -> Dict[str, Any]:
         """Hot-swap a loaded model's rows from a trainer-published delta
@@ -269,16 +726,27 @@ class ModelRegistry:
             t.join(timeout)
 
     def close(self, timeout: float = 60.0) -> None:
-        """Join outstanding async loads."""
+        """Join outstanding async loads and drain every batcher (accepted
+        requests get their response, later offers are refused); batching
+        disarms, so a straggler cannot start a flusher again."""
         self.join_loads(timeout)
+        with self._lock:
+            self._batch_cfg = None
+            self._batch_plan = None
+        self._close_batchers()
 
     def delete_model(self, sign: str) -> None:
         with self._lock:
             if sign not in self._status:
                 raise KeyError(sign)
             self._status[sign]["model_status"] = ModelStatus.DELETING
-            self._models.pop(sign, None)
+            model = self._models.pop(sign, None)
             del self._status[sign]
+        # in-flight flushes finish against their snapshot; new offers
+        # are refused
+        self._close_batchers([sign])
+        if model is not None:
+            model.release_graphs()
 
     def find_model(self, sign: str) -> ServingModel:
         """NORMAL-status model, KeyError when unknown, RuntimeError while
@@ -303,3 +771,16 @@ class ModelRegistry:
     def show_models(self) -> List[Dict[str, Any]]:
         with self._lock:
             return [dict(v) for v in self._status.values()]
+
+    # --- nodes: the device this registry serves on -------------------------
+    def show_nodes(self) -> List[Dict[str, Any]]:
+        """The registry's device as the JAX registry lists its mesh's:
+        ``{"node_id", "platform", "kind"}`` (``gpu`` and the card's name
+        on CUDA, ``cpu`` twice on the CPU, as JAX's CPU devices read)."""
+        if self.device.type == "cuda":
+            index = self.device.index if self.device.index is not None \
+                else torch.cuda.current_device()
+            return [{"node_id": int(index), "platform": "gpu",
+                     "kind": torch.cuda.get_device_name(index)}]
+        return [{"node_id": 0, "platform": self.device.type,
+                 "kind": self.device.type}]

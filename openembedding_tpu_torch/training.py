@@ -130,6 +130,14 @@ def _host(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def _stats_view(x) -> np.ndarray:
+    """A batch column as the numpy array ``record_batch_stats`` scans: a
+    host array as it is, a tensor copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def _state_leaves(obj, path=()):
     """``(path, leaf)`` for every leaf of a state: its tensors, and its
     host values (a hash table's ``init_rng``, baked into its init-rows
@@ -440,6 +448,11 @@ class Trainer:
         batch's chunks are marked from the host batch after the step."""
         try:
             with scope.step_span(self._host_step):
+                # the batch-shape stats of JAX's step (always-on gauges,
+                # one scan a table a second; every batch when the gate is
+                # on), from the batch's host arrays, outside the program
+                observability.record_batch_stats(
+                    {k: _stats_view(v) for k, v in batch["sparse"].items()})
                 host = self.host_batch(batch)
                 loss, built = self._run(self.programs, self._step, state,
                                         host)
@@ -513,7 +526,20 @@ class Trainer:
         cached eval program of the batch's signature and the state's
         tensors (built at the first call, as a JAX ``jit``: on CUDA one
         captured graph, replayed by later calls; a failed capture
-        raises). The scores are a tensor of their own."""
+        raises). The scores are a tensor of their own.
+
+        With ``observability.set_evaluate_performance(True)`` the eval
+        runs under an ``eval`` span and waits for its scores, as JAX's
+        does; otherwise it returns without waiting."""
+        if not observability.evaluate_performance():
+            return self._eval(state, batch)
+        with scope.span("eval"):
+            scores = self._eval(state, batch)
+            if scores.device.type == "cuda":
+                torch.cuda.synchronize(scores.device)
+            return scores
+
+    def _eval(self, state: TrainState, batch) -> torch.Tensor:
         scores, built = self._run(self.eval_programs, self._scores, state,
                                   self.host_batch(batch))
         self.eval_builds += built

@@ -6,7 +6,9 @@ the periodic reporter and a streaming AUC (the port's copy of
 counters; the last-value gauges (checkpoint chain length and write rate,
 the serving hot-swap version) and labeled gauges sit beside them;
 ``record_ckpt_save`` and ``record_swap`` feed the delta checkpoint and
-hot-swap ledgers; ``prometheus_text`` renders everything (with the span
+hot-swap ledgers, ``record_batch_stats`` the trainer's and the server's
+batch-shape gauges and ``record_serving_lookup`` the server's lookup-size
+histogram; ``add_labeled`` is a labeled counter; ``prometheus_text`` renders everything (with the span
 histograms of ``analysis/scope.py`` and the host-memory ledger) in the
 text exposition format, line for line the JAX package's. Host timings
 and host reads mean nothing inside a CUDA graph capture, where the
@@ -178,6 +180,22 @@ def ingest_stall_records(accumulator: Optional[Accumulator] = None) -> int:
     return (accumulator or GLOBAL).calls("ingest_stall")
 
 
+def record_serving_lookup(name: str, size: float,
+                          accumulator: Optional[Accumulator] = None) -> None:
+    """Serving-side statistics of ONE lookup request, always on (one
+    histogram bump): the ``serving_lookup_requests`` and
+    ``serving_lookup_ids`` counters and the per-variable lookup-size
+    distribution ``serving_lookup_rows{table=...}``, which the
+    micro-batcher is sized from. ``size`` is the request's number of
+    index ELEMENTS (a wide ``[n, 2]`` pair query counts 2n, its wire
+    volume)."""
+    acc = accumulator or GLOBAL
+    acc.add("serving_lookup_requests", 1.0)
+    acc.add("serving_lookup_ids", float(size))
+    scope.HISTOGRAMS.observe("serving_lookup_rows", float(size),
+                             table=str(name))
+
+
 def under_trace(tree=None) -> bool:
     """True while the current CUDA stream captures a graph: host-side
     timers and counters must not record there (the host code runs once
@@ -245,6 +263,14 @@ def labeled_gauges() -> Dict[str, Dict[Tuple[Tuple[str, str], ...],
     with _LABELED_GAUGE_LOCK:
         return {name: dict(series)
                 for name, series in _LABELED_GAUGES.items()}
+
+
+def add_labeled(name: str, value: float = 1.0, **labels) -> None:
+    """Labeled monotonic counter in the scope registry: rendered as
+    ``oe_<name>_total{label="..."}`` on /metrics, read back with
+    ``scope.HISTOGRAMS.counter(name, **labels)`` (the adaptive batch
+    tuner's ``plan_adjust{knob=,direction=}`` steps count here)."""
+    scope.HISTOGRAMS.inc(name, float(value), **labels)
 
 
 # --- checkpoint / serving-swap counters (delta checkpoint plane) -------------

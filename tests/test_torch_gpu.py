@@ -1052,3 +1052,81 @@ def test_compressed_reload_on_card(kind, tmp_path):
         want = trainer.collection.pull(state.emb, {name: ids},
                                        read_only=True)[name]
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_captured_bucket_pulls_match_eager_across_a_swap(tmp_path):
+    """The batched registry's bucket pulls replay captured graphs whose
+    rows equal the eager lookup's bit for bit, for int32, int64 and pair
+    ids at several bucket sizes; after ``apply_delta`` the graphs are
+    captured anew on the new snapshot and serve the new version's rows;
+    the replays count as K1 and K2 launches."""
+    _need_card()
+    from openembedding_tpu_torch import checkpoint as ck
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                    EmbeddingSpec)
+    from openembedding_tpu_torch.serving.registry import ModelRegistry
+    adagrad = {"category": "adagrad", "learning_rate": 0.1}
+    coll = EmbeddingCollection(
+        [EmbeddingSpec(name="arr", input_dim=5000, output_dim=9),
+         EmbeddingSpec(name="w", input_dim=-1, output_dim=9,
+                       hash_capacity=1 << 14, key_dtype="wide")],
+        device="cuda", default_optimizer=adagrad)
+    coll.enable_dirty_tracking(target_chunks=16)
+    states = coll.init()
+    rng = np.random.RandomState(3)
+
+    def train(seed):
+        r = np.random.RandomState(seed)
+        idx = {"arr": r.randint(0, 5000, 512).astype(np.int32),
+               "w": th.split64(r.randint(0, 1 << 40, 512))}
+        rows = coll.pull(states, idx)
+        coll.apply_gradients(states, idx, {k: torch.ones_like(v) * 0.3
+                                           for k, v in rows.items()})
+        return idx
+
+    keys = train(0)["w"]
+    path = str(tmp_path / "m")
+    ck.save_checkpoint(path, coll, states, mode="delta", step=0,
+                       model_sign="cap-1")
+    reg = ModelRegistry(device="cuda")
+    reg.enable_batching(max_batch_rows=1024, max_wait_us=0)
+    sign = reg.create_model(path)
+    model = reg.find_model(sign)
+    assert reg.warm_batch_programs() == 5 * 2 + 5 * 3
+    assert model.graph_reading()["graphs"] == 5 * 2 + 5 * 2
+
+    def check():
+        for n in (1, 63, 64, 65, 700, 1024):
+            for dt in (np.int32, np.int64):
+                ids = rng.randint(-3, 5003, n).astype(dt)
+                before = tg.gather_rows.launches
+                got = reg.lookup(sign, "arr", ids)
+                assert tg.gather_rows.launches == before + 1
+                want = model.lookup("arr", ids).cpu().numpy()
+                np.testing.assert_array_equal(got, want)
+            pairs = np.ascontiguousarray(
+                keys[rng.randint(0, len(keys), n)]).astype(np.int32)
+            pairs[::7] = th.split64(rng.randint(1 << 41, 1 << 42, 1))
+            before = tp.probe_gather.launches
+            got = reg.lookup(sign, "w", pairs)
+            assert tp.probe_gather.launches == before + 1
+            np.testing.assert_array_equal(
+                got, model.lookup("w", pairs).cpu().numpy())
+
+    check()
+    builds = model.graph_reading()["build_s"]
+    keys = np.concatenate([keys, train(1)["w"]])
+    delta = cd.save_delta(path, coll, states, step=1, return_payload=True,
+                          compact_bytes_ratio=1e18,
+                          background_compact=False)["delta"]
+    assert reg.apply_delta(sign, delta)["applied"]
+    probe = np.arange(0, 5000, 7, dtype=np.int32)[:1000]
+    np.testing.assert_array_equal(
+        reg.lookup(sign, "arr", probe),
+        coll.pull(states, {"arr": probe}, read_only=True)["arr"]
+        .cpu().numpy())
+    assert model.graph_reading()["build_s"] != builds   # captured anew
+    check()
+    reg.close()

@@ -284,7 +284,7 @@ SLICE = ["analysis/concurrency.py", "analysis/scope.py", "analysis/chaos.py",
          "utils/observability.py", "utils/compress.py", "utils/fs.py",
          "dirty.py", "embedding.py", "checkpoint.py", "checkpoint_delta.py",
          "training.py", "serving/registry.py", "serving/rest.py",
-         "data/stream.py"]
+         "serving/batcher.py", "serving/ha.py", "data/stream.py"]
 LATER = {"trainer.prep.run"}     # the offload pipeline (host offload)
 
 

@@ -182,8 +182,9 @@ def test_async_create_and_delete(served):
 
 def test_registry_refuses_later_slices(served, tmp_path, devices8):
     reg = ModelRegistry(device="cpu")
-    with pytest.raises(NotImplementedError, match="micro-batch"):
-        reg.enable_batching(max_batch_rows=64)
+    # micro-batching is ported: armed here, checked on the hash model below
+    reg.enable_batching(max_batch_rows=64)
+    assert reg.batching_enabled
     # delta hot-swap is ported: garbage bytes refuse typed, as in JAX
     from openembedding_tpu_torch.checkpoint_delta import DeltaDecodeError
     with pytest.raises(DeltaDecodeError, match="no header line"):
@@ -201,6 +202,14 @@ def test_registry_refuses_later_slices(served, tmp_path, devices8):
     assert reg.create_model(hpath) == "h-1"
     assert reg.show_model("h-1")["model_status"] == "NORMAL"
     assert reg.lookup("h-1", "h", np.arange(3)).shape == (3, 4)
+    # a flat lookup rode the batcher: host rows equal the direct lookup's
+    batched = reg.lookup("h-1", "h", np.arange(5, dtype=np.int32))
+    assert isinstance(batched, np.ndarray)
+    np.testing.assert_array_equal(
+        batched, reg.find_model("h-1").lookup(
+            "h", np.arange(5, dtype=np.int32)).numpy())
+    assert reg._batcher_for("h-1", reg.find_model("h-1")).stats()[
+        "flushes"] >= 1
     # one whose hash variable has int64 keys fails its load: ERROR status,
     # clear message
     meta_path = os.path.join(hpath, "model_meta")

@@ -291,7 +291,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 15
     for rel in (("analysis", "retrace.py"), ("data", "stream.py"),
                 ("data", "tfrecord.py"), ("data", "preprocess.py"),
-                ("utils", "envconfig.py"), ("serving", "native.py")):
+                ("utils", "envconfig.py"), ("serving", "native.py"),
+                ("serving", "batcher.py"), ("serving", "ha.py"),
+                ("serving", "load.py")):
         assert os.path.join(REPO, "openembedding_tpu_torch", *rel) in files
     bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in _BANNED]
