@@ -7,8 +7,8 @@ then the serving and training paths driven end to end at full width.
 (``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
 two versions of the kernel in turns within one call; see ``ki_only``.
 ``python3 chip_smoke.py --hybrid`` runs phase 11 alone, ``--delta``
-phase 12, ``--ingest`` phase 13, ``--serving`` phase 14. None of them
-prints a result line.)
+phase 12, ``--ingest`` phase 13, ``--serving`` phase 14, ``--offload``
+phase 15, ``--drivers`` phase 16. None of them prints a result line.)
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -203,6 +203,33 @@ Phases, in order; any failure raises and the run exits nonzero:
    unreadable, its rows restored from a peer equal to a survivor's; one
    storm of the hash replica. K1 and K2 counted in this process and in
    each replica (reported at its SIGTERM shutdown);
+15. host offload (run after phase 14; ``--offload`` alone):
+   ``offload_ab_k4`` (bench.py:1668-1670) at full width, run as
+   ``run_offload`` runs it: ``uid`` and ``uid:linear`` in 5 x 10^7-row
+   host stores behind 2^22-row device caches, ``ctx`` array tables,
+   ``DeepFM``, batches of 4096 zipf uids. Under deterministic algorithms
+   a card trainer driven serially (its store a disk memmap), one
+   prefetched at K=4 and a CPU trainer from the card state's copy take 4
+   steps: K=4 equal to serial bit for bit, the card within the CPU's
+   (losses rtol 1e-4, cache keys bit-identical, host stores atol 1e-5 +
+   rtol 1e-4 on the touched rows, a sample of the others bit for bit);
+   the same ids in in-HBM array tables bit for bit; a 2^16-row cache
+   evicting at least twice in 48 steps, against the CPU, with no
+   recapture. Then serial, K=1 and K=4 on the same batches (examples/s,
+   step and prepare ms, hit rate), 2 K1 + 2 K2 + 4 KI launches a step;
+   4 K=4 steps under ``set_sync_debug_mode("error")``; a trace of 10 K=4
+   steps (busy share, idle gaps by host activity, the launches again,
+   packed-insert H2D GB/s); the writeback's D2H GB/s; ``uid:linear``
+   persisted (base, increment) and restored bit for bit; KI against its
+   plain version with the device-held key; ``offload_bigvocab`` (4 x
+   10^8 rows) when the disk holds its store;
+16. the drivers (``--drivers`` alone): ``python -m
+   openembedding_tpu_torch.examples.criteo_deepctr`` in process with
+   ``criteo_hist_hybrid``'s flags and ``--save``, its checkpoint served
+   through ``POST /models`` with every variable's rows equal to the
+   saved state; the fused default with ``--save``, then ``--load
+   --eval_steps 2``; ``export_dense`` of the ``deepfm_dim9`` tables
+   against their host copy, timed;
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
 12. last line: ``{"ok": true, "device": {...}}``.
@@ -1408,8 +1435,9 @@ def _idle_by_host(gaps, host):
     return dict(sorted(out.items(), key=lambda kv: -kv[1])[:8])
 
 
-def training_trace(trainer, state, batches, trace_path, lead) -> dict:
-    """A ``torch.profiler`` trace of ``TRACE_STEPS`` steps (``train_step``:
+def training_trace(trainer, state, batches, trace_path, lead,
+                   steps: int = TRACE_STEPS) -> dict:
+    """A ``torch.profiler`` trace of ``steps`` steps (``train_step``:
     replays of the captured step) inside an annotated window, after one
     lead-in step on ``lead`` (the profiler may miss the first kernels of
     its trace): the device's busy share of the window's wall time
@@ -1432,12 +1460,12 @@ def training_trace(trainer, state, batches, trace_path, lead) -> dict:
         before = {k: w.launches for k, w in wrappers.items()}
         with record_function(TRACE_WINDOW):
             t0 = time.perf_counter()
-            for i in range(TRACE_STEPS):
+            for i in range(steps):
                 state, _ = trainer.train_step(state,
                                               batches[i % len(batches)])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    counted = {k: (w.launches - before[k]) / TRACE_STEPS
+    counted = {k: (w.launches - before[k]) / steps
                for k, w in wrappers.items()}
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
@@ -1493,30 +1521,30 @@ def training_trace(trainer, state, batches, trace_path, lead) -> dict:
     # each replay whose kernels the profiler recorded holds each kernel
     # as many times as the counters say a step launches it
     traced = [v for c, v in replays.items() if recorded[c]] or [
-        {k: n / TRACE_STEPS for k, n in window.items()}]
+        {k: n / steps for k, n in window.items()}]
     if any({k: float(n) for k, n in v.items()} != counted for v in traced):
         raise AssertionError(
             f"trace: kernel launches per replay {traced} in the trace "
             f"({len(replays)} graph launches), {counted} a step by the "
             "counters")
     kernels = sum(1 for e in events if e["cat"] == "kernel")
-    return {"steps": TRACE_STEPS, "wall_us": wall_us,
+    return {"steps": steps, "wall_us": wall_us,
             "device_busy_us": busy,
             "device_busy_share": busy / wall_us if spans else None,
-            "kernels_per_step": kernels / TRACE_STEPS,
-            "device_ops_per_step": len(events) / TRACE_STEPS,
-            "graph_launches_per_step": len(replays) / TRACE_STEPS,
+            "kernels_per_step": kernels / steps,
+            "device_ops_per_step": len(events) / steps,
+            "graph_launches_per_step": len(replays) / steps,
             "replays_with_kernels_recorded": len(traced),
             "kernels_per_replay": statistics.mean(recorded.values())
             if recorded else None,
-            "traced_launches_per_step": {k: n / TRACE_STEPS
+            "traced_launches_per_step": {k: n / steps
                                          for k, n in window.items()},
             "launches_per_step": counted,
             "top5_us": dict(sorted(by_name.items(),
                                    key=lambda kv: -kv[1])[:5]),
             "longest_idle_gaps_us": sorted((b - a for a, b in gaps),
                                            reverse=True)[:5],
-            "idle_gaps_per_step": len(gaps) / TRACE_STEPS,
+            "idle_gaps_per_step": len(gaps) / steps,
             "idle_us_by_host": _idle_by_host(gaps, host)}
 
 
@@ -1981,17 +2009,18 @@ def ki_bound(keys: torch.Tensor, skip: torch.Tensor, dim: int,
                                        else "bytes")
 
 
-def check_ki_case(name, keys, skip, dim, dtype, cfg, flush):
+def check_ki_case(name, keys, skip, dim, dtype, cfg, flush,
+                  base=(0x12345678, 0x9ABCDEF0)):
     """KI against its plain version on the card on one case (exact for
     uniform and constant draws, normal ones within
     ``2^-21 * (|want| + stddev)``, bfloat16 one unit more), timed beside
-    the plain version and the bound."""
+    the plain version and the bound. ``base``: the key words, or a
+    ``[2]`` int32 device tensor of them (an offload cache's)."""
     from openembedding_tpu_torch.ops.init_rows import (init_rows,
                                                        init_rows_reference)
     from openembedding_tpu_torch.optim import initializers as ti
     init = ti.make_initializer(cfg)
     kind, params = ti.keyed_params(init)
-    base = (0x12345678, 0x9ABCDEF0)
     out = torch.full((keys.shape[0], dim), 3.0, dtype=dtype,
                      device=keys.device)
     ref = out.clone()
@@ -2015,6 +2044,7 @@ def check_ki_case(name, keys, skip, dim, dtype, cfg, flush):
     return {"case": name, "n": int(keys.shape[0]), "dim": dim,
             "dtype": str(dtype).replace("torch.", ""),
             "keys": "pairs" if keys.dim() == 2 else "int32",
+            "base": "device" if isinstance(base, torch.Tensor) else "host",
             "draw": cfg["category"] + ("/truncated" if cfg.get("truncated")
                                        else ""),
             "filled": int(keys.shape[0] - int(skip.sum())),
@@ -3285,35 +3315,41 @@ def elastic_and_swap(kind: str, tmp: str) -> dict:
         share = _dirty_share(trainer, state, batches)
         auto = os.path.join(tmp, f"{kind}_auto")
 
-        def hooked():
-            for i, b in enumerate(batches):
-                if i == AUTOSAVE_EVERY:
-                    # after step 4 and its (full) autosave: serve the base
-                    status, body = _post(conn, "/models", json.dumps(
-                        {"model_uri": auto, "model_sign": f"{kind}-auto",
-                         "block": True}).encode())
-                    if status != 201:
-                        raise AssertionError(
-                            f"POST /models: HTTP {status} {body!r}")
-                    seen["sign"] = json.loads(body)["model_sign"]
-                    seen["requests"] = _serve_check(
-                        conn, seen["sign"], state, probe, hashed,
-                        f"{kind} base")
-                    seen["version0"] = server.registry.find_model(
-                        seen["sign"]).version
-                if i == KILLED_AT:
-                    seen["rows8"] = {v: _expected(state, v, probe, hashed)
-                                     for v in ("fields", "fields:linear")}
-                yield b
+        # the hooks run before a step (fit fetches its batches a window
+        # ahead, so a batch generator would run them too early)
+        orig_step, calls = trainer.train_step, [0]
+
+        def hooked_step(state_, b, **kw):
+            i, calls[0] = calls[0], calls[0] + 1
+            if i == AUTOSAVE_EVERY:
+                # after step 4 and its (full) autosave: serve the base
+                status, body = _post(conn, "/models", json.dumps(
+                    {"model_uri": auto, "model_sign": f"{kind}-auto",
+                     "block": True}).encode())
+                if status != 201:
+                    raise AssertionError(
+                        f"POST /models: HTTP {status} {body!r}")
+                seen["sign"] = json.loads(body)["model_sign"]
+                seen["requests"] = _serve_check(
+                    conn, seen["sign"], state, probe, hashed,
+                    f"{kind} base")
+                seen["version0"] = server.registry.find_model(
+                    seen["sign"]).version
+            if i == KILLED_AT:
+                seen["rows8"] = {v: _expected(state, v, probe, hashed)
+                                 for v in ("fields", "fields:linear")}
+            return orig_step(state_, b, **kw)
         scope.reset()
         builds0 = trainer.builds
         cd.save_delta = publishing_save_delta
+        trainer.train_step = hooked_step
         try:
-            state, m = trainer.fit(state, hooked(),
+            state, m = trainer.fit(state, batches,
                                    autosave_every=AUTOSAVE_EVERY,
                                    autosave_dir=auto, retrace_budget=0)
         finally:
             cd.save_delta = orig_save_delta
+            del trainer.train_step
         builds_u = trainer.builds - builds0
 
         # interrupted after 8 steps, then resumed by a fresh trainer
@@ -3810,7 +3846,53 @@ def ingest_fits(tmp: str, tsv: list) -> dict:
     reading["throughput"] = tput
     reading["stream_over_memory"] = (tput["streamed"]["examples_per_s"]
                                      / tput["in_memory"]["examples_per_s"])
+    reading["fit_loop_ab"] = fit_loop_ab(first, batches)
     return reading, trainer, state, rec_s["seen"][-1]
+
+
+def _prior_fit(trainer, state, batches):
+    """The loop ``fit`` ran before it took JAX's window (kept here to
+    compare the two): launch the step, then fetch the next batch, its
+    wall time recorded as the step's stall. Returns ``(state,
+    examples/s over the steady window from step 2)``."""
+    from openembedding_tpu_torch.utils import observability
+    it, marks = iter(batches), []
+    batch = next(it, None)
+    while batch is not None:
+        marks.append(time.perf_counter())
+        state, _ = trainer.train_step(state, batch)
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        observability.record_ingest_stall(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return state, (len(marks) - 1) * BATCH / (time.perf_counter()
+                                              - marks[1])
+
+
+def fit_loop_ab(first, batches, blocks: int = 5) -> dict:
+    """The captured ``deepfm_dim9`` fit in memory through ``fit`` (JAX's
+    window of ``pipeline_depth + 1`` batches) and through the loop it ran
+    before (``_prior_fit``), ``blocks`` blocks each over the same batches
+    in turns on one trainer and state: examples/s, medians and spreads
+    (max - min over median)."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    tr, _ = build_trainer("cuda")
+    st = tr.init(prng_key(SEED), first)
+    runs = {"window": [], "prior": []}
+    for _ in range(blocks):
+        st, r, _ = _recorded_fit(tr, st, batches)
+        runs["window"].append(r["examples_per_s"])
+        st, eps = _prior_fit(tr, st, batches)
+        runs["prior"].append(eps)
+    out = {"blocks": runs, "builds": tr.builds}
+    for k, v in runs.items():
+        med = statistics.median(v)
+        out[f"{k}_median"] = med
+        out[f"{k}_spread"] = (max(v) - min(v)) / med
+    out["moved"] = out["window_median"] / out["prior_median"] - 1
+    del tr, st
+    torch.cuda.empty_cache()
+    return out
 
 
 def _brief(reading: dict) -> dict:
@@ -4758,6 +4840,760 @@ def phase_serving_batched() -> dict:
     return launches
 
 
+# --- phase 15: host offload (offload_ab_k4) -----------------------------------
+
+OFFLOAD_VOCAB = 50_000_000     # offload_ab_* (bench.py:1662-1670)
+OFFLOAD_CACHE = 1 << 22
+OFFLOAD_DIM = 8
+OFFLOAD_CTX = 100_000
+OFFLOAD_ZIPF = 1.08
+OFFLOAD_SMALL_CACHE = 1 << 16  # smaller than the working set: evicts
+OFFLOAD_CHECK_STEPS = 4        # card steps held against CPU steps
+OFFLOAD_EVICT_STEPS = 48       # steps through the small cache
+OFFLOAD_WARMUP = 3
+OFFLOAD_TIMED = 32             # timed steps a mode and a round
+OFFLOAD_ROUNDS = 2             # rounds of serial, K=1, K=4 in turns
+OFFLOAD_TRACE_STEPS = 10
+OFFLOAD_SYNC_STEPS = 4         # hand-driven K=4 steps under sync debug
+OFFLOAD_DEVICE = "cuda"
+OFFLOAD_SAMPLE = 1 << 20       # untouched store rows compared bit for bit
+BIGVOCAB = 400_000_000         # offload_bigvocab (bench.py:1650)
+BIGVOCAB_STEPS = 24            # its timed K=4 steps
+
+
+def _zipf_uid_batch_maker(rng, batch, vocab, zipf_a):
+    """bench.py's synthetic stream of the offload benches (copied, not
+    imported): zipf-skewed ``uid`` over the whole store, a bounded
+    ``ctx``."""
+    def make_batch():
+        z = rng.zipf(zipf_a, size=batch)
+        uid = ((z * 2654435761) % vocab).astype(np.int32)
+        ctx = rng.randint(0, OFFLOAD_CTX, batch).astype(np.int32)
+        return {"label": (rng.rand(batch) > 0.75).astype(np.float32),
+                "dense": rng.randn(batch, 13).astype(np.float32),
+                "sparse": {"uid": uid, "uid:linear": uid,
+                           "ctx": ctx, "ctx:linear": ctx}}
+    return make_batch
+
+
+def build_offload_trainer(device, cache=None, backing=None, depth=4,
+                          offloaded=True, vocab=None):
+    """``run_offload``'s trainer (bench.py:286-341): ``uid`` and
+    ``uid:linear`` as ``ShardedOffloadedTable`` s (vocab 5 x 10^7, dims 8
+    and 1, Adagrad 0.01, constant 0.01, host store a disk memmap under
+    ``backing`` when given), ``ctx`` and ``ctx:linear`` array tables of
+    10^5 rows, ``DeepFM`` over (uid, ctx), dense Adagrad 0.01.
+    ``offloaded=False``: ``uid`` as in-HBM array tables instead, the same
+    configs. ``cache``: rows of each cache (``OFFLOAD_CACHE`` unless
+    given); ``vocab``: the host stores' rows (``OFFLOAD_VOCAB`` unless
+    given, ``offload_bigvocab``'s 4 x 10^8). Returns ``(trainer, {name:
+    table})``."""
+    cache = cache or OFFLOAD_CACHE
+    vocab = vocab or OFFLOAD_VOCAB
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                   EmbeddingSpec)
+    from openembedding_tpu_torch.meta import EmbeddingVariableMeta
+    from openembedding_tpu_torch.models import deepctr
+    from openembedding_tpu_torch.offload import ShardedOffloadedTable
+    from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.training import Trainer
+    opt = {"category": "adagrad", "learning_rate": 0.01}
+    init = {"category": "constant", "value": 0.01}
+    tables = {}
+    if offloaded:
+        tables = {name: ShardedOffloadedTable(
+            name, EmbeddingVariableMeta(embedding_dim=d,
+                                        vocabulary_size=vocab),
+            opt, init, vocab=vocab, cache_capacity=cache,
+            device=device, backing_dir=backing)
+            for name, d in (("uid", OFFLOAD_DIM), ("uid:linear", 1))}
+        uid_specs = tuple(t.embedding_spec() for t in tables.values())
+    else:
+        uid_specs = tuple(
+            EmbeddingSpec(name=name, input_dim=vocab, output_dim=d,
+                          optimizer=opt, initializer=init)
+            for name, d in (("uid", OFFLOAD_DIM), ("uid:linear", 1)))
+    specs = uid_specs + (
+        EmbeddingSpec(name="ctx", input_dim=OFFLOAD_CTX,
+                      output_dim=OFFLOAD_DIM, optimizer=opt),
+        EmbeddingSpec(name="ctx:linear", input_dim=OFFLOAD_CTX,
+                      output_dim=1, optimizer=opt))
+    coll = EmbeddingCollection(specs, device=device)
+    trainer = Trainer(deepctr.build_model("deepfm", ("uid", "ctx"),
+                                          embedding_dim=OFFLOAD_DIM),
+                      coll, dense.adagrad(0.01), offload=tables,
+                      pipeline_depth=depth)
+    return trainer, tables
+
+
+def _offload_steps(trainer, state, batches, prefetch: bool):
+    """Steps over ``batches``, hand-driven as bench.py drives them (with
+    ``prefetch`` of the batch and ``pipeline_depth`` after it, or
+    serially); the losses as floats, read after the last step."""
+    losses = []
+    for i, b in enumerate(batches):
+        if prefetch:
+            trainer.prefetch(batches[i:i + 1 + trainer.pipeline_depth])
+        state, m = trainer.train_step(state, b)
+        losses.append(m["loss"])
+    return state, [float(x) for x in losses]
+
+
+def _join_tables(tables, state):
+    """Flush every dirty row of every table and join the writers (a join
+    point: the host stores are current after it)."""
+    for name, t in tables.items():
+        t.finish()
+        t.flush(state.emb[name])
+        t._join_writeback()
+
+
+def _store_close(what, a, b, exact, rng) -> float:
+    """Two tables' host stores: the rows either stamped (touched), exactly
+    or within atol 1e-5 + rtol 1e-4, with their work ids, and a sample
+    of ``OFFLOAD_SAMPLE`` untouched rows bit for bit; the largest
+    difference."""
+    stamped = (a.host_work_id > 0) | (b.host_work_id > 0)
+    touched = np.nonzero(stamped)[0]
+    sample = rng.randint(0, a.vocab, OFFLOAD_SAMPLE)
+    sample = sample[~stamped[sample]]
+    worst = 0.0
+    for name, x, y in [("weights", a.host_weights, b.host_weights)] + [
+            (k, a.host_slots[k], b.host_slots[k]) for k in a.host_slots]:
+        xs, ys = x[touched], y[touched]
+        diff = float(np.abs(xs - ys).max()) if xs.size else 0.0
+        worst = max(worst, diff)
+        ok = np.array_equal(xs, ys) if exact else np.allclose(
+            xs, ys, atol=1e-5, rtol=1e-4)
+        if not ok or not np.array_equal(x[sample], y[sample]):
+            raise AssertionError(f"{what}: host {name} differ (largest "
+                                 f"difference {diff})")
+    if not np.array_equal(a.host_work_id[touched], b.host_work_id[touched]):
+        raise AssertionError(f"{what}: host work ids differ")
+    return worst
+
+
+def _keys_equal(what, sa, sb, names=("uid", "uid:linear")) -> None:
+    for name in names:
+        if not torch.equal(sa.emb[name].keys.cpu(), sb.emb[name].keys.cpu()):
+            raise AssertionError(f"{what}: {name} cache keys differ")
+
+
+def _rel_close(what, got, want, rtol=1e-4) -> None:
+    if not np.allclose(got, want, rtol=rtol, atol=0):
+        raise AssertionError(f"{what}: losses {got} against {want}")
+
+
+def offload_gates(make_batch, tmp) -> dict:
+    """The correctness gates, under deterministic algorithms: a card
+    trainer driven serially (host store a memmap) and one prefetched at
+    K=4 from the same seed, and a CPU trainer from the card state's copy,
+    ``OFFLOAD_CHECK_STEPS`` steps each; then the in-HBM array twin; then
+    the small cache against a CPU twin, evicting."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    from openembedding_tpu_torch.training import copy_state
+    check = [make_batch() for _ in range(OFFLOAD_CHECK_STEPS + 1)]
+    out = {}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        t_ser, tab_ser = build_offload_trainer(
+            OFFLOAD_DEVICE, backing=os.path.join(tmp, "store"))
+        out["alloc_s"] = time.perf_counter() - t0
+        out["store_bytes"] = sum(t.memory_stats()["store_bytes"]
+                                 for t in tab_ser.values())
+        out["store_memmap"] = bool(tab_ser["uid"].memory_stats()[
+            "store_memmap"])
+        s_ser = t_ser.init(prng_key(SEED), check[0])
+        t_k4, tab_k4 = build_offload_trainer(OFFLOAD_DEVICE)
+        s_k4 = t_k4.init(prng_key(SEED), check[0])
+        t_cpu, tab_cpu = build_offload_trainer("cpu")
+        s_cpu = copy_state(s_ser, "cpu")
+        s_ser, l_ser = _offload_steps(t_ser, s_ser, check[1:], False)
+        s_k4, l_k4 = _offload_steps(t_k4, s_k4, check[1:], True)
+        s_cpu, l_cpu = _offload_steps(t_cpu, s_cpu, check[1:], False)
+        _keys_equal("card K=4 against CPU", s_k4, s_cpu)
+        _keys_equal("card K=4 against serial", s_k4, s_ser)
+        for tabs, st in ((tab_ser, s_ser), (tab_k4, s_k4),
+                         (tab_cpu, s_cpu)):
+            _join_tables(tabs, st)
+        _rel_close("card K=4 against CPU", l_k4, l_cpu)
+        if l_k4 != l_ser:
+            raise AssertionError(f"K=4 losses {l_k4} != serial {l_ser}")
+        rng = np.random.RandomState(SEED)
+        out["cpu_max_abs"] = max(_store_close(
+            f"{n} card against CPU", tab_k4[n], tab_cpu[n], False, rng)
+            for n in tab_k4)
+        for n in tab_k4:
+            _store_close(f"{n} K=4 against serial", tab_k4[n], tab_ser[n],
+                         True, rng)
+        out["losses"] = {"card_k4": l_k4, "card_serial": l_ser,
+                         "cpu": l_cpu}
+        # the same ids in in-HBM array tables (constant init)
+        t_arr, _ = build_offload_trainer(OFFLOAD_DEVICE, offloaded=False)
+        s_arr = t_arr.init(prng_key(SEED), check[0])
+        s_arr, l_arr = _offload_steps(t_arr, s_arr, check[1:], False)
+        _rel_close("offloaded against in-HBM", l_ser, l_arr)
+        uids = np.unique(np.concatenate([b["sparse"]["uid"]
+                                         for b in check[1:]]))
+        arr = {"uid": s_arr.emb["uid"], "uid:linear": s_arr.emb["uid:linear"]}
+        worst, exact = 0.0, True
+        for n, st in arr.items():
+            idx = torch.from_numpy(uids.astype(np.int64)).to(
+                st.weights.device)
+            for k, want in [("weights", st.weights)] + list(
+                    st.slots.items()):
+                w = want.index_select(0, idx).cpu().numpy()
+                got = tab_ser[n].host_weights[uids] if k == "weights" \
+                    else tab_ser[n].host_slots[k][uids]
+                worst = max(worst, float(np.abs(got - w).max()))
+                exact = exact and np.array_equal(got, w)
+                if not np.allclose(got, w, atol=1e-5, rtol=1e-4):
+                    raise AssertionError(
+                        f"{n} {k}: offloaded rows differ from the in-HBM "
+                        f"table's by {float(np.abs(got - w).max())}")
+        out["against_in_hbm"] = {"max_abs": worst, "bit_identical": exact,
+                                 "losses_equal": l_arr == l_ser,
+                                 "rows": int(uids.size)}
+        del t_arr, s_arr, arr, t_cpu, s_cpu, tab_cpu, t_k4, s_k4, tab_k4
+        torch.cuda.empty_cache()
+        # a cache smaller than the working set evicts, card against CPU
+        small = [make_batch() for _ in range(OFFLOAD_EVICT_STEPS)]
+        t_sm, tab_sm = build_offload_trainer(OFFLOAD_DEVICE,
+                                             cache=OFFLOAD_SMALL_CACHE)
+        s_sm = t_sm.init(prng_key(SEED), check[0])
+        t_smc, tab_smc = build_offload_trainer("cpu",
+                                               cache=OFFLOAD_SMALL_CACHE)
+        s_smc = copy_state(s_sm, "cpu")
+        t0 = time.perf_counter()
+        s_sm, l_sm = _offload_steps(t_sm, s_sm, small, True)
+        card_s = time.perf_counter() - t0
+        s_smc, l_smc = _offload_steps(t_smc, s_smc, small, False)
+        _keys_equal("small cache, card against CPU", s_sm, s_smc)
+        _join_tables(tab_sm, s_sm)
+        _join_tables(tab_smc, s_smc)
+        _rel_close("small cache, card against CPU", l_sm, l_smc)
+        ev = tab_sm["uid"].evictions
+        if ev < 2 or ev != tab_smc["uid"].evictions:
+            raise AssertionError(f"small cache: {ev} evictions on the "
+                                 f"card, {tab_smc['uid'].evictions} on "
+                                 "the CPU (2 or more expected)")
+        if t_sm.builds != 1:
+            raise AssertionError(f"small cache: {t_sm.builds} step "
+                                 "programs built (evictions recaptured)")
+        out["small_cache"] = {
+            "rows": OFFLOAD_SMALL_CACHE, "steps": OFFLOAD_EVICT_STEPS,
+            "evictions": ev, "gen_retries": tab_sm["uid"].gen_retries,
+            "recaptures": t_sm.builds - 1,
+            "card_steps_s": card_s,
+            "max_abs": max(_store_close(f"{n} small cache", tab_sm[n],
+                                        tab_smc[n], False, rng)
+                           for n in tab_sm)}
+        del t_sm, s_sm, tab_sm, t_smc, s_smc, tab_smc
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the serial trainer goes on to the timed blocks: its program was
+    # captured under deterministic algorithms, so it is dropped
+    t_ser.programs.clear()
+    torch.cuda.empty_cache()
+    return out, (t_ser, tab_ser, s_ser), check
+
+
+def _timed_mode(trainer, table, state, batches, mode, prep_times):
+    """One timed block: ``batches`` serially or prefetched at the
+    trainer's depth; step ms, examples/s, host-prepare ms a step and the
+    uid cache's hits and misses (residency read before each step)."""
+    uniqs = [np.unique(b["sparse"]["uid"]) for b in batches]
+    hits = misses = 0
+    prep_times.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, b in enumerate(batches):
+        was = int(table._resident[uniqs[i]].sum())
+        hits += was
+        misses += uniqs[i].size - was
+        if mode != "serial":
+            trainer.prefetch(batches[i:i + 1 + trainer.pipeline_depth])
+        state, m = trainer.train_step(state, b)
+    float(m["loss"])
+    dt = time.perf_counter() - t0
+    return state, {"seconds": dt, "steps": len(batches),
+                   "prepare_s": sum(prep_times), "hits": hits,
+                   "misses": misses}
+
+
+def offload_throughput(make_batch, serial, check) -> dict:
+    """Serial, K=1 and K=4 on the same batches: the gates' serial trainer
+    (no prefetch), and two fresh card trainers (prefetched at depth 1 and
+    4) that first take the gates' batches, so that all three enter the
+    timed rounds with the same residency; ``OFFLOAD_WARMUP`` steps, then
+    ``OFFLOAD_ROUNDS`` rounds of ``OFFLOAD_TIMED`` steps each mode in
+    turns, each round on new batches."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    modes = {"serial": serial}
+    for name, depth in (("k1", 1), ("k4", 4)):
+        tr, tabs = build_offload_trainer(OFFLOAD_DEVICE, depth=depth)
+        st = tr.init(prng_key(SEED), check[0])
+        st, _ = _offload_steps(tr, st, check[1:], True)
+        modes[name] = (tr, tabs, st)
+    prep = {}
+    for name, (tr, tabs, st) in modes.items():
+        prep[name] = []
+        for t in tabs.values():
+            def timed_hp(ids, _orig=t.host_prepare, _acc=prep[name]):
+                t0 = time.perf_counter()
+                out = _orig(ids)
+                _acc.append(time.perf_counter() - t0)
+                return out
+            t.host_prepare = timed_hp
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    wrappers = (gather_rows, probe_gather, init_rows, init_flat)
+    before = {w.__name__: w.launches for w in wrappers}
+    warm = [make_batch() for _ in range(OFFLOAD_WARMUP)]
+    for name, (tr, tabs, st) in modes.items():
+        st, _ = _offload_steps(tr, st, warm, name != "serial")
+        modes[name] = (tr, tabs, st)
+    blocks = {name: [] for name in modes}
+    builds = {name: m[0].builds for name, m in modes.items()}
+    for _ in range(OFFLOAD_ROUNDS):
+        timed = [make_batch() for _ in range(OFFLOAD_TIMED)]
+        for name, (tr, tabs, st) in modes.items():
+            st, r = _timed_mode(tr, tabs["uid"], st, timed, name,
+                                prep[name])
+            modes[name] = (tr, tabs, st)
+            blocks[name].append(r)
+    out = {}
+    for name, rs in blocks.items():
+        steps = sum(r["steps"] for r in rs)
+        secs = sum(r["seconds"] for r in rs)
+        hits = sum(r["hits"] for r in rs)
+        misses = sum(r["misses"] for r in rs)
+        out[name] = {
+            "examples_per_s": steps * BATCH / secs,
+            "step_ms": 1e3 * secs / steps,
+            "prepare_ms": 1e3 * sum(r["prepare_s"] for r in rs) / steps,
+            "block_step_ms": [1e3 * r["seconds"] / r["steps"] for r in rs],
+            "cache_hit_rate": hits / max(hits + misses, 1),
+            "evictions": modes[name][1]["uid"].evictions,
+            "recaptures": modes[name][0].builds - builds[name]}
+    steps = len(modes) * (OFFLOAD_WARMUP + OFFLOAD_ROUNDS * OFFLOAD_TIMED)
+    per_step = {w.__name__: (w.launches - before[w.__name__]) / steps
+                for w in wrappers}
+    for name, (tr, tabs, st) in modes.items():
+        for t in tabs.values():
+            del t.host_prepare
+    return out, modes, per_step
+
+
+class _Prefetching:
+    """A trainer whose ``train_step`` prefetches the step's window of a
+    batch list first (``training_trace`` drives ``train_step`` alone)."""
+
+    def __init__(self, trainer, batches):
+        self.trainer, self.batches = trainer, batches
+
+    def train_step(self, state, batch):
+        i = next(k for k, b in enumerate(self.batches) if b is batch)
+        self.trainer.prefetch(
+            self.batches[i:i + 1 + self.trainer.pipeline_depth])
+        return self.trainer.train_step(state, batch)
+
+
+def _memcpy_rate(trace_path: str, kind: str) -> dict:
+    """Bytes, device microseconds and GB/s of a trace's memcpy events of
+    ``kind`` (e.g. ``"Pinned -> Device"``)."""
+    with open(trace_path) as f:
+        ev = [e for e in json.load(f).get("traceEvents", [])
+              if e.get("cat") == "gpu_memcpy" and kind in e.get("name", "")]
+    nbytes = sum(int(e.get("args", {}).get("bytes", 0)) for e in ev)
+    us = sum(float(e.get("dur", 0.0)) for e in ev)
+    return {"copies": len(ev), "bytes": nbytes, "device_us": us,
+            "gb_per_s": nbytes / us / 1e3 if us else None}
+
+
+def offload_joins(trainer, tables, state, make_batch, tmp) -> dict:
+    """On the K=4 trainer: hand-driven steps under sync debug "error" (no
+    device read between two join points), a traced window of
+    ``OFFLOAD_TRACE_STEPS`` steps, the writeback of every dirty row timed
+    (CUDA events around its copies), and ``uid:linear`` persisted (base,
+    then an increment) and restored into a fresh table bit for bit."""
+    from openembedding_tpu_torch.meta import EmbeddingVariableMeta
+    from openembedding_tpu_torch.offload import ShardedOffloadedTable
+    out = {}
+    batches = [make_batch() for _ in range(OFFLOAD_SYNC_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = []
+        for i, b in enumerate(batches):
+            trainer.prefetch(batches[i:i + 1 + trainer.pipeline_depth])
+            state, m = trainer.train_step(state, b)
+            losses.append(m["loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out["sync_debug_steps"] = len(losses)
+    # the trace (launch counts from counters and trace must agree)
+    traced = [make_batch() for _ in range(OFFLOAD_TRACE_STEPS)]
+    lead = make_batch()
+    trace_path = os.path.join(tmp, "offload_trace.json")
+    inserted = sum(t.insert_bytes for t in tables.values())
+    out["trace"] = training_trace(_Prefetching(trainer, [lead] + traced),
+                                  state, traced, trace_path, lead,
+                                  steps=OFFLOAD_TRACE_STEPS)
+    out["insert_h2d"] = _memcpy_rate(trace_path, "Pinned -> Device")
+    out["insert_bytes_per_step"] = (sum(t.insert_bytes for t in
+                                        tables.values()) - inserted) \
+        / (OFFLOAD_TRACE_STEPS + 1)
+    os.remove(trace_path)
+    # the writeback of the dirty rows: device copies and the scatter
+    uid = tables["uid"]
+    for t in tables.values():
+        t.finish()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = uid.flush(state.emb["uid"])
+    uid._join_writeback()
+    wall = time.perf_counter() - t0
+    ms = uid.writeback_ms()
+    out["writeback_d2h"] = {"dirty_rows": rows, "bytes": uid.writeback_bytes,
+                            "device_ms": ms,
+                            "gb_per_s": uid.writeback_bytes / ms / 1e6
+                            if ms else None,
+                            "wall_s_with_scatter": wall}
+    # persist (base, then an increment after 4 more steps) and restore
+    lin = tables["uid:linear"]
+    pdir = os.path.join(tmp, "persist_uid_linear")
+    t0 = time.perf_counter()
+    base = lin.persist(state.emb["uid:linear"], pdir)
+    base_s = time.perf_counter() - t0
+    more = [make_batch() for _ in range(4)]
+    state, _ = _offload_steps(trainer, state, more, True)
+    t0 = time.perf_counter()
+    inc = lin.persist(state.emb["uid:linear"], pdir)
+    inc_s = time.perf_counter() - t0
+    fresh = ShardedOffloadedTable(
+        "uid:linear", EmbeddingVariableMeta(embedding_dim=1,
+                                            vocabulary_size=OFFLOAD_VOCAB),
+        {"category": "adagrad", "learning_rate": 0.01},
+        {"category": "constant", "value": 0.01}, vocab=OFFLOAD_VOCAB,
+        cache_capacity=OFFLOAD_CACHE, device=OFFLOAD_DEVICE)
+    t0 = time.perf_counter()
+    fresh.restore(pdir)
+    restore_s = time.perf_counter() - t0
+    same = np.array_equal(fresh.host_weights, lin.host_weights) and all(
+        np.array_equal(fresh.host_slots[k], lin.host_slots[k])
+        for k in lin.host_slots) and np.array_equal(fresh.host_work_id,
+                                                    lin.host_work_id)
+    if not same:
+        raise AssertionError("uid:linear: restored host store differs")
+    size = sum(os.path.getsize(os.path.join(pdir, f))
+               for f in os.listdir(pdir))
+    out["persist_uid_linear"] = {
+        "base_s": base_s, "base_rows": base["rows"], "inc_s": inc_s,
+        "inc_rows": inc["rows"], "bytes": size, "restore_s": restore_s,
+        "restored_bit_equal": same}
+    for t in tables.values():
+        t.finish()
+    return out, state
+
+
+def offload_bigvocab(tmp) -> dict:
+    """``offload_bigvocab`` (bench.py:1650): the K=4 trainer over 4 x 10^8-
+    row host stores (~35 GB, disk memmaps under ``tmp``), the same cache,
+    batch and stream; ``OFFLOAD_WARMUP`` steps, then ``BIGVOCAB_STEPS``
+    timed. Run only when the disk holds the stores with a quarter to
+    spare; the reading says so otherwise."""
+    import gc
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    row_bytes = {OFFLOAD_DIM: OFFLOAD_DIM * 8 + 8, 1: 1 * 8 + 8}
+    need = sum(row_bytes.values()) * BIGVOCAB
+    free = shutil.disk_usage(tmp).free
+    if free < 1.25 * need:
+        return {"skipped": f"{free / 1e9:.1f} GB free on disk, "
+                           f"{need / 1e9:.1f} GB of store"}
+    make_batch = _zipf_uid_batch_maker(np.random.RandomState(SEED + 1),
+                                       BATCH, BIGVOCAB, OFFLOAD_ZIPF)
+    backing = os.path.join(tmp, "bigvocab")
+    t0 = time.perf_counter()
+    tr, tabs = build_offload_trainer(OFFLOAD_DEVICE, backing=backing,
+                                     vocab=BIGVOCAB)
+    alloc_s = time.perf_counter() - t0
+    first = make_batch()
+    st = tr.init(prng_key(SEED), first)
+    prep = []
+    for t in tabs.values():
+        def timed_hp(ids, _orig=t.host_prepare):
+            t1 = time.perf_counter()
+            out = _orig(ids)
+            prep.append(time.perf_counter() - t1)
+            return out
+        t.host_prepare = timed_hp
+    st, _ = _offload_steps(tr, st, [make_batch()
+                                    for _ in range(OFFLOAD_WARMUP)], True)
+    timed = [make_batch() for _ in range(BIGVOCAB_STEPS)]
+    st, r = _timed_mode(tr, tabs["uid"], st, timed, "k4", prep)
+    for t in tabs.values():
+        t.finish()
+    out = {"vocab": BIGVOCAB, "store_bytes": sum(
+               t.memory_stats()["store_bytes"] for t in tabs.values()),
+           "alloc_s": alloc_s, "steps": r["steps"],
+           "examples_per_s": r["steps"] * BATCH / r["seconds"],
+           "step_ms": 1e3 * r["seconds"] / r["steps"],
+           "prepare_ms": 1e3 * r["prepare_s"] / r["steps"],
+           "cache_hit_rate": r["hits"] / max(r["hits"] + r["misses"], 1),
+           "evictions": tabs["uid"].evictions, "builds": tr.builds}
+    del tr, tabs, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(backing, ignore_errors=True)
+    return out
+
+
+def offload_ki_cases(trainer, state, batch) -> list:
+    """KI against its plain version with the base key read from the
+    device, as an offload cache holds it (``ShardedOffloadedTable.
+    adopt``): the uid pull's own skip flags on the K=4 trainer's cache
+    (constant draw, dims 8 and 1) and the same keys all missing under a
+    uniform draw. Its launches here are not counted as the main path's."""
+    from openembedding_tpu_torch import hash_table as hash_lib
+    from openembedding_tpu_torch.ops.init_rows import init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    dev = trainer.device
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    counted = init_rows.launches, probe_gather.launches
+    cache = state.emb["uid"]
+    keys = torch.from_numpy(batch["sparse"]["uid"]).to(dev)
+    bsz, _, chain = hash_lib.table_layout(cache.capacity,
+                                          hash_lib.DEFAULT_MAX_PROBES)
+    _, hit = hash_lib.probe_gather(cache.keys, cache.weights, keys,
+                                   chain=chain, bucket=bsz, empty=EMPTY32)
+    none = torch.zeros_like(hit)
+    cfg = trainer.collection.initializer("uid").to_config()
+    uniform = {"category": "uniform", "minval": -1e-3, "maxval": 1e-3}
+    key = cache.init_rng
+    cases = [
+        check_ki_case("offload_pull_uid_dim8_constant_device_key", keys,
+                      hit, OFFLOAD_DIM, torch.float32, cfg, flush, key),
+        check_ki_case("offload_pull_linear_dim1_constant_device_key", keys,
+                      hit, 1, torch.float32, cfg, flush, key),
+        check_ki_case("offload_all_missing_dim8_uniform_device_key", keys,
+                      none, OFFLOAD_DIM, torch.float32, uniform, flush, key),
+    ]
+    init_rows.launches, probe_gather.launches = counted
+    return cases
+
+
+def phase_offload() -> dict:
+    """Phase 15: ``offload_ab_k4`` (bench.py:1668-1670) at full width on
+    the card, run as ``run_offload`` runs it: the gates
+    (``offload_gates``), serial / K=1 / K=4 throughput on the same
+    batches (``offload_throughput``), then the joins on the K=4 trainer
+    (``offload_joins``). Host stores (one a disk memmap) and the persist
+    chain under a ``tempfile.mkdtemp()``, removed at the end. Prints one
+    ``{"offload": ...}`` line; returns the kernels' launches of the
+    phase's steps (counters zeroed at its start) and KI's cases with a
+    device-held key (``offload_ki_cases``)."""
+    import tempfile
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    wrappers = (gather_rows, probe_gather, init_rows, init_flat)
+    for w in wrappers:
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="oe_smoke_offload_")
+    t0 = time.perf_counter()
+    reading = {"config": {"vocab": OFFLOAD_VOCAB, "cache": OFFLOAD_CACHE,
+                          "dim": OFFLOAD_DIM, "batch": BATCH,
+                          "zipf_a": OFFLOAD_ZIPF},
+               "disk_free_gb": shutil.disk_usage(tmp).free / 1e9}
+    try:
+        make_batch = _zipf_uid_batch_maker(np.random.RandomState(SEED),
+                                           BATCH, OFFLOAD_VOCAB,
+                                           OFFLOAD_ZIPF)
+        gates, serial, check = offload_gates(make_batch, tmp)
+        reading["gates"] = gates
+        modes_reading, modes, per_step = offload_throughput(
+            make_batch, serial, check)
+        want = {"gather_rows": 2, "probe_gather": 2, "init_rows": 4,
+                "init_flat": 0}
+        if per_step != want:
+            raise AssertionError(f"offload launches a step {per_step}, "
+                                 f"expected {want}")
+        reading["modes"] = modes_reading
+        reading["launches_per_step"] = per_step
+        tr, tabs, st = modes.pop("k4")
+        del modes
+        joins, st = offload_joins(tr, tabs, st, make_batch, tmp)
+        reading.update(joins)
+        reading["init_rows_cases"] = offload_ki_cases(tr, st, make_batch())
+        del tr, tabs, st, serial
+        reading["bigvocab"] = offload_bigvocab(tmp)
+        traced = joins["trace"]["launches_per_step"]
+        if {k: traced[k] for k in want if k in traced} != {
+                k: float(v) for k, v in want.items() if k in traced}:
+            raise AssertionError(f"offload trace launches {traced}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reading["phase_s"] = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    reading["launches"] = launches
+    log(json.dumps({"offload": reading}))
+    return launches, reading["init_rows_cases"]
+
+
+# --- phase 16: the drivers and export_dense -----------------------------------
+
+DRIVER_BUCKETS = 1 << 20       # --num_buckets (deepfm_dim9's vocabulary)
+DRIVER_STEPS = 4
+
+
+def _driver(argv) -> str:
+    """``python -m openembedding_tpu_torch.examples.criteo_deepctr argv``
+    in this process (the card, ``--device cuda``); its standard output."""
+    import contextlib
+    import io
+    from openembedding_tpu_torch.examples import criteo_deepctr
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = criteo_deepctr.main(list(argv) + ["--device", OFFLOAD_DEVICE])
+    text = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"criteo_deepctr {argv}: rc {rc}\n{text}")
+    return text
+
+
+def _driver_reading(text: str) -> dict:
+    import re
+    losses = [float(v) for v in re.findall(r"^step \d+: loss=([0-9.]+)$",
+                                           text, re.M)]
+    eps = re.search(r"^trained (\d+) steps, (\d+) examples/s$", text, re.M)
+    auc = re.search(r"^eval AUC over \d+ batches: ([0-9.]+)$", text, re.M)
+    if any(not np.isfinite(x) for x in losses):
+        raise AssertionError(f"driver losses not finite: {losses}")
+    return {"losses": losses,
+            "examples_per_s": int(eps.group(2)) if eps else None,
+            "eval_auc": float(auc.group(1)) if auc else None}
+
+
+def _serve_every_variable(path: str, coll) -> dict:
+    """The checkpoint at ``path`` through ``POST /models`` of a
+    ``ControllerServer`` on the card: ``lookup_bin`` of 4096 seeded ids
+    (and the last row) of every variable equals the saved state's rows
+    (``load_checkpoint`` into ``coll``)."""
+    from openembedding_tpu_torch import checkpoint as ckpt
+    from openembedding_tpu_torch.serving.rest import ControllerServer
+    states = ckpt.load_checkpoint(path, coll)
+    server = ControllerServer(port=0, device=coll.device).start()
+    rng = np.random.RandomState(SEED)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=600)
+        status, body = _post(conn, "/models", json.dumps(
+            {"model_uri": path, "model_sign": "driver-hybrid",
+             "block": True}).encode())
+        if status != 201:
+            raise AssertionError(f"POST /models: HTTP {status} {body!r}")
+        sign = json.loads(body)["model_sign"]
+        n = 0
+        for name, spec in coll.specs.items():
+            ids = np.concatenate([rng.randint(0, spec.input_dim, 4096),
+                                  [spec.input_dim - 1]]).astype(np.int64)
+            rows, _ = lookup_bin(conn, sign, name, ids)
+            want = states[name].weights[torch.from_numpy(ids).to(
+                states[name].weights.device)].cpu().numpy()
+            if not np.array_equal(rows, want):
+                raise AssertionError(f"served {name} differs from the "
+                                     "saved state")
+            n += 1
+        conn.close()
+    finally:
+        server.stop()
+    return {"variables": n, "ids_each": 4097}
+
+
+def phase_drivers() -> dict:
+    """Phase 16: the command-line driver on the card
+    (``openembedding_tpu_torch/examples/criteo_deepctr.py``, in process):
+    ``criteo_hist_hybrid``'s flags (``--no-fused --hist_len 32
+    --sparse_as_dense 64``, batch 4096, ``DRIVER_STEPS`` steps,
+    ``--save``), that checkpoint served back through the registry and
+    every variable's rows checked; the default fused ``deepfm`` saved,
+    then ``--load`` with ``--eval_steps 2``; then ``export_dense`` of
+    the ``deepfm_dim9`` tables against their host copy, timed. Prints one
+    ``{"drivers": ...}`` line; returns the kernels' launches."""
+    import tempfile
+    from openembedding_tpu_torch import checkpoint as ckpt
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                   EmbeddingSpec)
+    from openembedding_tpu_torch.hybrid import split_sparse_dense
+    from openembedding_tpu_torch.models import deepctr
+    from openembedding_tpu_torch.ops.gather import gather_rows
+    from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
+    from openembedding_tpu_torch.ops.probe_gather import probe_gather
+    wrappers = (gather_rows, probe_gather, init_rows, init_flat)
+    for w in wrappers:
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="oe_smoke_drivers_")
+    t0 = time.perf_counter()
+    out = {}
+    common = ["--batch_size", str(BATCH), "--steps", str(DRIVER_STEPS),
+              "--num_buckets", str(DRIVER_BUCKETS), "--log_every", "1"]
+    try:
+        hyb = os.path.join(tmp, "hybrid")
+        before = gather_rows.launches
+        text = _driver(["--no-fused", "--hist_len", "32",
+                        "--sparse_as_dense", "64", *common, "--save", hyb])
+        out["hybrid"] = _driver_reading(text)
+        out["hybrid"]["k1_launches"] = gather_rows.launches - before
+        specs = deepctr.make_feature_specs(
+            criteo.SPARSE_NAMES, DRIVER_BUCKETS, 9, hash_capacity=1 << 22)
+        specs, kept = split_sparse_dense(specs, 64, batch_size=BATCH)
+        specs = tuple(specs) + (
+            EmbeddingSpec(name="hist", input_dim=DRIVER_BUCKETS,
+                          output_dim=9, pooling="mean"),
+            EmbeddingSpec(name="hist:linear", input_dim=DRIVER_BUCKETS,
+                          output_dim=1, pooling="sum"))
+        out["hybrid"]["served"] = _serve_every_variable(
+            hyb, EmbeddingCollection(specs, device=OFFLOAD_DEVICE))
+        torch.cuda.empty_cache()
+        fused = os.path.join(tmp, "fused")
+        out["fused"] = _driver_reading(_driver([*common, "--save", fused]))
+        text = _driver(["--batch_size", str(BATCH), "--steps", "0",
+                        "--num_buckets", str(DRIVER_BUCKETS),
+                        "--load", fused, "--eval_steps", "2"])
+        if f"loaded checkpoint from {fused}" not in text:
+            raise AssertionError(f"--load: {text}")
+        out["fused_load_eval"] = _driver_reading(text)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+        # export_dense of deepfm_dim9's tables
+        coll, states, _, host, _ = setup_array()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dense = ckpt.export_dense(coll, states)
+        secs = time.perf_counter() - t1
+        nbytes = sum(a.nbytes for a in dense.values())
+        for name, arr in dense.items():
+            if arr.shape != host[name].shape \
+                    or not np.array_equal(arr, host[name]):
+                raise AssertionError(f"export_dense {name} differs")
+        out["export_dense"] = {
+            "shapes": {k: list(v.shape) for k, v in dense.items()},
+            "seconds": secs, "gb_per_s": nbytes / secs / 1e9}
+        del coll, states, host, dense
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    out["launches"] = launches
+    log(json.dumps({"drivers": out}))
+    return launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -4843,6 +5679,12 @@ def main() -> None:
     if sys.argv[1:] == ["--serving"]:
         phase_serving_batched()
         return
+    if sys.argv[1:] == ["--offload"]:
+        phase_offload()
+        return
+    if sys.argv[1:] == ["--drivers"]:
+        phase_drivers()
+        return
     coll, states, mapper, host, main_ids = setup_array()
     cases = phase_kernels(states["fields"].weights,
                           states["fields:linear"].weights, main_ids)
@@ -4878,6 +5720,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     served = phase_serving_batched()
     launches += served["gather_rows"]
+    torch.cuda.empty_cache()
+    offload, okcases = phase_offload()
+    launches += offload["gather_rows"]
+    torch.cuda.empty_cache()
+    drivers = phase_drivers()
+    launches += drivers["gather_rows"]
+    flat_training += offload["init_flat"] + drivers["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -4898,7 +5747,8 @@ def main() -> None:
         "replaces": "openembedding_tpu/ops/pallas_hash.py:40",
         "launches": plaunches + hash_launches["probe_gather"]
         + hybrid["probe_gather"] + delta["probe_gather"]
-        + ingest["probe_gather"] + served["probe_gather"],
+        + ingest["probe_gather"] + served["probe_gather"]
+        + offload["probe_gather"] + drivers["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -4911,13 +5761,16 @@ def main() -> None:
                     "openembedding_tpu/optim/initializers.py:54-74 "
                     "(Uniform/Normal.init): XLA code, not Pallas kernels",
         "launches": hash_launches["init_rows"] + hybrid["init_rows"]
-        + delta["init_rows"] + ingest["init_rows"] + flat_training
+        + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
+        + drivers["init_rows"] + flat_training
         + hash_launches["init_flat"],
         "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"]
-        + delta["init_rows"] + ingest["init_rows"],
+        + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
+        + drivers["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
-        "max_abs_err": max(c["max_abs_err"] for c in kcases + fcases),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in kcases + fcases + okcases),
         "ms": kmain["kernel_ms"], "call_ms": kmain["kernel_call_ms"],
         "plain_ms": kmain["plain_ms"],
         "bound_ms": kmain["bound_ms"], "bound_by": kmain["bound_by"],

@@ -15,7 +15,9 @@ features pool padded id matrices (``ragged.py``) and small vocabularies
 can be kept as dense parameters (``hybrid.py``). Checkpoints chain deltas
 of dirty chunks over a full base (``checkpoint_delta.py``), ``fit``
 autosaves and resumes from them, and the serving registry hot-swaps
-them in.
+them in. Tables larger than the card keep their rows in a host store
+behind a device hash cache (``offload.py``), prepared ahead of each
+step; ``examples/`` holds the command-line drivers.
 Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no GPU and no device named they raise.
 The package imports torch and numpy, never jax or openembedding_tpu.

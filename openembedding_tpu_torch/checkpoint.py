@@ -984,3 +984,24 @@ def _load_checkpoint_impl(path: str, collection: EmbeddingCollection, *,
             dense = dense_state_from_bytes(f.read(), dense_state_template)
         return out, dense
     return out
+
+
+def export_dense(collection: EmbeddingCollection,
+                 states: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Every bounded variable as a dense ``[input_dim, dim]`` host numpy
+    array (``openembedding_tpu/checkpoint.py`` ``export_dense``, the
+    reference's ``save_as_original_model``): its rows in logical id
+    order, padding dropped, copied back from the device (bfloat16 tables
+    as float32). A hash variable cannot be densified and raises
+    ``ValueError``, as in JAX."""
+    out = {}
+    for name, spec in collection.specs.items():
+        if spec.use_hash:
+            raise ValueError(
+                f"variable {name!r} uses an unbounded hash key space and "
+                "cannot be exported densely (reference rejects this too)")
+        w = states[name].weights[:spec.input_dim]
+        if w.dtype == torch.bfloat16:
+            w = w.float()
+        out[name] = w.to("cpu", copy=True).numpy()
+    return out

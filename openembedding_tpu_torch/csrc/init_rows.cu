@@ -5,7 +5,9 @@
 //   (init_rows, a jax.vmap of initializer.init over jax.random.fold_in
 //   keys). For row i, unless skip[i] is set: the key's threefry key is
 //   fold_in(fold_in(base, lo), hi) for (lo, hi) pair keys, or
-//   fold_in(base, key) for int32 keys; element j of the row is drawn from
+//   fold_in(base, key) for int32 keys (base passed by value, or read from
+//   two words on the device: an offload cache rebuilt in place rewrites
+//   them under a captured step); element j of the row is drawn from
 //   the 32 bits x0 ^ x1 of the threefry-2x32 block of counter (0, j) under
 //   that key.
 // - Flat (oe_init_flat): openembedding_tpu/optim/initializers.py:54-74
@@ -169,7 +171,8 @@ __global__ void __launch_bounds__(kKeyThreads)
 keyed_rows_kernel(const int32_t* __restrict__ keys,
                   const uint8_t* __restrict__ skip, T* __restrict__ out,
                   int n, int dim_arg, int wide, uint32_t base0,
-                  uint32_t base1, int kind, Params prm) {
+                  uint32_t base1, const uint32_t* __restrict__ base_key,
+                  int kind, Params prm) {
   __shared__ uint32_t s_k0[kWarps][32], s_k1[kWarps][32];
   __shared__ int s_row[kWarps][32];
   const int dim = kDim ? kDim : dim_arg;
@@ -182,6 +185,10 @@ keyed_rows_kernel(const int32_t* __restrict__ keys,
   if (missing == 0) return;
   if (fill) {
     uint32_t k0 = base0, k1 = base1;
+    if (base_key != nullptr) {
+      k0 = base_key[0];
+      k1 = base_key[1];
+    }
     if (kind != kConstant) {
       if (wide) {
         fold_in(k0, k1, static_cast<uint32_t>(keys[2 * row]));
@@ -234,17 +241,18 @@ flat_kernel(T* __restrict__ out, int count, uint64_t offset, uint32_t k0,
 template <typename T>
 void launch_keyed(const int32_t* keys, const uint8_t* skip, T* out, int n,
                   int dim, int wide, uint32_t base0, uint32_t base1,
-                  int kind, const Params& prm, cudaStream_t s) {
+                  const uint32_t* base_key, int kind, const Params& prm,
+                  cudaStream_t s) {
   const int blocks = (n + kKeyThreads - 1) / kKeyThreads;
   if (dim == 9)
     keyed_rows_kernel<T, 9><<<blocks, kKeyThreads, 0, s>>>(
-        keys, skip, out, n, dim, wide, base0, base1, kind, prm);
+        keys, skip, out, n, dim, wide, base0, base1, base_key, kind, prm);
   else if (dim == 1)
     keyed_rows_kernel<T, 1><<<blocks, kKeyThreads, 0, s>>>(
-        keys, skip, out, n, dim, wide, base0, base1, kind, prm);
+        keys, skip, out, n, dim, wide, base0, base1, base_key, kind, prm);
   else
     keyed_rows_kernel<T, 0><<<blocks, kKeyThreads, 0, s>>>(
-        keys, skip, out, n, dim, wide, base0, base1, kind, prm);
+        keys, skip, out, n, dim, wide, base0, base1, base_key, kind, prm);
 }
 
 template <typename T>
@@ -267,11 +275,14 @@ void launch_flat(T* out, int count, uint64_t offset, uint32_t k0,
 
 // Per key. keys: [n] int32, or [n, 2] int32 (lo, hi) pairs when wide != 0;
 // skip: [n] bytes (0 or 1); out: [n, dim] contiguous, written where skip
-// is 0; (base0, base1): the table's threefry key. Needs n > 0, dim > 0 and
-// n * dim < 2^31.
+// is 0; (base0, base1): the table's threefry key, or, when base_key is
+// not null, the two words it points to on the device (read at each launch,
+// so a captured graph follows a key rewritten in place). Needs n > 0,
+// dim > 0 and n * dim < 2^31.
 extern "C" int oe_init_rows(const void* keys, const void* skip, void* out,
                             int64_t n, int64_t dim, int wide,
-                            uint32_t base0, uint32_t base1, int kind,
+                            uint32_t base0, uint32_t base1,
+                            const void* base_key, int kind,
                             float p0, float p1, float p2, float p3,
                             float p4, float p5, int word_bytes,
                             void* stream) {
@@ -283,13 +294,15 @@ extern "C" int oe_init_rows(const void* keys, const void* skip, void* out,
   const Params prm = {{p0, p1, p2, p3, p4, p5}};
   const auto* k = static_cast<const int32_t*>(keys);
   const auto* sk = static_cast<const uint8_t*>(skip);
+  const auto* bk = static_cast<const uint32_t*>(base_key);
   if (word_bytes == 4)
     launch_keyed(k, sk, static_cast<float*>(out), static_cast<int>(n),
-                 static_cast<int>(dim), wide, base0, base1, kind, prm, s);
+                 static_cast<int>(dim), wide, base0, base1, bk, kind, prm,
+                 s);
   else
     launch_keyed(k, sk, static_cast<__nv_bfloat16*>(out),
                  static_cast<int>(n), static_cast<int>(dim), wide, base0,
-                 base1, kind, prm, s);
+                 base1, bk, kind, prm, s);
   return static_cast<int>(cudaGetLastError());
 }
 

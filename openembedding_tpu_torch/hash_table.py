@@ -240,13 +240,16 @@ def _wide_query(keys: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 class HashTableState:
     """One hash table: keys, weights, optimizer slots, the threefry key of
     its per-key init rows (two uint32 words, held on the host so that a
-    launch reads no device value), and the count of keys an insert could
-    not place (a probe-window overflow)."""
+    launch reads no device value; an offload cache holds them in a ``[2]``
+    int32 device tensor instead, which its eviction rewrites in place and
+    the init-rows kernel reads, ``offload.ShardedOffloadedTable.adopt``),
+    and the count of keys an insert could not place (a probe-window
+    overflow)."""
 
     keys: torch.Tensor                    # [capacity] or [capacity, 2]
     weights: torch.Tensor                 # [capacity, dim]
     slots: Dict[str, torch.Tensor]        # each [capacity, ...]
-    init_rng: Tuple[int, int]             # jax.random key words
+    init_rng: Any                         # jax.random key words
     insert_failures: torch.Tensor         # int64 scalar on the device
 
     @property

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .hash_table import HashTableState, threefry_key
+from .ops.init_rows import base_words
 from .table import TableState
 from .utils.device import DeviceLike, resolve_device
 
@@ -90,10 +91,11 @@ def hash_state_to_numpy(state: HashTableState
                         ) -> Tuple[np.ndarray, np.ndarray,
                                    Dict[str, np.ndarray], np.ndarray]:
     """``(keys, weights, slots, init_rng)`` of a hash table, slot for slot;
-    ``init_rng`` as ``[2]`` uint32, the form of a JAX key."""
+    ``init_rng`` as ``[2]`` uint32, the form of a JAX key (read back when
+    the table holds it on the device, as an offload cache does)."""
     weights, slots = table_state_to_numpy(state)
     return (tensor_to_numpy(state.keys), weights, slots,
-            np.asarray(state.init_rng, np.uint32))
+            np.asarray(base_words(state.init_rng), np.uint32))
 
 
 def _flax_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()

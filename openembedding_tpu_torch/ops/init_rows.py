@@ -41,8 +41,18 @@ FLAT_LAUNCH = 1 << 30       # elements one flat launch fills at most
 _fns = {}                   # the C entries, once built and loaded
 
 
+def base_words(base) -> Tuple[int, int]:
+    """A base key as two host ints: ``base`` as it is, or the two uint32
+    words of an int32 key tensor (read back: a plain version's or a
+    host caller's use, never a kernel launch's)."""
+    if isinstance(base, torch.Tensor):
+        w = base.tolist()
+        return int(w[0]) & 0xFFFFFFFF, int(w[1]) & 0xFFFFFFFF
+    return int(base[0]), int(base[1])
+
+
 def _check(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
-           base: Sequence[int]) -> None:
+           base) -> None:
     n = out.shape[0] if out.dim() == 2 else -1
     if keys.dim() not in (1, 2) or (keys.dim() == 2 and keys.shape[1] != 2):
         raise ValueError(f"keys must be [n] or [n, 2], got "
@@ -56,9 +66,15 @@ def _check(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
             f"out [n, dim], keys [n(, 2)] and a bool skip [n] expected, got "
             f"{tuple(out.shape)}, {tuple(keys.shape)}, {tuple(skip.shape)} "
             f"{skip.dtype}")
-    if len(base) != 2 or not all(0 <= int(w) < 2**32 for w in base):
+    if isinstance(base, torch.Tensor):
+        if tuple(base.shape) != (2,) or base.dtype != torch.int32:
+            raise ValueError(f"a base key tensor must be [2] int32 (the "
+                             f"uint32 words), got {tuple(base.shape)} "
+                             f"{base.dtype}")
+    elif len(base) != 2 or not all(0 <= int(w) < 2**32 for w in base):
         raise ValueError(f"base key must be two uint32 words, got {base}")
-    devices = {out.device, keys.device, skip.device}
+    devices = {out.device, keys.device, skip.device} | (
+        {base.device} if isinstance(base, torch.Tensor) else set())
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
 
@@ -69,7 +85,7 @@ def init_rows_reference(out: torch.Tensor, keys: torch.Tensor,
                         ) -> torch.Tensor:
     """Plain PyTorch version of the per-key kernel, on any device."""
     _check(out, keys, skip, base)
-    words = key_words((int(base[0]), int(base[1])), keys)
+    words = key_words(base_words(base), keys)
     fresh = keyed_rows(kind, params, words, out.shape[1], out.dtype)
     out.copy_(torch.where(skip[:, None], out, fresh))
     return out
@@ -100,7 +116,9 @@ def _entry(name: str, argtypes):
 _DRAW_ARGS = [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int] \
     + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
 _ROWS_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int64,
-                                      ctypes.c_int] + _DRAW_ARGS
+                                      ctypes.c_int, ctypes.c_uint32,
+                                      ctypes.c_uint32, ctypes.c_void_p] \
+    + _DRAW_ARGS[2:]
 _FLAT_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64] + _DRAW_ARGS
 
 
@@ -137,7 +155,10 @@ def init_rows(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
     ``out`` is ``[n, dim]`` float32 or bfloat16 (any float dtype on the
     CPU); ``keys`` ``[n]`` int32 or ``[n, 2]`` int32 (lo, hi) pairs;
     ``skip`` ``[n]`` bool; ``base`` the table's two threefry key words
-    (``HashTableState.init_rng``). On CUDA all tensors must be contiguous
+    (``HashTableState.init_rng``): two ints, or a ``[2]`` int32 tensor of
+    their bits on ``out``'s device, which the kernel reads at each launch
+    (a captured graph then follows a key rewritten in place). On CUDA all
+    tensors must be contiguous
     and ``n * dim < 2^31``; the kernel launches on the current stream and
     ``init_rows.launches`` counts each launch.
     """
@@ -154,10 +175,14 @@ def init_rows(out: torch.Tensor, keys: torch.Tensor, skip: torch.Tensor,
                          f"{n * dim} must stay below 2^31")
     if n == 0 or dim == 0:
         return out          # a grid of zero blocks is a launch error
+    if isinstance(base, torch.Tensor):
+        words, key_ptr = (0, 0), base.data_ptr()
+    else:
+        words, key_ptr = (int(base[0]), int(base[1])), None
     fn = _fns.get("oe_init_rows") or _entry("oe_init_rows", _ROWS_ARGS)
     _launch(fn, out.device, (
         keys.data_ptr(), skip.data_ptr(), out.data_ptr(), n, dim,
-        int(keys.dim() == 2), int(base[0]), int(base[1]), kind, *params,
+        int(keys.dim() == 2), words[0], words[1], key_ptr, kind, *params,
         _WORD_BYTES[out.dtype]))
     launches.count(init_rows)
     return out

@@ -43,6 +43,16 @@ a device tensor. ``fit`` reads the loss only on its ``log_every`` steps.
 The JAX ``train_step`` donates its input state and returns a new one; the
 port's updates the state's tensors in place and returns the same state.
 
+``Trainer(offload=)`` trains variables whose rows live in a host store
+(``offload.ShardedOffloadedTable``): before each step the batch's missing
+rows are inserted into the variable's device cache, in place and outside
+the program, from host prepares that run up to ``pipeline_depth`` batches
+ahead on a lookahead thread; after it the table records its dirty rows.
+An eviction rebuilds the cache in the same tensors, so the step program
+stays valid. ``fit`` is JAX's loop: a window of ``pipeline_depth + 1``
+batches, the refill timed as the step's ingest stall, and
+``fit(persist_dir=)`` persisting offloaded tables in the background.
+
 With the collection's dirty tracking armed, each step marks the chunks
 its batch touches from the host batch, after the step and outside any
 program (JAX marks outside its jit), so a replayed step is marked as
@@ -59,9 +69,11 @@ once, inside ``fit``'s two-step warm-up.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import uuid
 import weakref
+from collections import deque
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -72,7 +84,7 @@ from torch.func import functional_call
 from .analysis import scope
 from .analysis.concurrency import sync_point
 from .analysis.retrace import RetraceGuard, note_build
-from .embedding import EmbeddingCollection, EmbeddingSpec, not_ported
+from .embedding import EmbeddingCollection, EmbeddingSpec
 from .hybrid import DENSE_SCOPE, HybridModel, to_dense_spec
 from .models.deepctr import init_params
 from .ops.launches import CountedGraph
@@ -274,9 +286,17 @@ class Trainer:
     (``hybrid.split_sparse_dense``'s ``DenseFeatureSpec`` s, or array
     ``EmbeddingSpec`` s; a hash spec raises ``ValueError``), as in JAX:
     the module becomes ``HybridModel(module, specs)`` and their columns
-    never reach the collection. The JAX ``Trainer``'s ``offload`` and
-    ``pipeline_depth`` raise ``NotImplementedError`` naming their
-    ROADMAP.md item.
+    never reach the collection.
+
+    ``offload``: name -> ``offload.ShardedOffloadedTable`` for variables
+    whose rows live in a host store (registered in the collection by
+    their ``embedding_spec()``; the cache state rides ``TrainState.emb``
+    like any hash variable). Each step first inserts the batch's missing
+    rows into the cache (:meth:`prepare_offload`), then runs its program,
+    then records dirty marks (``note_update``). ``pipeline_depth``: how
+    many batches of host prepares (residency math and host-store gather,
+    on a lookahead thread) may run ahead of the device; results are the
+    same at any depth. Default 4, as JAX's.
     """
 
     def __init__(self, module: torch.nn.Module,
@@ -285,11 +305,17 @@ class Trainer:
                  loss_fn: Callable = binary_logloss,
                  sparse_as_dense: Optional[Any] = None,
                  offload: Optional[Dict[str, Any]] = None,
-                 pipeline_depth: Optional[int] = None):
-        if offload:
-            raise not_ported("Trainer(offload=)", "host offload")
-        if pipeline_depth is not None:
-            raise not_ported("Trainer(pipeline_depth=)", "host offload")
+                 pipeline_depth: int = 4):
+        self.offload = dict(offload or {})
+        for oname in self.offload:
+            if oname not in collection.specs:
+                raise ValueError(
+                    f"offloaded variable {oname!r} is not in the collection; "
+                    "register table.embedding_spec() in its specs")
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        # in-flight lookahead prepares, oldest first; each entry's thread
+        # chains on the previous one, so host prepares run in batch order
+        self._preps: deque = deque()
         if sparse_as_dense:
             specs = tuple(to_dense_spec(x) if isinstance(x, EmbeddingSpec)
                           else x for x in sparse_as_dense)
@@ -436,7 +462,8 @@ class Trainer:
         note_build()
         return out, True
 
-    def train_step(self, state: TrainState, batch) -> tuple:
+    def train_step(self, state: TrainState, batch, *,
+                   next_batch=None) -> tuple:
         """One step; returns ``(state, {"loss": device scalar})``. The
         state's tensors are updated in place.
 
@@ -445,7 +472,16 @@ class Trainer:
         note): on CUDA the build's warm-up is this step and later calls
         replay the captured graph; the loss returned is a tensor of its
         own, which no later step overwrites. With dirty tracking armed the
-        batch's chunks are marked from the host batch after the step."""
+        batch's chunks are marked from the host batch after the step.
+
+        With offloaded tables, the batch's rows are inserted into their
+        caches first (from the lookahead window when its oldest entry
+        prepared this very batch object, else synchronously), and
+        ``note_update`` records the step after it. ``next_batch``: start
+        that batch's host prepare on the lookahead thread while the device
+        runs this step (``fit`` keeps ``pipeline_depth`` in flight;
+        :meth:`prefetch` is the hand-driven form). The lookahead is keyed
+        on batch object identity."""
         try:
             with scope.step_span(self._host_step):
                 # the batch-shape stats of JAX's step (always-on gauges,
@@ -453,14 +489,138 @@ class Trainer:
                 # on), from the batch's host arrays, outside the program
                 observability.record_batch_stats(
                     {k: _stats_view(v) for k, v in batch["sparse"].items()})
+                state, uniqs = self._apply_prepared_offload(state, batch)
                 host = self.host_batch(batch)
                 loss, built = self._run(self.programs, self._step, state,
                                         host)
                 self.builds += built
                 self._mark_dirty(host)
+                self._note_offload(batch, uniqs)
+                if next_batch is not None and self.offload \
+                        and not self._prep_started(next_batch):
+                    self._start_host_prepare(next_batch)
         finally:
             self._host_step += 1
         return state, {"loss": loss}
+
+    # --- the offload lane -----------------------------------------------------
+    def _prep_started(self, batch) -> bool:
+        return any(e[1] is batch for e in self._preps)
+
+    def prefetch(self, batches) -> None:
+        """Queue offload host prepares for upcoming batches: the batch
+        about to step plus up to ``pipeline_depth`` ahead, in the order
+        they will be stepped (``fit`` does this itself)."""
+        if not self.offload:
+            return
+        for b in list(batches)[: self.pipeline_depth + 1]:
+            if b is not None and not self._prep_started(b):
+                self._start_host_prepare(b)
+
+    def _start_host_prepare(self, batch) -> None:
+        """Run the host prepare of ``batch`` for every offloaded table on
+        a thread of its own that first joins its predecessor, so prepares
+        run strictly in batch order (the planned-residency books need
+        it). ``_apply_prepared_offload`` joins it and takes the result."""
+        prev = self._preps[-1][0] if self._preps else None
+        results: Dict[str, Any] = {}
+        err: list = []
+
+        def _run():
+            if prev is not None:
+                prev.join()
+            try:
+                sync_point("trainer.prep.run")
+                for name, table in self.offload.items():
+                    with scope.span("lookahead.prepare", table=name):
+                        results[name] = table.host_prepare(
+                            batch["sparse"][name])
+            except BaseException as e:  # noqa: BLE001 — re-raised at join
+                err.append(e)
+
+        t = threading.Thread(target=_run, daemon=True, name="oe-prep")
+        t.start()
+        self._preps.append((t, batch, results, err))
+
+    def _cancel_preps(self) -> None:
+        """Abandon every in-flight prepare, oldest first, the whole window
+        (later prepares' misses assume the earlier ones' inserts)."""
+        while self._preps:
+            t, _, results, _err = self._preps.popleft()
+            t.join()
+            for name, prep in results.items():
+                self.offload[name].cancel_prepared(prep)
+
+    def _apply_prepared_offload(self, state: TrainState, batch):
+        """Insert this batch's rows into the offloaded caches (in place),
+        from the window's oldest entry when it prepared exactly this batch,
+        else after cancelling the window. Returns ``(state, {name: unique
+        valid ids})``."""
+        if not self.offload:
+            return state, {}
+        prepped = None
+        if self._preps and self._preps[0][1] is batch:
+            t, _, results, err = self._preps.popleft()
+            t.join()
+            if err:
+                for name, prep in results.items():
+                    self.offload[name].cancel_prepared(prep)
+                self._cancel_preps()
+                raise RuntimeError("background offload prepare failed") \
+                    from err[0]
+            prepped = results
+        else:
+            self._cancel_preps()
+        uniqs: Dict[str, Any] = {}
+        names = list(self.offload)
+        for i, name in enumerate(names):
+            table = self.offload[name]
+            prep = prepped.get(name) if prepped is not None else None
+            if prep is None:
+                prep = table.host_prepare(batch["sparse"][name])
+            try:
+                state.emb[name] = table.apply_prepared(state.emb[name], prep)
+            except BaseException:
+                # release this entry's not-yet-applied preps and the window:
+                # a caller that survives must not inherit leaked marks
+                table.cancel_prepared(prep)
+                if prepped is not None:
+                    for later in names[i + 1:]:
+                        lp = prepped.get(later)
+                        if lp is not None:
+                            self.offload[later].cancel_prepared(lp)
+                self._cancel_preps()
+                raise
+            uniqs[name] = prep.uniq
+        return state, uniqs
+
+    def _note_offload(self, batch, uniqs) -> None:
+        """Each offloaded table's record of a stepped batch: dirty marks
+        and the watermark's advance."""
+        for name, table in self.offload.items():
+            table.note_update(batch["sparse"][name], uniq=uniqs.get(name))
+
+    def prepare_offload(self, state: TrainState, batch) -> TrainState:
+        """Insert the batch's offloaded rows into their caches (what
+        ``train_step`` does first); call it before :meth:`eval_step` on a
+        batch the caches may lack."""
+        if not self.offload:
+            return state
+        state, _ = self._apply_prepared_offload(state, batch)
+        return state
+
+    def _drain_suppressed(self) -> None:
+        """Unwind-path drain: join the lookahead and every table's
+        threads, suppressing secondary failures."""
+        try:
+            self._cancel_preps()
+        except Exception:  # noqa: BLE001 — unwinding
+            pass
+        for table in self.offload.values():
+            try:
+                table.finish()
+            except Exception:  # noqa: BLE001 — unwinding
+                pass
 
     def _mark_dirty(self, host) -> None:
         """Mark the chunks of a stepped batch's collection columns, from
@@ -493,11 +653,13 @@ class Trainer:
     def train_step_eager(self, state: TrainState, batch) -> tuple:
         """One step dispatched op by op, with no step program (the oracle
         of the captured step); the same result as :meth:`train_step`."""
+        state, uniqs = self._apply_prepared_offload(state, batch)
         host = self.host_batch(batch)
         placed = self.place_batch(host)
         self._check_dense_ids(state, placed)
         loss = self._step(state, placed)
         self._mark_dirty(host)
+        self._note_offload(batch, uniqs)
         return state, {"loss": loss}
 
     def dense_step(self, state: TrainState, batch, rows):
@@ -586,22 +748,39 @@ class Trainer:
         (``batches.skip_batches(cursor)`` where the source has it, else
         ``cursor`` batches consumed). A killed and resumed ``fit`` then
         trains bit for bit as an uninterrupted one from that autosave.
-        ``persist_dir`` (offloaded tables) raises ``NotImplementedError``
-        naming its ROADMAP.md item.
+        Autosave and resume cover the ``TrainState`` only; offloaded
+        tables persist through ``persist_dir``, so either with ``offload``
+        raises ``ValueError``, as in JAX.
 
-        Ingest accounting (JAX's ``fit``): the next batch is fetched after
-        each step is launched, so on the card the fetch overlaps the
-        step, and the fetch's wall time is recorded as that step's stall
-        (``observability.record_ingest_stall``; the first fetch, the
-        warm-up, is not). A source that records its own waits (a
-        ``ShardStream``, marked ``ingest_accounted``, or one wrapped so
-        that the mark is hidden but which still records) is not counted
-        twice. The window holds one batch: ``pipeline_depth`` is a later
-        slice."""
-        if persist_dir is not None:
-            raise not_ported("fit(persist_dir=)", "host offload")
-        if autosave_every and not autosave_dir:
-            raise ValueError("fit(autosave_every=) requires autosave_dir=")
+        ``persist_dir``: after each step, every offloaded table whose
+        ``should_persist`` is set writes an incremental persist into
+        ``persist_dir/<name>`` on a background thread (``blocking=
+        False``), while the loop trains on.
+
+        The loop is JAX's: a window holds the next ``pipeline_depth + 1``
+        batches; each turn starts the host prepares of the whole window
+        (offload), pops its head, refills it (the refill's wall time is
+        that step's ingest stall, ``observability.record_ingest_stall``;
+        the first fill, the warm-up, is not recorded) and steps the head
+        with ``next_batch`` the new head. A source that records its own
+        waits (a ``ShardStream``, marked ``ingest_accounted``, or one
+        wrapped so that the mark is hidden but which still records) is not
+        counted twice. On an error, and at the end, the lookahead is
+        cancelled and every offloaded table finished (joined, its pending
+        overflow read), secondary failures suppressed on the error path."""
+        if autosave_every:
+            if not autosave_dir:
+                raise ValueError(
+                    "fit(autosave_every=) requires autosave_dir=")
+            if self.offload:
+                raise ValueError(
+                    "fit autosave covers the TrainState only; offloaded "
+                    "tables persist via persist_dir= — don't combine "
+                    "autosave_every with offload")
+        if resume_from is not None and self.offload:
+            raise ValueError(
+                "fit(resume_from=) does not restore offloaded tables; "
+                "restore them via their own persist lane first")
         last, guard = None, None
         it = iter(batches)
         base_cursor = 0
@@ -619,44 +798,78 @@ class Trainer:
                                 f"batch source (exhausted after {k}): "
                                 "wrong source for this checkpoint?")
         # a source that records its own waits (ShardStream) must not have
-        # them counted twice; a wrapper hides the mark, so each fetch also
+        # them counted twice; a wrapper hides the mark, so each refill also
         # checks whether the source recorded an entry of its own
         self_accounted = bool(getattr(batches, "ingest_accounted", False)
                               or getattr(it, "ingest_accounted", False))
+        # the window: the batch about to step and pipeline_depth after it
+        window: deque = deque()
+
+        def refill() -> float:
+            t0 = time.perf_counter()
+            while len(window) <= self.pipeline_depth:
+                nxt = next(it, None)
+                if nxt is None:
+                    break
+                window.append(nxt)
+            return time.perf_counter() - t0
+
+        refill()   # the window's first fill: warm-up, unrecorded
         i = 0
         try:
-            batch = next(it, None)   # the first fetch: warm-up, unrecorded
-            while batch is not None:
+            while window:
+                if self.offload:
+                    for b in window:
+                        if not self._prep_started(b):
+                            self._start_host_prepare(b)
+                batch = window.popleft()
+                pops0 = None if self_accounted \
+                    else observability.ingest_stall_records()
+                stall_s = refill()
+                if not self_accounted \
+                        and observability.ingest_stall_records() == pops0:
+                    observability.record_ingest_stall(stall_s)
                 # the chaos injection site for "kill the trainer between
                 # two steps"
                 sync_point("trainer.fit.step")
-                state, last = self.train_step(state, batch)
+                # next_batch feeds only the offload lookahead
+                kw = {"next_batch": window[0] if window else None} \
+                    if self.offload else {}
+                state, last = self.train_step(state, batch, **kw)
                 if retrace_budget is not None and guard is None and i >= 1:
                     guard = RetraceGuard(budget=retrace_budget,
                                          name="Trainer.fit steady state")
                     guard.__enter__()
+                if persist_dir:
+                    for name, table in self.offload.items():
+                        if table.should_persist:
+                            info = table.persist(state.emb[name],
+                                                 f"{persist_dir}/{name}",
+                                                 blocking=False)
+                            if log_every:
+                                log_fn(f"persisted {name}: {info}")
                 if autosave_every and (i + 1) % autosave_every == 0:
                     self._autosave_fit(state, autosave_dir,
                                        base_cursor + i + 1)
                 if log_every and (i + 1) % log_every == 0:
                     log_fn(f"step {i + 1}: loss={float(last['loss']):.5f}")
                 i += 1
-                # the next batch, fetched while the device runs this step;
-                # its wall time is the step's ingest stall
-                pops0 = None if self_accounted \
-                    else observability.ingest_stall_records()
-                t0 = time.perf_counter()
-                batch = next(it, None)
-                if not self_accounted \
-                        and observability.ingest_stall_records() == pops0:
-                    observability.record_ingest_stall(
-                        time.perf_counter() - t0)
         except BaseException as e:
             if guard is not None:
                 guard.__exit__(type(e), e, None)
+            self._drain_suppressed()
             raise
         if guard is not None:
-            guard.__exit__(None, None, None)
+            try:
+                guard.__exit__(None, None, None)
+            except BaseException:
+                self._drain_suppressed()
+                raise
+        # the last batch's pending overflow and any background persist
+        # raise here, not later
+        self._cancel_preps()
+        for table in self.offload.values():
+            table.finish()
         return state, last
 
     def _restore_fit(self, state: TrainState, path: str):

@@ -549,3 +549,34 @@ def test_trained_port_tables_load_in_jax(devices8, tmp_path):
         assert w.tobytes() == tw.tobytes()
         assert slots["accum"].tobytes() == tslots["accum"].tobytes()
         assert not np.all(tslots["accum"] == np.float32(0.1))
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (1, 8)])
+def test_export_dense_matches_jax(devices8, mesh_shape):
+    """``export_dense`` (``tests/test_checkpoint.py:136-150`` on the port):
+    a JAX collection's state copied into the port exports the same
+    ``[input_dim, dim]`` arrays as JAX's ``export_dense`` (one device, and
+    8 shards whose padding rows JAX drops), equal to the port's pull of
+    every id; bf16 tables come back as float32; a hash variable raises
+    naming "hash"."""
+    jcoll = _jax_coll(create_mesh(*mesh_shape, devices8[:mesh_shape[1]]))
+    jstates = jcoll.init(jax.random.PRNGKey(3))
+    want = jax_ckpt.export_dense(jcoll, jstates)
+    tcoll = _port_coll()
+    tstates = {}
+    for name, vocab, _, _ in VARS:
+        w, slots = _jax_numpy(jcoll, jstates, name, vocab)
+        tstates[name] = interop.table_state_from_numpy(w, slots, "cpu")
+    got = tck.export_dense(tcoll, tstates)
+    assert sorted(got) == sorted(want)
+    for name, vocab, dim, dtype in VARS:
+        assert got[name].shape == (vocab, dim)
+        np.testing.assert_array_equal(
+            got[name], np.asarray(want[name]).astype(np.float32))
+        rows = tcoll.pull(tstates, {name: np.arange(vocab)})[name]
+        np.testing.assert_array_equal(got[name], rows.float().numpy())
+    hashed = EmbeddingCollection(
+        [EmbeddingSpec(name="h", input_dim=-1, output_dim=4,
+                       hash_capacity=256)], device="cpu")
+    with pytest.raises(ValueError, match="hash"):
+        tck.export_dense(hashed, hashed.init())

@@ -216,8 +216,11 @@ def test_autosaves_keep_the_step_program(world, tmp_path):
     s2 = tr2.init(prng_key(0), world["batches"][0])
 
     def swapped():
-        for i, b in enumerate(world["batches"]):
-            if i == 3:
+        # fit's window fetches pipeline_depth batches ahead of the step:
+        # the swap at this fetch lands before the third step, inside the
+        # guard
+        for i, b in enumerate(list(world["batches"]) * 2):
+            if i == 2 + 1 + tr2.pipeline_depth:
                 s2.params.update({k: v.clone()
                                   for k, v in s2.params.items()})
             yield b

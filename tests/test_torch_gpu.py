@@ -1130,3 +1130,133 @@ def test_captured_bucket_pulls_match_eager_across_a_swap(tmp_path):
     assert model.graph_reading()["build_s"] != builds   # captured anew
     check()
     reg.close()
+
+
+def _offload_trainer(device, cache, depth=4, vocab=20000):
+    """LR over an offloaded ``off`` (dim 4) and ``off:linear``, adagrad,
+    uniform init (KI draws the host store on the card), dense SGD."""
+    from openembedding_tpu_torch import training as tr
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.models import deepctr as tm
+    from openembedding_tpu_torch.offload import ShardedOffloadedTable
+    from openembedding_tpu_torch.optim import dense
+    opt = {"category": "adagrad", "learning_rate": 0.1}
+    init = {"category": "uniform", "minval": -0.05, "maxval": 0.05}
+    tabs = {n: ShardedOffloadedTable(
+        n, EmbeddingVariableMeta(embedding_dim=d, vocabulary_size=vocab),
+        opt, init, vocab=vocab, cache_capacity=cache, device=device, seed=3)
+        for n, d in (("off", 4), ("off:linear", 1))}
+    coll = EmbeddingCollection(tuple(t.embedding_spec()
+                                     for t in tabs.values()), device=device)
+    trainer = tr.Trainer(tm.LogisticRegression(feature_names=("off",)),
+                         coll, dense.sgd(0.1), offload=tabs,
+                         pipeline_depth=depth)
+    return trainer, tabs
+
+
+def _offload_batches(n, vocab=20000, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        lo = (i * 3000) % (vocab - 4000)
+        # out-of-range ids too: the push inserts them with init rows
+        # drawn from the cache's device-held key, the writeback drops them
+        ids = np.concatenate([rng.randint(lo, lo + 4000, 500),
+                              [-7, vocab + 11]]).astype(np.int32)
+        out.append({"label": (ids % 2).astype(np.float32), "dense": None,
+                    "sparse": {"off": ids, "off:linear": ids}})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [1 << 16, 1024])
+def test_offload_steps_on_card_match_cpu(cache):
+    """The offload lane on the card (host store drawn by KI, captured
+    steps, packed inserts, async writeback; with a 1024-row cache
+    evicting every few steps, the cache rebuilt in place under the step
+    program) against the same lane on the CPU: losses rtol 1e-4, cache
+    keys bit-identical, host stores within atol 1e-5 + rtol 1e-4; one
+    step program; with the larger cache, no device read between join
+    points (``set_sync_debug_mode("error")``)."""
+    _need_card()
+    from openembedding_tpu_torch import interop
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    batches = _offload_batches(8)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer, tabs = _offload_trainer(device, cache)
+        state = trainer.init(prng_key(0), batches[0])
+        state, _ = trainer.fit(state, batches[:2])
+        losses_dev = []
+        # an eviction is a join point (it reads the overflow counter):
+        # only the cache that never evicts runs under the debug mode
+        if device == "cuda" and cache > 1024:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i, b in enumerate(batches[2:]):
+                trainer.prefetch(batches[2 + i:2 + i + 5])
+                state, m = trainer.train_step(state, b)
+                losses_dev.append(m["loss"])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses = [float(x) for x in losses_dev]
+        for name, t in tabs.items():
+            t.finish()
+            t.flush(state.emb[name])
+            t._join_writeback()
+        runs[device] = (trainer, tabs, state, losses)
+    (gt, gtabs, gs, gl), (_, ctabs, cs, cl) = runs["cuda"], runs["cpu"]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    assert gt.builds == 1
+    assert gtabs["off"].evictions == ctabs["off"].evictions
+    if cache == 1024:
+        assert gtabs["off"].evictions >= 2
+    for name in gtabs:
+        g = interop.hash_state_to_numpy(gs.emb[name])
+        c = interop.hash_state_to_numpy(cs.emb[name])
+        np.testing.assert_array_equal(g[0], c[0])
+        np.testing.assert_array_equal(g[3], c[3])
+        np.testing.assert_allclose(gtabs[name].host_weights,
+                                   ctabs[name].host_weights,
+                                   atol=1e-5, rtol=1e-4)
+        np.testing.assert_array_equal(gtabs[name].host_work_id,
+                                      ctabs[name].host_work_id)
+
+
+@pytest.mark.gpu
+def test_init_rows_kernel_reads_a_device_key():
+    """KI with its base key in a device tensor (an offload cache's) equals
+    the plain version, and a captured launch follows the key rewritten in
+    place."""
+    _need_card()
+    from openembedding_tpu_torch.ops import init_rows as ki
+    from openembedding_tpu_torch.optim.initializers import make_initializer
+    init = make_initializer({"category": "uniform", "minval": -1.0,
+                             "maxval": 1.0})
+    rng = np.random.RandomState(4)
+    keys = torch.from_numpy(rng.randint(-2**31, 2**31, 3000,
+                                        dtype=np.int64).astype(np.int32))
+    skip = torch.from_numpy(rng.rand(3000) < 0.3)
+    words = np.asarray(prng_key(17), np.uint32).view(np.int32)
+    key = torch.from_numpy(words.copy()).cuda()
+    out = torch.zeros(3000, 9, device="cuda")
+    ki.init_rows(out, keys.cuda(), skip.cuda(), key, init)
+    want = ki.init_rows(torch.zeros(3000, 9), keys, skip, prng_key(17),
+                        init)
+    assert torch.equal(out.cpu(), want)
+    out2 = torch.zeros(3000, 9, device="cuda")
+    k_dev, s_dev = keys.cuda(), skip.cuda()
+    ki.init_rows(out2, k_dev, s_dev, key, init)      # warm outside
+    from openembedding_tpu_torch.ops.launches import CountedGraph
+    graph = CountedGraph()
+    with graph.capture():
+        ki.init_rows(out2, k_dev, s_dev, key, init)
+    new = np.asarray(prng_key(99), np.uint32).view(np.int32)
+    key[0].fill_(int(new[0]))
+    key[1].fill_(int(new[1]))
+    out2.zero_()
+    graph.replay()
+    want2 = ki.init_rows(torch.zeros(3000, 9), keys, skip, prng_key(99),
+                         init)
+    assert torch.equal(out2.cpu(), want2)

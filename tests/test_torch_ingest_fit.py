@@ -153,10 +153,10 @@ def test_streamed_fit_matches_jax(devices8, shard_dir, source):
     assert int(state.step) == 5
     if source == "wrapped":
         # each pop is the stream's record, never the loop's too; the
-        # exhausted wrapper's last fetch reaches no stream, so the loop
-        # records it (JAX's 5-batch window fetches the five at once and
-        # records its 5 empty refills: the window depth differs)
-        assert t1 - t0 == ts.stall_summary()["pops"] + 1 == 6
+        # window's first fill takes the five batches at once, so the loop
+        # records its 5 refills that reach no stream, in both packages
+        assert t1 - t0 == j1 - j0
+        assert t1 - t0 == ts.stall_summary()["pops"] + 5
         assert j1 - j0 == js.stall_summary()["pops"] + 5
     else:
         assert t1 - t0 == j1 - j0 == 5

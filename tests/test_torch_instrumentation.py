@@ -284,8 +284,9 @@ SLICE = ["analysis/concurrency.py", "analysis/scope.py", "analysis/chaos.py",
          "utils/observability.py", "utils/compress.py", "utils/fs.py",
          "dirty.py", "embedding.py", "checkpoint.py", "checkpoint_delta.py",
          "training.py", "serving/registry.py", "serving/rest.py",
-         "serving/batcher.py", "serving/ha.py", "data/stream.py"]
-LATER = {"trainer.prep.run"}     # the offload pipeline (host offload)
+         "serving/batcher.py", "serving/ha.py", "data/stream.py",
+         "offload.py"]
+LATER = set()
 
 
 def test_sync_points_match_jax(tmp_path):
@@ -307,4 +308,4 @@ def test_sync_points_match_jax(tmp_path):
     assert whole <= set(jchaos.discover_sync_points())
     assert whole == port_names
     assert {tchaos.subsystem_of(p) for p in whole} == {
-        "ckpt", "serving", "report", "ingest"}
+        "ckpt", "serving", "report", "ingest", "offload"}

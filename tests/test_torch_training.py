@@ -190,6 +190,8 @@ def test_fit_logs_and_model_sign():
     # no longer unported: a hash spec kept dense raises as in JAX
     pytest.param("sparse_as_dense", "hash", id="sparse_as_dense-ragged and "
                  "hybrid features"),
+    # no longer unported (host offload): the keywords behave as JAX's
+    # (tests/test_torch_offload_trainer.py trains through them)
     ("offload", "host offload"),
     ("pipeline_depth", "host offload"),
     ("persist_dir", "host offload"),
@@ -223,10 +225,24 @@ def test_unported_arguments_raise(call, item, tmp_path):
         assert int(state.step) == 2 and last is not None
         assert not (tmp_path / "never-written").exists()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        if call in ("offload", "pipeline_depth"):
+    if call == "offload":
+        # as JAX's Trainer: an offloaded name must be in the collection
+        with pytest.raises(ValueError, match="not in the collection"):
             tr.Trainer(trainer.module, trainer.collection,
-                       dense.adagrad(0.01), **{call: {"x": 1} if call !=
-                                               "pipeline_depth" else 2})
-        else:
-            trainer.fit(None, [], persist_dir="d")
+                       dense.adagrad(0.01), offload={"x": object()})
+        return
+    if call == "pipeline_depth":
+        # JAX's default 4, clamped to at least 1
+        for depth, want in ((2, 2), (0, 1)):
+            assert tr.Trainer(trainer.module, trainer.collection,
+                              dense.adagrad(0.01),
+                              pipeline_depth=depth).pipeline_depth == want
+        assert trainer.pipeline_depth == 4
+        return
+    # persist_dir without offloaded tables persists nothing
+    batches = _batches(mapper, 2, seed=1)
+    state = trainer.init(ti.prng_key(0), batches[0])
+    state, last = trainer.fit(state, batches,
+                              persist_dir=str(tmp_path / "p"))
+    assert int(state.step) == 2 and last is not None
+    assert not (tmp_path / "p").exists()
