@@ -8,8 +8,9 @@ then the serving and training paths driven end to end at full width.
 two versions of the kernel in turns within one call; see ``ki_only``.
 ``python3 chip_smoke.py --hybrid`` runs phase 11 alone, ``--delta``
 phase 12, ``--ingest`` phase 13, ``--serving`` phase 14, ``--offload``
-phase 15, ``--drivers`` phase 16, ``--sharded`` phase 17. None of them
-prints a result line.)
+phase 15, ``--drivers`` phase 16, ``--sharded`` phase 17, ``--planes``
+phase 18, ``--sharded --planes`` both, phase 18 on phase 17's ``a2a``
+run. None of them prints a result line.)
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -195,7 +196,8 @@ Phases, in order; any failure raises and the run exits nonzero:
    batched hash replica (``ha.spawn_replica``, each its own process and
    CUDA context), their rows checked; open-loop storms through
    ``RoutingClient`` (``serving/load.py``: Poisson arrivals, 16 uniform
-   ids a ``lookup_bin``) from 200 QPS, x1.5 a step, 10 s a rate, until
+   ids a ``lookup_bin``) from 200 QPS, x1.5 a step, 10 s a rate (at
+   least 2,000 arrivals above the first), until
    ``find_knee`` reports saturation, batched then unbatched, with p50,
    p95, p99, achieved QPS, rejections, the senders' lateness and the
    batchers' flush sizes from ``/metrics``; a 10 s storm at half the
@@ -234,18 +236,37 @@ Phases, in order; any failure raises and the run exits nonzero:
 17. sharded tables on a mesh of one process (``--sharded`` alone):
    ``deepfm_dim9`` on a 2 x 2 ``a2a`` and a 2 x 2 ``psum`` mesh,
    ``deepfm_dim9_hash`` on 2 x 2 ``a2a`` and its int64-key twin on 1 x
-   4, at full width; for each, the initial state against the CPU's draws
-   with nothing copied (each shard from ``fold_in(key, shard)``), 2
-   captured card steps against a CPU trainer on a CPU mesh of the same
-   shape, captured against eager bit for bit, the exchange's slice,
-   buckets and static rounds with the extra rounds' cost, a step on a
-   batch whose keys are all congruent modulo the shard count (replayed
-   against the CPU, its residue counted), examples/s captured and
-   eager, K1, K2 and KI launches a step, a trace, and the save served
-   on 1 x 1 through the registry exactly; then the plane parity (SGD,
-   constant init: 2 x 2 ``a2a`` and ``psum`` against 1 x 1, rtol 1e-5)
-   and K2's int64 mode and KI's int64 keys against their plain versions
-   (``phase_sharded``);
+   4, at full width (``SHARD_RUNS``); for each (``sharded_run``), the
+   initial state against the CPU's draws with nothing copied (each
+   shard from ``fold_in(key, shard)``), 2 captured card steps against a
+   CPU trainer on a CPU mesh of the same shape, a step on a batch whose
+   keys are all congruent modulo the shard count (replayed against the
+   CPU, its residue counted), captured against eager bit for bit,
+   examples/s captured and eager with no program built, K1, K2 and KI
+   launches a step, a trace, the plane's readings (wire bytes,
+   exchanges a step, dense beside pull and push ms), the exchange's
+   slice, buckets and static rounds with the extra rounds' cost, and
+   the save served on 1 x 1 through the registry exactly; then the
+   plane parity (SGD, constant init: 2 x 2 ``a2a`` and ``psum`` against
+   1 x 1, rtol 1e-5) and K2's int64 mode and KI's int64 keys against
+   their plain versions (``phase_sharded``);
+18. the other exchange planes on 2 x 2 (``--planes`` alone): nine runs
+   at full width (``PLANE_RUNS``: ``deepfm_dim9`` on ``+bf16``,
+   ``+int8``, ``+pipelined`` and, as ``deepfm_dim9_zipf``, ``+cache``,
+   beside phase 17's ``a2a`` run; the 52-variable
+   ``deepfm_dim9_per_feature`` on ``a2a``, ``+grouped``,
+   ``+grouped+pipelined``; ``deepfm_dim9_hash`` on ``+int8`` and
+   ``+cache``), each through ``sharded_run``: the initial state against
+   the CPU's draws with nothing copied, 2 captured card steps against a
+   CPU trainer on a CPU mesh with the derived state after each step (an
+   int8 residual equal to the CPU's or one unit from it, in units of
+   the CPU step's per-row scale, its flips counted; a replica exactly),
+   captured against eager bit for bit under deterministic algorithms,
+   examples/s captured and eager with each step's lookahead and 0
+   recaptures, launches a step, a trace, and the plane's readings (wire
+   bytes, exchanges a step, ``quant_*``, hit rate, refresh ms, the
+   sketch's host ms, dense beside pull and push ms); then each plane's
+   parity against its ``a2a`` run on the same batches (``phase_planes``);
 9. the card's name and power limit again, then the kernel list as one
    JSON line;
 12. last line: ``{"ok": true, "device": {...}}``.
@@ -1110,9 +1131,9 @@ def build_trainer(device):
 
 
 def _close(what, got, want) -> float:
-    """``got`` (card) within atol 1e-5 + rtol 1e-4 of ``want`` (CPU);
-    returns the largest difference."""
-    got = got.cpu()
+    """``got`` (card) within atol 1e-5 + rtol 1e-4 of ``want`` (CPU),
+    compared on ``got``'s device; returns the largest difference."""
+    want = want.to(got.device)
     if got.shape != want.shape or not torch.allclose(got, want, rtol=1e-4,
                                                      atol=1e-5):
         raise AssertionError(f"training: {what} differs between the card "
@@ -1391,13 +1412,14 @@ def check_first_loss(what, reading: dict, card_loss: float) -> None:
             f"{reading['cpu_first_loss']} from the CPU's")
 
 
-def _stage_ms(fn) -> float:
+def _stage_ms(fn, reps: int = 0) -> float:
     """Wall time of one call of ``fn`` on the host's clock, each run
-    ended by a synchronize, median of ``STAGE_REPS`` after a warm-up."""
+    ended by a synchronize, median of ``reps`` (``STAGE_REPS``) after a
+    warm-up."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(STAGE_REPS):
+    for _ in range(reps or STAGE_REPS):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1512,16 +1534,21 @@ def training_trace(trainer, state, batches, trace_path, lead,
     from openembedding_tpu_torch.ops.probe_gather import probe_gather
     wrappers = {"gather_rows": gather_rows, "probe_gather": probe_gather,
                 "init_rows": init_rows}
+    def ahead(i):
+        # the pipelined schedule prefetches the next step's batch
+        return {"next_batch": batches[i % len(batches)]} \
+            if getattr(trainer, "_pipelined", ()) else {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, _ = trainer.train_step(state, lead)
+        state, _ = trainer.train_step(state, lead, **ahead(0))
         torch.cuda.synchronize()
         before = {k: w.launches for k, w in wrappers.items()}
         with record_function(TRACE_WINDOW):
             t0 = time.perf_counter()
             for i in range(steps):
                 state, _ = trainer.train_step(state,
-                                              batches[i % len(batches)])
+                                              batches[i % len(batches)],
+                                              **ahead(i + 1))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     counted = {k: (w.launches - before[k]) / steps
@@ -1601,19 +1628,21 @@ def training_trace(trainer, state, batches, trace_path, lead,
 
 def state_tensors(state) -> list:
     """Every tensor of a train state: step, dense state, each table's
-    weights and slots (a hash table's keys and failure count too)."""
-    from openembedding_tpu_torch.hash_table import HashTableState
-    from openembedding_tpu_torch.parallel.sharded_hash import \
-        ShardedHashState
-    out = [state.step] + list(state.params.values()) \
-        + list(state.opt_state.values())
-    for st in state.emb.values():
-        out += [st.weights] + list(st.slots.values())
-        if isinstance(st, HashTableState):
-            out += [st.keys, st.insert_failures]
-        elif isinstance(st, ShardedHashState):
-            out += [st.keys, st.shard_failures]
-    return out
+    weights and slots (a hash table's keys and failure count too, a
+    plane's replica or residual), and the pipelined schedule's prefetched
+    rows."""
+    import dataclasses
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if dataclasses.is_dataclass(x):
+            return [t for f in dataclasses.fields(x)
+                    for t in walk(getattr(x, f.name))]
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in walk(v)]
+        return []
+    return walk(state)
 
 
 def _spread(a, b) -> dict:
@@ -1632,8 +1661,11 @@ def _spread(a, b) -> dict:
     return {"tensors": tensors, "elements": elements, "max_abs": worst}
 
 
-def captured_against_eager(what, trainer, state, batches) -> dict:
-    """The captured step's oracle: ``ORACLE_STEPS`` captured steps
+def captured_against_eager(what, trainer, state, batches,
+                           deterministic: bool = False,
+                           reset=None, steps: int = 0) -> dict:
+    """The captured step's oracle: ``ORACLE_STEPS`` (or ``steps``)
+    captured steps
     (``train_step`` on a copy of ``state``, which builds its own program)
     against as many eager ones (``train_step_eager`` on another copy),
     bit for bit: losses, dense parameters and accumulators, table rows
@@ -1642,8 +1674,14 @@ def captured_against_eager(what, trainer, state, batches) -> dict:
     runs go first: if they differ, both sides run under
     ``torch.use_deterministic_algorithms(True)``; if an op of the step
     refuses that mode, the two are held at the eager runs' spread and the
-    op is named. The kernel launches of these runs are not counted as the
-    main path's: the counters are put back."""
+    op is named; ``deterministic`` runs both sides in that mode without
+    the eager runs (two eager runs may agree by chance where a replay's
+    atomics add in another order), and a refusal raises; ``reset``, when
+    given, runs
+    before each run (to start the trainer's host state, a replica's
+    sketch and refresh clock, where the first run started it). The
+    kernel launches of these runs are not counted as the main path's:
+    the counters are put back."""
     from openembedding_tpu_torch.ops.gather import gather_rows
     from openembedding_tpu_torch.ops.init_rows import init_rows
     from openembedding_tpu_torch.ops.probe_gather import probe_gather
@@ -1652,16 +1690,20 @@ def captured_against_eager(what, trainer, state, batches) -> dict:
     counted = [w.launches for w in wrappers]
 
     def run(step):
+        if reset is not None:
+            reset()
         s = copy_state(state, trainer.device)
         losses = []
-        for b in batches[:ORACLE_STEPS]:
+        for b in batches[:steps or ORACLE_STEPS]:
             s, m = step(s, b)
             losses.append(m["loss"])
         torch.cuda.synchronize()
         return [torch.stack(losses)] + state_tensors(s)
-    first = run(trainer.train_step_eager)
-    spread = _spread(first, run(trainer.train_step_eager))
-    deterministic = spread["tensors"] > 0
+    first = spread = None
+    if not deterministic:
+        first = run(trainer.train_step_eager)
+        spread = _spread(first, run(trainer.train_step_eager))
+        deterministic = spread["tensors"] > 0
     refused = None
     if deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1671,7 +1713,8 @@ def captured_against_eager(what, trainer, state, batches) -> dict:
             captured = run(trainer.train_step)
             eager = run(trainer.train_step_eager)
         except RuntimeError as e:
-            if not deterministic or "deterministic" not in str(e):
+            if first is None or not deterministic \
+                    or "deterministic" not in str(e):
                 raise
             refused = str(e).splitlines()[0][:300]
             torch.use_deterministic_algorithms(False)
@@ -1683,7 +1726,7 @@ def captured_against_eager(what, trainer, state, batches) -> dict:
     diff = _spread(captured, eager)
     ok = diff["tensors"] == 0 if refused is None \
         else diff["max_abs"] <= spread["max_abs"]
-    reading = {"steps": ORACLE_STEPS, "eager_vs_eager": spread,
+    reading = {"steps": steps or ORACLE_STEPS, "eager_vs_eager": spread,
                "deterministic_mode": deterministic, "refused_by": refused,
                "captured_vs_eager": diff,
                "bit_identical": diff["tensors"] == 0}
@@ -1693,14 +1736,16 @@ def captured_against_eager(what, trainer, state, batches) -> dict:
     return reading
 
 
-def _block(trainer, state, step, batches, batch_size, table):
-    """One timed block: ``step`` over ``batches``, ended by a
+def _block(trainer, state, step, batches, batch_size, table, nexts=None):
+    """One timed block: ``step`` over ``batches`` (each with its
+    lookahead from ``nexts``, an iterator, when given), ended by a
     synchronize; returns the state, the last metrics, examples/s and the
     keys ``table`` (a hash table's name, or None) gained a step."""
     used = state.emb[table].num_used() if table else 0
     t0 = time.perf_counter()
     for b in batches:
-        state, m = step(state, b)
+        state, m = step(state, b) if nexts is None \
+            else step(state, b, next_batch=next(nexts))
     torch.cuda.synchronize()
     eps = len(batches) * batch_size / (time.perf_counter() - t0)
     gained = (state.emb[table].num_used() - used) / len(batches) \
@@ -1708,31 +1753,42 @@ def _block(trainer, state, step, batches, batch_size, table):
     return state, m, eps, gained
 
 
-def compare_steps(trainer, state, batch_of, batch_size, table=None):
+def compare_steps(trainer, state, batch_of, batch_size, table=None,
+                  num_blocks=BLOCKS, lookahead=False):
     """Throughput of the captured step (``train_step``, replays) and of the
     eager one (``train_step_eager``) on one state: ``WARMUP_STEPS`` of
-    each, then ``BLOCKS`` timed blocks of ``BLOCK_STEPS`` steps of each,
-    in turns (the order flips every block). ``batch_of(kind, k, i)`` is
-    step ``i`` of block ``k``. Returns the state, the last metrics and per
-    kind the median block's examples/s (min, max), its step time and,
-    for a hash table, the keys inserted a step and their share of a
-    step's keys."""
+    each, then ``num_blocks`` timed blocks of ``BLOCK_STEPS`` steps of
+    each, in turns (the order flips every block). ``batch_of(kind, k, i)`` is
+    step ``i`` of block ``k``; with ``lookahead`` every step is given the
+    batch of the step after it as ``next_batch`` (the pipelined schedule
+    prefetches it; the last step the first's), so the prefetch never
+    misses. Returns the state, the last metrics and per kind the median
+    block's examples/s (min, max), its step time and, for a hash table,
+    the keys inserted a step and their share of a step's keys; and the
+    step programs built meanwhile (``recaptures``)."""
     steps = {"captured": trainer.train_step,
              "eager": trainer.train_step_eager}
-    for kind, step in steps.items():
-        for i in range(WARMUP_STEPS):
-            state, m = step(state, batch_of(kind, 0, i))
+    order = [(kind, [batch_of(kind, 0, i) for i in range(WARMUP_STEPS)])
+             for kind in steps]
+    for k in range(num_blocks):
+        for kind in (list(steps) if k % 2 == 0 else list(steps)[::-1]):
+            order.append((kind, [batch_of(kind, k, i)
+                                 for i in range(BLOCK_STEPS)]))
+    flat = [b for _, run in order for b in run]
+    nexts = iter(flat[1:] + flat[:1]) if lookahead else None
+    builds = trainer.builds
+    for kind, run in order[:2]:
+        for b in run:
+            state, m = steps[kind](state, b) if nexts is None \
+                else steps[kind](state, b, next_batch=next(nexts))
     torch.cuda.synchronize()
     blocks = {kind: [] for kind in steps}
     gained = {kind: [] for kind in steps}
-    for k in range(BLOCKS):
-        for kind in (list(steps) if k % 2 == 0 else list(steps)[::-1]):
-            state, m, eps, g = _block(
-                trainer, state, steps[kind],
-                [batch_of(kind, k, i) for i in range(BLOCK_STEPS)],
-                batch_size, table)
-            blocks[kind].append(eps)
-            gained[kind].append(g)
+    for kind, run in order[2:]:
+        state, m, eps, g = _block(trainer, state, steps[kind], run,
+                                  batch_size, table, nexts)
+        blocks[kind].append(eps)
+        gained[kind].append(g)
     out = {}
     for kind, eps in blocks.items():
         med = statistics.median(eps)
@@ -1747,6 +1803,7 @@ def compare_steps(trainer, state, batch_of, batch_size, table=None):
                 statistics.mean(gained[kind]) / keys
     out["captured_over_eager"] = out["captured"]["examples_per_s"] \
         / out["eager"]["examples_per_s"]
+    out["recaptures"] = trainer.builds - builds
     return state, m, out
 
 
@@ -5682,16 +5739,23 @@ class _Uncounted:
 
 
 def build_sharded_trainer(device, plane="a2a", hashed=False,
-                          key_dtype="wide", sgd=False, mesh=SHARD_MESH):
-    """``deepfm_dim9`` (or, ``hashed``, ``deepfm_dim9_hash`` with
-    ``key_dtype`` keys) on a ``mesh`` of one process whose positions all
-    name ``device``, on ``plane``: the fused tables with sparse Adagrad,
-    or SGD (lr 0.05) from constant 0 with ``sgd`` (the plane-parity
-    recipe, bench.py:1153-1213), ``DeepFM`` (256, 128), dense Adagrad."""
+                          key_dtype="wide", per_feature=False, sgd=False,
+                          cache_k=0, mesh=SHARD_MESH):
+    """``deepfm_dim9`` (the fused tables), ``deepfm_dim9_hash``
+    (``hashed``: fused hash tables of ``HASH_CAPACITY`` slots with
+    ``key_dtype`` keys) or ``deepfm_dim9_per_feature`` (``per_feature``:
+    52 variables of ``PER_FEATURE_VOCAB`` rows, dims 9 and 1) on a
+    ``mesh`` of one process whose positions all name ``device``, on
+    ``plane``: sparse Adagrad, or SGD (lr 0.05) from constant 0 with
+    ``sgd`` (the plane-parity recipe, bench.py:1153-1213); ``cache_k``
+    replica rows refreshed every ``PLANE_CACHE_REFRESH`` steps;
+    ``DeepFM`` (256, 128), dense Adagrad. Returns the trainer and the
+    fused batches' mapper (None per feature)."""
     from openembedding_tpu_torch.data.criteo import NUM_DENSE, SPARSE_NAMES
     from openembedding_tpu_torch.embedding import EmbeddingCollection
     from openembedding_tpu_torch.fused import make_fused_specs
-    from openembedding_tpu_torch.models.deepctr import build_model
+    from openembedding_tpu_torch.models.deepctr import (build_model,
+                                                        make_feature_specs)
     from openembedding_tpu_torch.optim import dense
     from openembedding_tpu_torch.parallel.mesh import create_mesh
     from openembedding_tpu_torch.training import Trainer
@@ -5700,10 +5764,16 @@ def build_sharded_trainer(device, plane="a2a", hashed=False,
     if sgd:
         kw["optimizer"] = {"category": "sgd", "learning_rate": 0.05}
         kw["initializer"] = {"category": "constant", "value": 0.0}
+    if cache_k:
+        kw.update(cache_k=cache_k, cache_refresh_every=PLANE_CACHE_REFRESH)
     if hashed:
         kw.update(hash_capacity=HASH_CAPACITY, key_dtype=key_dtype)
-    specs, mapper = make_fused_specs(
-        SPARSE_NAMES, -1 if hashed else VOCAB_PER_FEATURE, 9, **kw)
+    if per_feature:
+        specs = make_feature_specs(SPARSE_NAMES, PER_FEATURE_VOCAB, 9, **kw)
+        mapper = None
+    else:
+        specs, mapper = make_fused_specs(
+            SPARSE_NAMES, -1 if hashed else VOCAB_PER_FEATURE, 9, **kw)
     module = build_model("deepfm", SPARSE_NAMES, embedding_dim=9,
                          num_dense=NUM_DENSE, dnn_units=(256, 128))
     coll = EmbeddingCollection(specs, create_mesh(*mesh, device=device),
@@ -5711,16 +5781,35 @@ def build_sharded_trainer(device, plane="a2a", hashed=False,
     return Trainer(module, coll, dense.adagrad(0.01)), mapper
 
 
-def sharded_batches(mapper, hashed, int64, count=TRAIN_BATCHES):
-    """``count`` fused batches of 4096 (``synthetic_criteo``); the int64
-    run's raw ids moved up by ``INT64_OFFSET`` so that its keys fill
-    64 bits."""
-    from openembedding_tpu_torch.data.criteo import synthetic_criteo
+def sharded_batches(count, hashed=False, key_dtype="wide",
+                    per_feature=False, **_) -> list:
+    """``count`` batches of 4096 for the ``build_sharded_trainer``
+    configuration of these keywords, as ``bench.py``'s ``make_batches``
+    gives each: ``synthetic_criteo`` (zipfian), fused, on int64 keys the
+    raw ids moved up by ``INT64_OFFSET`` so that the keys fill 64 bits;
+    per feature, uniform ids from ``RandomState(0)`` with their
+    ``:linear`` columns."""
+    from openembedding_tpu_torch.data.criteo import (NUM_DENSE,
+                                                     SPARSE_NAMES,
+                                                     add_linear_columns,
+                                                     synthetic_criteo)
+    from openembedding_tpu_torch.fused import make_fused_specs
+    if per_feature:
+        rng = np.random.RandomState(0)
+        raw = [{"sparse": {f: rng.randint(0, PER_FEATURE_VOCAB, BATCH)
+                           .astype(np.int32) for f in SPARSE_NAMES},
+                "label": (rng.rand(BATCH) > 0.75).astype(np.float32),
+                "dense": rng.randn(BATCH, NUM_DENSE).astype(np.float32)}
+               for _ in range(count)]
+        return list(add_linear_columns(raw))
+    mapper = make_fused_specs(SPARSE_NAMES,
+                              -1 if hashed else VOCAB_PER_FEATURE, 9,
+                              key_dtype=key_dtype)[1]
     out = []
     for b in synthetic_criteo(BATCH, num_buckets=HASH_VOCAB if hashed
                               else VOCAB_PER_FEATURE, seed=SEED,
                               num_batches=count):
-        if int64:
+        if key_dtype == "int64":
             b = {**b, "sparse": {k: np.asarray(v).astype(np.int64)
                                  + INT64_OFFSET
                                  for k, v in b["sparse"].items()}}
@@ -5757,8 +5846,10 @@ def check_sharded_init(trainer, state, build) -> dict:
     cpu_trainer, _ = build("cpu")
     emb_rng, dense_rng = ti.split(ti.prng_key(SEED))
     params = init_params(cpu_trainer.module, dense_rng, "cpu")
+    from openembedding_tpu_torch.parallel.hot_cache import unwrap
     tables = {}
     for name, st in state.emb.items():
+        st = unwrap(st)
         sspec = coll.sharding_spec(name)
         if coll.specs[name].use_hash:
             if st.init_rng != coll.hash_init_rng(name, emb_rng) \
@@ -5792,9 +5883,10 @@ def check_sharded_init(trainer, state, build) -> dict:
 def _emb_close(what, state, cstate) -> dict:
     """Every table of a card state against a CPU state: keys and failure
     counts bit for bit, rows and slots within ``_close``'s tolerance."""
+    from openembedding_tpu_torch.parallel.hot_cache import unwrap
     out = {}
     for name, st in state.emb.items():
-        cs = cstate.emb[name]
+        st, cs = unwrap(st), unwrap(cstate.emb[name])
         if hasattr(st, "keys") and (
                 not torch.equal(st.keys.cpu(), cs.keys)
                 or not torch.equal(st.shard_failures.cpu(),
@@ -5812,24 +5904,127 @@ def sharded_against_cpu(what, trainer, state, batches, build):
     """``SHARD_CHECK_STEPS`` captured card steps (the first builds the
     program) against the same eager steps of a CPU trainer on a CPU mesh
     of the same shape, from a copy of the card's state: losses rtol
-    1e-4, every table and the dense parameters within ``_close``."""
+    1e-4, every table and the dense parameters within ``_close``, and a
+    plane's derived state after each step (``_derived_close``)."""
     from openembedding_tpu_torch.training import copy_state
     cpu_trainer, _ = build("cpu")
+    t0 = time.perf_counter()
     cstate = copy_state(state, "cpu")
-    card, cpu = [], []
-    for b in batches[:SHARD_CHECK_STEPS]:
+    spent = {"copy_s": time.perf_counter() - t0, "cpu_steps_s": 0.0}
+    card, cpu, derived = [], [], []
+    for i, b in enumerate(batches[:SHARD_CHECK_STEPS]):
         state, m = trainer.train_step(state, b)
-        cstate, cm = cpu_trainer.train_step(cstate, b)
+        t0 = time.perf_counter()
+        with _EFScales() as kept:
+            cstate, cm = cpu_trainer.train_step(cstate, b)
+        spent["cpu_steps_s"] += time.perf_counter() - t0
         card.append(float(m["loss"]))
         cpu.append(float(cm["loss"]))
+        derived.append(_derived_close(f"{what} step {i}", state, cstate,
+                                      kept))
     if not np.allclose(card, cpu, rtol=1e-4):
         raise AssertionError(f"{what}: card losses {card}, CPU {cpu}")
+    t0 = time.perf_counter()
     reading = {"steps": len(card), "card_losses": card, "cpu_losses": cpu,
                "tables_max_abs_diff": _emb_close(what, state, cstate),
                "dense_max_abs_diff": max(
                    _close(f"{what} parameter {k}", state.params[k], v)
                    for k, v in cstate.params.items())}
+    spent["compare_s"] = time.perf_counter() - t0
+    reading["seconds"] = spent
+    if any(derived):
+        reading["derived_state"] = derived
     return state, reading, cpu_trainer, cstate
+
+
+class _EFScales:
+    """Keeps, while the ``with`` body runs, the outputs of every int8_ef
+    quantization (``alltoall._quantize_ef``): each residual's rows and
+    their per-row scales, the units a card residual is held against."""
+
+    def __enter__(self):
+        from openembedding_tpu_torch.parallel import alltoall
+        self.kept, self.real = [], alltoall._quantize_ef
+
+        def keep(*args):
+            out = self.real(*args)
+            resid, scale = out[2][1], out[1]
+            self.kept.append((resid.reshape(-1, resid.shape[-1]),
+                              scale.reshape(-1)))
+            return out
+        alltoall._quantize_ef = keep
+        return self
+
+    def __exit__(self, *exc):
+        from openembedding_tpu_torch.parallel import alltoall
+        alltoall._quantize_ef = self.real
+
+    def scale_of(self, what, resid) -> torch.Tensor:
+        """The per-row scales of the quantization that left ``resid``."""
+        for r, scale in self.kept:
+            if r.shape == resid.shape and torch.equal(r, resid):
+                return scale
+        raise AssertionError(f"{what}: no int8 quantization of the step "
+                             "left this residual")
+
+
+def _resid_close(what, got, want, scale) -> dict:
+    """An int8_ef residual of the card (``got``) against the CPU's
+    (``want``) in units of the CPU's per-row ``scale`` (one int8 unit):
+    each element equal to the CPU's within ``RESID_TOL`` of a unit, or
+    one unit from it within that tolerance: there the card's pre-reduce
+    (its deterministic ``index_add_`` adds a sender's entries in another
+    order than the CPU) rounded a total across an int8 rounding
+    boundary. Counts those flips; anything else raises."""
+    units = (got.detach().cpu().double() - want.double()).abs() \
+        / scale.double()[:, None]
+    same = units <= RESID_TOL
+    flip = (units - 1).abs() <= RESID_TOL
+    bad = ~(same | flip)
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} of {units.numel()} card residuals "
+            "are neither the CPU's nor one int8 unit from it (in units: "
+            f"{float(units[bad].min())} to {float(units[bad].max())})")
+    return {"elements": units.numel(), "one_unit_flips": int(flip.sum()),
+            "max_units_from_equal": float(units[same].max())
+            if bool(same.any()) else 0.0,
+            "max_units_from_one_unit": float((units[flip] - 1).abs().max())
+            if bool(flip.any()) else 0.0}
+
+
+def _derived_close(what, state, cstate, kept) -> dict:
+    """A plane's derived state on the card against the CPU's after one
+    step: a replica's keys bit for bit and rows and slots within
+    ``_close``; a residual's keys bit for bit and its values against the
+    CPU step's scales (``kept``, an ``_EFScales``) by ``_resid_close``,
+    then the CPU takes the card's residual, so that the next step's
+    flips are its own; the prefetched rows within ``_close``."""
+    from openembedding_tpu_torch.parallel.hot_cache import CachedState
+    from openembedding_tpu_torch.parallel.precision import EFState
+    out = {}
+    for name, st in state.emb.items():
+        cs = cstate.emb[name]
+        if isinstance(st, CachedState):
+            if not torch.equal(st.cache.keys.cpu(), cs.cache.keys):
+                raise AssertionError(f"{what}: {name} replica keys differ")
+            out[name] = {"replica_max_abs_diff": max(
+                [_close(f"{what} {name} replica", st.cache.rows,
+                        cs.cache.rows)]
+                + [_close(f"{what} {name} replica {k}", v, cs.cache.slots[k])
+                   for k, v in st.cache.slots.items()])}
+        elif isinstance(st, EFState):
+            if not torch.equal(st.keys.cpu(), cs.keys):
+                raise AssertionError(f"{what}: {name} residual keys differ")
+            out[name] = {"residual": _resid_close(
+                f"{what} {name} residual", st.resid, cs.resid,
+                kept.scale_of(f"{what} {name}", cs.resid))}
+            cs.resid.copy_(st.resid.cpu())
+    if state.pipe is not None:
+        out["pipe_max_abs_diff"] = max(
+            _close(f"{what} prefetched {k}", v, cstate.pipe.rows[k])
+            for k, v in state.pipe.rows.items())
+    return out
 
 
 def skew_step(what, trainer, state, cpu_trainer, cstate, batch) -> tuple:
@@ -5983,56 +6178,89 @@ def sharded_kernel_cases(trainer, state, batch, flush) -> tuple:
     return pcase, kcase
 
 
-def sharded_run(what, build, hashed, int64, tmp, flush) -> dict:
-    """One run of phase 17 (module note): the card trainer from
-    ``prng_key(SEED)``, its init against the CPU's draws, card against CPU
-    steps, captured against eager, the exchange's rounds and their cost,
-    throughput, a trace, the skewed step, and the save served on 1 x 1."""
+def sharded_run(what, build, batches, blocks, tmp=None, flush=None,
+                unseen=None) -> tuple:
+    """One run of phase 17 or 18 (module note) on ``batches``: the card
+    trainer (``build``) from ``prng_key(SEED)``, its init against the
+    CPU's draws with nothing copied, card against CPU steps
+    (``sharded_against_cpu``), captured against eager bit for bit,
+    examples/s in ``blocks`` timed blocks of each with every step's
+    lookahead and no program built, launches a step, a trace, and the
+    plane's own readings. Phase 17 (``tmp`` given) also takes the skewed
+    step, reads the exchange's rounds and their cost, serves the save on
+    1 x 1 and, with ``unseen``, checks the int64 kernel cases; phase 18
+    runs its oracle under deterministic algorithms. Returns the reading
+    and the kernel cases (``(None, None)`` but for ``unseen``)."""
+    import copy
     from openembedding_tpu_torch.optim.initializers import prng_key
-    trainer, mapper = build(SHARD_DEVICE)
-    dev = trainer.device
-    # the last batch stays unseen: its keys are the kernel cases' misses
-    batches = sharded_batches(mapper, hashed, int64, TRAIN_BATCHES + 1)
-    unseen, batches = batches[-1], batches[:-1]
+    phase17 = tmp is not None
+    trainer, _ = build(SHARD_DEVICE)
+    coll, dev = trainer.collection, trainer.device
     t0 = time.perf_counter()
     state = trainer.init(prng_key(SEED), batches[0])
     torch.cuda.synchronize()
-    reading = {"config": what, "mesh": dict(trainer.collection.mesh.shape),
-               "shards": {n: trainer.collection.sharding_spec(n).num_shards
-                          for n in state.emb},
+    sspec = coll.sharding_spec(next(iter(state.emb)))
+    reading = {"config": what, "mesh": dict(coll.mesh.shape),
+               "variables": len(state.emb), "plane": sspec.plane_label,
+               "shards": sspec.num_shards,
                "init_s": time.perf_counter() - t0}
+    spent = reading["seconds_by_part"] = {}
+    mark = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        spent[part] = now - mark[0]
+        mark[0] = now
     with _Uncounted():
-        reading["init_without_copy"] = check_sharded_init(trainer, state,
-                                                          build)
+        init = check_sharded_init(trainer, state, build)
+        if len(init["tables"]) > 4:
+            init["tables"] = {"checked": len(init["tables"]),
+                              "max_abs_diff": max(
+                                  t.get("max_abs_diff", 0.0)
+                                  for t in init["tables"].values())}
+        reading["init_without_copy"] = init
+    lap("init_check")
     reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
     state, reading["check"], cpu_trainer, cstate = sharded_against_cpu(
         what, trainer, state, batches, build)
-    reading["program"] = program_reading(trainer, reserved)
-    reading["captured_vs_eager"] = captured_against_eager(
-        what, trainer, state, batches)
-    if trainer.collection.sharding_spec("fields").plane == "a2a":
-        reading["exchange"] = rounds_reading(trainer, state, batches[0])
-    rng = np.random.default_rng(SEED)
-    state, cstate, reading["skew"] = skew_step(
-        what, trainer, state, cpu_trainer, cstate,
-        skewed_batch(batches[1], trainer.collection, rng))
+    if len(reading["check"]["tables_max_abs_diff"]) > 4:
+        reading["check"]["tables_max_abs_diff"] = max(
+            reading["check"]["tables_max_abs_diff"].values())
+    lap("cpu_check")
+    if phase17:
+        state, cstate, reading["skew"] = skew_step(
+            what, trainer, state, cpu_trainer, cstate,
+            skewed_batch(batches[1], coll, np.random.default_rng(SEED)))
+        lap("skew")
     del cpu_trainer, cstate
+    reading["program"] = program_reading(trainer, reserved)
+    hot = copy.deepcopy(trainer._hot)
+
+    def reset():
+        # each run starts from the same sketches and refresh clocks
+        trainer._hot = copy.deepcopy(hot)
+    reading["captured_vs_eager"] = captured_against_eager(
+        what, trainer, state, batches, deterministic=not phase17,
+        reset=reset, steps=0 if phase17 else PLANE_ORACLE_STEPS)
+    reset()     # the main state did not take the oracle's steps
+    lap("captured_vs_eager")
     before = {k: w.launches for k, w in _wrappers().items()}
     state, m, speed = compare_steps(
-        trainer, state, lambda kind, k, i: batches[i % len(batches)], BATCH)
-    steps = 2 * (WARMUP_STEPS + BLOCKS * BLOCK_STEPS)
-    reading["launches_per_step"] = {
-        k: (w.launches - before[k]) / steps
-        for k, w in _wrappers().items()}
-    reading["examples_per_s"] = speed["captured"]["examples_per_s"]
-    reading["eager_examples_per_s"] = speed["eager"]["examples_per_s"]
-    reading["step_ms"] = speed["captured"]["step_ms"]
-    reading["eager_step_ms"] = speed["eager"]["step_ms"]
+        trainer, state, lambda kind, k, i: batches[i % len(batches)], BATCH,
+        num_blocks=blocks, lookahead=True)
+    if speed["recaptures"]:
+        raise AssertionError(f"{what}: {speed['recaptures']} step programs "
+                             "built over the timed steps")
+    steps = 2 * (WARMUP_STEPS + blocks * BLOCK_STEPS)
+    reading["launches_per_step"] = {k: (w.launches - before[k]) / steps
+                                    for k, w in _wrappers().items()}
+    reading.update(speed)
+    lap("throughput")
     trace_path = os.path.join(ROOT, "_smoke_sharded_trace.json")
     try:
-        reading["trace"] = training_trace(trainer, state, batches,
-                                          trace_path, batches[-1],
-                                          steps=SHARD_TRACE_STEPS)
+        reading["trace"] = training_trace(
+            trainer, state, batches, trace_path, batches[-1],
+            steps=SHARD_TRACE_STEPS if phase17 else PLANE_TRACE_STEPS)
     finally:
         if os.path.exists(trace_path):
             os.remove(trace_path)
@@ -6040,10 +6268,19 @@ def sharded_run(what, build, hashed, int64, tmp, flush) -> dict:
     if not np.isfinite(loss):
         raise AssertionError(f"{what}: loss {loss}")
     reading["last_loss"] = loss
-    cases = sharded_kernel_cases(trainer, state, unseen, flush) \
-        if int64 else (None, None)
-    reading["serve"] = sharded_save_serve(what, trainer, state, batches[2],
-                                          tmp)
+    lap("trace")
+    reading["readings"] = plane_readings(what, trainer, state, batches[1],
+                                         batches[2])
+    lap("readings")
+    cases = (None, None)
+    if phase17:
+        if sspec.plane == "a2a":
+            reading["exchange"] = rounds_reading(trainer, state, batches[0])
+        if unseen is not None:
+            cases = sharded_kernel_cases(trainer, state, unseen, flush)
+        reading["serve"] = sharded_save_serve(what, trainer, state,
+                                              batches[2], tmp)
+        lap("rounds_cases_serve")
     reading["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
         dev)
     del trainer, state
@@ -6051,56 +6288,81 @@ def sharded_run(what, build, hashed, int64, tmp, flush) -> dict:
     return reading, cases
 
 
-def plane_parity(batches) -> dict:
+def plane_parity_run(build, batches, refresh_after=None) -> dict:
+    """A fresh trainer (``build``) from ``prng_key(SEED)``:
+    ``PARITY_STEPS`` eager steps with their lookahead under
+    deterministic algorithms (replicas refreshed after step
+    ``refresh_after``, so that the later steps hit them), then the rows
+    of the next batch, read only: ``{"losses", "rows"}`` on the host."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    trainer, _ = build(SHARD_DEVICE)
+    state = trainer.init(prng_key(SEED), batches[0])
+    losses = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i, b in enumerate(batches[:PARITY_STEPS]):
+            nxt = batches[i + 1] if i + 1 < PARITY_STEPS else None
+            state, m = trainer.train_step_eager(state, b, next_batch=nxt)
+            losses.append(float(m["loss"]))
+            if i == refresh_after:
+                for name, mgr in trainer._hot.items():
+                    mgr.refresh(state.emb[name])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    probe = batches[PARITY_STEPS]["sparse"]
+    rows = {n: r.cpu() for n, r in trainer.collection.pull(
+        state.emb, {n: probe[n] for n in state.emb},
+        read_only=True).items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "rows": rows}
+
+
+def plane_parity(bases) -> dict:
     """``bench.py``'s ``plane_parity`` recipe at full width: SGD from
     constant 0, the same batches through ``deepfm_dim9`` on the 2 x 2
-    ``a2a`` and ``psum`` meshes and on 1 x 1, ``PARITY_STEPS`` eager
-    steps each under deterministic algorithms; the losses and the rows of
-    a probe batch against 1 x 1's within rtol 1e-5 (bit-identical where
-    the reading says so)."""
-    from openembedding_tpu_torch.optim.initializers import prng_key
-    runs = {}
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    for label, plane, mesh in (("1x1", "a2a", (1, 1)),
-                               ("a2a", "a2a", SHARD_MESH),
-                               ("psum", "psum", SHARD_MESH)):
-        trainer, _ = build_sharded_trainer(SHARD_DEVICE, plane, sgd=True,
-                                           mesh=mesh)
-        state = trainer.init(prng_key(SEED), batches[0])
-        losses = []
-        torch.use_deterministic_algorithms(True)
-        try:
-            for b in batches[:PARITY_STEPS]:
-                state, m = trainer.train_step_eager(state, b)
-                losses.append(float(m["loss"]))
-        finally:
-            torch.use_deterministic_algorithms(False)
-        probe = {n: batches[PARITY_STEPS]["sparse"][n] for n in state.emb}
-        rows = {n: r.cpu() for n, r in trainer.collection.pull(
-            state.emb, probe, read_only=True).items()}
-        runs[label] = (losses, rows)
-        del trainer, state
-        torch.cuda.empty_cache()
-    base_l, base_r = runs["1x1"]
-    out = {"steps": PARITY_STEPS, "losses": {k: v[0] for k, v in
-                                              runs.items()}}
+    ``a2a`` and ``psum`` meshes and on 1 x 1 (``plane_parity_run``); the
+    losses and the rows of a probe batch against 1 x 1's within rtol
+    1e-5 (bit-identical where the reading says so). The runs are kept in
+    ``bases`` under ``(label, (hashed, per_feature, sgd))``: phase 18's
+    ``a2a`` SGD baseline is this one."""
+    from functools import partial
+    batches = sharded_batches(PARITY_STEPS + 1)
+    group = (False, False, True)
+    for label, kw in (("1x1", {"mesh": (1, 1)}), ("a2a", {}),
+                      ("psum", {"plane": "psum"})):
+        bases[(label, group)] = plane_parity_run(
+            partial(build_sharded_trainer, sgd=True, **kw), batches)
+    base = bases[("1x1", group)]
+    out = {"steps": PARITY_STEPS,
+           "losses": {label: bases[(label, group)]["losses"][0]
+                      for label in ("1x1", "a2a", "psum")}}
     for label in ("a2a", "psum"):
-        losses, rows = runs[label]
-        np.testing.assert_allclose(losses, base_l, rtol=1e-5)
-        diff = max(float((rows[n] - base_r[n]).abs().max()) for n in rows)
-        if not all(torch.allclose(rows[n], base_r[n], rtol=1e-5,
-                                  atol=1e-7) for n in rows):
-            raise AssertionError(f"plane parity: {label} rows differ from "
-                                 f"1x1's by {diff}")
-        out[label] = {"max_abs_row_diff": diff,
-                      "bit_identical": diff == 0.0
-                      and losses == base_l}
+        got = bases[(label, group)]
+        out[label] = parity_against(f"plane parity: {label}", got, base,
+                                    "close")
+        out[label]["bit_identical"] = out[label]["max_abs_row_diff"] == 0.0 \
+            and got["losses"] == base["losses"]
     return out
+
+
+# (config, build keywords, timed blocks): the int64 run's last batch stays
+# unseen (its keys are the kernel cases' misses)
+SHARD_RUNS = (
+    ("deepfm_dim9-2x2-a2a", {}, BLOCKS),      # phase 18's a2a baseline
+    ("deepfm_dim9-2x2-psum", {"plane": "psum"}, 3),
+    ("deepfm_dim9_hash-2x2-a2a", {"hashed": True}, 3),
+    ("deepfm_dim9_hash_int64-1x4-a2a",
+     {"hashed": True, "key_dtype": "int64", "mesh": (1, 4)}, 3),
+)
 
 
 def phase_sharded() -> dict:
     """Phase 17: sharded tables on a 2 x 2 mesh of one process (returns
-    the main path's kernel launches and the int64 kernel cases)."""
+    the main path's kernel launches, the int64 kernel cases, the
+    ``deepfm_dim9`` ``a2a`` run's reading and the parity runs, which
+    phase 18 takes as its baselines)."""
     import tempfile
     from functools import partial
     for w in _wrappers().values():
@@ -6108,24 +6370,19 @@ def phase_sharded() -> dict:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=SHARD_DEVICE)
     tmp = tempfile.mkdtemp(prefix="oe-smoke-sharded-")
     t0 = time.perf_counter()
-    runs, cases = {}, (None, None)
+    runs, cases, bases = {}, (None, None), {}
     try:
-        for what, kw in (
-                ("deepfm_dim9-2x2-a2a", {}),
-                ("deepfm_dim9-2x2-psum", {"plane": "psum"}),
-                ("deepfm_dim9_hash-2x2-a2a", {"hashed": True}),
-                ("deepfm_dim9_hash_int64-1x4-a2a",
-                 {"hashed": True, "key_dtype": "int64", "mesh": (1, 4)})):
-            build = partial(build_sharded_trainer, **kw)
+        for what, kw, blocks in SHARD_RUNS:
+            int64 = kw.get("key_dtype") == "int64"
+            batches = sharded_batches(TRAIN_BATCHES + int64, **kw)
             runs[what], got = sharded_run(
-                what, build, kw.get("hashed", False),
-                kw.get("key_dtype") == "int64", tmp, flush)
+                what, partial(build_sharded_trainer, **kw),
+                batches[:TRAIN_BATCHES], blocks, tmp, flush,
+                batches[-1] if int64 else None)
             if got[0] is not None:
                 cases = got
-        _, mapper = build_sharded_trainer("cpu", sgd=True)
         with _Uncounted():
-            parity = plane_parity(sharded_batches(mapper, False, False,
-                                                  PARITY_STEPS + 1))
+            parity = plane_parity(bases)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = {k: w.launches for k, w in _wrappers().items()}
@@ -6136,7 +6393,255 @@ def phase_sharded() -> dict:
                                 "int64_kernel_cases": list(cases),
                                 "launches": launches,
                                 "seconds": time.perf_counter() - t0}}))
-    return {**launches, "pcase": cases[0], "kcase": cases[1]}
+    return {**launches, "pcase": cases[0], "kcase": cases[1],
+            "a2a_run": runs["deepfm_dim9-2x2-a2a"], "parity_runs": bases}
+
+
+# --- phase 18: the other exchange planes ---------------------------------------
+
+PLANE_TRACE_STEPS = 3
+PLANE_ORACLE_STEPS = 2          # captured steps held against eager ones
+PLANE_STAGE_REPS = 5            # each stage timed alone, median of these
+PLANE_CACHE_K = 4096            # deepfm_dim9_zipf (bench.py:1578-1582)
+PLANE_CACHE_REFRESH = 16
+PER_FEATURE_VOCAB = 1 << 18     # deepfm_dim9_per_feature (bench.py:1632)
+# JAX's trajectory bound of the compressed planes
+# (tests/test_compressed.py:232-262): the largest deviation of a trained
+# row from the f32 plane's within 5 % of the f32 rows' largest value
+PLANE_ROW_BOUND = 0.05
+OBSERVE_REPS = 20
+# of a row's int8 unit: a card residual equal to the CPU's, or one unit
+# from it (a flipped rounding), within this share of the unit
+RESID_TOL = 1e-3
+
+
+def parity_against(label, got, base, mode) -> dict:
+    """A plane's parity run against its baseline's: ``exact`` (losses and
+    rows bit for bit), ``close`` (rtol 1e-5, atol 1e-7: phase 17's plane
+    parity) or ``bound`` (the compressed planes: the largest row
+    deviation within ``PLANE_ROW_BOUND`` of the baseline's largest row
+    value, JAX's trajectory bound; the loss gap reported)."""
+    diff = max(float((got["rows"][n] - base["rows"][n]).abs().max())
+               for n in base["rows"])
+    gap = max(abs(a - b) for a, b in zip(got["losses"], base["losses"]))
+    out = {"mode": mode, "losses": got["losses"],
+           "base_losses": base["losses"], "max_loss_gap": gap,
+           "max_abs_row_diff": diff}
+    if mode == "exact":
+        ok = got["losses"] == base["losses"] and diff == 0.0
+    elif mode == "close":
+        ok = np.allclose(got["losses"], base["losses"], rtol=1e-5,
+                         atol=0.0) and all(
+            torch.allclose(got["rows"][n], base["rows"][n], rtol=1e-5,
+                           atol=1e-7) for n in base["rows"])
+    else:
+        top = max(float(r.abs().max()) for r in base["rows"].values())
+        out["row_bound"] = PLANE_ROW_BOUND * top
+        ok = diff <= out["row_bound"]
+    if not ok:
+        raise AssertionError(f"{label}: parity ({mode}) fails: "
+                             f"{json.dumps(out)[:2000]}")
+    return out
+
+
+def _stage_ms_of(trainer, state, batch) -> dict:
+    """The pull of every variable, the dense half and the push, each timed
+    alone on the trained state (``_stage_ms``): the exchange's ms beside
+    the dense ms, read against the step's."""
+    coll = trainer.collection
+    placed = trainer.place_batch(batch)
+    cols = {n: placed["sparse"][n] for n in state.emb}
+    rows = coll.pull(state.emb, cols)
+    _, grads = trainer.dense_step(state, placed, rows)
+    reps = PLANE_STAGE_REPS
+    return {"pull_ms": _stage_ms(lambda: coll.pull(state.emb, cols), reps),
+            "dense_ms": _stage_ms(lambda: trainer.dense_step(
+                state, placed, rows), reps),
+            "push_ms": _stage_ms(lambda: coll.apply_gradients(
+                state.emb, cols, grads), reps)}
+
+
+def plane_readings(what, trainer, state, batch, after) -> dict:
+    """What each plane shows of itself, on a copy of the trained state
+    (one eager step, not the main path's launches): the exchanges a step
+    and each verb's wire bytes a step (keys and payload, summed over the
+    variables, from the buffers that crossed) with the payload dtype;
+    the int8 quantization error's largest element and a sender's largest
+    residual norm (``quant_error_max``, ``quant_residual_norm``: the
+    largest over senders and variables, read from the residuals the last
+    training step left); the replica's hits, misses, bytes saved,
+    refreshes and the last refresh's ms, and the host sketch's cost a
+    step; the stages alone (dense beside pull and push)."""
+    from openembedding_tpu_torch.parallel import alltoall
+    from openembedding_tpu_torch.parallel.precision import EFState
+    from openembedding_tpu_torch.training import copy_state
+    from openembedding_tpu_torch.utils import observability as obs
+    coll = trainer.collection
+    out = {}
+    with _Uncounted():
+        s = copy_state(state, trainer.device)
+        wire = {v: {"keys": 0, "payload": 0, "dtypes": set()}
+                for v in ("pull", "push")}
+        placed = trainer.place_batch(batch)
+        n0 = dict(alltoall.EXCHANGES)
+        obs.GLOBAL.reset()
+        obs.set_evaluate_performance(True)
+        try:
+            for name in coll.specs:
+                ids = {name: placed["sparse"][name]}
+                alltoall.WIRE.clear()
+                rows = coll.pull(s.emb, ids)
+                w = alltoall.WIRE.get("pull")
+                if w and name not in coll.grouped_names():
+                    wire["pull"]["keys"] += w["keys"]
+                    wire["pull"]["payload"] += w["payload"]
+                    wire["pull"]["dtypes"].add(w["payload_dtype"])
+                alltoall.WIRE.clear()
+                coll.apply_gradients(s.emb, ids,
+                                     {name: torch.ones_like(rows[name])
+                                      * 1e-3})
+                w = alltoall.WIRE.get("push")
+                if w and name not in coll.grouped_names():
+                    wire["push"]["keys"] += w["keys"]
+                    wire["push"]["payload"] += w["payload"]
+                    wire["push"]["dtypes"].add(w["payload_dtype"])
+            torch.cuda.synchronize()
+            alltoall.flush_stats()
+            out["cache"] = obs.cache_stats()
+        finally:
+            obs.set_evaluate_performance(False)
+            obs.GLOBAL.reset()
+        n1 = dict(alltoall.EXCHANGES)
+        # a step's exchanges: the whole collection at once (groups batch)
+        s2 = copy_state(state, trainer.device)
+        trainer.train_step_eager(s2, batch, next_batch=after)
+        m0 = dict(alltoall.EXCHANGES)
+        trainer.train_step_eager(s2, after, next_batch=batch)
+        out["exchanges_per_step"] = {v: alltoall.EXCHANGES[v] - m0[v]
+                                     for v in m0}
+        out["per_table_exchanges"] = {v: n1[v] - n0[v] for v in n0}
+        out["wire_bytes_per_step"] = {
+            v: {"keys": d["keys"], "payload": d["payload"],
+                "payload_dtypes": sorted(d["dtypes"])}
+            for v, d in wire.items()}
+        out["quant"] = {"quant_error_max": 0.0, "quant_residual_norm": 0.0}
+        for name, st in state.emb.items():
+            if isinstance(st, EFState):
+                blocks = st.resid.view(coll.sharding_spec(name).num_shards,
+                                       -1)
+                out["quant"] = {
+                    "quant_error_max": max(out["quant"]["quant_error_max"],
+                                           float(blocks.abs().max())),
+                    "quant_residual_norm": max(
+                        out["quant"]["quant_residual_norm"],
+                        float(blocks.norm(dim=1).max()))}
+        out["stages"] = _stage_ms_of(trainer, s, batch)
+        del s, s2
+    if trainer._hot:
+        from openembedding_tpu_torch.parallel.hot_cache import FreqSketch
+        mgr = next(iter(trainer._hot.values()))
+        keys = mgr._valid_keys(batch["sparse"][next(iter(trainer._hot))])
+        scratch = FreqSketch(dense_vocab=len(mgr.sketch._dense)
+                             if mgr.sketch._dense is not None else None)
+        t0 = time.perf_counter()
+        for _ in range(OBSERVE_REPS):
+            scratch.update(keys)
+        out["replica"] = {
+            name: {"refreshes": m.refreshes,
+                   "last_refresh_ms": m.last_refresh_s * 1e3,
+                   "live_keys": int((state.emb[name].cache.keys
+                                     != torch.iinfo(state.emb[name].cache
+                                                    .keys.dtype).min)
+                                    .sum()) if not state.emb[name].cache
+                   .wide else None,
+                   "replica_bytes": m.last_replica_bytes}
+            for name, m in trainer._hot.items()}
+        out["sketch_update_ms"] = (time.perf_counter() - t0) \
+            / OBSERVE_REPS * 1e3
+    return out
+
+
+# (config, plane, build keywords, timed blocks, parity: (mode, baseline)):
+# deepfm_dim9 on a2a is phase 17's run
+PLANE_RUNS = (
+    ("deepfm_dim9", "a2a+bf16", {}, BLOCKS, ("bound", "adagrad")),
+    ("deepfm_dim9", "a2a+int8", {}, BLOCKS, ("bound", "adagrad")),
+    ("deepfm_dim9", "a2a+pipelined", {}, BLOCKS, ("exact", "adagrad")),
+    ("deepfm_dim9_zipf", "a2a+cache", {"cache_k": PLANE_CACHE_K}, BLOCKS,
+     ("close", "sgd")),
+    # its eager step is ~0.45 s (24,000 device operations): 3 blocks
+    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, 3, None),
+    ("deepfm_dim9_per_feature", "a2a+grouped", {"per_feature": True},
+     BLOCKS, ("close", "sgd")),
+    ("deepfm_dim9_per_feature", "a2a+grouped+pipelined",
+     {"per_feature": True}, BLOCKS, ("close", "sgd")),
+    ("deepfm_dim9_hash", "a2a+int8", {"hashed": True}, 3,
+     ("bound", "adagrad")),
+    ("deepfm_dim9_hash", "a2a+cache", {"hashed": True,
+                                       "cache_k": PLANE_CACHE_K}, 3,
+     ("close", "sgd")),
+)
+
+
+def phase_planes(a2a_run=None, bases=None) -> dict:
+    """Phase 18: the compressed wires, the grouped exchange, the
+    pipelined schedule and the hot-row cache, trained at full width on a
+    2 x 2 mesh of one process (returns the main path's kernel launches).
+    ``deepfm_dim9`` on ``a2a`` is phase 17's run (``a2a_run``; run here
+    when phase 18 runs alone). Each run's parity is held against its
+    group's ``a2a`` run on the same batches (``plane_parity_run``; phase
+    17's ``bases`` are reused)."""
+    from functools import partial
+    for w in _wrappers().values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    runs, parity, bases = {}, {}, dict(bases or {})
+    todo = PLANE_RUNS
+    if a2a_run is None:
+        todo = (("deepfm_dim9", "a2a", {}, BLOCKS, None),) + todo
+    else:
+        runs["deepfm_dim9-2x2-a2a"] = "phase 17's run"
+    for config, plane, kw, blocks, par in todo:
+        what = f"{config}-2x2-{plane}"
+        build = partial(build_sharded_trainer, plane=plane, **kw)
+        batches = sharded_batches(TRAIN_BATCHES, **kw)
+        t1 = time.perf_counter()
+        runs[what] = sharded_run(what, build, batches, blocks)[0]
+        runs[what]["seconds"] = time.perf_counter() - t1
+        if par is None:
+            continue
+        mode, recipe = par
+        group = (kw.get("hashed", False), kw.get("per_feature", False),
+                 recipe == "sgd")
+        base_kw = {k: v for k, v in kw.items() if k != "cache_k"}
+
+        def parity_of(p, **extra):
+            # one parity run a (plane, group): later planes reuse it
+            if (p, group) not in bases:
+                bases[(p, group)] = plane_parity_run(partial(
+                    build_sharded_trainer, plane=p, sgd=group[2],
+                    **extra), batches,
+                    refresh_after=0 if extra.get("cache_k") else None)
+            return bases[(p, group)]
+        with _Uncounted():
+            got = parity_of(plane, **kw)
+            parity[what] = parity_against(what, got,
+                                          parity_of("a2a", **base_kw),
+                                          mode)
+            if plane == "a2a+grouped+pipelined":
+                # pipelining adds nothing to the grouped plane's numbers
+                parity[what]["against_grouped"] = parity_against(
+                    what + " vs a2a+grouped", got,
+                    parity_of("a2a+grouped", **kw), "exact")
+    launches = {k: w.launches for k, w in _wrappers().items()}
+    for k in ("gather_rows", "probe_gather", "init_rows"):
+        if not launches[k]:
+            raise AssertionError(f"planes: {k} never launched")
+    log(json.dumps({"planes": {"runs": runs, "parity": parity,
+                               "launches": launches,
+                               "seconds": time.perf_counter() - t0}},
+                   default=str))
+    return launches
 
 
 def setup_array():
@@ -6205,10 +6710,23 @@ def ki_only() -> None:
     phase_ki_kernels(trainer, state, batches[-1])
 
 
+PHASE_SECONDS: dict = {}
+
+
+def _timed(name, fn, *args):
+    """``fn(*args)``, its wall seconds kept under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
 def main() -> None:
+    t_main = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, ROOT)
-    phase_build()
+    _timed("build", phase_build)
     if sys.argv[1:] == ["--ki"]:
         ki_only()
         return
@@ -6233,57 +6751,76 @@ def main() -> None:
     if sys.argv[1:] == ["--sharded"]:
         phase_sharded()
         return
-    coll, states, mapper, host, main_ids = setup_array()
-    cases = phase_kernels(states["fields"].weights,
-                          states["fields:linear"].weights, main_ids)
-    launches = phase_serving(coll, states, mapper, host)
+    if sys.argv[1:] == ["--planes"]:
+        phase_planes()
+        return
+    if sys.argv[1:] == ["--sharded", "--planes"]:
+        sharded = phase_sharded()
+        phase_planes(sharded["a2a_run"], sharded["parity_runs"])
+        return
+    coll, states, mapper, host, main_ids = _timed("3 setup", setup_array)
+    cases = _timed("3 kernels", phase_kernels, states["fields"].weights,
+                   states["fields:linear"].weights, main_ids)
+    launches = _timed("4 serving", phase_serving, coll, states, mapper,
+                      host)
     del coll, states, host
 
-    hcoll, hstates, batches, keys64, hhost = setup_hash()
-    pcases = phase_probe_kernels(hstates, batches, keys64)
-    plaunches = phase_hash_serving(hcoll, hstates, batches, hhost)
+    hcoll, hstates, batches, keys64, hhost = _timed("5 setup", setup_hash)
+    pcases = _timed("5 probe kernels", phase_probe_kernels, hstates,
+                    batches, keys64)
+    plaunches = _timed("6 hash serving", phase_hash_serving, hcoll,
+                       hstates, batches, hhost)
     del hcoll, hstates, hhost
     torch.cuda.empty_cache()
 
-    k1_training, flat_training, fcases = phase_training()
+    k1_training, flat_training, fcases = _timed("7 training",
+                                                phase_training)
     launches += k1_training
     torch.cuda.empty_cache()
-    kcases, hash_launches = phase_hash_training()
+    kcases, hash_launches = _timed("8 hash training",
+                                   phase_hash_training)
     torch.cuda.empty_cache()
-    k1_xdeep, flat_xdeep = phase_xdeepfm_training()
+    k1_xdeep, flat_xdeep = _timed("10 xdeepfm", phase_xdeepfm_training)
     launches += k1_xdeep
     flat_training += flat_xdeep
     torch.cuda.empty_cache()
-    hybrid = phase_hybrid_training()
+    hybrid = _timed("11 hybrid", phase_hybrid_training)
     launches += hybrid["gather_rows"]
     flat_training += hybrid["init_flat"]
     torch.cuda.empty_cache()
-    delta = phase_delta()
+    delta = _timed("12 delta", phase_delta)
     launches += delta["gather_rows"]
     flat_training += delta["init_flat"]
     torch.cuda.empty_cache()
-    ingest = phase_ingest()
+    ingest = _timed("13 ingest", phase_ingest)
     launches += ingest["gather_rows"]
     flat_training += ingest["init_flat"]
     torch.cuda.empty_cache()
-    served = phase_serving_batched()
+    served = _timed("14 serving batched", phase_serving_batched)
     launches += served["gather_rows"]
     torch.cuda.empty_cache()
-    offload, okcases = phase_offload()
+    offload, okcases = _timed("15 offload", phase_offload)
     launches += offload["gather_rows"]
     torch.cuda.empty_cache()
-    drivers = phase_drivers()
+    drivers = _timed("16 drivers", phase_drivers)
     launches += drivers["gather_rows"]
     flat_training += offload["init_flat"] + drivers["init_flat"]
     torch.cuda.empty_cache()
-    sharded = phase_sharded()
+    sharded = _timed("17 sharded", phase_sharded)
     launches += sharded["gather_rows"]
     flat_training += sharded["init_flat"]
     pcases.append(sharded["pcase"])
     kcases.append(sharded["kcase"])
+    torch.cuda.empty_cache()
+    planes = _timed("18 planes", phase_planes, sharded["a2a_run"],
+                    sharded["parity_runs"])
+    launches += planes["gather_rows"]
+    flat_training += planes["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
+    PHASE_SECONDS["whole"] = time.perf_counter() - t_main
+    log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(card)       # again beside the results: the first line may scroll
     log(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda",
@@ -6303,7 +6840,7 @@ def main() -> None:
         + hybrid["probe_gather"] + delta["probe_gather"]
         + ingest["probe_gather"] + served["probe_gather"]
         + offload["probe_gather"] + drivers["probe_gather"]
-        + sharded["probe_gather"],
+        + sharded["probe_gather"] + planes["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -6320,11 +6857,11 @@ def main() -> None:
                     "(Uniform/Normal.init): XLA code, not Pallas kernels",
         "launches": hash_launches["init_rows"] + hybrid["init_rows"]
         + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
-        + drivers["init_rows"] + sharded["init_rows"] + flat_training
-        + hash_launches["init_flat"],
+        + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"]
+        + flat_training + hash_launches["init_flat"],
         "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"]
         + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
-        + drivers["init_rows"] + sharded["init_rows"],
+        + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"]

@@ -92,6 +92,7 @@ from .embedding import EmbeddingCollection
 from .meta import UNBOUNDED_VOCAB, ModelMeta
 from .parallel import sharded_hash as sh
 from .parallel import sharded_table as st
+from .parallel import hot_cache
 from .utils import fs
 
 MODEL_META_FILE = "model_meta"
@@ -455,7 +456,8 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
     meta.extra["delta_last_seq"] = int(carried_seq)
     targets, live = {}, {}
     for name, spec in collection.specs.items():
-        state = states[name]
+        # a plane's replica or residual is derived: only the table is saved
+        state = hot_cache.unwrap(states[name])
         if collection.sharded(name) and not spec.use_hash:
             # the logical rows: the mod permutation undone, padding dropped
             state = st.to_logical(state, collection.sharding_spec(name),
@@ -851,7 +853,7 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
     hash_init_rng``), as JAX's loader takes ``collection.init(rng)``'s, so
     a loaded model that trains on draws JAX's init rows for keys the dump
     lacks."""
-    state = collection.init(rng, only=[name])[name]
+    state = hot_cache.unwrap(collection.init(rng, only=[name])[name])
     targets = {"weights": state.weights,
                **{f"slot_{s}": t for s, t in state.slots.items()}}
     total = 0
@@ -1013,6 +1015,10 @@ def _load_checkpoint_impl(path: str, collection: EmbeddingCollection, *,
         # chainless: the base reflects content_seq (0 for plain dumps)
         info["applied_seq"] = cd.verified_seq(manifest, [])
         info["resume_extra"] = cd.resume_extra(manifest, [])
+    # a plane's derived state comes back empty: an all-padding replica
+    # (the first refresh re-admits the hot set), an empty residual
+    out = {name: collection.attach_derived(name, st_)
+           for name, st_ in out.items()}
     if dense_state_template is not None:
         from .utils.msgpack_state import dense_state_from_bytes
         with fs.open_file(fs.join(path, DENSE_FILE), "rb") as f:
@@ -1026,8 +1032,9 @@ def export_dense(collection: EmbeddingCollection,
     """Every bounded variable as a dense ``[input_dim, dim]`` host numpy
     array (``openembedding_tpu/checkpoint.py`` ``export_dense``, the
     reference's ``save_as_original_model``): its rows in logical id
-    order, padding dropped, copied back from the device (bfloat16 tables
-    as float32). A hash variable cannot be densified and raises
+    order (a sharded table's layout undone), padding dropped, copied back
+    from the device (bfloat16 tables as float32); a plane's replica or
+    residual is left out. A hash variable cannot be densified and raises
     ``ValueError``, as in JAX."""
     out = {}
     for name, spec in collection.specs.items():
@@ -1035,7 +1042,11 @@ def export_dense(collection: EmbeddingCollection,
             raise ValueError(
                 f"variable {name!r} uses an unbounded hash key space and "
                 "cannot be exported densely (reference rejects this too)")
-        w = states[name].weights[:spec.input_dim]
+        state = hot_cache.unwrap(states[name])
+        if collection.sharded(name):
+            state = st.to_logical(state, collection.sharding_spec(name),
+                                  spec.input_dim)
+        w = state.weights[:spec.input_dim]
         if w.dtype == torch.bfloat16:
             w = w.float()
         out[name] = w.to("cpu", copy=True).numpy()

@@ -55,6 +55,7 @@ import torch
 from . import hash_table as hash_lib
 from .analysis.concurrency import make_lock, sync_point
 from .embedding import EmbeddingCollection
+from .parallel import hot_cache
 from .utils import fs
 
 DELTA_MANIFEST_FILE = "delta_manifest"
@@ -472,7 +473,7 @@ def save_delta(path: str, collection: EmbeddingCollection,
         sync_point("ckpt.delta.write")
         spec = collection.specs[name]
         tracker = trackers[name]
-        state = states[name]
+        state = hot_cache.unwrap(states[name])
         chunks = snaps[name]
         if spec.use_hash:
             payload = _hash_delta_payload(state, tracker, chunks,
@@ -710,7 +711,7 @@ def apply_delta_to_states(collection: EmbeddingCollection,
         if name not in collection.specs:
             continue
         spec = collection.specs[name]
-        state = out[name]
+        state = hot_cache.unwrap(out[name])
         if "keys" in payload:
             if not spec.use_hash:
                 raise ValueError(

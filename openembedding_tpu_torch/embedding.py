@@ -20,10 +20,16 @@ chunks its ids touch, and the ``Trainer`` marks each step's host batch.
 A pooled spec (``pooling="sum" | "mean" | "sqrtn"``) takes padded ``[B,
 L]`` id matrices (``[B, L, 2]`` pairs on a wide hash variable): the pull
 pools its rows to ``[B, dim]`` and the push expands the pooled gradient
-back (``ragged.py``). What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP.md item: the hot-row cache
-(``cache_k``), the grouped, pipelined and cached planes, and compressed
-exchange precisions; dirty tracking over a sharded variable too.
+back (``ragged.py``). Every plane of JAX's spec runs on a mesh: ``a2a``
+and ``psum``, ``a2a+cache`` (a hot-row replica beside the table,
+``parallel/hot_cache.py``; its state a ``CachedState``), ``a2a+grouped``
+(one exchange a group of tables, ``parallel/grouped.py``),
+``a2a+pipelined`` (the ``Trainer``'s double-buffered schedule,
+``parallel/pipelined.py``), and the compressed wires of a ``+bf16`` or
+``+int8`` suffix (``parallel/precision.py``; an int8_ef variable's state
+an ``EFState``). What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP.md item: dirty tracking over a
+sharded variable, and meshes of several processes.
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from .optim.optimizers import make_optimizer
 from . import hash_table as hash_lib
 from . import ragged
 from . import table as table_lib
+from .parallel import hot_cache
+from .parallel import precision
 from .parallel import sharded_hash as sh
 from .parallel import sharded_table as st
 from .parallel.mesh import Mesh, single_device_mesh
@@ -49,11 +57,6 @@ from .utils.device import DeviceLike
 
 POOLINGS = ragged.POOLINGS
 _LAYOUTS = ("mod", "div")
-_PRECISIONS = ("f32", "bf16", "int8_ef")
-# the JAX package's planes that a later slice brings (ROADMAP item 9)
-_LATER_PLANES = ("a2a+cache", "a2a+grouped", "a2a+pipelined",
-                 "a2a+grouped+pipelined")
-_PLANE_SUFFIXES = ("", "+bf16", "+int8")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -99,31 +102,24 @@ class EmbeddingSpec:
         if self.layout not in _LAYOUTS:
             raise ValueError(f"embedding {self.name!r}: unknown layout "
                              f"{self.layout!r}; known: {_LAYOUTS}")
-        for knob in ("exchange_precision", "push_precision"):
-            if getattr(self, knob) not in _PRECISIONS:
-                raise ValueError(
-                    f"embedding {self.name!r}: unknown {knob} "
-                    f"{getattr(self, knob)!r}; known: {_PRECISIONS}")
         if self.use_hash and self.key_dtype not in hash_lib.KEY_DTYPES:
             raise ValueError(f"embedding {self.name!r}: unknown key_dtype "
                              f"{self.key_dtype!r}; known: "
                              f"{hash_lib.KEY_DTYPES}")
-        known = [b + x for b in ("a2a", "psum") + _LATER_PLANES
-                 for x in _PLANE_SUFFIXES]
-        if self.plane not in known:
+        # a "+bf16"/"+int8" suffix is shorthand for the precision rungs:
+        # the spec's plane names the base plane, as in JAX
+        if precision.parse_plane(self.plane)[0] not in st.PLANES:
             raise ValueError(f"embedding {self.name!r}: unknown plane "
-                             f"{self.plane!r}; known: {known}")
-        if self.plane not in st.PLANES \
-                or self.exchange_precision != "f32" \
-                or self.push_precision != "f32":
-            raise not_ported(
-                f"variable {self.name!r} on plane {self.plane!r} with "
-                f"precisions {self.exchange_precision}/"
-                f"{self.push_precision}", "multi-shard exchange planes")
-        if self.cache_k:
-            raise not_ported(f"hot-row cache of {self.name!r} "
-                             f"(cache_k={self.cache_k})",
-                             "multi-shard exchange planes")
+                             f"{self.plane!r}; known: "
+                             f"{st.PLANES} (+bf16 or +int8)")
+        try:
+            base, ep, pp = precision.resolve_precision(
+                self.plane, self.exchange_precision, self.push_precision)
+        except ValueError as e:
+            raise ValueError(f"embedding {self.name!r}: {e}") from None
+        object.__setattr__(self, "plane", base)
+        object.__setattr__(self, "exchange_precision", ep)
+        object.__setattr__(self, "push_precision", pp)
 
     @property
     def use_hash(self) -> bool:
@@ -188,13 +184,18 @@ class EmbeddingCollection:
                     num_shards=spec.num_shards, plane=spec.plane,
                     a2a_capacity=spec.a2a_capacity,
                     a2a_slack=spec.a2a_slack,
-                    key_width=64 if spec.key_dtype == "wide" else 32)
+                    key_width=64 if spec.key_dtype == "wide" else 32,
+                    cache_k=spec.cache_k,
+                    exchange_precision=spec.exchange_precision,
+                    push_precision=spec.push_precision)
             else:
                 self._shardings[spec.name] = st.make_sharding_spec(
                     spec.meta(), mesh, num_shards=spec.num_shards,
                     layout=spec.layout, plane=spec.plane,
                     a2a_capacity=spec.a2a_capacity,
-                    a2a_slack=spec.a2a_slack)
+                    a2a_slack=spec.a2a_slack, cache_k=spec.cache_k,
+                    exchange_precision=spec.exchange_precision,
+                    push_precision=spec.push_precision)
 
     # --- introspection -----------------------------------------------------
     def sharding_spec(self, name: str):
@@ -202,10 +203,92 @@ class EmbeddingCollection:
         return self._shardings[name]
 
     def sharded(self, name: str) -> bool:
-        """Whether variable ``name`` has more than one shard (its state is
-        a ``parallel`` one); a one-shard variable is the single-device
-        table, JAX's one-shard program."""
-        return self._shardings[name].num_shards > 1
+        """Whether variable ``name`` runs the mesh's planes (its table a
+        ``parallel`` one): more than one shard, or the cached plane, which
+        JAX routes at any shard count; any other one-shard variable is the
+        single-device table, JAX's one-shard program."""
+        ss = self._shardings[name]
+        return ss.num_shards > 1 or ss.is_cached
+
+    def cached_names(self) -> tuple:
+        """Variables on the ``"a2a+cache"`` plane (hot-row replica)."""
+        return tuple(n for n, s in self._shardings.items() if s.is_cached)
+
+    def grouped_names(self) -> tuple:
+        """Variables on a grouped plane (``parallel/grouped.py``); one of
+        one shard is the single-device table and exchanges nothing."""
+        return tuple(n for n, s in self._shardings.items()
+                     if s.is_grouped and self.sharded(n))
+
+    def pipelined_names(self) -> tuple:
+        """Variables on a pipelined plane (the ``Trainer``'s
+        double-buffered schedule, ``parallel/pipelined.py``)."""
+        return tuple(n for n, s in self._shardings.items()
+                     if s.is_pipelined)
+
+    def make_hot_cache_manager(self, name: str):
+        """The admission and refresh driver of one cached variable (the
+        ``Trainer`` makes one for each ``"a2a+cache"`` variable)."""
+        spec = self.specs[name]
+        sspec = self._shardings[name]
+        if not sspec.is_cached:
+            raise ValueError(f"{name!r} is not on the a2a+cache plane")
+        return hot_cache.HotCacheManager(
+            spec=sspec, k=sspec.cache_k,
+            refresh_every=spec.cache_refresh_every,
+            decay=spec.cache_decay, name=name)
+
+    def attach_derived(self, name: str, table_state):
+        """The derived state a plane keeps beside a bare table (JAX's
+        ``wrap_hot_cache``, which attaches both): an empty
+        (all-padding) replica on ``"a2a+cache"``, an empty int8_ef
+        residual (``precision.EFState``) on an int8_ef variable of more
+        than one shard; else the table as it is. ``init``, the checkpoint
+        loaders and serving use it: both wrappers are derived, never
+        saved (a restore forfeits at most one step of feedback)."""
+        sspec = self._shardings[name]
+        if sspec.is_int8_ef and sspec.num_shards > 1 \
+                and not isinstance(table_state, precision.EFState):
+            spec = self.specs[name]
+            wide = spec.use_hash and spec.key_dtype == "wide"
+            sentinel, key_dtype = precision.ef_key_space(
+                use_hash=spec.use_hash, wide=wide,
+                key_dtype=None if wide or not spec.use_hash
+                else spec.key_dtype)
+            return precision.empty_ef(table_state, dim=spec.output_dim,
+                                      wide=wide, sentinel=sentinel,
+                                      key_dtype=key_dtype)
+        return hot_cache.attach_empty(table_state, sspec)
+
+    def size_ef(self, states: Dict[str, Any], inputs: Dict[str, Any], *,
+                batch_sharded: bool = True) -> None:
+        """Size every int8_ef variable's residual for the batch ``inputs``
+        in place (``precision.ensure_ef``), before a step program is
+        built: its first push then reuses the buffers, which a captured
+        graph must keep (a fresh buffer's sentinels and zeros are the
+        values the push would size it to)."""
+        for name, idx in inputs.items():
+            sspec = self._shardings.get(name)
+            state = states.get(name)
+            if sspec is None or not isinstance(state, precision.EFState):
+                continue
+            spec = self.specs[name]
+            wide = spec.use_hash and spec.key_dtype == "wide"
+            # keys a push sees: one a pair on a wide variable
+            shape = tuple(np.shape(idx))
+            n = int(np.prod(shape))
+            if wide and len(shape) >= self._pair_ndim(spec, None) \
+                    and shape[-1] == 2:
+                n //= 2
+            sentinel, key_dtype = precision.ef_key_space(
+                use_hash=spec.use_hash, wide=wide,
+                key_dtype=None if wide or not spec.use_hash
+                else spec.key_dtype)
+            precision.ensure_ef(
+                state, dim=spec.output_dim, wide=wide, sentinel=sentinel,
+                n_flat=n, data=self.mesh.shape[sspec.data_axis],
+                model=self.mesh.shape[sspec.model_axis],
+                batch_sharded=batch_sharded, key_dtype=key_dtype)
 
     @property
     def num_shards(self) -> int:
@@ -228,6 +311,16 @@ class EmbeddingCollection:
             if spec.use_hash:
                 fields.update({"keys": axes, "init_rng": (),
                                "insert_failures": axes})
+            sspec = self._shardings[name]
+            if sspec.is_cached:
+                # the replica is whole on every device
+                fields.update({"cache/keys": (), "cache/rows": (),
+                               **{f"cache/slots/{k}": () for k in
+                                  self._optimizers[name].slot_shapes(
+                                      spec.output_dim)}})
+            elif sspec.is_int8_ef and sspec.num_shards > 1:
+                # each sender's residual block on its own position
+                fields.update({"ef/keys": axes, "ef/resid": axes})
             out[name] = fields
         return out
     def variable_id(self, name: str) -> int:
@@ -368,7 +461,13 @@ class EmbeddingCollection:
         as JAX's does on the same mesh. Hash variables start empty,
         ``round_capacity(hash_capacity)`` slots (``round_capacity(ceil(
         hash_capacity / S))`` a shard), with :meth:`hash_init_rng` as
-        their init key."""
+        their init key. A plane's derived state wraps the table
+        (:meth:`attach_derived`)."""
+        states = self._init_tables(rng, only)
+        return {name: self.attach_derived(name, st_)
+                for name, st_ in states.items()}
+
+    def _init_tables(self, rng, only) -> Dict[str, Any]:
         states = {}
         for name, spec in self.specs.items():
             if only is not None and name not in only:
@@ -419,11 +518,24 @@ class EmbeddingCollection:
         are the same.
         """
         pair_ndim = 2 if serving_rows else None
+        placed = {name: self.to_device(name, idx, pair_ndim)
+                  for name, idx in inputs.items()}
+        # grouped columns: one exchange a group (parallel/grouped.py); the
+        # raw rows pool below like any other
+        grouped_idx = {n: placed[n] for n in self.grouped_names()
+                       if n in placed}
+        raw = {}
+        if grouped_idx:
+            from .parallel import grouped
+            raw = grouped.pull_grouped(self, states, grouped_idx,
+                                       read_only=read_only,
+                                       batch_sharded=batch_sharded)
         rows = {}
-        for name, idx in inputs.items():
+        for name, idx in placed.items():
             spec = self.specs[name]
-            idx = self.to_device(name, idx, pair_ndim)
-            if self.sharded(name):
+            if name in raw:
+                r = raw[name]
+            elif self.sharded(name):
                 sspec = self._shardings[name]
                 if spec.use_hash:
                     r = sh.pull_sharded(
@@ -465,8 +577,10 @@ class EmbeddingCollection:
         """Push and update every column present in ``row_grads``, in place.
 
         ``row_grads[name]`` has the shape of the pulled rows and
-        ``inputs[name]`` the ids they were pulled for; a pooled variable's
-        ``[B, dim]`` gradient is expanded over its sequence slots first
+        ``inputs[name]`` the ids they were pulled for; grouped variables
+        push one exchange a group (``parallel/grouped.py``); a pooled
+        variable's ``[B, dim]`` gradient is expanded over its sequence
+        slots first
         (``ragged.expand_pooled_grads``; padding slots hold invalid ids,
         which the push drops). Array tables run ``table.apply_gradients``
         (dedup, combine, update the touched rows and slots, scatter back),
@@ -481,21 +595,25 @@ class EmbeddingCollection:
         """
         if mark:
             self.mark_dirty({n: inputs.get(n) for n in row_grads})
+        grouped = set(self.grouped_names())
+        grouped_idx, grouped_grads = {}, {}
         for name, g in row_grads.items():
             spec = self.specs[name]
             idx = self.to_device(name, inputs[name])
             if spec.pooling:
                 g = ragged.expand_pooled_grads(g, idx, spec.pooling,
                                                **self._pool_args(spec))
-            if self.sharded(name):
+            if name in grouped:
+                grouped_idx[name], grouped_grads[name] = idx, g
+            elif self.sharded(name):
                 sspec = self._shardings[name]
                 if spec.use_hash:
-                    sh.apply_gradients_sharded(
+                    states[name] = sh.apply_gradients_sharded(
                         states[name], self._optimizers[name],
                         self._initializers[name], idx, g, mesh=self.mesh,
                         spec=sspec, batch_sharded=batch_sharded)
                 else:
-                    st.apply_gradients_sharded(
+                    states[name] = st.apply_gradients_sharded(
                         states[name], self._optimizers[name], idx, g,
                         mesh=self.mesh, spec=sspec,
                         batch_sharded=batch_sharded)
@@ -505,6 +623,11 @@ class EmbeddingCollection:
             else:
                 table_lib.apply_gradients(states[name],
                                           self._optimizers[name], idx, g)
+        if grouped_idx:
+            from .parallel import grouped as grouped_lib
+            grouped_lib.apply_gradients_grouped(
+                self, states, grouped_idx, grouped_grads,
+                batch_sharded=batch_sharded)
         return states
 
     def host_ids(self, name: str, idx,

@@ -14,9 +14,11 @@ printed lines, on one device.
 named it raises. The tables shard over the mesh JAX's driver builds from
 ``N`` devices, ``--data_parallel`` x ``N / data_parallel``, here a mesh
 of one process whose ``N`` positions (``--devices``) all name the one
-device (``parallel/mesh.py``); ``--plane`` takes ``a2a`` or ``psum``.
-The later planes and ``--cache_k`` > 0 raise ``NotImplementedError``
-naming ROADMAP item 9. The dense state is saved
+device (``parallel/mesh.py``); ``--plane`` takes every plane of JAX's
+driver (``a2a``, ``psum``, ``a2a+cache`` with ``--cache_k``,
+``a2a+grouped``, ``a2a+pipelined``, both, and the ``+bf16``/``+int8``
+wires), and the EnvConfig ``exchange`` section's precisions reach every
+spec as in JAX. The dense state is saved
 as the ``TrainState``'s ``(params, opt_state)`` pair (``fit``'s
 autosave form). Defaults train on synthetic zipfian Criteo-shaped data.
 """
@@ -63,10 +65,12 @@ def parse_args(argv=None):
                    help="keep embeddings with vocab <= N as dense "
                         "parameters; needs --no-fused")
     p.add_argument("--plane", default="a2a", choices=PLANES,
-                   help="sparse data plane: a2a (owner-routed exchange) "
-                        "or psum; the others are not ported yet")
+                   help="sparse data plane: a2a (owner-routed exchange), "
+                        "psum, a2a plus the hot-row replica cache, the "
+                        "grouped exchange (one round a table group), the "
+                        "pipelined schedule, or a compressed wire")
     p.add_argument("--cache_k", type=int, default=0,
-                   help="a2a+cache replica rows per variable (0 = none)")
+                   help="a2a+cache replica rows per variable (0 = default)")
     p.add_argument("--hist_len", type=int, default=0, metavar="L",
                    help="add a variable-length behavior-history feature "
                         "(padded to L, mean-pooled). Synthetic data + "
@@ -97,12 +101,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..embedding import not_ported
     from ..utils import compress as compress_lib
     compress_lib.check(args.save_compress)  # fail now, not after training
-    if args.plane not in ("a2a", "psum") or args.cache_k > 0:
-        raise not_ported(f"--plane {args.plane} --cache_k {args.cache_k}",
-                         "multi-shard exchange planes")
 
     from .. import checkpoint as ckpt
     from ..analysis.retrace import RetraceGuard

@@ -8,7 +8,11 @@ placement). A sharded state crosses as JAX's global physical arrays (a
 table's ``[S * rows_per_shard, dim]`` after ``device_get``, a hash
 table's ``[S * capacity_per_shard(, 2)]`` keys and their rows), which are
 the port's stacked shards (``parallel/sharded_table.py``,
-``parallel/sharded_hash.py``). bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes, or
+``parallel/sharded_hash.py``). A plane's derived state crosses too: an
+int8_ef residual (JAX's ``precision.EFState``: its global ``keys`` and
+``resid`` arrays, each sender's block in mesh order) and a hot-row
+replica (``hot_cache.CachedState``: the replica's keys, rows and slots),
+beside their table. bfloat16 arrays (numpy dtype ``bfloat16`` from ml_dtypes, or
 numpy's opaque ``V2``) cross as their raw 16-bit words: the port never
 imports ml_dtypes, and ``table_state_to_numpy`` returns bfloat16 fields as
 ``uint16`` words (compare with ``jax_array_as_numpy.view(np.uint16)``).
@@ -139,6 +143,49 @@ def sharded_hash_state_from_numpy(keys: np.ndarray, weights: np.ndarray,
         init_rng=one.init_rng,
         shard_failures=torch.from_numpy(fails).to(one.keys.device),
         num_shards=int(num_shards))
+
+
+def ef_state_from_numpy(table_state, keys: np.ndarray, resid: np.ndarray,
+                        device: DeviceLike = None):
+    """An ``EFState`` of the port around ``table_state`` from JAX's
+    residual arrays (``np.asarray(ef.keys)``, ``np.asarray(ef.resid)``)."""
+    from .parallel.precision import EFState
+    keys = np.asarray(keys)
+    keys = keys.astype(np.int64 if keys.dtype == np.int64 else np.int32)
+    return EFState(table=table_state,
+                   keys=tensor_from_numpy(keys, device),
+                   resid=tensor_from_numpy(
+                       np.asarray(resid, np.float32), device))
+
+
+def ef_state_to_numpy(state) -> Tuple[np.ndarray, np.ndarray]:
+    """``(keys, resid)`` of an ``EFState``, JAX's global arrays."""
+    return tensor_to_numpy(state.keys), tensor_to_numpy(state.resid)
+
+
+def cached_state_from_numpy(table_state, keys: np.ndarray,
+                            rows: np.ndarray, slots: Dict[str, np.ndarray],
+                            device: DeviceLike = None):
+    """A ``CachedState`` of the port around ``table_state`` from JAX's
+    replica (``cache.keys``, ``cache.rows``, ``cache.slots``)."""
+    from .parallel.hot_cache import CachedState, HotCacheState
+    keys = np.asarray(keys)
+    keys = keys.astype(np.int64 if keys.dtype == np.int64 else np.int32)
+    return CachedState(
+        table=table_state,
+        cache=HotCacheState(
+            keys=tensor_from_numpy(keys, device),
+            rows=tensor_from_numpy(rows, device),
+            slots={k: tensor_from_numpy(v, device)
+                   for k, v in slots.items()}))
+
+
+def cache_state_to_numpy(state) -> Tuple[np.ndarray, np.ndarray,
+                                         Dict[str, np.ndarray]]:
+    """``(keys, rows, slots)`` of a ``CachedState``'s replica."""
+    c = state.cache
+    return (tensor_to_numpy(c.keys), tensor_to_numpy(c.rows),
+            {k: tensor_to_numpy(v) for k, v in c.slots.items()})
 
 
 def _flax_leaves(tree: Mapping, prefix: Tuple[str, ...] = ()

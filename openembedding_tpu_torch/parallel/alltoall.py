@@ -37,12 +37,24 @@ The gated counters ``a2a_extra_entries_pull`` and
 ``utils/observability.GLOBAL`` under ``evaluate_performance()``
 (:func:`record_stat`); inside a captured step they accumulate on the
 device and :func:`flush_stats` moves them to the host.
+
+Compressed wires (``parallel/precision.py``): ``exchange_pull(wire_dtype=
+torch.bfloat16)`` narrows the owners' rows before the response leg and
+keeps them narrow through the row assembly; ``exchange_push(wire_dtype=)``
+narrows the pre-reduced gradients; ``exchange_push(ef_state=)`` sends them
+as int8 with a per-row scale that rides the integer key/count buffer as
+one more channel (its float32 bits), and returns each sender's new
+residual (:func:`_quantize_ef`). A 16-bit payload crosses as its raw
+words (:func:`pin_wire`). :data:`WIRE` keeps the bytes and dtypes of the
+last exchange's legs, read from the buffers themselves, so a test or the
+card's smoke run can check what crossed; :data:`EXCHANGES` counts the
+exchanges dispatched.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +63,33 @@ from ..utils import observability
 
 # device accumulators of the gated counters, filled by captured steps
 _PENDING: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+# the last exchange's legs, by verb: {"keys": bytes, "payload": bytes,
+# "payload_dtype": str, "rounds": n} (host bookkeeping of buffer sizes)
+WIRE: Dict[str, Dict[str, object]] = {}
+# exchanges dispatched, by verb (host counts: a captured step counts once)
+EXCHANGES: Dict[str, int] = {"pull": 0, "push": 0}
+
+
+def pin_wire(x: torch.Tensor) -> torch.Tensor:
+    """A 16-bit float payload as its raw 16-bit words (JAX's bitcast to
+    uint16; int16 here, the same bits, since torch's uint16 lacks the
+    copy kernels a transpose needs): what crosses is 2 bytes an element,
+    whatever a later refactor does to the casts around it."""
+    return x.view(torch.int16)
+
+
+def unpin_wire(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`pin_wire` (exact bit reinterpretation)."""
+    return x.view(dtype)
+
+
+def _note_wire(verb: str, keys: torch.Tensor, payload: torch.Tensor,
+               payload_dtype: torch.dtype, rounds: int) -> None:
+    WIRE[verb] = {"keys": int(keys.nbytes) * rounds,
+                  "payload": int(payload.nbytes) * rounds,
+                  "payload_dtype": str(payload_dtype).replace("torch.", ""),
+                  "rounds": rounds}
 
 
 def record_stat(counter: str, value: torch.Tensor, record: bool) -> None:
@@ -79,12 +118,41 @@ def record_stat(counter: str, value: torch.Tensor, record: bool) -> None:
         observability.GLOBAL.add(counter, int(value))
 
 
-def flush_stats() -> Dict[str, int]:
+def record_float_stat(counter: str, value: torch.Tensor,
+                      record: bool) -> None:
+    """:func:`record_stat` for float telemetry of the int8_ef push
+    (``quant_error_max``, ``quant_residual_norm``): ``value`` holds one
+    number a sender, each added to ``observability.GLOBAL`` (a sum over
+    senders and steps, as JAX's per-device callbacks give it) and
+    observed in the histogram registry; inside a capture their sum
+    accumulates on the device for :func:`flush_stats`."""
+    if not record:
+        return
+    key = (counter, value.device)
+    if value.is_cuda and torch.cuda.is_current_stream_capturing():
+        acc = _PENDING.get(key)
+        if acc is None:
+            raise RuntimeError(
+                f"{counter}: no device accumulator; run the exchange once "
+                "eagerly with evaluate_performance() on before capturing")
+        acc.add_(value.to(torch.float64).sum())
+        return
+    if key not in _PENDING:
+        _PENDING[key] = torch.zeros((), dtype=torch.float64,
+                                    device=value.device)
+    if observability.evaluate_performance():
+        from ..analysis import scope
+        for v in value.reshape(-1).tolist():
+            observability.GLOBAL.add(counter, float(v))
+            scope.HISTOGRAMS.observe(counter, float(v))
+
+
+def flush_stats() -> Dict[str, float]:
     """Move the device accumulators of captured steps into
     ``observability.GLOBAL`` (a read of the device); returns what moved."""
-    moved: Dict[str, int] = {}
+    moved: Dict[str, float] = {}
     for (counter, _dev), acc in _PENDING.items():
-        v = int(acc)
+        v = acc.item()
         if v:
             acc.zero_()
             observability.GLOBAL.add(counter, v)
@@ -253,13 +321,38 @@ def _unique_rows_of(x: torch.Tensor, fill
     return uniq, inverse
 
 
+def _unique_composite(sl: torch.Tensor, fill
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`unique_per_sender` for ``[P, m, K]`` rows of any integer
+    dtype: JAX's ``unique_rows`` ranking (K stable sorts, minor column
+    first), row by row."""
+    p, m, k = sl.shape
+    order = torch.arange(m, device=sl.device).expand(p, m)
+    for c in range(k):
+        col = torch.gather(sl[..., c], 1, order)
+        order = torch.gather(order, 1,
+                             torch.sort(col, dim=1, stable=True).indices)
+    srt = _take_rows(sl, order)
+    head = torch.ones((p, m), dtype=torch.bool, device=sl.device)
+    head[:, 1:] = (srt[:, 1:] != srt[:, :-1]).any(dim=-1)
+    ordinal = torch.cumsum(head, dim=1) - 1
+    inverse = torch.empty_like(ordinal).scatter_(1, order, ordinal)
+    uniq = torch.full_like(sl, fill)
+    # every row writes its group's slot; duplicates agree
+    uniq.scatter_(1, ordinal[..., None].expand(p, m, k), srt)
+    return uniq, inverse
+
+
 def unique_per_sender(sl: torch.Tensor, fill: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each sender's dedup: ``[P, m]`` keys, or ``[P, m, 2]`` (lo, hi)
+    """Each sender's dedup: ``[P, m]`` keys, ``[P, m, 2]`` int32 (lo, hi)
     pairs ranked as JAX's ``unique_rows`` ranks them (hi major, lo
-    minor, both signed)."""
+    minor, both signed), or any ``[P, m, K]`` composite rows (the grouped
+    plane's tagged streams) ranked the same way, last column major."""
     if sl.dim() == 2:
         return _unique_rows_of(sl, fill)
+    if sl.shape[-1] != 2 or sl.dtype != torch.int32:
+        return _unique_composite(sl, fill)
     w = sl.to(torch.int64)
     packed = w[..., 1] * 2**32 + (w[..., 0] + 2**31)
     u, inverse = _unique_rows_of(packed, fill * 2**32 + (fill + 2**31))
@@ -290,9 +383,11 @@ def exchange_pull(flat_idx: torch.Tensor,
                   groups: int = 1,
                   capacity: int = 0,
                   slack: float = 2.0,
-                  record_stats: bool = False) -> torch.Tensor:
-    """Owner-routed lookup of ``flat_idx`` ``[n]`` (or ``[n, 2]`` wide
-    pairs) -> rows ``[n, dim]`` of ``dtype``. EXACT for any skew.
+                  record_stats: bool = False,
+                  wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Owner-routed lookup of ``flat_idx`` ``[n]`` (or ``[n, k]`` composite
+    keys: wide pairs, the grouped plane's tagged streams) -> rows ``[n,
+    dim]`` of ``dtype``. EXACT for any skew.
 
     ``groups`` batch slices (the data rows of a batch-sharded batch, else
     1) are each split among ``num_shards / groups`` senders (JAX's split
@@ -301,22 +396,36 @@ def exchange_pull(flat_idx: torch.Tensor,
     owners' requests ``[S_owner, S * cap(, 2)]`` (each owner's row in
     sender order, padding ``sentinel``) and returns their rows ``[S_owner,
     S * cap, dim]``, zero rows for padding and keys the owner does not
-    own. Rounds: :func:`max_rounds`, module note."""
+    own. Rounds: :func:`max_rounds`, module note.
+
+    ``wire_dtype`` (bfloat16): the owners' rows narrow before the
+    response leg (the one lossy point, one round-to-nearest cast a row)
+    and stay narrow, as their raw words, through the row assembly; they
+    widen to ``dtype`` at the end. None leaves the exchange as it was."""
     s = num_shards
     parts = s // groups
     n = flat_idx.shape[0]
+    EXCHANGES["pull"] += 1
     sl, m = split_slice(flat_idx, parts, sentinel, groups)
     uniq, inverse = unique_per_sender(sl, sentinel)
     cap = bucket_capacity(m, s, capacity, slack)
     pending = owner_fn(uniq).to(torch.int64)
-    acc = torch.zeros((s, m, dim), dtype=dtype, device=flat_idx.device)
+    acc_dtype = dtype if wire_dtype is None else wire_dtype
+    acc = torch.zeros((s, m, dim), dtype=acc_dtype, device=flat_idx.device)
     kw = tuple(sl.shape[2:])
-    for r in range(max_rounds(m, cap)):
+    rounds = max_rounds(m, cap)
+    for r in range(rounds):
         dest, ok = bucketize(pending, s, cap)
         send = fill_buckets(uniq, dest, s, cap, sentinel)
         req = grid_all_to_all(send)                 # [S_own, S_src, cap]
         rows = resolve_fn(req.reshape((s, s * cap) + kw))
+        if wire_dtype is not None:
+            rows = pin_wire(rows.to(wire_dtype))
         resp = grid_all_to_all(rows.reshape(s, s, cap, dim))
+        if r == 0:
+            _note_wire("pull", send, resp, acc_dtype, rounds)
+        if wire_dtype is not None:
+            resp = unpin_wire(resp, wire_dtype)
         got = _take_rows(resp.reshape(s, s * cap, dim),
                          torch.where(ok, dest, 0))
         acc = acc + torch.where(ok[..., None], got, torch.zeros_like(got))
@@ -324,7 +433,12 @@ def exchange_pull(flat_idx: torch.Tensor,
         if r == 0:
             record_stat("a2a_extra_entries_pull", (pending < s).sum(),
                         record_stats)
-    return unslice(_take_rows(acc, inverse), n, groups)
+    slice_rows = _take_rows(acc, inverse)
+    if wire_dtype is not None:
+        # the assembly moves the pinned 16-bit words; widening is exact
+        assembled = unslice(pin_wire(slice_rows), n, groups)
+        return unpin_wire(assembled, wire_dtype).to(dtype)
+    return unslice(slice_rows, n, groups)
 
 
 def exchange_push(flat_idx: torch.Tensor,
@@ -337,7 +451,9 @@ def exchange_push(flat_idx: torch.Tensor,
                   groups: int = 1,
                   capacity: int = 0,
                   slack: float = 2.0,
-                  record_stats: bool = False):
+                  record_stats: bool = False,
+                  wire_dtype: Optional[torch.dtype] = None,
+                  ef_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Owner-routed push: each sender pre-reduces its slice (dedup, sum,
     count), routes ``(key, count)`` and the summed gradient to the
     owners, and ``apply_fn(keys [S_owner, K(, 2)], grads [S_owner, K,
@@ -346,44 +462,174 @@ def exchange_push(flat_idx: torch.Tensor,
     drop by the invalid-key contract). Returns what ``apply_fn``
     returns. Every round's entries reach one apply, in sender order
     (module note), so each key's optimizer step runs once per step with
-    all contributions, for any skew."""
+    all contributions, for any skew.
+
+    ``wire_dtype`` (bfloat16): the pre-reduced gradients cross narrowed
+    and widen before ``apply_fn``; keys and counts stay integers.
+    ``ef_state = (prev_keys [S, m0(, 2)], prev_resid [S, m0, dim])``: the
+    int8 error-feedback push (:func:`_quantize_ef`); returns ``(result,
+    (keys [S, m(, 2)], resid [S, m, dim]))``, each sender's new residual.
+    Padding entries' received scales are zeroed by key validity before
+    the multiply, so no garbage bit pattern reaches an applier."""
     s = num_shards
     parts = s // groups
     dim = grads.shape[-1]
+    EXCHANGES["push"] += 1
     sl, m = split_slice(flat_idx, parts, sentinel, groups)
     g2 = split_slice_rows(grads.reshape(-1, dim), parts, groups)
     uniq, inverse = unique_per_sender(sl, sentinel)
+    wide = uniq.dim() == 3
+    quant = ef_state is not None
+    if quant:
+        valid = (uniq[..., -1] if wide else uniq) != sentinel
+        # the int8_ef totals: each sender's gradients added onto the
+        # residual it carried for the key, in entry order after it (the
+        # order XLA's program adds them in: it folds the add of the carry
+        # into the pre-reduce's scatter-add)
+        summed = _carried_residual(uniq, valid, ef_state).to(
+            grads.dtype).reshape(s * m, dim)
+    else:
+        summed = torch.zeros((s * m, dim), dtype=grads.dtype,
+                             device=grads.device)
     # each sender's combine_gradients: sums in entry order, counts
     flat_inv = (inverse + torch.arange(s, device=inverse.device)[:, None]
                 * m).reshape(-1)
-    summed = torch.zeros((s * m, dim), dtype=grads.dtype,
-                         device=grads.device)
     summed.index_add_(0, flat_inv, g2.reshape(-1, dim))
     counts = torch.zeros(s * m, dtype=torch.int32, device=grads.device)
     counts.index_add_(0, flat_inv, torch.ones_like(counts))
     summed = summed.view(s, m, dim)
     cap = bucket_capacity(m, s, capacity, slack)
     owners = owner_fn(uniq).to(torch.int64)
-    wide = uniq.dim() == 3
     ku = uniq if wide else uniq[..., None]
-    kc = torch.cat([ku, counts.view(s, m, 1).to(ku.dtype)], dim=-1)
     kw = ku.shape[-1]
+    cols = [ku, counts.view(s, m, 1).to(ku.dtype)]
+    if quant:
+        q8, scale, new_ef = _quantize_ef(uniq, summed, valid, record_stats)
+        # the f32 scale's bits ride the integer buffer as one more channel
+        cols.append(scale.view(torch.int32).to(ku.dtype)[..., None])
+        payload = q8
+    elif wire_dtype is not None:
+        payload = pin_wire(summed.to(wire_dtype))
+    else:
+        payload = summed
+    kc = torch.cat(cols, dim=-1)
     pending = owners
     got_kc, got_g = [], []
-    for r in range(max_rounds(m, cap)):
+    rounds = max_rounds(m, cap)
+    for r in range(rounds):
         dest, ok = bucketize(pending, s, cap)
         if r == 0 and cap < m:
             record_stat("a2a_extra_entries_push",
                         ((owners < s) & ~ok).sum(), record_stats)
         got_kc.append(grid_all_to_all(fill_buckets(kc, dest, s, cap,
                                                    sentinel)))
-        got_g.append(grid_all_to_all(fill_buckets(summed, dest, s, cap, 0)))
+        got_g.append(grid_all_to_all(fill_buckets(payload, dest, s, cap,
+                                                  0)))
+        if r == 0:
+            _note_wire("push", got_kc[0], got_g[0],
+                       torch.int8 if quant else (wire_dtype or grads.dtype),
+                       rounds)
         pending = torch.where(ok, s, pending)
     # [S_own, S_src, rounds, cap, ...]: each owner's entries by sender
-    rkc = torch.stack(got_kc, dim=2).reshape(s, -1, kw + 1)
+    rkc = torch.stack(got_kc, dim=2).reshape(s, -1, kc.shape[-1])
     rg = torch.stack(got_g, dim=2).reshape(s, -1, dim)
     keys = rkc[..., :kw] if wide else rkc[..., 0]
-    return apply_fn(keys, rg, rkc[..., kw].to(torch.int32))
+    if quant:
+        rscale = rkc[..., kw + 1].to(torch.int32).view(torch.float32)
+        kvalid = (keys[..., -1] if wide else keys) != sentinel
+        rscale = torch.where(kvalid, rscale, torch.zeros_like(rscale))
+        g = rg.to(summed.dtype) * rscale[..., None]
+    elif wire_dtype is not None:
+        g = unpin_wire(rg, wire_dtype).to(summed.dtype)
+    else:
+        g = rg
+    out = apply_fn(keys, g, rkc[..., kw].to(torch.int32))
+    return (out, new_ef) if quant else out
+
+
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _mix_pairs(k: torch.Tensor) -> torch.Tensor:
+    """JAX's 32-bit multiplicative mix of ``[..., 2]`` (lo, hi) words,
+    ``((lo * 0x85EBCA6B) ^ (hi * 0xC2B2AE35)) mod 2^32`` read as int32,
+    here in int64 arithmetic masked to 32 bits (its signed value)."""
+    lo = (k[..., 0].to(torch.int64) & _MASK32) * 0x85EBCA6B & _MASK32
+    hi = (k[..., 1].to(torch.int64) & _MASK32) * 0xC2B2AE35 & _MASK32
+    x = lo ^ hi
+    return torch.where(x >= 2**31, x - 2**32, x)
+
+
+def _match_prev_keys(uniq: torch.Tensor, pk: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each sender's current keys ``[S, m(, 2)]`` against its
+    previous ones ``[S, m0(, 2)]``: ``(candidate index into pk [S, m],
+    exact-equality flag [S, m])``. A stable sort of the previous keys
+    (wide pairs by :func:`_mix_pairs`), a left binary search, an exact
+    check of every word: two previous keys whose mix collides can hide
+    the second's residual (forfeited), never corrupt one."""
+    wide = uniq.dim() == 3
+    cur = _mix_pairs(uniq) if wide else uniq
+    prev = _mix_pairs(pk) if wide else pk
+    order = torch.argsort(prev, dim=-1, stable=True)
+    prev_sorted = torch.gather(prev, -1, order)
+    pos = torch.searchsorted(prev_sorted.contiguous(), cur.contiguous())
+    cand = torch.gather(order, -1, torch.clamp(pos, 0, pk.shape[1] - 1))
+    hit_rows = _take_rows(pk, cand) if wide else torch.gather(pk, -1, cand)
+    eq = (hit_rows == uniq).all(dim=-1) if wide else hit_rows == uniq
+    return cand, eq
+
+
+def _carried_residual(uniq: torch.Tensor, valid: torch.Tensor,
+                      ef_state) -> torch.Tensor:
+    """``[S, m, dim]``: the residual each sender stored last step for each
+    of its current keys (``ef_state = (prev_keys, prev_resid)``), zero
+    where the key is new, forfeited or padding."""
+    pk, pr = ef_state
+    s, m = uniq.shape[:2]
+    if not pk.shape[1]:
+        return torch.zeros((s, m, pr.shape[-1]), dtype=pr.dtype,
+                           device=pr.device)
+    cand, eq = _match_prev_keys(uniq, pk.to(uniq.dtype))
+    hit = eq & valid
+    return torch.where(hit[..., None], _take_rows(pr, cand),
+                       torch.zeros((), dtype=pr.dtype, device=pr.device))
+
+
+def _quantize_ef(uniq: torch.Tensor, total: torch.Tensor,
+                 valid: torch.Tensor, record_stats: bool):
+    """int8 error-feedback quantization of every sender's residual-carried
+    pre-reduced rows ``total`` (:func:`_carried_residual` plus the
+    gradients; JAX's, a sender a row). Returns ``(q8, scale, (keys,
+    resid))``: the int8 payload ``clip(round(total / scale), -127, 127)``
+    (round half to even), the per-row scales ``absmax / 127`` (1 where a
+    row is zero; computed as XLA computes it, a multiply by the float32
+    reciprocal) and the new residual ``total - q8 * scale`` (zero on
+    padding, rounded once as XLA's fused multiply-subtract), exactly the
+    error the owner sees."""
+    t32 = total.to(torch.float32)
+    absmax = t32.abs().amax(dim=-1)
+    # JAX writes absmax / 127.0; XLA folds a division by a constant into
+    # a multiply by its float32 reciprocal, which is what its programs
+    # compute (every quotient, where a true division differs in ~4 %)
+    scale = torch.where(absmax > 0, absmax * _INV127,
+                        torch.ones_like(absmax))
+    q8 = torch.clamp(torch.round(t32 / scale[..., None]), -127, 127
+                     ).to(torch.int8)
+    # total - q8 * scale rounded once, as XLA's fused multiply-subtract
+    # computes it: the product is exact in float64 (8 + 24 bits), and so
+    # is the difference (|total - q8 * scale| <= scale / 2)
+    err = (t32.to(torch.float64)
+           - q8.to(torch.float64) * scale.to(torch.float64)[..., None])
+    resid = torch.where(valid[..., None], err.to(torch.float32),
+                        torch.zeros((), dtype=torch.float32,
+                                    device=t32.device))
+    flat = resid.reshape(resid.shape[0], -1)
+    record_float_stat("quant_error_max", flat.abs().amax(dim=-1),
+                      record_stats)
+    record_float_stat("quant_residual_norm",
+                      torch.sqrt((flat * flat).sum(dim=-1)), record_stats)
+    return q8, scale, (uniq, resid)
 
 
 def routing_overflow(indices, num_shards: int, slice_parts: int,

@@ -20,6 +20,13 @@ rows by one launch of KI; ``"psum"`` masks the batch to each model
 shard's own keys (the others EMPTY), pulls from every shard and sums,
 and pushes the masked global batch into each shard. All three key
 dtypes run: wide pairs, int32 and int64.
+
+The later ``a2a`` planes run as on array tables
+(``parallel/sharded_table.py``): the cached plane's replica holds probed
+rows (its owners' write-back finds each admitted key's slot, as JAX's
+``find_rows`` does), and an int8_ef push keeps an ``EFState`` of the
+table's own key words (pairs as int32 words, int32 and int64 keys as
+they are, ``precision.ef_key_space``).
 """
 
 from __future__ import annotations
@@ -36,12 +43,13 @@ from ..table import resolve_dtype
 from ..utils import observability
 from .. import hash_table as hash_lib
 from . import alltoall as a2a
+from . import hot_cache, precision
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
-from .sharded_table import PLANES
+from .sharded_table import _PlaneProps, resolve_plane
 
 
 @dataclasses.dataclass(frozen=True)
-class HashShardingSpec:
+class HashShardingSpec(_PlaneProps):
     """Static layout of one hash table over the mesh."""
 
     num_shards: int
@@ -53,10 +61,9 @@ class HashShardingSpec:
     a2a_capacity: int = 0
     a2a_slack: float = 2.0
     key_width: int = 32  # 64 = [n, 2] int32 (lo, hi) pairs
-
-    @property
-    def plane_label(self) -> str:
-        return self.plane
+    cache_k: int = 0     # hot-row replica rows ("a2a+cache")
+    exchange_precision: str = "f32"
+    push_precision: str = "f32"
 
     @property
     def shard_axes(self) -> tuple:
@@ -83,12 +90,17 @@ def make_hash_sharding_spec(mesh: Mesh, total_capacity: int,
                             plane: str = "a2a",
                             a2a_capacity: int = 0,
                             a2a_slack: float = 2.0,
-                            key_width: int = 32) -> HashShardingSpec:
-    """``num_shards=-1``: one shard per mesh position (``a2a``) or per
-    model slice (``psum``); each shard holds ``round_capacity(ceil(
-    total_capacity / S))`` slots, as in JAX."""
-    if plane not in PLANES:
-        raise ValueError(f"unknown plane {plane!r}")
+                            key_width: int = 32,
+                            cache_k: int = 0,
+                            exchange_precision: str = "f32",
+                            push_precision: str = "f32"
+                            ) -> HashShardingSpec:
+    """``num_shards=-1``: one shard per mesh position (``a2a`` planes) or
+    per model slice (``psum``); each shard holds ``round_capacity(ceil(
+    total_capacity / S))`` slots, as in JAX. Planes and precisions as in
+    ``sharded_table.make_sharding_spec``."""
+    plane, exchange_precision, push_precision, cache_k = resolve_plane(
+        plane, exchange_precision, push_precision, cache_k)
     if key_width not in (32, 64):
         raise ValueError(f"key_width must be 32 or 64, got {key_width}")
     want = mesh.shape[MODEL_AXIS] if plane == "psum" else mesh.size
@@ -102,7 +114,9 @@ def make_hash_sharding_spec(mesh: Mesh, total_capacity: int,
     return HashShardingSpec(num_shards=num_shards, capacity_per_shard=cap,
                             max_probes=max_probes, plane=plane,
                             a2a_capacity=a2a_capacity, a2a_slack=a2a_slack,
-                            key_width=key_width)
+                            key_width=key_width, cache_k=cache_k,
+                            exchange_precision=exchange_precision,
+                            push_precision=push_precision)
 
 
 @dataclasses.dataclass
@@ -160,12 +174,15 @@ class ShardedHashState:
 
 def create_sharded_hash_table(meta: EmbeddingVariableMeta, optimizer: Any,
                               *, mesh: Mesh, spec: HashShardingSpec,
-                              rng=None, key_dtype: str = "int32"
-                              ) -> ShardedHashState:
+                              rng=None, key_dtype: str = "int32"):
     """Empty shards of ``spec.capacity_per_shard`` slots each, on the
     mesh's device; every shard keeps the base init key ``rng`` (None:
     ``PRNGKey(0)``), as in JAX. ``key_dtype``: ``"wide"``, ``"int32"`` or
-    ``"int64"``."""
+    ``"int64"`` (a spec of 64-bit key width stores wide pairs, as JAX's
+    ``key_width`` decides). The cached plane's table comes in a
+    ``CachedState``, as in JAX."""
+    if spec.wide:
+        key_dtype = "wide"
     if key_dtype not in hash_lib.KEY_DTYPES:
         raise ValueError(f"unknown hash key_dtype {key_dtype!r}; known: "
                          f"{hash_lib.KEY_DTYPES}")
@@ -177,7 +194,7 @@ def create_sharded_hash_table(meta: EmbeddingVariableMeta, optimizer: Any,
     dim = meta.embedding_dim
     kdt = torch.int64 if key_dtype == "int64" else torch.int32
     shape = (rows, 2) if key_dtype == "wide" else (rows,)
-    return ShardedHashState(
+    state = ShardedHashState(
         keys=torch.full(shape, hash_lib.empty_key(kdt), dtype=kdt,
                         device=dev),
         weights=torch.zeros((rows, dim), dtype=dtype, device=dev),
@@ -185,6 +202,7 @@ def create_sharded_hash_table(meta: EmbeddingVariableMeta, optimizer: Any,
         init_rng=threefry_key(rng),
         shard_failures=torch.zeros(s, dtype=torch.int64, device=dev),
         num_shards=s)
+    return hot_cache.attach_empty(state, spec)
 
 
 def _flat_query(spec: HashShardingSpec, state: ShardedHashState,
@@ -252,19 +270,25 @@ def insert_rows_sharded_packed(state: ShardedHashState,
                                spec=spec)
 
 
-def pull_sharded(state: ShardedHashState, indices: torch.Tensor,
+def pull_sharded(state, indices: torch.Tensor,
                  initializer: Any, *, mesh: Mesh, spec: HashShardingSpec,
                  batch_sharded: bool = True) -> torch.Tensor:
     """Rows for keys of any shape (``[..., 2]`` pairs on a wide table):
     the owner resolves each key; a missing key gets its init row (zero
     rows with ``initializer=None``, the serving contract), EMPTY keys
-    zero rows."""
+    zero rows. ``state``: a ``ShardedHashState``, a ``CachedState`` on the
+    cached plane (admitted keys are always present in the table, so the
+    replica never shadows an init row) or an ``EFState``."""
     if initializer is not None:
         initializer = make_initializer(initializer)
     record = observability.evaluate_performance()
+    if spec.is_cached:
+        return observability.plane_timed(
+            "pull", spec.plane_label, record, _pull_cached, state, indices,
+            initializer, mesh, spec, batch_sharded, record)
     return observability.plane_timed(
-        "pull", spec.plane_label, record, _pull, state, indices,
-        initializer, mesh, spec, batch_sharded, record)
+        "pull", spec.plane_label, record, _pull, hot_cache.unwrap(state),
+        indices, initializer, mesh, spec, batch_sharded, record)
 
 
 def _pull(state, indices, initializer, mesh, spec, batch_sharded, record):
@@ -292,32 +316,72 @@ def _pull(state, indices, initializer, mesh, spec, batch_sharded, record):
         dtype=state.weights.dtype, num_shards=spec.num_shards,
         groups=mesh.shape[spec.data_axis] if batch_sharded else 1,
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
-        record_stats=record)
+        record_stats=record, wire_dtype=spec.pull_wire_dtype)
     return rows.reshape(lead + (dim,))
 
 
-def apply_gradients_sharded(state: ShardedHashState, optimizer: Any,
+def _valid_query(spec, flat):
+    empty = hash_lib.empty_key(flat.dtype)
+    return (flat[:, 1] if spec.wide else flat) != empty
+
+
+def _pull_cached(state, indices, initializer, mesh, spec, batch_sharded,
+                 record):
+    table, cache = state.table, state.cache
+    dim = table.dim
+    flat = _flat_query(spec, table, indices)
+    lead = tuple(indices.shape[:-1] if spec.wide else indices.shape)
+    valid = _valid_query(spec, flat)
+    pos, hit = hot_cache.lookup(cache.keys, flat, valid)
+    served = hot_cache.served_rows(cache.rows, pos, hit)
+    hot_cache.record_cache_stats(
+        hit, valid, entry_bytes=dim * cache.rows.element_size()
+        + (8 if spec.wide else 4), record=record)
+    resid = hot_cache.mask_hits(flat, hit, hash_lib.empty_key(flat.dtype))
+    rows = _pull(table, resid, initializer, mesh, spec, batch_sharded,
+                 record).reshape(-1, dim)
+    return (rows + served).reshape(lead + (dim,))
+
+
+def apply_gradients_sharded(state, optimizer: Any,
                             initializer: Any, indices: torch.Tensor,
                             grads: torch.Tensor, *, mesh: Mesh,
                             spec: HashShardingSpec,
                             batch_sharded: bool = True,
-                            dedup_capacity: Optional[int] = None
-                            ) -> ShardedHashState:
+                            dedup_capacity: Optional[int] = None):
     """Push and update in place: each key's gradients reach its one owner
     shard, which inserts it if missing (its init row) and updates it
     (``hash_table.apply_gradients`` on the shard's views, with the merged
-    pre-reduces on ``a2a``). Returns ``state``."""
+    pre-reduces on ``a2a``). Returns the state (an int8_ef spec's bare
+    table comes back in its new ``EFState``), as on array tables."""
     optimizer = make_optimizer(optimizer)
     initializer = make_initializer(initializer)
     record = observability.evaluate_performance()
-    return observability.plane_timed(
-        "push", spec.plane_label, record, _push, state, optimizer,
+    if spec.is_cached:
+        return observability.plane_timed(
+            "push", spec.plane_label, record, _push_cached, state,
+            optimizer, initializer, indices, grads, mesh, spec,
+            batch_sharded, dedup_capacity, record)
+    ef = None
+    table = hot_cache.unwrap(state)
+    if spec.is_int8_ef and spec.num_shards > 1:
+        sentinel, key_dtype = precision.ef_key_space(
+            use_hash=True, wide=spec.wide, key_dtype=table.keys.dtype)
+        n_flat = indices.numel() // (2 if spec.wide else 1)
+        ef = precision.ensure_ef(
+            state, dim=table.dim, wide=spec.wide, sentinel=sentinel,
+            n_flat=n_flat, data=mesh.shape[spec.data_axis],
+            model=mesh.shape[spec.model_axis], batch_sharded=batch_sharded,
+            key_dtype=key_dtype)
+    observability.plane_timed(
+        "push", spec.plane_label, record, _push, table, optimizer,
         initializer, indices, grads, mesh, spec, batch_sharded,
-        dedup_capacity, record)
+        dedup_capacity, record, ef)
+    return ef if ef is not None else state
 
 
 def _push(state, optimizer, initializer, indices, grads, mesh, spec,
-          batch_sharded, dedup_capacity, record):
+          batch_sharded, dedup_capacity, record, ef=None):
     dim = state.dim
     if indices.numel() == 0:
         return state
@@ -340,10 +404,48 @@ def _push(state, optimizer, initializer, indices, grads, mesh, spec,
                 in_counts=counts[s])
         return state
 
-    return a2a.exchange_push(
+    from .sharded_table import _ef_views
+    out = a2a.exchange_push(
         flat, g2, apply_fn, _owner_of(spec),
         sentinel=hash_lib.empty_key(flat.dtype),
         num_shards=spec.num_shards,
         groups=mesh.shape[spec.data_axis] if batch_sharded else 1,
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
-        record_stats=record)
+        record_stats=record, wire_dtype=spec.push_wire_dtype,
+        ef_state=None if ef is None else _ef_views(ef, spec.num_shards))
+    if ef is not None:
+        _, (keys, resid) = out
+        ef.keys.copy_(keys.reshape(ef.keys.shape))
+        ef.resid.copy_(resid.reshape(ef.resid.shape))
+    return state
+
+
+def _push_cached(state, optimizer, initializer, indices, grads, mesh, spec,
+                 batch_sharded, dedup_capacity, record):
+    table, cache = state.table, state.cache
+    dim = table.dim
+    flat = _flat_query(spec, table, indices)
+    g2 = grads.reshape(-1, dim)
+    valid = _valid_query(spec, flat)
+    pos, hit = hot_cache.lookup(cache.keys, flat, valid)
+    groups = mesh.shape[spec.data_axis] if batch_sharded else 1
+    summed, counts = hot_cache.cache_pre_reduce(
+        pos, hit, g2, cache.k, spec.num_shards // groups, groups)
+    hot_cache.record_cache_stats(
+        hit, valid, entry_bytes=dim * cache.rows.element_size()
+        + (12 if spec.wide else 8), record=record)
+    resid = hot_cache.mask_hits(flat, hit, hash_lib.empty_key(flat.dtype))
+    _push(table, optimizer, initializer, resid, g2, mesh, spec,
+          batch_sharded, dedup_capacity, record)
+    hot_cache.update_replica(optimizer, cache, summed, counts)
+    # the owners' slots of the admitted keys (present by admission)
+    c = table.capacity_per_shard
+    phys = torch.full((cache.k,), -1, dtype=torch.int64,
+                      device=cache.keys.device)
+    for s in range(table.num_shards):
+        slot = hash_lib.find_rows(table.keys[s * c:(s + 1) * c],
+                                  _mask_non_owned(spec, cache.keys, s),
+                                  spec.max_probes)
+        phys = torch.where(slot >= 0, s * c + slot, phys)
+    hot_cache.write_back(table, cache, phys, counts)
+    return state

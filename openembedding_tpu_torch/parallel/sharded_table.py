@@ -35,6 +35,21 @@ mode straight into its slice of the stacked tensor, as JAX's
 start where a 1 x 1 one does (compare like with like). A one-shard
 ``a2a`` collection keeps the single-device table (``table.py``), which is
 JAX's one-shard program.
+
+The other planes of JAX ride the ``a2a`` layout:
+
+* ``"a2a+cache"``: a top-K hot-row replica beside the table
+  (``parallel/hot_cache.py``; the state is a ``CachedState``): hits are
+  served from the replica, the residue rides the exchange, and the push
+  updates the replica from one sum over the senders and writes the rows
+  back to their owners, so the table stays authoritative;
+* ``"a2a+grouped"`` and ``"a2a+pipelined"`` (and both): the collection
+  batches grouped tables into one exchange a group
+  (``parallel/grouped.py``) and the ``Trainer`` double-buffers pipelined
+  ones (``parallel/pipelined.py``); a per-table call runs ``a2a``'s
+  program;
+* a ``+bf16``/``+int8`` suffix (``parallel/precision.py``): narrower
+  wires, and for ``int8_ef`` an ``EFState`` residual beside the table.
 """
 
 from __future__ import annotations
@@ -54,13 +69,75 @@ from ..optim.optimizers import make_optimizer
 from ..utils import observability
 from .. import table as table_lib
 from . import alltoall as a2a
+from . import hot_cache, precision
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
-PLANES = ("a2a", "psum")
+# every plane on the owner-routed layout (tables over the whole mesh);
+# "psum" is the broadcast-style ablation
+A2A_PLANES = ("a2a", "a2a+cache", "a2a+grouped", "a2a+pipelined",
+              "a2a+grouped+pipelined")
+PLANES = A2A_PLANES + ("psum",)
+DEFAULT_CACHE_K = 512
+
+
+class _PlaneProps:
+    """The plane and precision properties array and hash specs share."""
+
+    @property
+    def is_cached(self) -> bool:
+        return self.plane == "a2a+cache"
+
+    @property
+    def plane_label(self) -> str:
+        """The plane token of ``plane_timed`` spans and timings, with the
+        precision suffix (``precision.plane_label``)."""
+        return precision.plane_label(self.plane, self.exchange_precision,
+                                     self.push_precision)
+
+    @property
+    def pull_wire_dtype(self):
+        return precision.wire_dtype(self.exchange_precision)
+
+    @property
+    def push_wire_dtype(self):
+        # int8_ef carries its own int8 payload inside exchange_push
+        return precision.wire_dtype(self.push_precision) \
+            if self.push_precision == "bf16" else None
+
+    @property
+    def is_int8_ef(self) -> bool:
+        return self.push_precision == "int8_ef"
+
+    @property
+    def is_grouped(self) -> bool:
+        """Collection-level multi-table exchange (``parallel/grouped.py``)."""
+        return self.plane in ("a2a+grouped", "a2a+grouped+pipelined")
+
+    @property
+    def is_pipelined(self) -> bool:
+        """The Trainer's double-buffered schedule
+        (``parallel/pipelined.py``)."""
+        return self.plane in ("a2a+pipelined", "a2a+grouped+pipelined")
+
+
+def resolve_plane(plane: str, exchange_precision: str, push_precision: str,
+                  cache_k: int) -> tuple:
+    """``(base_plane, exchange_precision, push_precision, cache_k)`` for a
+    spec maker, as in JAX: the suffix folded and checked, ``cache_k`` 0
+    off the cached plane and the default on it when not given."""
+    plane, ep, pp = precision.resolve_precision(plane, exchange_precision,
+                                                push_precision)
+    if plane not in PLANES:
+        raise ValueError(f"unknown plane {plane!r}")
+    if plane == "a2a+cache" and cache_k <= 0:
+        cache_k = DEFAULT_CACHE_K
+    if plane != "a2a+cache":
+        cache_k = 0
+    return plane, ep, pp, cache_k
 
 
 @dataclasses.dataclass(frozen=True)
-class ShardingSpec:
+class ShardingSpec(_PlaneProps):
     """Static description of how one table is laid out on the mesh."""
 
     num_shards: int
@@ -68,14 +145,12 @@ class ShardingSpec:
     layout: str = "mod"  # "mod" | "div"
     data_axis: str = DATA_AXIS
     model_axis: str = MODEL_AXIS
-    plane: str = "a2a"   # "a2a" | "psum"
+    plane: str = "a2a"   # a PLANES member
     a2a_capacity: int = 0    # per-destination bucket rows; 0 = auto
     a2a_slack: float = 2.0   # auto capacity = slack * mean bucket size
-
-    @property
-    def plane_label(self) -> str:
-        """The plane token of ``plane_timed`` spans and timings."""
-        return self.plane
+    cache_k: int = 0         # hot-row replica rows ("a2a+cache")
+    exchange_precision: str = "f32"   # "f32" | "bf16"
+    push_precision: str = "f32"       # "f32" | "bf16" | "int8_ef"
 
     @property
     def shard_axes(self) -> tuple:
@@ -109,13 +184,18 @@ def make_sharding_spec(meta: EmbeddingVariableMeta, mesh: Mesh,
                        capacity: Optional[int] = None,
                        plane: str = "a2a",
                        a2a_capacity: int = 0,
-                       a2a_slack: float = 2.0) -> ShardingSpec:
-    """``num_shards=-1``: one shard per mesh position (``a2a``) or per
-    model slice (``psum``); any other count must equal that, as in JAX."""
+                       a2a_slack: float = 2.0,
+                       cache_k: int = 0,
+                       exchange_precision: str = "f32",
+                       push_precision: str = "f32") -> ShardingSpec:
+    """``num_shards=-1``: one shard per mesh position (``a2a`` planes) or
+    per model slice (``psum``); any other count must equal that, as in
+    JAX. A ``+bf16``/``+int8`` plane suffix folds into the precisions;
+    ``cache_k`` 0 on ``a2a+cache`` takes the default."""
     if layout not in ("mod", "div"):
         raise ValueError(f"unknown layout {layout!r}")
-    if plane not in PLANES:
-        raise ValueError(f"unknown plane {plane!r}")
+    plane, exchange_precision, push_precision, cache_k = resolve_plane(
+        plane, exchange_precision, push_precision, cache_k)
     want = mesh.shape[MODEL_AXIS] if plane == "psum" else mesh.size
     if num_shards == -1:
         num_shards = want
@@ -127,7 +207,10 @@ def make_sharding_spec(meta: EmbeddingVariableMeta, mesh: Mesh,
     rows_per_shard = math.ceil(vocab / num_shards)
     return ShardingSpec(num_shards=num_shards, rows_per_shard=rows_per_shard,
                         layout=layout, plane=plane,
-                        a2a_capacity=a2a_capacity, a2a_slack=a2a_slack)
+                        a2a_capacity=a2a_capacity, a2a_slack=a2a_slack,
+                        cache_k=cache_k,
+                        exchange_precision=exchange_precision,
+                        push_precision=push_precision)
 
 
 @dataclasses.dataclass
@@ -168,10 +251,12 @@ def _mesh_groups(mesh: Mesh, spec: ShardingSpec,
 def create_sharded_table(meta: EmbeddingVariableMeta, optimizer: Any,
                          initializer: Any = None, *, mesh: Mesh,
                          spec: Optional[ShardingSpec] = None,
-                         rng=None) -> ShardedTableState:
+                         rng=None):
     """Every shard's rows from ``fold_in(rng, shard)`` (JAX's per-device
     init; ``rng`` None: ``PRNGKey(0)``), drawn by KI's flat mode into the
-    shard's slice of the stacked tensor, and the optimizer's slots."""
+    shard's slice of the stacked tensor, and the optimizer's slots. On the
+    cached plane the table comes in a ``CachedState`` with an all-padding
+    replica, as in JAX."""
     optimizer = make_optimizer(optimizer)
     initializer = make_initializer(initializer
                                    or table_lib.DEFAULT_INITIALIZER)
@@ -191,7 +276,8 @@ def create_sharded_table(meta: EmbeddingVariableMeta, optimizer: Any,
             block.copy_(initializer.init(key, (rps, dim), dtype,
                                          mesh.device))
     slots = optimizer.init_slots(s * rps, dim, dtype, mesh.device)
-    return ShardedTableState(weights=weights, slots=slots, num_shards=s)
+    return hot_cache.attach_empty(
+        ShardedTableState(weights=weights, slots=slots, num_shards=s), spec)
 
 
 def filled_sharded(mesh: Mesh, spec: ShardingSpec, tail: tuple, fill,
@@ -276,17 +362,24 @@ def _owned_rows(spec: ShardingSpec, keys: torch.Tensor) -> torch.Tensor:
     return torch.where(mine, me * spec.rows_per_shard + local, -1)
 
 
-def pull_sharded(state: ShardedTableState, indices: torch.Tensor, *,
+def pull_sharded(state, indices: torch.Tensor, *,
                  mesh: Mesh, spec: ShardingSpec,
                  batch_sharded: bool = True) -> torch.Tensor:
     """Rows for ``indices`` of any shape (``indices.shape + (dim,)``),
     zero rows for invalid ids. ``batch_sharded``: the batch is split over
     the data axis (the training path) or replicated (each sender then
-    takes a slice of the whole batch), as in JAX; the rows are the same."""
+    takes a slice of the whole batch), as in JAX; the rows are the same.
+    ``state``: a ``ShardedTableState``, a ``CachedState`` on the cached
+    plane (hot keys served by the replica, the residue by the exchange),
+    or an ``EFState`` (read through)."""
     record = observability.evaluate_performance()
+    if spec.is_cached:
+        return observability.plane_timed(
+            "pull", spec.plane_label, record, _pull_cached, state, indices,
+            mesh, spec, batch_sharded, record)
     return observability.plane_timed(
-        "pull", spec.plane_label, record, _pull, state, indices, mesh, spec,
-        batch_sharded, record)
+        "pull", spec.plane_label, record, _pull, hot_cache.unwrap(state),
+        indices, mesh, spec, batch_sharded, record)
 
 
 def _pull(state, indices, mesh, spec, batch_sharded, record):
@@ -314,29 +407,65 @@ def _pull(state, indices, mesh, spec, batch_sharded, record):
         dtype=state.weights.dtype, num_shards=spec.num_shards,
         groups=_mesh_groups(mesh, spec, batch_sharded),
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
-        record_stats=record)
+        record_stats=record, wire_dtype=spec.pull_wire_dtype)
     return rows.reshape(tuple(indices.shape) + (dim,))
 
 
-def apply_gradients_sharded(state: ShardedTableState, optimizer: Any,
+def _pull_cached(state, indices, mesh, spec, batch_sharded, record):
+    """The cached plane's pull: hits from the replica (one K1 launch over
+    its rows), the rest through the exchange with hits masked invalid,
+    the two summed (each entry is zero in one of them)."""
+    table, cache = state.table, state.cache
+    dim = table.dim
+    flat = indices.reshape(-1)
+    valid = (flat >= 0) & (flat < spec.padded_vocab)
+    pos, hit = hot_cache.lookup(cache.keys, flat, valid)
+    served = hot_cache.served_rows(cache.rows, pos, hit)
+    hot_cache.record_cache_stats(
+        hit, valid, entry_bytes=dim * cache.rows.element_size() + 4,
+        record=record)
+    resid = hot_cache.mask_hits(flat, hit, dedup.FILL)
+    rows = _pull(table, resid, mesh, spec, batch_sharded, record)
+    return (rows + served).reshape(tuple(indices.shape) + (dim,))
+
+
+def apply_gradients_sharded(state, optimizer: Any,
                             indices: torch.Tensor, grads: torch.Tensor, *,
                             mesh: Mesh, spec: ShardingSpec,
                             batch_sharded: bool = True,
-                            dedup_capacity: Optional[int] = None
-                            ) -> ShardedTableState:
+                            dedup_capacity: Optional[int] = None):
     """Push and update in place: every shard applies its own rows' update
     (``a2a``: the owners' merged pre-reduces; ``psum``: the global batch
     masked to the shard), each with ``table.apply_gradients`` and
-    ``dedup_capacity`` as JAX's applier. Returns ``state``."""
+    ``dedup_capacity`` as JAX's applier. Returns the state: ``state``
+    itself, or on an int8_ef spec given a bare table its new ``EFState``
+    (the residual of this push). On the cached plane the replica takes
+    the hot keys' update and writes their rows back to the owners."""
     optimizer = make_optimizer(optimizer)
     record = observability.evaluate_performance()
-    return observability.plane_timed(
-        "push", spec.plane_label, record, _push, state, optimizer, indices,
-        grads, mesh, spec, batch_sharded, dedup_capacity, record)
+    if spec.is_cached:
+        return observability.plane_timed(
+            "push", spec.plane_label, record, _push_cached, state,
+            optimizer, indices, grads, mesh, spec, batch_sharded,
+            dedup_capacity, record)
+    ef = None
+    if spec.is_int8_ef and spec.num_shards > 1:
+        table = hot_cache.unwrap(state)
+        sentinel, key_dtype = precision.ef_key_space(use_hash=False)
+        ef = precision.ensure_ef(
+            state, dim=table.dim, wide=False, sentinel=sentinel,
+            n_flat=indices.numel(), data=mesh.shape[spec.data_axis],
+            model=mesh.shape[spec.model_axis], batch_sharded=batch_sharded,
+            key_dtype=key_dtype)
+    observability.plane_timed(
+        "push", spec.plane_label, record, _push, hot_cache.unwrap(state),
+        optimizer, indices, grads, mesh, spec, batch_sharded,
+        dedup_capacity, record, ef)
+    return ef if ef is not None else state
 
 
 def _push(state, optimizer, indices, grads, mesh, spec, batch_sharded,
-          dedup_capacity, record):
+          dedup_capacity, record, ef=None):
     dim = state.dim
     flat = indices.reshape(-1)
     g2 = grads.reshape(-1, dim)
@@ -362,9 +491,50 @@ def _push(state, optimizer, indices, grads, mesh, spec, batch_sharded,
                                       in_counts=counts[s])
         return state
 
-    return a2a.exchange_push(
+    out = a2a.exchange_push(
         flat, g2, apply_fn, _owner_of(spec), sentinel=dedup.FILL,
         num_shards=spec.num_shards,
         groups=_mesh_groups(mesh, spec, batch_sharded),
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
-        record_stats=record)
+        record_stats=record, wire_dtype=spec.push_wire_dtype,
+        ef_state=None if ef is None else _ef_views(ef, spec.num_shards))
+    if ef is not None:
+        _, (keys, resid) = out
+        ef.keys.copy_(keys.reshape(ef.keys.shape))
+        ef.resid.copy_(resid.reshape(ef.resid.shape))
+    return state
+
+
+def _ef_views(ef, num_shards: int):
+    """An ``EFState``'s stacked buffers as ``[S, m(, 2)]`` and ``[S, m,
+    dim]``: sender ``p``'s block is row ``p``."""
+    s = num_shards
+    return (ef.keys.view((s, -1) + tuple(ef.keys.shape[1:])),
+            ef.resid.view(s, -1, ef.resid.shape[-1]))
+
+
+def _push_cached(state, optimizer, indices, grads, mesh, spec,
+                 batch_sharded, dedup_capacity, record):
+    """The cached plane's push: the hot keys' gradients pre-reduced by
+    every sender into K bins and summed over the senders, the replica
+    updated by them (rows of zero count untouched) and its rows written
+    back to their owners; the residue pushed through the exchange."""
+    table, cache = state.table, state.cache
+    dim = table.dim
+    flat = indices.reshape(-1)
+    g2 = grads.reshape(-1, dim)
+    valid = (flat >= 0) & (flat < spec.padded_vocab)
+    pos, hit = hot_cache.lookup(cache.keys, flat, valid)
+    groups = _mesh_groups(mesh, spec, batch_sharded)
+    summed, counts = hot_cache.cache_pre_reduce(
+        pos, hit, g2, cache.k, spec.num_shards // groups, groups)
+    hot_cache.record_cache_stats(
+        hit, valid, entry_bytes=dim * cache.rows.element_size() + 8,
+        record=record)
+    resid = hot_cache.mask_hits(flat, hit, dedup.FILL)
+    _push(table, optimizer, resid, g2, mesh, spec, batch_sharded,
+          dedup_capacity, record)
+    hot_cache.update_replica(optimizer, cache, summed, counts)
+    hot_cache.write_back(table, cache, spec.physical_rows(cache.keys),
+                         counts)
+    return state

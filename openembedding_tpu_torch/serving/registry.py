@@ -60,6 +60,7 @@ from ..analysis import scope
 from ..analysis.concurrency import make_lock, sync_point
 from ..embedding import EmbeddingCollection, EmbeddingSpec, not_ported
 from ..meta import ModelMeta, ModelStatus, UNBOUNDED_VOCAB
+from ..parallel import hot_cache
 from ..utils import fs
 from ..utils.device import DeviceLike, resolve_device
 
@@ -214,7 +215,7 @@ class ServingModel:
         capacity; free slots are skipped), an array variable its rows."""
         name = self._name(variable)
         spec = self.collection.specs[name]
-        state = self.states[name]
+        state = hot_cache.unwrap(self.states[name])
         if spec.use_hash:
             from .. import hash_table as hash_lib
             total = int(state.keys.shape[0])

@@ -43,6 +43,19 @@ a device tensor. ``fit`` reads the loss only on its ``log_every`` steps.
 The JAX ``train_step`` donates its input state and returns a new one; the
 port's updates the state's tensors in place and returns the same state.
 
+The planes of a sharded collection that change the step: an int8_ef
+variable's residual (``parallel/precision.py``) is sized for the batch
+before a program is built (``EmbeddingCollection.size_ef``), so the
+graph keeps its buffers; every ``"a2a+cache"`` variable has a
+``HotCacheManager`` that observes each stepped batch on the host and
+refreshes the replica in place every ``cache_refresh_every`` steps
+(:meth:`Trainer._note_hot_cache`), outside the program, which it leaves
+valid; pipelined variables (``parallel/pipelined.py``) run a step
+program that consumes the rows prefetched by the step before, pushes,
+and prefetches the next batch's rows (given as ``train_step(next_batch=
+)``, ``fit``'s window head) into the same buffer, the numbers ``a2a``'s
+bit for bit.
+
 ``Trainer(offload=)`` trains variables whose rows live in a host store
 (``offload.ShardedOffloadedTable``): before each step the batch's missing
 rows are inserted into the variable's device cache, in place and outside
@@ -89,6 +102,7 @@ from .hybrid import DENSE_SCOPE, HybridModel, to_dense_spec
 from .models.deepctr import init_params
 from .ops.launches import CountedGraph
 from .optim.initializers import split
+from .parallel import pipelined as pipeline_lib
 from .utils import observability
 
 
@@ -99,28 +113,31 @@ class TrainState:
     step: torch.Tensor               # int64 scalar: steps taken
     params: Dict[str, torch.Tensor]  # dense parameters, by module name
     opt_state: Dict[str, torch.Tensor]   # the dense optimizer's state
-    emb: Dict[str, Any]              # embedding states (TableState)
+    emb: Dict[str, Any]              # embedding states (TableState; a
+                                     # plane's wrapper: EFState, CachedState)
+    # the pipelined schedule's prefetched rows (parallel/pipelined.py);
+    # None outside it. Derived state, never checkpointed
+    pipe: Any = None
+
+
+def _copy_tree(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _copy_tree(getattr(x, f.name), device)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _copy_tree(v, device) for k, v in x.items()}
+    return x
 
 
 def copy_state(state: TrainState, device) -> TrainState:
     """A copy of ``state`` on ``device`` (steps on one leave the other as
     it was): every tensor of the dense state and of each table state
-    (a hash table's keys and failure count too)."""
-    def cp(t):
-        return t.to(device, copy=True)
-
-    def cp_table(s):
-        return dataclasses.replace(s, **{
-            f.name: cp(v) if isinstance(v, torch.Tensor)
-            else {k: cp(x) for k, x in v.items()} if isinstance(v, dict)
-            else v
-            for f in dataclasses.fields(s)
-            for v in (getattr(s, f.name),)})
-    return TrainState(
-        step=cp(state.step),
-        params={k: cp(v) for k, v in state.params.items()},
-        opt_state={k: cp(v) for k, v in state.opt_state.items()},
-        emb={n: cp_table(s) for n, s in state.emb.items()})
+    (a hash table's keys and failure count, a plane's replica, residual
+    and prefetched rows too)."""
+    return _copy_tree(state, device)
 
 
 def binary_logloss(logits: torch.Tensor, labels: torch.Tensor
@@ -177,11 +194,14 @@ def _state_key(state) -> tuple:
 
 def _batch_key(host: Dict[str, Any]) -> tuple:
     """What a ``jax.jit`` cache keys a batch on: its columns, and each
-    array's shape and dtype; whether ``dense`` is present."""
+    array's shape and dtype; whether ``dense`` is present (and the
+    pipelined schedule's next-batch columns)."""
     def sig(t):
         return None if t is None else (tuple(t.shape), t.dtype)
     return (sig(host["label"]), sig(host["dense"]),
-            tuple((k, sig(v)) for k, v in sorted(host["sparse"].items())))
+            tuple((k, sig(v)) for k, v in sorted(host["sparse"].items())),
+            tuple((k, sig(v)) for k, v in sorted(
+                (host.get("next") or {}).items())))
 
 
 class _Program:
@@ -240,6 +260,9 @@ class _CapturedProgram(_Program):
                        "dense": buffer(host["dense"]),
                        "sparse": {k: buffer(v)
                                   for k, v in host["sparse"].items()}}
+        if host.get("next") is not None:
+            self.inputs["next"] = {k: buffer(v)
+                                   for k, v in host["next"].items()}
         self._load(host)
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -260,7 +283,9 @@ class _CapturedProgram(_Program):
         without waiting for the device."""
         pairs = [(self.inputs["label"], host["label"]),
                  (self.inputs["dense"], host["dense"])] + [
-            (self.inputs["sparse"][k], v) for k, v in host["sparse"].items()]
+            (self.inputs["sparse"][k], v) for k, v in host["sparse"].items()
+        ] + [(self.inputs["next"][k], v)
+             for k, v in (host.get("next") or {}).items()]
         for buf, x in pairs:
             if buf is not None:
                 buf.copy_(x, non_blocking=True)
@@ -320,6 +345,29 @@ class Trainer:
         # in-flight lookahead prepares, oldest first; each entry's thread
         # chains on the previous one, so host prepares run in batch order
         self._preps: deque = deque()
+        # the pipelined schedule: its variables, and the batch the live
+        # row buffer was prefetched for plus that buffer's identity (a
+        # replayed older state re-primes); a drained buffer is kept to
+        # take the next prime in place
+        self._pipelined = collection.pipelined_names()
+        clash = sorted(set(self._pipelined) & set(self.offload))
+        if clash:
+            raise ValueError(
+                f"offloaded variable(s) {clash} cannot ride a pipelined "
+                "plane: offload host-prepare inserts rows between steps, "
+                "invalidating the prefetched row buffer")
+        self._pipe_for = None
+        self._pipe_token = None
+        self._pipe_spare = None
+        # one admission driver a cached variable; a ':linear' twin shares
+        # its base's sketch (the same id column, counted once a step)
+        self._hot = {name: collection.make_hot_cache_manager(name)
+                     for name in collection.cached_names()}
+        for name, mgr in self._hot.items():
+            if name.endswith(":linear"):
+                base = self._hot.get(name[: -len(":linear")])
+                if base is not None:
+                    mgr.share_sketch(base)
         if sparse_as_dense:
             specs = tuple(to_dense_spec(x) if isinstance(x, EmbeddingSpec)
                           else x for x in sparse_as_dense)
@@ -384,17 +432,22 @@ class Trainer:
 
     def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The batch's arrays on the trainer's device (the JAX
-        ``shard_batch``), copied without waiting."""
+        ``shard_batch``), copied without waiting; a pipelined step's
+        ``next`` columns too."""
         host = self.host_batch(batch)
 
         def placed(x):
             return None if x is None else x.to(self.device,
                                                non_blocking=True)
-        return {"label": placed(host["label"]),
-                "dense": placed(host["dense"]),
-                "sparse": {k: placed(v) if k in self._dense_names
-                           else self.collection.to_device(k, v)
-                           for k, v in host["sparse"].items()}}
+        out = {"label": placed(host["label"]),
+               "dense": placed(host["dense"]),
+               "sparse": {k: placed(v) if k in self._dense_names
+                          else self.collection.to_device(k, v)
+                          for k, v in host["sparse"].items()}}
+        if batch.get("next") is not None:
+            out["next"] = {k: self.collection.to_device(k, v)
+                           for k, v in batch["next"].items()}
+        return out
 
     def shard_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """JAX's ``shard_batch``: the batch on the mesh's device. The
@@ -432,16 +485,90 @@ class Trainer:
     def _step(self, state: TrainState, batch) -> torch.Tensor:
         """The step on a placed batch (or a program's static buffers):
         pull, loss and gradients, dense update, push, ``step += 1``, all
-        in place. Returns the loss, a device scalar."""
+        in place. Returns the loss, a device scalar. On a collection with
+        pipelined variables their rows come from ``state.pipe`` and the
+        step ends with the prefetch of ``batch["next"]`` into it, after
+        the push (``parallel/pipelined.py``)."""
         pull_inputs, _ = self._split_sparse(batch["sparse"])
-        rows = self.collection.pull(state.emb, pull_inputs)
+        if self._pipelined:
+            _pre, inline = pipeline_lib.split_columns(self.collection,
+                                                      pull_inputs)
+            rows = dict(state.pipe.rows)
+            if inline:
+                # the other planes' variables keep their in-step pull
+                rows.update(self.collection.pull(state.emb, inline))
+        else:
+            rows = self.collection.pull(state.emb, pull_inputs)
         loss, row_grads = self.dense_step(state, batch, rows)
         with torch.no_grad():
             # dirty marks come from the host batch, outside the step
             self.collection.apply_gradients(state.emb, pull_inputs,
                                             row_grads, mark=False)
             state.step.add_(1)
+            if self._pipelined:
+                # the version barrier: pull(N + 1) reads push(N)'s tables
+                pipeline_lib.prefetch_pull(self.collection, state.emb,
+                                           batch["next"], out=state.pipe)
         return loss
+
+    # --- the pipelined schedule (parallel/pipelined.py) ---------------------
+    @property
+    def pipeline_plane(self) -> str:
+        """The step-span label of the pipelined schedule."""
+        if self._pipelined and all(
+                self.collection.sharding_spec(n).is_grouped
+                for n in self._pipelined):
+            return "a2a+grouped+pipelined"
+        return "a2a+pipelined"
+
+    def _prime_pipeline(self, state: TrainState, batch) -> TrainState:
+        """Pull ``batch``'s pipelined rows eagerly from the tables (the
+        pull a serial step opens with) into the state's buffer: in place
+        where the buffer (or the one a drain left) fits, so a captured
+        program stays bound to it."""
+        pull_inputs, _ = self._split_sparse(batch["sparse"])
+        pre, _ = pipeline_lib.split_columns(self.collection, pull_inputs)
+        fresh = pipeline_lib.prefetch_pull(self.collection, state.emb,
+                                           self.place_batch(
+                                               {"label": None,
+                                                "sparse": pre})["sparse"])
+        pipe = state.pipe if state.pipe is not None else self._pipe_spare
+        if pipeline_lib.fits(pipe, fresh.rows):
+            with torch.no_grad():
+                for k, v in fresh.rows.items():
+                    pipe.rows[k].copy_(v)
+        else:
+            pipe = fresh
+        state.pipe = pipe
+        return state
+
+    def drain_pipeline(self, state: TrainState) -> TrainState:
+        """``state`` without its prefetched rows (``pipe`` None). The
+        tables are authoritative after every step, so nothing is lost;
+        the next ``train_step`` re-primes, into the same buffer. Eval
+        needs no drain."""
+        if getattr(state, "pipe", None) is not None:
+            self._pipe_spare = state.pipe
+        self._pipe_for = None
+        self._pipe_token = None
+        return pipeline_lib.drain(state)
+
+    def _pipelined_host(self, state: TrainState, batch, next_batch):
+        """The host batch of a pipelined step, its ``next`` columns those
+        of ``next_batch`` (the batch itself without one), after priming
+        the buffer where it does not hold this batch's rows."""
+        if state.pipe is None or self._pipe_for is not batch \
+                or self._pipe_token != id(state.pipe):
+            # a first step, a drain, a batch the lookahead did not
+            # predict, or an older state: fill the buffer for this batch
+            observability.GLOBAL.add("pipeline_primes", 1)
+            state = self._prime_pipeline(state, batch)
+        nxt = next_batch if next_batch is not None else batch
+        host = self.host_batch(batch)
+        pipelined = set(self._pipelined)
+        host["next"] = {k: self.collection.host_ids(k, v)
+                        for k, v in nxt["sparse"].items() if k in pipelined}
+        return state, host, nxt
 
     @torch.no_grad()
     def _scores(self, state: TrainState, batch) -> torch.Tensor:
@@ -503,18 +630,56 @@ class Trainer:
                 observability.record_batch_stats(
                     {k: _stats_view(v) for k, v in batch["sparse"].items()})
                 state, uniqs = self._apply_prepared_offload(state, batch)
-                host = self.host_batch(batch)
-                loss, built = self._run(self.programs, self._step, state,
-                                        host)
+                if self._pipelined:
+                    state, host, nxt = self._pipelined_host(
+                        state, batch, next_batch)
+                else:
+                    host = self.host_batch(batch)
+                self._size_ef(state, host)
+                record = observability.evaluate_performance()
+                loss, built = observability.plane_timed(
+                    "step", self.pipeline_plane, record and bool(
+                        self._pipelined), self._run, self.programs,
+                    self._step, state, host)
                 self.builds += built
+                if self._pipelined:
+                    self._pipe_for = nxt
+                    self._pipe_token = id(state.pipe)
                 self._mark_dirty(host)
                 self._note_offload(batch, uniqs)
+                self._note_hot_cache(state, batch)
                 if next_batch is not None and self.offload \
                         and not self._prep_started(next_batch):
                     self._start_host_prepare(next_batch)
         finally:
             self._host_step += 1
         return state, {"loss": loss}
+
+    def _size_ef(self, state: TrainState, host) -> None:
+        """Size the int8_ef residuals for this batch before its program is
+        looked up (``EmbeddingCollection.size_ef``)."""
+        cols, _ = self._split_sparse(host["sparse"])
+        self.collection.size_ef(state.emb, cols)
+
+    def _note_hot_cache(self, state: TrainState, batch) -> TrainState:
+        """Feed each cached variable's admission sketch with the stepped
+        batch's keys (a shared sketch once a step) and refresh the due
+        replicas, in place, outside the program: a re-gather from the
+        authoritative table, never a write-back. The refresh's wall time
+        is kept per manager (``last_refresh_s``)."""
+        counted = set()
+        for name, mgr in self._hot.items():
+            col = batch["sparse"].get(name)
+            if col is None:
+                continue
+            if id(mgr.sketch) in counted:
+                mgr.tick()
+            else:
+                mgr.observe(col)
+                counted.add(id(mgr.sketch))
+            if mgr.due:
+                mgr.refresh(state.emb[name])
+        return state
 
     # --- the offload lane -----------------------------------------------------
     def _prep_started(self, batch) -> bool:
@@ -663,16 +828,26 @@ class Trainer:
         for c, k in stale:
             del c[k]
 
-    def train_step_eager(self, state: TrainState, batch) -> tuple:
+    def train_step_eager(self, state: TrainState, batch, *,
+                         next_batch=None) -> tuple:
         """One step dispatched op by op, with no step program (the oracle
         of the captured step); the same result as :meth:`train_step`."""
         state, uniqs = self._apply_prepared_offload(state, batch)
-        host = self.host_batch(batch)
+        if self._pipelined:
+            state, host, nxt = self._pipelined_host(state, batch,
+                                                    next_batch)
+        else:
+            host = self.host_batch(batch)
+        self._size_ef(state, host)
         placed = self.place_batch(host)
         self._check_dense_ids(state, placed)
         loss = self._step(state, placed)
+        if self._pipelined:
+            self._pipe_for = nxt
+            self._pipe_token = id(state.pipe)
         self._mark_dirty(host)
         self._note_offload(batch, uniqs)
+        self._note_hot_cache(state, batch)
         return state, {"loss": loss}
 
     def dense_step(self, state: TrainState, batch, rows):
@@ -846,9 +1021,10 @@ class Trainer:
                 # the chaos injection site for "kill the trainer between
                 # two steps"
                 sync_point("trainer.fit.step")
-                # next_batch feeds only the offload lookahead
+                # next_batch feeds the offload lookahead and the
+                # pipelined prefetch
                 kw = {"next_batch": window[0] if window else None} \
-                    if self.offload else {}
+                    if self.offload or self._pipelined else {}
                 state, last = self.train_step(state, batch, **kw)
                 if retrace_budget is not None and guard is None and i >= 1:
                     guard = RetraceGuard(budget=retrace_budget,

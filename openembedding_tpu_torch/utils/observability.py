@@ -197,6 +197,26 @@ def record_serving_lookup(name: str, size: float,
                              table=str(name))
 
 
+def cache_stats(accumulator: Optional[Accumulator] = None
+                ) -> Dict[str, float]:
+    """The hot-row replica's counters (``parallel/hot_cache.py``):
+    ``cache_hits`` and ``cache_misses`` (batch entries against the
+    replica), ``ici_bytes_saved`` (exchange bytes the hits skipped) and
+    ``cache_hit_rate``, hits over both. Recorded only while
+    :func:`set_evaluate_performance` is on."""
+    snap = (accumulator or GLOBAL).snapshot()
+
+    def _count(name: str) -> float:
+        return snap.get(name, {}).get("count", 0.0)
+
+    hits = _count("cache_hits")
+    misses = _count("cache_misses")
+    total = hits + misses
+    return {"cache_hits": hits, "cache_misses": misses,
+            "ici_bytes_saved": _count("ici_bytes_saved"),
+            "cache_hit_rate": hits / total if total else 0.0}
+
+
 def under_trace(tree=None) -> bool:
     """True while the current CUDA stream captures a graph: host-side
     timers and counters must not record there (the host code runs once

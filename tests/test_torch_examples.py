@@ -148,15 +148,11 @@ def test_serving_cluster_one_replica(capsys):
     ["--plane", "psum"], ["--cache_k", "8"], ["--data_parallel", "2"]])
 def test_driver_refuses_multi_shard_options(argv, monkeypatch, devices8,
                                             capsys):
-    """``--plane psum`` and ``--data_parallel 2`` run now: JAX's example
-    on 4 devices and the port's driver on a mesh of 4 positions build
-    the same 2 x 2 mesh (``psum``: tables over the model axis) and log
-    the same losses; ``--cache_k`` still raises, naming item 9."""
-    if argv[0] == "--cache_k":
-        with pytest.raises(NotImplementedError,
-                           match="multi-shard exchange planes"):
-            criteo_deepctr.main([*BASE, *argv, "--device", "cpu"])
-        return
+    """``--plane psum``, ``--cache_k`` and ``--data_parallel 2`` run:
+    JAX's example on 4 devices and the port's driver on a mesh of 4
+    positions build the same 2 x 2 mesh (``psum``: tables over the model
+    axis; ``--cache_k`` off the cached plane sizes nothing, as in JAX)
+    and log the same losses."""
     monkeypatch.setattr(jax, "devices", lambda *a, **k: devices8[:4])
     argv = ["--model", "deepfm", *BASE, "--data_parallel", "2", *argv]
     assert jax_example.main(argv) == 0
@@ -167,6 +163,47 @@ def test_driver_refuses_multi_shard_options(argv, monkeypatch, devices8,
     assert "mesh: {'data': 2, 'model': 2}" in jout
     assert "mesh: {'data': 2, 'model': 2} on cpu" in tout
     _assert_same_run(jout, tout)
+
+
+@pytest.mark.parametrize("argv", [["--plane", "a2a+grouped+pipelined"],
+                                  ["--plane", "a2a+int8", "--cache_k", "64"]],
+                         ids=["grouped-pipelined", "int8-cache_k"])
+def test_driver_later_planes_save_and_load(argv, capsys, tmp_path):
+    """The port's driver on the grouped pipelined plane and the int8 wire,
+    ``--data_parallel 2`` over 4 positions: it trains, saves, and a
+    second run loads the checkpoint back (the tables it saved, row for
+    row) and evaluates it. The grouped pipelined losses are the ``a2a``
+    run's within the grouped plane's tolerance."""
+    common = ["--model", "deepfm", *BASE, "--data_parallel", "2",
+              "--devices", "4", "--device", "cpu"]
+    d = str(tmp_path / "ck")
+    assert criteo_deepctr.main(common + argv + ["--save", d]) == 0
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 2, 'model': 2} on cpu" in out
+    assert f"saved checkpoint to {d}" in out
+    losses = _losses(out)
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    if argv[1] == "a2a+grouped+pipelined":
+        assert criteo_deepctr.main(common + ["--plane", "a2a"]) == 0
+        np.testing.assert_allclose(losses,
+                                   _losses(capsys.readouterr().out),
+                                   rtol=1e-5)
+    assert criteo_deepctr.main(common + argv + ["--steps", "0", "--load", d,
+                                                "--eval_steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert f"loaded checkpoint from {d}" in out
+    assert re.search(r"eval AUC over 2 batches: [0-9.]+", out)
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    specs, _ = make_fused_specs(criteo.SPARSE_NAMES, 2048, 4,
+                                plane=argv[1])
+    coll = EmbeddingCollection(specs, create_mesh(2, 2, device="cpu"))
+    again = tckpt.load_checkpoint(d, coll)
+    tckpt.save_checkpoint(str(tmp_path / "again"), coll, again)
+    for name, dense_rows in tckpt.export_dense(coll, again).items():
+        np.testing.assert_array_equal(
+            dense_rows, tckpt.export_dense(
+                coll, tckpt.load_checkpoint(str(tmp_path / "again"),
+                                            coll))[name])
 
 
 def test_serving_cluster_refuses_shard_groups():

@@ -74,8 +74,11 @@ def test_fused_refusals():
                       "b": np.array([3], np.int64)})["fields"]
     assert fused.dtype == np.int64
     assert fused.tolist() == [[2**41, 3 * 2 + 1]]
-    with pytest.raises(NotImplementedError, match="multi-shard"):
-        tf.make_fused_specs(["a", "b"], -1, 4, plane="a2a+grouped")
+    # the later planes fuse too, their specs JAX's
+    grouped_specs, _ = tf.make_fused_specs(["a", "b"], -1, 4,
+                                           plane="a2a+grouped+bf16")
+    assert [(s.plane, s.exchange_precision) for s in grouped_specs] \
+        == [("a2a+grouped", "bf16")] * 2
     with pytest.raises(ValueError, match="cannot fuse"):
         tf.make_fused_specs(["a", "b"], [-1, 4], 4)
     with pytest.raises(ValueError, match="must match"):

@@ -1400,3 +1400,129 @@ def test_sharded_captured_step_matches_eager_and_cpu(kind):
                                    cs.emb[name].weights.numpy(),
                                    rtol=1e-4, atol=1e-6)
     assert t.builds == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    ("array", "a2a+bf16"), ("array", "a2a+int8"), ("array", "a2a+pipelined"),
+    ("array", "a2a+cache"), ("per_feature", "a2a+grouped"),
+    ("per_feature", "a2a+grouped+pipelined"), ("hash", "a2a+int8"),
+    ("hash", "a2a+cache")], ids=lambda c: "-".join(c))
+def test_plane_captured_step_matches_eager_and_cpu(case):
+    """Each later plane on a 2 x 2 mesh of the card, a small DeepFM with
+    the lookahead given: captured steps equal eager ones bit for bit
+    (under deterministic algorithms; replicas refreshed in place every 2
+    steps, one program over the run), and the CPU's at rtol 1e-4; after
+    each step an int8_ef residual equal to the CPU's or one int8 unit
+    from it, in units of the CPU step's per-row scales (where the card's
+    pre-reduce rounds a total across a boundary: ``chip_smoke``'s gate),
+    then carried on from the card's."""
+    _need_card()
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.models import deepctr
+    from openembedding_tpu_torch.optim import dense
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    from openembedding_tpu_torch.parallel import hot_cache
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    from openembedding_tpu_torch.parallel.precision import EFState
+    from openembedding_tpu_torch.training import Trainer, copy_state
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    layout, plane = case
+    kw = {"optimizer": {"category": "adagrad", "learning_rate": 0.05},
+          "plane": plane}
+    if plane == "a2a+cache":
+        kw.update(cache_k=64, cache_refresh_every=2)
+    if layout == "hash":
+        kw.update(hash_capacity=4096)
+    if layout == "per_feature":
+        specs = deepctr.make_feature_specs(criteo.SPARSE_NAMES, 128, 4,
+                                           **kw)
+        mapper = None
+    else:
+        specs, mapper = make_fused_specs(
+            criteo.SPARSE_NAMES, -1 if layout == "hash" else 512, 4, **kw)
+
+    def trainer(device):
+        return Trainer(deepctr.build_model("deepfm", criteo.SPARSE_NAMES,
+                                           embedding_dim=4,
+                                           dnn_units=(16, 8)),
+                       EmbeddingCollection(specs, create_mesh(
+                           2, 2, device=device)), dense.adagrad(0.01))
+    raw = list(criteo.synthetic_criteo(256, num_buckets=128, seed=3,
+                                       num_batches=5))
+    batches = [mapper.fuse_batch(b) for b in raw] if mapper else \
+        list(criteo.add_linear_columns(raw))
+    t, e, cpu = trainer("cuda"), trainer("cuda"), trainer("cpu")
+    s0 = t.init(prng_key(1), batches[0])
+    a, b, cs = copy_state(s0, "cuda"), copy_state(s0, "cuda"), \
+        copy_state(s0, "cpu")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i, batch in enumerate(batches):
+            nxt = batches[i + 1] if i + 1 < len(batches) else None
+            a, ma = t.train_step(a, batch, next_batch=nxt)
+            b, mb = e.train_step_eager(b, batch, next_batch=nxt)
+            with chip_smoke._EFScales() as kept:
+                cs, mc = cpu.train_step(cs, batch, next_batch=nxt)
+            assert torch.equal(ma["loss"], mb["loss"]), i
+            np.testing.assert_allclose(float(ma["loss"]), float(mc["loss"]),
+                                       rtol=1e-4)
+            for name, st in a.emb.items():
+                if isinstance(st, EFState):
+                    want = cs.emb[name]
+                    assert torch.equal(st.keys.cpu(), want.keys)
+                    chip_smoke._resid_close(
+                        f"step {i} {name}", st.resid, want.resid,
+                        kept.scale_of(name, want.resid))
+                    want.resid.copy_(st.resid.cpu())
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert t.builds == 1
+    for name in a.emb:
+        ta, tb = hot_cache.unwrap(a.emb[name]), hot_cache.unwrap(b.emb[name])
+        assert torch.equal(ta.weights, tb.weights)
+        np.testing.assert_allclose(
+            ta.weights.cpu().numpy(),
+            hot_cache.unwrap(cs.emb[name]).weights.numpy(), rtol=1e-4,
+            atol=1e-6)
+        if isinstance(a.emb[name], EFState):
+            assert torch.equal(a.emb[name].resid, b.emb[name].resid)
+        if isinstance(a.emb[name], hot_cache.CachedState):
+            assert torch.equal(a.emb[name].cache.keys,
+                               b.emb[name].cache.keys)
+            assert torch.equal(a.emb[name].cache.keys.cpu(),
+                               cs.emb[name].cache.keys)
+            assert t._hot[name].refreshes >= 2
+            assert bool((a.emb[name].cache.keys >= 0).any()) \
+                or a.emb[name].cache.wide
+
+
+@pytest.mark.gpu
+def test_bf16_pull_on_card_equals_cpu():
+    """The bf16 wire on the card: pulled rows equal the CPU's bit for bit
+    and the bf16 rounding of the f32 plane's rows."""
+    _need_card()
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.embedding import EmbeddingSpec
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 1000, (512, 3))
+    rows = {}
+    for plane in ("a2a", "a2a+bf16"):
+        for dev in ("cuda", "cpu"):
+            c = EmbeddingCollection([EmbeddingSpec("t", 1000, 9,
+                                                   plane=plane)],
+                                    create_mesh(2, 2, device=dev))
+            rows[plane, dev] = c.pull(c.init(prng_key(0)), {"t": ids})[
+                "t"].cpu()
+    assert torch.equal(rows["a2a+bf16", "cuda"], rows["a2a+bf16", "cpu"])
+    assert torch.equal(rows["a2a+bf16", "cuda"],
+                       rows["a2a", "cuda"].to(torch.bfloat16).float())

@@ -272,8 +272,10 @@ def test_hash_refusals():
                                device="cpu")
     assert t64.keys.dtype == torch.int64 and t64.keys.shape == (8,)
     assert int(t64.keys[0]) == th.empty_key(torch.int64) == -2**63
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingSpec(name="x", input_dim=-1, output_dim=2, cache_k=4)
+    # a replica size runs now: on the cached plane it sizes the replica
+    cached = EmbeddingSpec(name="x", input_dim=-1, output_dim=2, cache_k=4,
+                           plane="a2a+cache")
+    assert (cached.cache_k, cached.plane) == (4, "a2a+cache")
     with pytest.raises(ValueError, match="unknown key_dtype"):
         EmbeddingSpec(name="x", input_dim=-1, output_dim=2,
                       key_dtype="int16")

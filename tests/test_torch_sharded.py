@@ -204,8 +204,8 @@ def test_insert_failures_per_shard(devices8):
 
 def test_interop_and_refusals(devices8):
     """JAX's global physical arrays become the port's stacked shards and
-    back; dirty tracking of a sharded variable and the later planes
-    raise, naming item 9."""
+    back; dirty tracking of a sharded variable raises, naming item 9;
+    the later planes build, their specs JAX's."""
     kw = dict(name="t", input_dim=VOCAB, output_dim=DIM, optimizer=ADAGRAD)
     jcoll, tcoll = _pair(kw, devices8, 2, 2)
     js = jcoll.init(jax.random.PRNGKey(4))["t"]
@@ -229,8 +229,10 @@ def test_interop_and_refusals(devices8):
     with pytest.raises(NotImplementedError, match="multi-shard exchange"):
         tcoll.enable_dirty_tracking()
     for plane in ("a2a+grouped", "a2a+pipelined", "a2a+bf16"):
-        with pytest.raises(NotImplementedError, match="multi-shard"):
-            EmbeddingSpec("x", 8, 2, plane=plane)
+        t, j = EmbeddingSpec("x", 8, 2, plane=plane), \
+            oe.EmbeddingSpec("x", 8, 2, plane=plane)
+        assert (t.plane, t.exchange_precision, t.push_precision) \
+            == (j.plane, j.exchange_precision, j.push_precision)
     with pytest.raises(ValueError, match="unknown plane"):
         EmbeddingSpec("x", 8, 2, plane="ring")
     with pytest.raises(ValueError, match="num_shards=3"):

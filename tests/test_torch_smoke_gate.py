@@ -1,8 +1,15 @@
-"""``chip_smoke.replay_gate``: the check that each CUDA-graph replay in a
-profiler trace launched each kernel as often as the wrappers' counters
-say. It runs on plain dicts, so its cases run here without a card: a
-record the profiler dropped from one replay passes and is reported, a
-real disagreement of the counters with the graph fails."""
+"""Gates of ``chip_smoke.py`` that run without a card.
+
+``replay_gate``: the check that each CUDA-graph replay in a profiler
+trace launched each kernel as often as the wrappers' counters say. It
+runs on plain dicts: a record the profiler dropped from one replay passes
+and is reported, a real disagreement of the counters with the graph
+fails.
+
+``_resid_close`` and ``_EFScales``: a card's int8_ef residual against the
+CPU's, in units of the CPU quantization's per-row scale. Equal residuals
+and one-unit flips pass (the flips counted); a residual zeroed, off by
+two units or half a unit, of the wrong sign or of another row fails."""
 
 import os
 import sys
@@ -84,3 +91,90 @@ def test_no_replay_recorded_falls_back_to_the_window():
     window["init_rows"] -= 1
     with pytest.raises(AssertionError):
         chip_smoke.replay_gate(replays, recorded, window, 10, COUNTED)
+
+
+# --- chip_smoke._resid_close: a card int8_ef residual against the CPU's ---
+
+def _quantized(seed=0):
+    """A CPU quantization's residual rows and per-row scales."""
+    import torch
+    from openembedding_tpu_torch.parallel import alltoall
+    gen = torch.Generator().manual_seed(seed)
+    total = torch.randn(2, 64, 9, generator=gen) * 1e-3
+    uniq = torch.arange(128, dtype=torch.int32).view(2, 64)
+    valid = torch.ones(2, 64, dtype=torch.bool)
+    valid[1, 60:] = False
+    _, scale, (_, resid) = alltoall._quantize_ef(uniq, total, valid, False)
+    return resid.reshape(-1, 9), scale.reshape(-1)
+
+
+def test_resid_gate_counts_one_unit_flips():
+    """Equal residuals pass with no flip; two elements one unit (their
+    row's scale) off either way pass and are counted."""
+    want, scale = _quantized()
+    assert chip_smoke._resid_close("same", want.clone(), want,
+                                   scale)["one_unit_flips"] == 0
+    got = want.clone()
+    got[3, 2] -= scale[3]
+    got[70, 0] += scale[70]
+    got += 1e-4 * scale[:, None] * (want.sign())    # rounding noise
+    r = chip_smoke._resid_close("flipped", got, want, scale)
+    assert r["one_unit_flips"] == 2 and r["elements"] == want.numel()
+    assert r["max_units_from_equal"] <= 1.1e-4
+
+
+@pytest.mark.parametrize("mutation", ["zeroed", "two_units", "half_unit",
+                                      "wrong_sign", "other_rows"])
+def test_resid_gate_refuses(mutation):
+    """A residual that is zero, two units or half a unit off, of the
+    wrong sign or of another row fails the gate."""
+    want, scale = _quantized()
+    got = want.clone()
+    if mutation == "zeroed":
+        got.zero_()
+    elif mutation == "two_units":
+        got[5, 1] += 2 * scale[5]
+    elif mutation == "half_unit":
+        got[5, 1] += 0.5 * scale[5]
+    elif mutation == "wrong_sign":
+        got = -want
+    else:
+        got = want.roll(1, dims=0)
+    with pytest.raises(AssertionError, match="neither the CPU's nor one"):
+        chip_smoke._resid_close(mutation, got, want, scale)
+
+
+def test_ef_scales_keep_the_push_scales():
+    """``_EFScales`` around a CPU int8_ef push on a 2 x 2 mesh: the kept
+    scales are the stored residual's (each element within half a unit)
+    and the gate holds the residual against itself."""
+    import numpy as np
+    import torch
+    from openembedding_tpu_torch.embedding import (EmbeddingCollection,
+                                                   EmbeddingSpec)
+    from openembedding_tpu_torch.optim import initializers as ti
+    from openembedding_tpu_torch.parallel import alltoall
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    coll = EmbeddingCollection(
+        [EmbeddingSpec(name="t", input_dim=512, output_dim=4,
+                       plane="a2a+int8",
+                       optimizer={"category": "sgd", "learning_rate": 0.1})],
+        create_mesh(2, 2, device="cpu"))
+    states = coll.init(ti.prng_key(0))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 512, 64).astype(np.int32)
+    grads = {"t": torch.from_numpy(
+        rng.standard_normal((64, 4)).astype(np.float32))}
+    real = alltoall._quantize_ef
+    with chip_smoke._EFScales() as kept:
+        coll.apply_gradients(states, {"t": ids}, grads)
+    assert alltoall._quantize_ef is real
+    resid = states["t"].resid
+    scale = kept.scale_of("t", resid)
+    assert scale.shape == (resid.shape[0],)
+    assert bool((resid.abs() <= scale[:, None] * (0.5 + 1e-6)).all())
+    assert bool((resid != 0).any())
+    assert chip_smoke._resid_close("t", resid, resid,
+                                   scale)["one_unit_flips"] == 0
+    with pytest.raises(AssertionError, match="no int8 quantization"):
+        kept.scale_of("t", resid + 1.0)

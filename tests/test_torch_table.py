@@ -162,12 +162,20 @@ def test_spec_fields_and_validation_match_jax():
             == oe.EmbeddingSpec(**kw).meta().to_json()
         for k, v in now.items():
             assert getattr(EmbeddingSpec(**kw), k) == v
+    # and so do the later planes, the precisions and the replica size;
+    # psum with a compressed rung is refused, as in JAX
     for later in ({"plane": "a2a+bf16"}, {"plane": "a2a+grouped"},
-                  {"plane": "a2a+pipelined"}, {"plane": "psum+int8"},
-                  {"push_precision": "int8_ef"}, {"cache_k": 8}):
+                  {"plane": "a2a+pipelined"}, {"push_precision": "int8_ef"},
+                  {"cache_k": 8}, {"plane": "a2a+cache", "cache_k": 8}):
         kw = {"name": "a", "input_dim": 10, "output_dim": 4, **later}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EmbeddingSpec(**kw)
+        assert dataclasses.asdict(EmbeddingSpec(**kw)) \
+            == dataclasses.asdict(oe.EmbeddingSpec(**kw))
+    kw = {"name": "a", "input_dim": 10, "output_dim": 4,
+          "plane": "psum+int8"}
+    with pytest.raises(ValueError, match="psum"):
+        oe.EmbeddingSpec(**kw)
+    with pytest.raises(ValueError, match="psum"):
+        EmbeddingSpec(**kw)
 
 
 def test_collection_model_meta_matches_jax(devices8):
