@@ -10,7 +10,16 @@ two versions of the kernel in turns within one call; see ``ki_only``.
 phase 12, ``--ingest`` phase 13, ``--serving`` phase 14, ``--offload``
 phase 15, ``--drivers`` phase 16, ``--sharded`` phase 17, ``--planes``
 phase 18, ``--sharded --planes`` both, phase 18 on phase 17's ``a2a``
-run. None of them prints a result line.)
+run, ``--multiprocess`` phase 19. None of them prints a result line.)
+
+Phase 19, after phase 18: ``deepfm_dim9`` and ``deepfm_dim9_hash``
+trained by two processes (``distributed.py`` over gloo, both on the one
+card, spawned as fresh interpreters: ``--mp-worker``) on a 2 x 2 mesh
+that spans them, held against one process's mesh on the same batches
+through their part dumps; the dump served by a 2 x 2 grid of shard
+groups and replicas behind a ``ShardedRoutingClient``, a replica of
+each group killed under lookups; the multihost driver; ``nccl`` refused
+for two ranks on one card (``--mp-nccl``).
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -1754,10 +1763,11 @@ def _block(trainer, state, step, batches, batch_size, table, nexts=None):
 
 
 def compare_steps(trainer, state, batch_of, batch_size, table=None,
-                  num_blocks=BLOCKS, lookahead=False):
+                  num_blocks=BLOCKS, lookahead=False,
+                  block_steps=BLOCK_STEPS):
     """Throughput of the captured step (``train_step``, replays) and of the
     eager one (``train_step_eager``) on one state: ``WARMUP_STEPS`` of
-    each, then ``num_blocks`` timed blocks of ``BLOCK_STEPS`` steps of
+    each, then ``num_blocks`` timed blocks of ``block_steps`` steps of
     each, in turns (the order flips every block). ``batch_of(kind, k, i)`` is
     step ``i`` of block ``k``; with ``lookahead`` every step is given the
     batch of the step after it as ``next_batch`` (the pipelined schedule
@@ -1773,7 +1783,7 @@ def compare_steps(trainer, state, batch_of, batch_size, table=None,
     for k in range(num_blocks):
         for kind in (list(steps) if k % 2 == 0 else list(steps)[::-1]):
             order.append((kind, [batch_of(kind, k, i)
-                                 for i in range(BLOCK_STEPS)]))
+                                 for i in range(block_steps)]))
     flat = [b for _, run in order for b in run]
     nexts = iter(flat[1:] + flat[:1]) if lookahead else None
     builds = trainer.builds
@@ -3636,8 +3646,8 @@ INGEST_STEPS = 64             # the gated fits run over the first 4 shards
 INGEST_AUTOSAVE = 16
 INGEST_KILLED_AT = 40         # steps the killed fit takes
 BAD_ROWS_PER_SHARD = 4        # the short bad-row stream: 2 x 8192 rows
-TFR_SHARDS, TFR_ROWS = 2, 1 << 15   # the hash twin's TFRecord shards
-HASH_INGEST_STEPS = 16
+TFR_SHARDS, TFR_ROWS = 2, 1 << 14   # the hash twin's TFRecord shards
+HASH_INGEST_STEPS = TFR_SHARDS * TFR_ROWS // BATCH
 MEMORY_URI = "memory://oe-smoke-ingest"
 
 
@@ -4341,11 +4351,11 @@ BUCKET_REPS = 20
 STORM_IDS = 16                # ids a lookup_bin request (graftload's)
 STORM_QPS0 = 200.0            # the sweep's first offered rate ...
 STORM_STEP = 1.5              # ... times this a step, until saturated
-STORM_RATE_S = 10.0
+STORM_RATE_S = 5.0
 STORM_MIN_SAMPLES = 2000      # arrivals at each rate above the first
 STORM_MAX_RATES = 9
 STORM_WORKERS = 64
-FAILOVER_S = 10.0
+FAILOVER_S = 6.0
 KILL_AT_S = 3.0
 RESTORE_PROBE = 1 << 16       # ids compared after the peer restore
 REPLICA_BOOT_S = 300.0
@@ -5749,15 +5759,16 @@ def build_sharded_trainer(device, plane="a2a", hashed=False,
     ``plane``: sparse Adagrad, or SGD (lr 0.05) from constant 0 with
     ``sgd`` (the plane-parity recipe, bench.py:1153-1213); ``cache_k``
     replica rows refreshed every ``PLANE_CACHE_REFRESH`` steps;
-    ``DeepFM`` (256, 128), dense Adagrad. Returns the trainer and the
-    fused batches' mapper (None per feature)."""
+    ``DeepFM`` (256, 128), dense Adagrad. ``mesh``: its ``(data,
+    model)`` shape, or a mesh (phase 19's across processes). Returns the
+    trainer and the fused batches' mapper (None per feature)."""
     from openembedding_tpu_torch.data.criteo import NUM_DENSE, SPARSE_NAMES
     from openembedding_tpu_torch.embedding import EmbeddingCollection
     from openembedding_tpu_torch.fused import make_fused_specs
     from openembedding_tpu_torch.models.deepctr import (build_model,
                                                         make_feature_specs)
     from openembedding_tpu_torch.optim import dense
-    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    from openembedding_tpu_torch.parallel.mesh import Mesh, create_mesh
     from openembedding_tpu_torch.training import Trainer
     kw = {"plane": plane, "optimizer": {"category": "adagrad",
                                         "learning_rate": 0.01}}
@@ -5776,8 +5787,9 @@ def build_sharded_trainer(device, plane="a2a", hashed=False,
             SPARSE_NAMES, -1 if hashed else VOCAB_PER_FEATURE, 9, **kw)
     module = build_model("deepfm", SPARSE_NAMES, embedding_dim=9,
                          num_dense=NUM_DENSE, dnn_units=(256, 128))
-    coll = EmbeddingCollection(specs, create_mesh(*mesh, device=device),
-                               seed=SEED)
+    if not isinstance(mesh, Mesh):
+        mesh = create_mesh(*mesh, device=device)
+    coll = EmbeddingCollection(specs, mesh, seed=SEED)
     return Trainer(module, coll, dense.adagrad(0.01)), mapper
 
 
@@ -5838,8 +5850,9 @@ def skewed_batch(batch, coll, rng):
 def check_sharded_init(trainer, state, build) -> dict:
     """The card's ``Trainer.init(prng_key(SEED), batch)`` against the CPU's
     draws, nothing copied: the dense parameters, each array shard's first
-    and last ``INIT_ROWS`` rows (shards 0 and S - 1) from ``fold_in(
-    variable_key, shard)``, each hash table's init key and empty keys."""
+    and last ``INIT_ROWS`` rows (the first and last shard held: 0 and S -
+    1 in one process) from ``fold_in(variable_key, shard)``, each hash
+    table's init key and empty keys (its shards held)."""
     from openembedding_tpu_torch.models.deepctr import init_params
     from openembedding_tpu_torch.optim import initializers as ti
     coll = trainer.collection
@@ -5863,12 +5876,13 @@ def check_sharded_init(trainer, state, build) -> dict:
         kind, prm = ti.keyed_params(init)
         vkey = coll.variable_key(name, emb_rng)
         rps, dim, errs = sspec.rows_per_shard, st.dim, []
-        for s in (0, sspec.num_shards - 1):
+        held = st.held
+        for s in sorted({held.start, held.stop - 1}):
             for r0 in (0, rps - INIT_ROWS):
                 want = ti.flat_rows(kind, prm, ti.fold_in(vkey, s),
                                     r0 * dim, INIT_ROWS * dim,
                                     st.weights.dtype).reshape(INIT_ROWS, dim)
-                p0 = s * rps + r0
+                p0 = (s - held.start) * rps + r0
                 errs.append(_init_agrees(
                     f"{name} shard {s} rows {r0}..",
                     st.weights[p0:p0 + INIT_ROWS], want, kind,
@@ -6184,7 +6198,8 @@ def sharded_run(what, build, batches, blocks, tmp=None, flush=None,
     trainer (``build``) from ``prng_key(SEED)``, its init against the
     CPU's draws with nothing copied, card against CPU steps
     (``sharded_against_cpu``), captured against eager bit for bit,
-    examples/s in ``blocks`` timed blocks of each with every step's
+    examples/s in ``blocks`` timed blocks (or ``(blocks, steps a
+    block)``) of each with every step's
     lookahead and no program built, launches a step, a trace, and the
     plane's own readings. Phase 17 (``tmp`` given) also takes the skewed
     step, reads the exchange's rounds and their cost, serves the save on
@@ -6245,13 +6260,15 @@ def sharded_run(what, build, batches, blocks, tmp=None, flush=None,
     reset()     # the main state did not take the oracle's steps
     lap("captured_vs_eager")
     before = {k: w.launches for k, w in _wrappers().items()}
+    blocks, block_steps = blocks if isinstance(blocks, tuple) \
+        else (blocks, BLOCK_STEPS)
     state, m, speed = compare_steps(
         trainer, state, lambda kind, k, i: batches[i % len(batches)], BATCH,
-        num_blocks=blocks, lookahead=True)
+        num_blocks=blocks, lookahead=True, block_steps=block_steps)
     if speed["recaptures"]:
         raise AssertionError(f"{what}: {speed['recaptures']} step programs "
                              "built over the timed steps")
-    steps = 2 * (WARMUP_STEPS + blocks * BLOCK_STEPS)
+    steps = 2 * (WARMUP_STEPS + blocks * block_steps)
     reading["launches_per_step"] = {k: (w.launches - before[k]) / steps
                                     for k, w in _wrappers().items()}
     reading.update(speed)
@@ -6569,12 +6586,14 @@ PLANE_RUNS = (
     ("deepfm_dim9", "a2a+pipelined", {}, BLOCKS, ("exact", "adagrad")),
     ("deepfm_dim9_zipf", "a2a+cache", {"cache_k": PLANE_CACHE_K}, BLOCKS,
      ("close", "sgd")),
-    # its eager step is ~0.45 s (24,000 device operations): 3 blocks
-    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, 3, None),
+    # its eager step is ~0.55 s (24,000 device operations): 2 blocks of
+    # 10 steps; the grouped ones' eager ~0.22 s: 3 blocks
+    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, (2, 10),
+     None),
     ("deepfm_dim9_per_feature", "a2a+grouped", {"per_feature": True},
-     BLOCKS, ("close", "sgd")),
+     3, ("close", "sgd")),
     ("deepfm_dim9_per_feature", "a2a+grouped+pipelined",
-     {"per_feature": True}, BLOCKS, ("close", "sgd")),
+     {"per_feature": True}, 3, ("close", "sgd")),
     ("deepfm_dim9_hash", "a2a+int8", {"hashed": True}, 3,
      ("bound", "adagrad")),
     ("deepfm_dim9_hash", "a2a+cache", {"hashed": True,
@@ -6642,6 +6661,701 @@ def phase_planes(a2a_run=None, bases=None) -> dict:
                                "seconds": time.perf_counter() - t0}},
                    default=str))
     return launches
+
+
+# --- phase 19: training across processes, shard-group serving ----------------
+
+MP_WORKERS = 2                 # processes on the one card, over gloo
+MP_WARMUP = 3                  # the a2a run's untimed first steps
+MP_BLOCKS, MP_BLOCK_STEPS = 3, 5
+MP_PROFILE_STEPS = 2           # profiled steps (busy share), after the blocks
+MP_CHECK_STEPS = 2             # the psum and hash runs' steps
+MP_TIMEOUT_S = 480.0           # a worker's whole run; collectives' timeout
+MP_GROUPS, MP_REPLICAS = 2, 2  # shard groups x replicas of the serving grid
+MP_LOOKUP_IDS = 4096           # ids of every variable through the router
+MP_LOOKUP_CHUNK = 256          # ids a lookup of the timed runs
+MP_STEADY_S = 2.0              # lookups timed with every replica alive
+MP_KILL_RUN_S = 4.0            # lookups across the kills ...
+MP_KILLS = ((1.0, (0, 0)), (2.0, (1, 1)))   # ... (at s, (group, replica))
+# the router's socket timeout: a killed replica's connections hang until
+# its CUDA context is torn down, and a timed-out request fails over
+MP_ROUTER_TIMEOUT_S = 2.0
+MP_SIGN = "mp-deepfm_dim9"
+MP_ATOL, MP_RTOL = 1e-6, 1e-5  # two-process tables against one process
+MP_LOSS_RTOL = 1e-4
+MP_DEVICE = "cuda"             # the workers', references' and replicas'
+# the sizes a parent hands its workers (``out/config.json``): the workers
+# train what the one-process references train
+MP_CONFIG = ("VOCAB_PER_FEATURE", "HASH_CAPACITY", "HASH_VOCAB", "BATCH",
+             "INIT_ROWS", "TRAIN_BATCHES", "MP_WARMUP", "MP_BLOCKS",
+             "MP_BLOCK_STEPS", "MP_PROFILE_STEPS", "MP_CHECK_STEPS",
+             "MP_TIMEOUT_S", "MP_DEVICE")
+# (run, build keywords): the a2a run is timed and served
+MP_RUNS = (("a2a", {}), ("psum", {"plane": "psum"}),
+           ("hash", {"hashed": True}))
+
+
+def _mp_sync() -> None:
+    if MP_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def mp_steps(what: str) -> int:
+    """Steps of a phase 19 run, the same in the workers and in the
+    one-process reference."""
+    if what == "a2a":
+        return MP_WARMUP + MP_BLOCKS * MP_BLOCK_STEPS + MP_PROFILE_STEPS
+    return MP_CHECK_STEPS
+
+
+def _batch_rows(batch, lo: int, hi: int):
+    """Rows ``lo:hi`` of every leaf of a batch: one process's slice."""
+    if isinstance(batch, dict):
+        return {k: _batch_rows(v, lo, hi) for k, v in batch.items()}
+    return None if batch is None else np.asarray(batch)[lo:hi]
+
+
+def bitwise_equal(what: str, got, want) -> None:
+    """A gate: ``got`` equal to ``want`` bit for bit (arrays or tensors,
+    compared on the host), else it raises naming the first difference."""
+    g = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got)
+    w = want.detach().cpu().numpy() if isinstance(want, torch.Tensor) \
+        else np.asarray(want)
+    if g.shape != w.shape or g.dtype != w.dtype:
+        raise AssertionError(f"{what}: {g.dtype} {g.shape}, expected "
+                             f"{w.dtype} {w.shape}")
+    bad = np.nonzero(np.ascontiguousarray(g).reshape(-1).view(np.uint8)
+                     != np.ascontiguousarray(w).reshape(-1).view(np.uint8))[0]
+    if bad.size:
+        i = int(bad[0]) // max(1, g.itemsize)
+        raise AssertionError(
+            f"{what}: {bad.size} bytes differ, the first in element {i} "
+            f"({g.reshape(-1)[i]!r} against {w.reshape(-1)[i]!r})")
+
+
+def tables_close(what: str, got: torch.Tensor, want: torch.Tensor,
+                 atol: float = MP_ATOL, rtol: float = MP_RTOL) -> float:
+    """A gate: ``got`` within ``atol + rtol * |want|`` of ``want``
+    everywhere (on ``got``'s device); returns the largest difference."""
+    want = want.to(got.device)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)}, expected "
+                             f"{tuple(want.shape)}")
+    d = (got.double() - want.double()).abs()
+    over = d > atol + rtol * want.double().abs()
+    if bool(over.any()):
+        raise AssertionError(f"{what}: {int(over.sum())} elements beyond "
+                             f"atol {atol} + rtol {rtol}, the largest "
+                             f"difference {float(d.max())}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def wait_procs(procs: dict, timeout: float, what: str) -> None:
+    """A gate: every process of ``procs`` (name -> ``Popen``, output in a
+    file of ``proc.out``) exits 0 within ``timeout`` seconds. The first
+    nonzero exit or the timeout kills the rest and raises with the
+    failed process's last output."""
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while True:
+            codes = {k: p.poll() for k, p in procs.items()}
+            failed = next((k for k, c in codes.items()
+                           if c not in (None, 0)), None)
+            if failed is not None or all(c == 0 for c in codes.values()):
+                break
+            if time.monotonic() > deadline:
+                failed = next(k for k, c in codes.items() if c is None)
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is not None:
+        p = procs[failed]
+        tail = ""
+        if getattr(p, "out", None) and os.path.exists(p.out):
+            with open(p.out, errors="replace") as f:
+                tail = f.read()[-4000:]
+        raise AssertionError(
+            f"{what}: {failed} exited {p.returncode}"
+            f"{' (timed out)' if p.returncode in (-9, 137) else ''}:\n{tail}")
+
+
+def _spawn(name: str, argv: list, out_dir: str):
+    """A child interpreter (never a fork of this CUDA process) with the
+    repo on its path, its output in ``<out_dir>/<name>.log``."""
+    env = {**os.environ,
+           "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    path = os.path.join(out_dir, f"{name}.log")
+    with open(path, "w") as f:
+        p = subprocess.Popen([sys.executable] + argv, env=env, stdout=f,
+                             stderr=subprocess.STDOUT, cwd=ROOT)
+    p.out = path
+    return p
+
+
+def _eager_busy(trainer, state, batches, steps: int, trace: str) -> tuple:
+    """``steps`` profiled steps (their trace at ``trace``, then removed):
+    the device's busy share of their wall time (the union of kernels,
+    copies and fills), device operations a step, and the collectives'
+    share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from openembedding_tpu_torch import distributed
+    _mp_sync()
+    before = dict(distributed.STATS)
+    losses = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(TRACE_WINDOW):
+            t0 = time.perf_counter()
+            for i in range(steps):
+                state, m = trainer.train_step(state, batches[i])
+                losses.append(float(m["loss"]))
+            _mp_sync()
+            wall = time.perf_counter() - t0
+    prof.export_chrome_trace(trace)
+    try:
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(trace)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    coll_s = distributed.STATS["seconds"] - before["seconds"]
+    return state, losses, {
+        "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+        "device_busy_share": busy / 1e6 / wall if spans else None,
+        "device_ops_per_step": len(spans) / steps,
+        "collectives_share": coll_s / wall}
+
+
+def mp_worker(rank: int, port: int, out: str) -> None:
+    """One worker of phase 19 (``chip_smoke.py --mp-worker RANK PORT
+    OUT``): joins the gloo cluster on ``cuda:0``, then each of
+    ``MP_RUNS`` on the 2 x 2 mesh across the processes with its half of
+    ``bench.py``'s batches: init against the CPU's draws, the steps
+    (``a2a``: warm-up, timed blocks with the collectives' seconds and
+    bytes, profiled steps), a part save. Writes ``out/worker<rank>.json``
+    (losses, readings, the kernels' launches) and the dense parameters
+    to ``out/dense<rank>_<run>.npz``."""
+    from functools import partial
+    from openembedding_tpu_torch import checkpoint as ckpt
+    from openembedding_tpu_torch import distributed
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    with open(os.path.join(out, "config.json")) as f:
+        globals().update(json.load(f))
+    if MP_DEVICE != "cpu" and not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    device = "cpu" if MP_DEVICE == "cpu" else "cuda:0"
+    distributed.initialize(f"127.0.0.1:{port}", MP_WORKERS, rank,
+                           backend="gloo", device=device,
+                           timeout=MP_TIMEOUT_S)
+    mesh = distributed.create_global_mesh(*SHARD_MESH)
+    for w in _wrappers().values():
+        w.launches = 0
+    half = BATCH // MP_WORKERS
+    res = {"rank": rank, "mesh": dict(mesh.shape),
+           "positions": list(mesh.local_positions), "runs": {}}
+    for what, kw in MP_RUNS:
+        batches = sharded_batches(TRAIN_BATCHES, **kw)
+        local = [_batch_rows(b, rank * half, (rank + 1) * half)
+                 for b in batches]
+        trainer, _ = build_sharded_trainer(MP_DEVICE, mesh=mesh, **kw)
+        t0 = time.perf_counter()
+        state = trainer.init(prng_key(SEED), local[0])
+        _mp_sync()
+        run = {"init_s": time.perf_counter() - t0}
+        with _Uncounted():
+            run["init_without_copy"] = check_sharded_init(
+                trainer, state, partial(build_sharded_trainer, **kw))
+        order = [local[i % TRAIN_BATCHES] for i in range(mp_steps(what))]
+        losses = []
+
+        def step(b):
+            nonlocal state
+            state, m = trainer.train_step(state, b)
+            losses.append(float(m["loss"]))
+        if what == "a2a":
+            for b in order[:MP_WARMUP]:
+                step(b)
+            distributed.reset_stats()
+            blocks = []
+            for k in range(MP_BLOCKS):
+                _mp_sync()
+                t0 = time.perf_counter()
+                lo = MP_WARMUP + k * MP_BLOCK_STEPS
+                for b in order[lo:lo + MP_BLOCK_STEPS]:
+                    step(b)
+                _mp_sync()
+                blocks.append(BATCH * MP_BLOCK_STEPS
+                              / (time.perf_counter() - t0))
+            timed = MP_BLOCKS * MP_BLOCK_STEPS
+            st_ = distributed.STATS
+            run["throughput"] = {
+                "examples_per_s": statistics.median(blocks),
+                "block_eps": blocks,
+                "step_ms": BATCH / statistics.median(blocks) * 1e3,
+                "collective_ms_per_step": st_["seconds"] / timed * 1e3,
+                "collectives_per_step": st_["calls"] / timed,
+                "cross_bytes_per_step": st_["bytes"] / timed}
+            lo = MP_WARMUP + timed
+            state, more, run["profile"] = _eager_busy(
+                trainer, state, order[lo:], MP_PROFILE_STEPS,
+                os.path.join(out, f"trace{rank}.json"))
+            losses += more
+        else:
+            for b in order:
+                step(b)
+        run["losses"] = losses
+        run["builds"] = trainer.builds
+        kinds = {type(p).__name__ for p in trainer.programs.values()}
+        if kinds != {"_EagerProgram"}:
+            raise AssertionError(f"multiprocess {what}: programs {kinds}, "
+                                 "expected the eager step")
+        run["program"] = "eager (gloo)"
+        np.savez(os.path.join(out, f"dense{rank}_{what}.npz"),
+                 **{k: v.detach().cpu().numpy()
+                    for k, v in state.params.items()})
+        info = ckpt.save_checkpoint(os.path.join(out, what),
+                                    trainer.collection, state.emb,
+                                    model_sign=f"{MP_SIGN}-{what}")
+        run["save"] = {"seconds": info["seconds"],
+                       "part_bytes": info["bytes"]}
+        res["runs"][what] = run
+        del trainer, state
+        torch.cuda.empty_cache()
+    res["launches"] = {k: w.launches for k, w in _wrappers().items()}
+    with open(os.path.join(out, f"worker{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.barrier("done")
+    distributed.shutdown()
+
+
+def mp_nccl_check(rank: int, port: int) -> None:
+    """``chip_smoke.py --mp-nccl RANK PORT``: two ranks on one card ask
+    for ``nccl``; ``distributed.initialize`` must refuse, naming gloo."""
+    from openembedding_tpu_torch import distributed
+    try:
+        distributed.initialize(f"127.0.0.1:{port}", MP_WORKERS, rank,
+                               backend="nccl", device="cuda:0",
+                               timeout=60.0)
+    except ValueError as e:
+        if "NCCL refuses two ranks on one device" not in str(e):
+            raise
+        print(f"rank {rank}: refused: {e}", flush=True)
+        return
+    raise AssertionError("nccl with two ranks on one device was accepted")
+
+
+def mp_reference(what: str, kw: dict) -> dict:
+    """The run ``what`` in one process on the 2 x 2 mesh (phase 17's
+    ``build_sharded_trainer``), the same steps on the global batches:
+    eager; the ``a2a`` run's blocks timed as the workers' are. Returns
+    its state, losses and examples/s."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    batches = sharded_batches(TRAIN_BATCHES, **kw)
+    trainer, _ = build_sharded_trainer(MP_DEVICE, **kw)
+    state = trainer.init(prng_key(SEED), batches[0])
+    order = [batches[i % TRAIN_BATCHES] for i in range(mp_steps(what))]
+    losses, blocks = [], []
+    for i, b in enumerate(order):
+        k = i - MP_WARMUP
+        if what == "a2a" and 0 <= k < MP_BLOCKS * MP_BLOCK_STEPS \
+                and k % MP_BLOCK_STEPS == 0:
+            _mp_sync()
+            t0 = time.perf_counter()
+        state, m = trainer.train_step_eager(state, b)
+        losses.append(float(m["loss"]))
+        if what == "a2a" and 0 <= k < MP_BLOCKS * MP_BLOCK_STEPS \
+                and k % MP_BLOCK_STEPS == MP_BLOCK_STEPS - 1:
+            _mp_sync()
+            blocks.append(BATCH * MP_BLOCK_STEPS
+                          / (time.perf_counter() - t0))
+    out = {"trainer": trainer, "state": state, "losses": losses}
+    if blocks:
+        out["eager_examples_per_s"] = statistics.median(blocks)
+        out["eager_block_eps"] = blocks
+    return out
+
+
+def _hash_by_key(st) -> dict:
+    """A hash table's live rows sorted by key: ``{"keys", "weights",
+    slots...}`` on the host (wide pairs joined)."""
+    from openembedding_tpu_torch.hash_table import join64
+    live = st.live().cpu().numpy()
+    keys = st.keys.cpu().numpy()[live]
+    k64 = join64(keys) if keys.ndim == 2 else keys.astype(np.int64)
+    order = np.argsort(k64, kind="stable")
+    out = {"keys": k64[order],
+           "weights": st.weights.cpu().numpy()[live][order]}
+    for k, v in st.slots.items():
+        out[k] = v.cpu().numpy()[live][order]
+    return out
+
+
+def mp_compare(what: str, kw: dict, ref: dict, results: list,
+               out: str) -> dict:
+    """A worker run against its one-process reference: the losses of the
+    ranks equal bit for bit and within ``MP_LOSS_RTOL`` of the
+    reference's; the dense parameters equal on both ranks bit for bit and
+    close to the reference's; the part dump, loaded in one process on the
+    2 x 2 mesh, within ``MP_ATOL + MP_RTOL`` of the reference's tables
+    (hash tables key by key, the live keys the same)."""
+    from openembedding_tpu_torch import checkpoint as ckpt
+    from openembedding_tpu_torch.parallel.hot_cache import unwrap
+    runs = [r["runs"][what] for r in results]
+    bitwise_equal(f"multiprocess {what}: losses of the ranks",
+                  runs[1]["losses"], runs[0]["losses"])
+    if not np.allclose(runs[0]["losses"], ref["losses"], rtol=MP_LOSS_RTOL):
+        raise AssertionError(f"multiprocess {what}: losses "
+                             f"{runs[0]['losses']}, one process "
+                             f"{ref['losses']}")
+    dense = [dict(np.load(os.path.join(out, f"dense{r}_{what}.npz")))
+             for r in range(MP_WORKERS)]
+    state = ref["state"]
+    dense_diff = 0.0
+    for k, v in dense[0].items():
+        bitwise_equal(f"multiprocess {what}: dense {k} of the ranks",
+                      dense[1][k], v)
+        # the card-against-CPU tolerance of the dense half (phase 7's)
+        dense_diff = max(dense_diff, tables_close(
+            f"multiprocess {what}: dense {k}",
+            torch.from_numpy(v).to(MP_DEVICE),
+            state.params[k], atol=1e-5, rtol=1e-4))
+    coll = ref["trainer"].collection
+    t0 = time.perf_counter()
+    loaded = ckpt.load_checkpoint(os.path.join(out, what), coll)
+    _mp_sync()
+    load_s = time.perf_counter() - t0
+    diffs = {}
+    for name, st in loaded.items():
+        st, rs = unwrap(st), unwrap(state.emb[name])
+        if coll.specs[name].use_hash:
+            got, want = _hash_by_key(st), _hash_by_key(rs)
+            bitwise_equal(f"multiprocess {what}: {name} live keys",
+                          got["keys"], want["keys"])
+            diffs[name] = max(
+                tables_close(f"multiprocess {what}: {name} {f}",
+                             torch.from_numpy(got[f]),
+                             torch.from_numpy(want[f]))
+                for f in got if f != "keys")
+            diffs[name + "_keys"] = int(got["keys"].size)
+            continue
+        diffs[name] = max(
+            [tables_close(f"multiprocess {what}: {name} weights",
+                          st.weights, rs.weights)]
+            + [tables_close(f"multiprocess {what}: {name} {k}", v,
+                            rs.slots[k]) for k, v in st.slots.items()])
+    del loaded
+    torch.cuda.empty_cache()
+    return {"losses": runs[0]["losses"], "one_process_losses": ref["losses"],
+            "loss_max_rel_diff": float(np.max(
+                np.abs(np.subtract(runs[0]["losses"], ref["losses"]))
+                / np.abs(ref["losses"]))),
+            "dense_max_abs_diff": dense_diff,
+            "tables_max_abs_diff": diffs, "dump_load_s": load_s,
+            "init_without_copy": [r["init_without_copy"] for r in runs],
+            "program": runs[0]["program"], "builds": runs[0]["builds"],
+            "save": [r["save"] for r in runs]}
+
+
+def mp_serving(path: str, procs: dict, eps: list, ready_s: dict,
+               router) -> dict:
+    """Phase 19's serving: the 2 x 2 grid (``procs``, group-major
+    ``eps``) has loaded its slices of the ``a2a`` dump (each replica's
+    seconds from the create request: ``ready_s``). Its
+    ``ShardedRoutingClient`` (``router``) looks up ``MP_LOOKUP_IDS`` ids
+    of every variable: rows equal bit for bit to a one-process registry's
+    on the
+    whole dump. Then lookups of ``MP_LOOKUP_CHUNK`` ids, timed: with
+    every replica alive, and across the kills of one replica of each
+    group (``MP_KILLS``): every lookup must succeed with the registry's
+    rows."""
+    import signal
+    import threading
+    from openembedding_tpu_torch.serving.registry import ModelRegistry
+    spent = {}
+    mark = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        spent[part] = now - mark[0]
+        mark[0] = now
+    reg = ModelRegistry(device=MP_DEVICE)
+    t0 = time.perf_counter()
+    sign = reg.create_model(path, model_sign=MP_SIGN)
+    full_load_s = time.perf_counter() - t0
+    model = reg.find_model(sign)
+    rng = np.random.RandomState(SEED + 19)
+    want = {}
+    with _Uncounted():
+        for name, spec in model.collection.specs.items():
+            ids = rng.randint(0, spec.input_dim, MP_LOOKUP_IDS).astype(
+                np.int64)
+            want[name] = (ids, model.lookup(name, ids).cpu().numpy())
+    reg.close()
+    del reg, model
+    torch.cuda.empty_cache()
+    lap("one_process_registry")
+    out = {"one_process_load_s": full_load_s,
+           "slice_load_s": ready_s, "seconds": spent}
+    try:
+        for name, (ids, rows) in want.items():
+            bitwise_equal(f"multiprocess serving: {name} through the router",
+                          router.lookup(sign, name, ids), rows)
+        out["rows_checked"] = {n: len(i) for n, (i, _) in want.items()}
+        lap("rows_checked")
+        names = list(want)
+
+        def lookups(seconds: float) -> tuple:
+            lat, failed, i = [], [], 0
+            end = time.perf_counter() + seconds
+            while time.perf_counter() < end:
+                name = names[i % len(names)]
+                ids, rows = want[name]
+                lo = (i // len(names) * MP_LOOKUP_CHUNK) % MP_LOOKUP_IDS
+                t1 = time.perf_counter()
+                try:
+                    got = router.lookup(sign, name,
+                                        ids[lo:lo + MP_LOOKUP_CHUNK])
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    if not np.array_equal(got, rows[lo:lo + MP_LOOKUP_CHUNK]):
+                        failed.append(f"{name}@{lo}: rows differ")
+                except Exception as e:  # noqa: BLE001 — counted, then gated
+                    failed.append(f"{name}@{lo}: {type(e).__name__}: {e}")
+                i += 1
+            return lat, failed
+
+        def summary(lat, failed):
+            return {"lookups": len(lat) + len(failed),
+                    "failed": len(failed),
+                    "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+                    "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+                    "max_ms": max(lat) if lat else None}
+        lat, failed = lookups(MP_STEADY_S)
+        out["steady"] = summary(lat, failed)
+        lap("steady")
+        timers = [threading.Timer(at, procs[key].send_signal,
+                                  (signal.SIGKILL,)) for at, key in MP_KILLS]
+        for t in timers:
+            t.start()
+        lat2, failed2 = lookups(MP_KILL_RUN_S)
+        for t in timers:
+            t.join()
+        # the killed replicas are reaped with the others at the end
+        killed = [key for _, key in MP_KILLS]
+        lap("across_kills")
+        out["across_kills"] = {**summary(lat2, failed2),
+                               "killed": [list(k) for k in killed]}
+        if failed or failed2:
+            raise AssertionError(
+                f"multiprocess serving: {len(failed) + len(failed2)} failed "
+                f"lookups, the first: {(failed + failed2)[0]}")
+    finally:
+        router.close()
+    return out
+
+
+def mp_driver(tmp: str) -> dict:
+    """``examples.multihost_train`` at its defaults on two ranks of the
+    card over gloo, and two ranks asking for ``nccl`` on the one card,
+    which ``distributed.initialize`` must refuse; all four processes at
+    once."""
+    ports = (_free_port(), _free_port())
+    procs = {}
+    for r in range(MP_WORKERS):
+        procs[f"driver rank {r}"] = _spawn(
+            f"driver{r}", ["-m", "openembedding_tpu_torch.examples."
+                           "multihost_train", "--master",
+                           f"127.0.0.1:{ports[0]}", "--num_workers",
+                           str(MP_WORKERS), "--worker_rank", str(r),
+                           "--backend", "gloo", "--device", MP_DEVICE], tmp)
+        if MP_DEVICE != "cpu":
+            # nccl needs a card
+            procs[f"nccl rank {r}"] = _spawn(
+                f"nccl{r}", [os.path.join(ROOT, "chip_smoke.py"),
+                             "--mp-nccl", str(r), str(ports[1])], tmp)
+    t0 = time.perf_counter()
+    wait_procs(procs, MP_TIMEOUT_S, "multiprocess driver")
+    with open(procs["driver rank 0"].out) as f:
+        text = f.read()
+    losses = [float(x) for x in
+              __import__("re").findall(r"loss=([0-9.]+)", text)]
+    if len(losses) != 2 or not np.isfinite(losses).all() \
+            or "multihost training done" not in text:
+        raise AssertionError(f"multihost driver: {text[-2000:]}")
+    refusal = None
+    if "nccl rank 0" in procs:
+        with open(procs["nccl rank 0"].out) as f:
+            refusal = f.read().strip().splitlines()[-1]
+    return {"seconds": time.perf_counter() - t0, "losses": losses,
+            "nccl_refusal": refusal}
+
+
+def _note_ready(ready: dict, key: str, ep: str) -> None:
+    """``ready[key]``: seconds from now until the replica at ``ep``
+    serves ``MP_SIGN`` (its slice loaded), None if it never does."""
+    from openembedding_tpu_torch.serving.ha import wait_ready
+    t0 = time.perf_counter()
+    ok = wait_ready(ep, REPLICA_BOOT_S, sign=MP_SIGN)
+    ready[key] = time.perf_counter() - t0 if ok else None
+
+
+def _boot_grid(daemons: dict) -> list:
+    """The serving grid's replicas, booted with no model (a replica of
+    group ``k`` loads group ``k``'s slice when a model is created):
+    ``daemons[(k, i)]``; returns the endpoints, group-major."""
+    from openembedding_tpu_torch.serving.ha import spawn_replica, wait_ready
+    eps = [[None] * MP_REPLICAS for _ in range(MP_GROUPS)]
+    for k in range(MP_GROUPS):
+        for i in range(MP_REPLICAS):
+            p = _free_port()
+            eps[k][i] = f"127.0.0.1:{p}"
+            daemons[(k, i)] = spawn_replica(
+                p, device=MP_DEVICE, shard_index=k, shard_count=MP_GROUPS)
+    for (k, i), p in daemons.items():
+        if not wait_ready(eps[k][i], REPLICA_BOOT_S):
+            p.kill()
+            raise AssertionError(f"replica {eps[k][i]} did not boot: "
+                                 f"{_replica_output(p)[-3000:]}")
+    return eps
+
+
+def phase_multiprocess() -> dict:
+    """Phase 19: ``deepfm_dim9`` (``a2a``, ``psum``) and
+    ``deepfm_dim9_hash`` trained by two processes on a 2 x 2 mesh that
+    spans them (one data row each, gloo through host memory, both on the
+    one card) and held against one process's mesh on the same batches;
+    the ``a2a`` dump served by a 2 x 2 grid of shard groups and replicas
+    through a ``ShardedRoutingClient`` with a replica of each group
+    killed; the multihost driver and the nccl refusal. Prints one
+    ``{"multiprocess": ...}`` line; returns the main path's launches (the
+    workers' and the surviving replicas')."""
+    import tempfile
+    import threading
+    from openembedding_tpu_torch.serving.ha import ShardedRoutingClient
+    for w in _wrappers().values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="oe-smoke-mp-")
+    reading, seconds, daemons = {}, {}, {}
+    refs = {}
+    # seconds since the phase began at which each milestone was reached
+    at = reading["at_s"] = {}
+
+    def milestone(name):
+        at[name] = time.perf_counter() - t0
+    try:
+        # the serving grid boots first (not during the timed steps)
+        mark = time.perf_counter()
+        eps = _boot_grid(daemons)
+        seconds["grid_boot"] = time.perf_counter() - mark
+        milestone("grid_booted")
+        mark = time.perf_counter()
+        with _Uncounted():
+            for what, kw in MP_RUNS:
+                refs[what] = mp_reference(what, kw)
+        _mp_sync()
+        one_eps = {k: refs["a2a"][k] for k in ("eager_examples_per_s",
+                                                 "eager_block_eps")}
+        seconds["references"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({k: globals()[k] for k in MP_CONFIG}, f)
+        port = _free_port()
+        workers = {f"worker {r}": _spawn(
+            f"worker{r}", [os.path.join(ROOT, "chip_smoke.py"),
+                           "--mp-worker", str(r), str(port), tmp], tmp)
+            for r in range(MP_WORKERS)}
+        milestone("workers_spawned")
+        wait_procs(workers, MP_TIMEOUT_S, "multiprocess training")
+        milestone("workers_done")
+        seconds["workers"] = time.perf_counter() - mark
+        results = []
+        for r in range(MP_WORKERS):
+            with open(os.path.join(tmp, f"worker{r}.json")) as f:
+                results.append(json.load(f))
+        mark = time.perf_counter()
+        runs = {}
+        with _Uncounted():
+            for what, kw in MP_RUNS:
+                runs[what] = mp_compare(what, kw, refs.pop(what), results,
+                                        tmp)
+                torch.cuda.empty_cache()
+        seconds["compare"] = time.perf_counter() - mark
+        milestone("compared")
+        # the grid loads its slices of the a2a dump, each replica its
+        # group's (ShardedRoutingClient.create_model); the loads wait
+        # for the training and the comparisons, which they would slow
+        router = ShardedRoutingClient(eps, timeout=MP_ROUTER_TIMEOUT_S)
+        router.create_model(os.path.join(tmp, "a2a"), model_sign=MP_SIGN,
+                            block=False)
+        ready, pollers = {}, []
+        for (k, i) in daemons:
+            pollers.append(threading.Thread(
+                target=_note_ready, args=(ready, f"{k}.{i}", eps[k][i]),
+                daemon=True))
+            pollers[-1].start()
+        a2a = [r["runs"]["a2a"] for r in results]
+        runs["a2a"]["two_process"] = {
+            "examples_per_s": a2a[0]["throughput"]["examples_per_s"],
+            "one_process_eager": one_eps,
+            "per_rank": [r["throughput"] for r in a2a],
+            "profile": [r["profile"] for r in a2a],
+            "contention": "two processes time-sliced on one card"}
+        mark = time.perf_counter()
+        for t in pollers:
+            t.join()
+        milestone("replicas_ready")
+        for (k, i), p in daemons.items():
+            if ready.get(f"{k}.{i}") is None:
+                p.kill()
+                raise AssertionError(f"replica {eps[k][i]} not ready: "
+                                     f"{_replica_output(p)[-3000:]}")
+        reading["serving"] = mp_serving(os.path.join(tmp, "a2a"), daemons,
+                                        eps, ready, router)
+        milestone("served")
+        seconds["serving"] = time.perf_counter() - mark
+        mark = time.perf_counter()
+        reading["driver"] = mp_driver(tmp)
+        seconds["driver"] = time.perf_counter() - mark
+        reading["runs"] = runs
+    finally:
+        refs.clear()
+        replica = _stop_replicas(list(daemons.values()))
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in results)
+                for k in results[0]["launches"]}
+    reading["launches_workers"] = dict(launches)
+    reading["launches_replicas"] = replica
+    launches["gather_rows"] += replica["gather_rows"]
+    launches["probe_gather"] += replica["probe_gather"]
+    reading["launches"] = launches
+    reading["seconds"] = {**seconds, "phase": time.perf_counter() - t0}
+    log(json.dumps({"multiprocess": reading}, default=str))
+    for k in ("gather_rows", "probe_gather", "init_rows", "init_flat"):
+        if not reading["launches_workers"][k]:
+            raise AssertionError(f"multiprocess: {k} never launched in the "
+                                 "workers")
+    if not replica["gather_rows"]:
+        raise AssertionError("multiprocess: the replicas launched no "
+                             "gather_rows")
+    return launches
+
 
 
 def setup_array():
@@ -6723,6 +7437,14 @@ def _timed(name, fn, *args):
 
 
 def main() -> None:
+    if sys.argv[1:2] in (["--mp-worker"], ["--mp-nccl"]):
+        # a phase 19 child: the parent built the kernels
+        sys.path.insert(0, ROOT)
+        if sys.argv[1] == "--mp-worker":
+            mp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        else:
+            mp_nccl_check(int(sys.argv[2]), int(sys.argv[3]))
+        return
     t_main = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -6753,6 +7475,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--planes"]:
         phase_planes()
+        return
+    if sys.argv[1:] == ["--multiprocess"]:
+        phase_multiprocess()
         return
     if sys.argv[1:] == ["--sharded", "--planes"]:
         sharded = phase_sharded()
@@ -6816,6 +7541,10 @@ def main() -> None:
                     sharded["parity_runs"])
     launches += planes["gather_rows"]
     flat_training += planes["init_flat"]
+    torch.cuda.empty_cache()
+    multi = _timed("19 multiprocess", phase_multiprocess)
+    launches += multi["gather_rows"]
+    flat_training += multi["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -6840,7 +7569,8 @@ def main() -> None:
         + hybrid["probe_gather"] + delta["probe_gather"]
         + ingest["probe_gather"] + served["probe_gather"]
         + offload["probe_gather"] + drivers["probe_gather"]
-        + sharded["probe_gather"] + planes["probe_gather"],
+        + sharded["probe_gather"] + planes["probe_gather"]
+        + multi["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -6858,10 +7588,11 @@ def main() -> None:
         "launches": hash_launches["init_rows"] + hybrid["init_rows"]
         + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
         + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"]
-        + flat_training + hash_launches["init_flat"],
+        + multi["init_rows"] + flat_training + hash_launches["init_flat"],
         "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"]
         + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
-        + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"],
+        + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"]
+        + multi["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"]

@@ -68,8 +68,16 @@ table's live rows in the order of its stacked shards (JAX's global
 array); the meta records each variable's ``variable_num_shards``. Loads
 work across topologies: array rows are laid out on the collection's own
 shards (``sharded_table.from_logical``), hash rows re-inserted at their
-owners by key (``sharded_hash.insert_rows_sharded``). Writing from
-several processes is a later slice (ROADMAP.md Queue 1, item 9).
+owners by key (``sharded_hash.insert_rows_sharded``).
+
+On a mesh across processes (``distributed.py``) every process streams
+its own shards into ``part<rank>_*`` (array ids and rows of the shards
+it holds, a hash table's live rows), and rank 0 commits the dump by
+writing the meta, with ``num_parts``, after a barrier every part has
+passed; ``mode="delta"`` raises there, as in JAX. A load on such a mesh
+reads any layout and keeps only the rows its own shards hold. A serving
+shard group's member loads its slice (``load_checkpoint(shard_slice=
+(k, G))``).
 """
 
 from __future__ import annotations
@@ -277,10 +285,12 @@ def _part_block(row_bytes: int) -> int:
 
 
 def _array_part_tasks(vdir: str, part: str, fields: Dict[str, torch.Tensor],
-                      compress: str, pool):
+                      compress: str, pool,
+                      ids: Optional[np.ndarray] = None):
     """Tasks streaming one array variable's rows (``fields``, each
-    ``[input_dim, ...]``) to ``<part>{ids,weights,slot_*}.npy[z]``, one
-    task a file; returns ``(tasks, bytes)``. Each field is framed in
+    ``[n, ...]``) to ``<part>{ids,weights,slot_*}.npy[z]``, one task a
+    file; returns ``(tasks, bytes)``. ``ids``: the rows' logical ids
+    (None: ``0 .. n - 1``, the whole vocabulary). Each field is framed in
     blocks of its own row size, the ids in the weights' blocks (JAX's
     ``_save_array_var_part`` over a one-device table)."""
     vocab = int(fields["weights"].shape[0])
@@ -295,8 +305,8 @@ def _array_part_tasks(vdir: str, part: str, fields: Dict[str, torch.Tensor],
         with _seq_writer(fs.join(vdir, f"{part}ids.npy"), np.int64,
                          (vocab,), compress, pool) as w:
             for lo in range(0, vocab, step):
-                w.write(np.arange(lo, min(vocab, lo + step),
-                                  dtype=np.int64))
+                w.write(np.arange(lo, min(vocab, lo + step), dtype=np.int64)
+                        if ids is None else ids[lo:lo + step])
 
     tasks = [partial(_ids, _part_block(_row_bytes(fields["weights"])))]
     nbytes = 0
@@ -388,6 +398,9 @@ def save_checkpoint(path: str, collection: EmbeddingCollection,
     if mode not in ("full", "delta"):
         raise ValueError(f"unknown checkpoint mode {mode!r}; "
                          "use 'full' or 'delta'")
+    if mode == "delta" and collection.mesh.spans_processes:
+        raise ValueError("mode='delta' is single-process; dumps across "
+                         "processes use the full part format")
     from .utils import observability
     with scope.span("checkpoint.save", detail={"mode": mode}):
         if mode == "delta":
@@ -418,30 +431,55 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
                           max_workers: Optional[int] = None,
                           extra: Optional[Dict[str, Any]] = None) -> int:
     """Full dump; returns the bytes of the fields written (keys, rows and
-    slots, before compression)."""
+    slots, before compression) by this process.
+
+    Rank 0 prepares the directory (the delta chain reset, the old meta
+    removed, the variable directories emptied), every process writes its
+    parts, and after a barrier rank 0 writes the dense state and the meta
+    last: a directory with a meta holds a whole dump. On a mesh across
+    processes every process writes its own shards to ``part<rank>_*``
+    (a ``psum`` table's replica by rank 0, which holds data row 0, as
+    JAX writes replica 0) and the meta records ``num_parts``; in one
+    process the barriers are no-ops."""
     from . import checkpoint_delta as cd
     from .utils import compress as compress_lib
     compress = compress_lib.check(compress)
     remote = fs.is_remote(path)
-    # the part layout: compressed streams and remote paths
-    part = "part0_" if (remote or compress) else ""
-    fs.makedirs(path)
+    mesh = collection.mesh
+    nproc, rank = mesh.process_count, mesh.process_index
+    # the part layout: compressed streams, remote paths, several processes
+    part = f"part{rank}_" if (remote or compress or nproc > 1) else ""
     carried_seq = 0
-    if not remote:
-        # a background compactor owns this directory's base files: join
-        # it before touching anything
-        cd.join_compactor(path)
-        # the chain is reset FIRST (manifest removed before any base file
-        # changes); its burned seqs are carried into the re-armed
-        # manifest, or into the meta of a base that arms none
-        try:
-            prev_manifest = cd.read_manifest(path)
-        except ValueError:
-            prev_manifest = None  # an unknown-format manifest: reset anyway
-        carried_seq = int(prev_manifest.get("last_seq", 0)) \
-            if prev_manifest else _prev_meta_last_seq(path)
-    sync_point("ckpt.full.reset")
-    cd.reset_chain(path)
+    if rank == 0:
+        fs.makedirs(path)
+        if not remote:
+            # a background compactor owns this directory's base files:
+            # join it before touching anything
+            cd.join_compactor(path)
+            # the chain is reset FIRST (manifest removed before any base
+            # file changes); its burned seqs are carried into the
+            # re-armed manifest, or into the meta of a base that arms none
+            try:
+                prev_manifest = cd.read_manifest(path)
+            except ValueError:
+                prev_manifest = None  # unknown-format manifest: reset anyway
+            carried_seq = int(prev_manifest.get("last_seq", 0)) \
+                if prev_manifest else _prev_meta_last_seq(path)
+        sync_point("ckpt.full.reset")
+        cd.reset_chain(path)
+        # the old meta goes next: until the new one is written the
+        # directory holds no dump
+        mpath = fs.join(path, MODEL_META_FILE)
+        if fs.exists(mpath):
+            fs.remove(mpath)
+        for name in collection.specs:
+            vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
+            if fs.isdir(vdir):
+                # a previous save under another optimizer could leave slot
+                # files a later load would mistake for state
+                fs.rmtree(vdir)
+            fs.makedirs(vdir)
+    _barrier(mesh, "ckpt.dirs")
     # trackers snapshot at the START: marks landing during the save refer
     # to later pushes and must survive for the next delta
     for tracker in collection.dirty_trackers.values():
@@ -454,14 +492,20 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
     if hash_info:
         meta.extra["hash_variables"] = hash_info
     meta.extra["delta_last_seq"] = int(carried_seq)
-    targets, live = {}, {}
+    if nproc > 1:
+        meta.extra["num_parts"] = nproc
+    targets, live, part_ids = {}, {}, {}
     for name, spec in collection.specs.items():
         # a plane's replica or residual is derived: only the table is saved
         state = hot_cache.unwrap(states[name])
+        sspec = collection.sharding_spec(name)
         if collection.sharded(name) and not spec.use_hash:
             # the logical rows: the mod permutation undone, padding dropped
-            state = st.to_logical(state, collection.sharding_spec(name),
-                                  spec.input_dim)
+            if nproc > 1:
+                ids = st.held_ids(sspec, spec.input_dim, state.held,
+                                  state.weights.device)
+                part_ids[name] = ids.cpu().numpy()
+            state = st.to_logical(state, sspec, spec.input_dim)
         fields = {"weights": state.weights}
         if include_optimizer:
             fields.update({f"slot_{s}": v for s, v in state.slots.items()})
@@ -474,8 +518,9 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
     meta.extra["storage_dtypes"] = {
         name: {f: _NP_NAMES[t.dtype] for f, t in fields.items()}
         for name, fields in targets.items()}
-    with fs.open_file(fs.join(path, MODEL_META_FILE), "wb") as f:
-        f.write(meta.dumps().encode("utf-8"))
+    # a replicated (psum) table is written by rank 0 alone
+    targets = {n: f for n, f in targets.items() if rank == 0
+               or collection.sharding_spec(n).plane != "psum"}
     _sync_device(collection)
     tasks, finals = [], []
     nbytes = 0
@@ -485,15 +530,11 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
         if compress else None
     for name, fields in targets.items():
         vdir = fs.join(path, _var_dir(collection.variable_id(name), name))
-        if fs.isdir(vdir):
-            # a previous save under another optimizer could leave slot
-            # files a later load would mistake for state
-            fs.rmtree(vdir)
-        fs.makedirs(vdir)
         mask = live.get(name)
         rows = int(mask.sum()) if mask is not None else None
         if part:
-            ts, b = (_array_part_tasks(vdir, part, fields, compress, pool)
+            ts, b = (_array_part_tasks(vdir, part, fields, compress, pool,
+                                       part_ids.get(name))
                      if mask is None else
                      _hash_part_tasks(vdir, part, fields, mask, rows,
                                       compress, pool))
@@ -517,18 +558,32 @@ def _save_checkpoint_impl(path: str, collection: EmbeddingCollection,
             pool.shutdown(wait=True)
     for fin in finals:
         fin()
-    if dense_state is not None:
-        with fs.open_file(fs.join(path, DENSE_FILE), "wb") as f:
-            f.write(_dense_bytes(dense_state))
-    if collection.dirty_trackers and not part:
-        # arm the delta chain over this base (the manifest is the single
-        # commit point of the chain); a part base has no raw .npy files
-        # for the compactor to fold, so it arms none
-        sync_point("ckpt.full.arm")
-        cd.init_manifest(path, step=step,
-                         include_optimizer=include_optimizer,
-                         last_seq=carried_seq, extra=extra)
+    # the meta commits the dump: written after every part
+    _barrier(mesh, "ckpt.parts")
+    if rank == 0:
+        if dense_state is not None:
+            with fs.open_file(fs.join(path, DENSE_FILE), "wb") as f:
+                f.write(_dense_bytes(dense_state))
+        with fs.open_file(fs.join(path, MODEL_META_FILE), "wb") as f:
+            f.write(meta.dumps().encode("utf-8"))
+        if collection.dirty_trackers and not part:
+            # arm the delta chain over this base (the manifest is the
+            # single commit point of the chain); a part base has no raw
+            # .npy files for the compactor to fold, so it arms none
+            sync_point("ckpt.full.arm")
+            cd.init_manifest(path, step=step,
+                             include_optimizer=include_optimizer,
+                             last_seq=carried_seq, extra=extra)
+    _barrier(mesh, "ckpt.meta")
     return nbytes
+
+
+def _barrier(mesh, name: str) -> None:
+    """Every process of ``mesh`` waits for every other; a no-op in one
+    process."""
+    if mesh.spans_processes:
+        from . import distributed
+        distributed.barrier(name)
 
 
 # --- load --------------------------------------------------------------------
@@ -537,12 +592,21 @@ def _is_hash(m) -> bool:
     return m.vocabulary_size >= UNBOUNDED_VOCAB
 
 
-def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
+def shard_slice_vocab(full_vocab: int, shard_index: int,
+                      shard_count: int) -> int:
+    """Rows owned by serving shard ``k`` of ``G``: ids ≡ k (mod G)."""
+    return max(0, -(-(full_vocab - shard_index) // shard_count))
+
+
+def _check_meta(path: str, collection: EmbeddingCollection,
+                shard_slice: Optional[tuple] = None) -> ModelMeta:
     """Validate the dump's variable metas against the collection's, as in
     the JAX package: dim must match, the datatype may differ within
     {float32, bfloat16} (rows are cast on load), and the vocabulary may
     differ only when the table category does (a hash dump into an array
-    variable or the reverse, converted on load)."""
+    variable or the reverse, converted on load), or, under
+    ``shard_slice=(k, G)``, when an array variable holds the slice's
+    :func:`shard_slice_vocab` rows."""
     with fs.open_file(fs.join(path, MODEL_META_FILE), "rb") as f:
         meta = ModelMeta.loads(f.read().decode("utf-8"))
     got_vars = {v.name: v for v in meta.variables}
@@ -558,8 +622,12 @@ def _check_meta(path: str, collection: EmbeddingCollection) -> ModelMeta:
                     <= {"float32", "bfloat16"})
         same_shape = g.embedding_dim == v.meta.embedding_dim and dtype_ok
         category_swap = _is_hash(g) != _is_hash(v.meta)
-        if not (same_shape and (category_swap or g.vocabulary_size
-                                == v.meta.vocabulary_size)):
+        slice_ok = (shard_slice is not None and same_shape
+                    and not _is_hash(g) and not _is_hash(v.meta)
+                    and v.meta.vocabulary_size == shard_slice_vocab(
+                        g.vocabulary_size, *shard_slice))
+        if not ((same_shape and (category_swap or g.vocabulary_size
+                                 == v.meta.vocabulary_size)) or slice_ok):
             raise ValueError(f"variable {v.name!r} meta mismatch: "
                              f"checkpoint {g} vs model {v.meta}")
     return meta
@@ -741,21 +809,40 @@ def _load_field(arr: np.ndarray, target: torch.Tensor,
             arr[lo:hi], true_dtype, target.dtype, legacy_dtype))
 
 
+def _held_shards(collection: EmbeddingCollection, name: str):
+    """The shards of an array variable this process holds on a mesh
+    across processes (``sharded_table.local_shards``), else None."""
+    if not collection.mesh.spans_processes:
+        return None
+    return st.local_shards(collection.mesh, collection.sharding_spec(name))
+
+
 def _load_array_var_stream(readers, name: str, spec, collection,
                            with_opt: bool, stored: Dict[str, str],
-                           legacy: Optional[str], from_hash: bool = False):
+                           legacy: Optional[str], from_hash: bool = False,
+                           shard_slice: Optional[tuple] = None):
     """An array variable streamed from keyed parts, compressed frames, a
-    remote URI or a legacy npz, chunk by chunk through
+    remote URI, a legacy npz or (on a mesh across processes, or under a
+    shard slice) the local layout, chunk by chunk through
     ``_deliver_rows``. Ids at or past the vocabulary are dropped, as in
     JAX; ``from_hash`` converts a hash dump (its keys become row ids, and
     a key outside ``[0, input_dim)`` fails the load: a conversion must
-    deliver every row or fail)."""
+    deliver every row or fail). ``shard_slice=(k, G)`` keeps the ids ≡ k
+    (mod G), id ``i`` at row ``i // G``. On a mesh across processes only
+    the rows of the shards this process holds are delivered, straight
+    into their stacked rows (a ``ShardedTableState``)."""
     from .table import TableState, resolve_dtype
+    if from_hash and shard_slice is not None:
+        raise ValueError("hash->array conversion cannot be combined with a "
+                         "serving shard slice (serve hash dumps as hash)")
     vocab, dim = spec.input_dim, spec.output_dim
     dtype = resolve_dtype(spec.meta())
-    weights = torch.zeros((vocab, dim), dtype=dtype,
+    held = _held_shards(collection, name)
+    sspec = collection.sharding_spec(name)
+    n_rows = vocab if held is None else len(held) * sspec.rows_per_shard
+    weights = torch.zeros((n_rows, dim), dtype=dtype,
                           device=collection.device)
-    slots = collection.optimizer(name).init_slots(vocab, dim, dtype,
+    slots = collection.optimizer(name).init_slots(n_rows, dim, dtype,
                                                   collection.device)
     targets = {"weights": weights, **{f"slot_{s}": t
                                       for s, t in slots.items()}}
@@ -784,7 +871,19 @@ def _load_array_var_stream(readers, name: str, spec, collection,
                 got = chunk["weights"].shape[0]
                 ids = np.arange(offset, offset + got, dtype=np.int64)
                 offset += got
+            if shard_slice is not None:
+                k, g = shard_slice
+                mine = (ids % g) == k
+                ids = np.where(mine, ids // g, -1)
             keep = (ids >= 0) & (ids < vocab)
+            at = ids
+            if held is not None:
+                # the stacked row of each id on the shards held, -1 off
+                phys = sspec.physical_rows(torch.from_numpy(
+                    np.where(keep, ids, 0))).numpy() \
+                    - held.start * sspec.rows_per_shard
+                keep &= (phys >= 0) & (phys < n_rows)
+                at = phys
             for f in fields:
                 block = chunk[f]
                 if tuple(block.shape[1:]) != tuple(targets[f].shape[1:]):
@@ -795,8 +894,12 @@ def _load_array_var_stream(readers, name: str, spec, collection,
                                legacy)
                 if not keep.all():
                     rows = rows[torch.from_numpy(keep)]
-                _deliver_rows(targets[f], ids[keep], rows)
-    return TableState(weights=weights, slots=slots)
+                _deliver_rows(targets[f], at[keep], rows)
+    if held is None:
+        return TableState(weights=weights, slots=slots)
+    return st.ShardedTableState(weights=weights, slots=slots,
+                                num_shards=sspec.num_shards,
+                                **st.held_fields(held, sspec))
 
 
 def _hash_chunk_keys(ck: np.ndarray, state, name: str,
@@ -844,7 +947,8 @@ def _hash_chunk_keys(ck: np.ndarray, state, name: str,
 
 def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
                    stored: Dict[str, str], legacy: Optional[str], rng,
-                   from_array: bool = False):
+                   from_array: bool = False,
+                   shard_slice: Optional[tuple] = None):
     """An empty hash table on the collection's device, filled by inserting
     every part's rows chunk by chunk; refuses a dump whose rows do not all
     fit. ``from_array`` converts an array dump (its ids, or its logical
@@ -852,7 +956,9 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
     key for the variable under ``rng`` (``EmbeddingCollection.
     hash_init_rng``), as JAX's loader takes ``collection.init(rng)``'s, so
     a loaded model that trains on draws JAX's init rows for keys the dump
-    lacks."""
+    lacks. ``shard_slice=(k, G)`` keeps the keys whose (joined 64-bit)
+    value is ≡ k (mod G), the router's owner rule. On a mesh across
+    processes each process inserts the keys its own shards own."""
     state = hot_cache.unwrap(collection.init(rng, only=[name])[name])
     targets = {"weights": state.weights,
                **{f"slot_{s}": t for s, t in state.slots.items()}}
@@ -864,7 +970,6 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
                                 if f != "weights" and with_opt and f in r]
         names = ([id_field] if id_field else []) + fields
         n = _reader_rows(r, names[0])
-        total += n
         offset = 0
         for chunk in _aligned_reader_chunks(r, names,
                                             min(_LOAD_CHUNK, max(n, 1))):
@@ -874,6 +979,14 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
             else:
                 ck = np.arange(offset, offset + got, dtype=np.int64)
                 offset += got
+            sel = None
+            if shard_slice is not None:
+                k, g = shard_slice
+                ids64 = hash_lib.join64(ck) if ck.ndim == 2 \
+                    else ck.astype(np.int64)
+                sel = (ids64 % g) == k
+                ck = ck[sel]
+            total += ck.shape[0]
             ck = _hash_chunk_keys(ck, state, name, from_array)
             rows = {}
             for f in fields:
@@ -883,6 +996,8 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
                     raise ValueError(
                         f"{name!r} {f}: a chunk of shape {block.shape} "
                         f"does not match its {got} keys")
+                if sel is not None:
+                    block = block[sel]
                 rows[f] = _decode(block, stored.get(f), targets[f].dtype,
                                   legacy).to(collection.device)
             weights = rows.pop("weights")
@@ -891,7 +1006,10 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
                 if collection.sharded(name) else hash_lib.insert_rows
             insert(state, torch.from_numpy(ck).to(collection.device),
                    weights, {f[len("slot_"):]: v for f, v in rows.items()})
-    failed = int(state.insert_failures)
+    # every process of a mesh across them sees the total
+    failed = sh.total_insert_failures(
+        state, collection.mesh, collection.sharding_spec(name)) \
+        if collection.sharded(name) else int(state.insert_failures)
     if failed:
         raise RuntimeError(
             f"hash variable {name!r}: {failed} of {total} checkpoint rows "
@@ -901,7 +1019,8 @@ def _load_hash_var(readers, name: str, spec, collection, with_opt: bool,
 
 
 def _load_var(path: str, name: str, spec, collection, meta: ModelMeta,
-              with_opt: bool, inflate: _InflatePool, rng):
+              with_opt: bool, inflate: _InflatePool, rng,
+              shard_slice: Optional[tuple] = None):
     """One variable's state from any layout of its dump (module note), on
     the collection's shards."""
     readers = _open_var(path, collection.variable_id(name), name, inflate)
@@ -910,10 +1029,11 @@ def _load_var(path: str, name: str, spec, collection, meta: ModelMeta,
     legacy, dump_hash = dump.datatype, _is_hash(dump)
     if spec.use_hash:
         return _load_hash_var(readers, name, spec, collection, with_opt,
-                              stored, legacy, rng, from_array=not dump_hash)
+                              stored, legacy, rng, from_array=not dump_hash,
+                              shard_slice=shard_slice)
     state = _load_array_var(readers, name, spec, collection, with_opt,
-                            stored, legacy, dump_hash)
-    if collection.sharded(name):
+                            stored, legacy, dump_hash, shard_slice)
+    if collection.sharded(name) and _held_shards(collection, name) is None:
         # the logical rows laid out on the shards (mod permutation applied)
         state = st.from_logical(state, collection.sharding_spec(name),
                                 spec.input_dim, collection.optimizer(name))
@@ -922,16 +1042,20 @@ def _load_var(path: str, name: str, spec, collection, meta: ModelMeta,
 
 def _load_array_var(readers, name: str, spec, collection, with_opt: bool,
                     stored: Dict[str, str], legacy: Optional[str],
-                    dump_hash: bool):
-    """An array variable's logical rows, from any layout of its dump."""
+                    dump_hash: bool, shard_slice: Optional[tuple] = None):
+    """An array variable's logical rows, from any layout of its dump (on
+    a mesh across processes, its shards' stacked rows)."""
     from .table import TableState, resolve_dtype
     local = readers[0]
     if dump_hash or len(readers) > 1 \
             or not isinstance(local, _NpyDirReader) \
-            or local.streaming or "ids" in local:
+            or local.streaming or "ids" in local \
+            or shard_slice is not None \
+            or _held_shards(collection, name) is not None:
         return _load_array_var_stream(readers, name, spec, collection,
                                       with_opt, stored, legacy,
-                                      from_hash=dump_hash)
+                                      from_hash=dump_hash,
+                                      shard_slice=shard_slice)
     device = collection.device
     dtype = resolve_dtype(spec.meta())
     weights = torch.zeros((spec.input_dim, spec.output_dim), dtype=dtype,
@@ -952,7 +1076,8 @@ def _load_array_var(readers, name: str, spec, collection, with_opt: bool,
 
 def load_checkpoint(path: str, collection: EmbeddingCollection, *,
                     dense_state_template: Any = None,
-                    rng=None, info: Optional[Dict[str, Any]] = None):
+                    rng=None, shard_slice: Optional[tuple] = None,
+                    info: Optional[Dict[str, Any]] = None):
     """Rebuild every variable's state from ``path`` on the collection's
     device; returns ``states``, or ``(states, (params, opt_state))`` when
     ``dense_state_template`` (a ``(params, opt_state)`` pair of the
@@ -968,7 +1093,14 @@ def load_checkpoint(path: str, collection: EmbeddingCollection, *,
     ``info`` (a caller's dict) receives ``applied_seq``, the chain version
     the returned states reflect, and ``resume_extra``, the ``extra``
     committed with that version, both from the verify pass the replay
-    used."""
+    used.
+
+    ``shard_slice=(k, G)`` loads only the rows a serving shard group's
+    member ``k`` of ``G`` owns: array ids ≡ k (mod G), id ``i`` at local
+    row ``i // G`` (the variable's vocabulary :func:`shard_slice_vocab`),
+    hash keys whose joined 64-bit value is ≡ k (mod G), kept as they are.
+    On a mesh across processes every process loads, from any layout,
+    only the rows its own shards hold (every process must call it)."""
     from . import checkpoint_delta as cd
     with scope.span("checkpoint.load"):
         last_err = None
@@ -979,7 +1111,7 @@ def load_checkpoint(path: str, collection: EmbeddingCollection, *,
                 out = _load_checkpoint_impl(
                     path, collection,
                     dense_state_template=dense_state_template, rng=rng,
-                    info=info)
+                    shard_slice=shard_slice, info=info)
             except RuntimeError as e:
                 m1 = cd.read_manifest(path)
                 if (m1["base_id"] if m1 else None) != id0:
@@ -998,19 +1130,21 @@ def load_checkpoint(path: str, collection: EmbeddingCollection, *,
 
 def _load_checkpoint_impl(path: str, collection: EmbeddingCollection, *,
                           dense_state_template: Any, rng,
+                          shard_slice: Optional[tuple],
                           info: Optional[Dict[str, Any]]):
     from . import checkpoint_delta as cd
-    meta = _check_meta(path, collection)
+    meta = _check_meta(path, collection, shard_slice)
     with_opt = bool(meta.extra.get("include_optimizer", True))
     out = {}
     with _InflatePool() as inflate:
         for name, spec in collection.specs.items():
             out[name] = _load_var(path, name, spec, collection, meta,
-                                  with_opt, inflate, rng)
+                                  with_opt, inflate, rng, shard_slice)
     manifest = cd.read_manifest(path)
     if manifest and manifest.get("chain"):
         out = cd.replay_chain(path, collection, out, manifest=manifest,
-                              with_opt=with_opt, info=info)
+                              with_opt=with_opt, shard_slice=shard_slice,
+                              info=info)
     elif info is not None:
         # chainless: the base reflects content_seq (0 for plain dumps)
         info["applied_seq"] = cd.verified_seq(manifest, [])
@@ -1035,7 +1169,13 @@ def export_dense(collection: EmbeddingCollection,
     order (a sharded table's layout undone), padding dropped, copied back
     from the device (bfloat16 tables as float32); a plane's replica or
     residual is left out. A hash variable cannot be densified and raises
-    ``ValueError``, as in JAX."""
+    ``ValueError``, as in JAX. On a mesh across processes a process holds
+    part of each table, so it raises ``ValueError``: load the dump in one
+    process and export there."""
+    if collection.mesh.spans_processes:
+        raise ValueError("export_dense needs every row in one process; "
+                         "load the dump across processes wrote in one "
+                         "process and export there")
     out = {}
     for name, spec in collection.specs.items():
         if spec.use_hash:

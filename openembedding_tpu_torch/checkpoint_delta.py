@@ -646,11 +646,13 @@ def _entry_payload(path: str, entry: Dict[str, Any],
 def replay_chain(path: str, collection: EmbeddingCollection,
                  states: Dict[str, Any], *, manifest: Dict[str, Any],
                  with_opt: bool,
+                 shard_slice: Optional[tuple] = None,
                  info: Optional[Dict[str, Any]] = None
                  ) -> Dict[str, Any]:
     """Apply the committed chain over freshly loaded base states, in
     order, one entry in memory at a time, in place. ``info`` gets
-    ``applied_seq`` and ``resume_extra`` from the same verify pass."""
+    ``applied_seq`` and ``resume_extra`` from the same verify pass.
+    ``shard_slice``: as in :func:`apply_delta_to_states`."""
     verified, _dropped = verify_chain(path, manifest, keep_payloads=False)
     if info is not None:
         info["applied_seq"] = verified_seq(manifest, verified)
@@ -659,7 +661,8 @@ def replay_chain(path: str, collection: EmbeddingCollection,
         payloads = {name: _entry_payload(path, entry, name)
                     for name in entry["vars"]}
         states = apply_delta_to_states(collection, states, payloads,
-                                       with_opt=with_opt, donate=True)
+                                       with_opt=with_opt, donate=True,
+                                       shard_slice=shard_slice)
         del payloads
     return states
 
@@ -700,12 +703,18 @@ def apply_delta_to_states(collection: EmbeddingCollection,
                           states: Dict[str, Any],
                           payloads: Dict[str, Dict[str, np.ndarray]],
                           *, with_opt: bool = True,
-                          donate: bool = True) -> Dict[str, Any]:
+                          donate: bool = True,
+                          shard_slice: Optional[tuple] = None
+                          ) -> Dict[str, Any]:
     """Patch variable states with delta payloads; returns a new states
     dict. ``donate=True`` patches the given tensors in place (the load
     path's replay); ``donate=False`` builds each patched variable from
     copies of its tensors and leaves ``states`` as it was (serving
-    hot-swap: in-flight lookups keep the pre-swap tensors)."""
+    hot-swap: in-flight lookups keep the pre-swap tensors).
+    ``shard_slice=(k, G)``: states of a serving shard group's member,
+    which keeps the payload rows it owns (array ids ≡ k (mod G) at row
+    ``id // G``, hash keys whose joined value is ≡ k (mod G)), the rule
+    of ``checkpoint.load_checkpoint(shard_slice=)``."""
     out = dict(states)
     for name, payload in payloads.items():
         if name not in collection.specs:
@@ -719,7 +728,8 @@ def apply_delta_to_states(collection: EmbeddingCollection,
                     "variable is bounded — delta chains cannot "
                     "category-swap; load the base full or re-save")
             state = _apply_hash_payload(name, state, payload,
-                                        with_opt=with_opt, donate=donate)
+                                        with_opt=with_opt, donate=donate,
+                                        shard_slice=shard_slice)
         else:
             if spec.use_hash:
                 raise ValueError(
@@ -727,7 +737,8 @@ def apply_delta_to_states(collection: EmbeddingCollection,
                     "variable is hash — delta chains cannot "
                     "category-swap; load the base full or re-save")
             state = _apply_array_payload(state, payload, with_opt=with_opt,
-                                         donate=donate)
+                                         donate=donate,
+                                         shard_slice=shard_slice)
         out[name] = state
     return out
 
@@ -760,9 +771,24 @@ def _payload_ids(payload: Dict[str, np.ndarray]) -> np.ndarray:
                   dtype=np.int64) for c in chunks])
 
 
-def _apply_array_payload(state, payload, *, with_opt: bool, donate: bool):
+def _owned(ids: np.ndarray, shard_slice: Optional[tuple]):
+    """The payload rows a shard slice keeps (None: all)."""
+    if shard_slice is None:
+        return None
+    k, g = shard_slice
+    return (ids % g) == k
+
+
+def _apply_array_payload(state, payload, *, with_opt: bool, donate: bool,
+                         shard_slice: Optional[tuple] = None):
     from .table import TableState
     ids = _payload_ids(payload)
+    sel = _owned(ids, shard_slice)
+    if sel is not None:
+        payload = {f: np.asarray(v)[sel] if f == "weights"
+                   or f.startswith("slot_") else v
+                   for f, v in payload.items()}
+        ids = ids[sel] // shard_slice[1]
     names = ["weights"] + [f"slot_{s}" for s in state.slots
                            if with_opt and f"slot_{s}" in payload]
     weights = state.weights if donate else state.weights.clone()
@@ -787,8 +813,15 @@ def _apply_array_payload(state, payload, *, with_opt: bool, donate: bool):
 
 
 def _apply_hash_payload(name: str, state, payload, *, with_opt: bool,
-                        donate: bool):
+                        donate: bool, shard_slice: Optional[tuple] = None):
     keys = np.asarray(payload["keys"])
+    sel = _owned(hash_lib.join64(keys) if keys.ndim == 2
+                 else keys.astype(np.int64), shard_slice)
+    if sel is not None:
+        payload = {f: np.asarray(v)[sel] if f in ("keys", "weights")
+                   or f.startswith("slot_") else v
+                   for f, v in payload.items()}
+        keys = np.asarray(payload["keys"])
     payload_wide = keys.ndim == 2
     if state.wide != payload_wide:
         raise ValueError(

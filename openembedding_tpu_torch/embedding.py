@@ -27,9 +27,14 @@ and ``psum``, ``a2a+cache`` (a hot-row replica beside the table,
 ``a2a+pipelined`` (the ``Trainer``'s double-buffered schedule,
 ``parallel/pipelined.py``), and the compressed wires of a ``+bf16`` or
 ``+int8`` suffix (``parallel/precision.py``; an int8_ef variable's state
-an ``EFState``). What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP.md item: dirty tracking over a
-sharded variable, and meshes of several processes.
+an ``EFState``). On a mesh across processes
+(``distributed.create_global_mesh``) the collection holds this process's
+shards and ``pull``/``apply_gradients`` take this process's slice of the
+batch (``batch_sharded``: the global batch is the processes' slices in
+rank order), on ``a2a`` (``+bf16``, ``+int8``) and ``psum``. What the
+port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item: dirty tracking over a sharded variable, and the cached,
+grouped and pipelined planes over processes.
 """
 
 from __future__ import annotations
@@ -196,6 +201,15 @@ class EmbeddingCollection:
                     a2a_slack=spec.a2a_slack, cache_k=spec.cache_k,
                     exchange_precision=spec.exchange_precision,
                     push_precision=spec.push_precision)
+        if mesh.spans_processes:
+            over = sorted(n for n, ss in self._shardings.items()
+                          if ss.is_cached or ss.is_grouped
+                          or ss.is_pipelined)
+            if over:
+                raise not_ported(
+                    f"the cached, grouped and pipelined planes over a mesh "
+                    f"across processes (variables {over})",
+                    "multi-shard exchange planes")
 
     # --- introspection -----------------------------------------------------
     def sharding_spec(self, name: str):
@@ -206,9 +220,12 @@ class EmbeddingCollection:
         """Whether variable ``name`` runs the mesh's planes (its table a
         ``parallel`` one): more than one shard, or the cached plane, which
         JAX routes at any shard count; any other one-shard variable is the
-        single-device table, JAX's one-shard program."""
+        single-device table, JAX's one-shard program. On a mesh across
+        processes every variable is (a one-shard ``psum`` table is then a
+        replica a process, its pushes gathered over the processes)."""
         ss = self._shardings[name]
-        return ss.num_shards > 1 or ss.is_cached
+        return ss.num_shards > 1 or ss.is_cached \
+            or self.mesh.spans_processes
 
     def cached_names(self) -> tuple:
         """Variables on the ``"a2a+cache"`` plane (hot-row replica)."""

@@ -49,6 +49,18 @@ words (:func:`pin_wire`). :data:`WIRE` keeps the bytes and dtypes of the
 last exchange's legs, read from the buffers themselves, so a test or the
 card's smoke run can check what crossed; :data:`EXCHANGES` counts the
 exchanges dispatched.
+
+Across processes (a mesh from ``distributed.create_global_mesh``), each
+process holds its own positions' senders and owners only: a stacked
+buffer has one row a local position, ``[L, S, cap, ...]``. The blocks
+between local positions still move by the transpose; those for another
+process's positions cross through one ``all_to_all_single`` a leg
+(``distributed.all_to_all``), received in sender order, so every owner
+merges its senders in the global order of one process's mesh. The
+statistics JAX sums over the whole mesh are summed over the processes
+first, and every process records the total, as every JAX process sees
+the same replicated value. ``WIRE`` also keeps the bytes that crossed
+to other processes (``cross``).
 """
 
 from __future__ import annotations
@@ -84,24 +96,41 @@ def unpin_wire(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.view(dtype)
 
 
+def _procs(mesh) -> int:
+    return mesh.process_count if mesh is not None else 1
+
+
 def _note_wire(verb: str, keys: torch.Tensor, payload: torch.Tensor,
-               payload_dtype: torch.dtype, rounds: int) -> None:
+               payload_dtype: torch.dtype, rounds: int, mesh=None) -> None:
+    p = _procs(mesh)
+    nbytes = int(keys.nbytes) + int(payload.nbytes)
     WIRE[verb] = {"keys": int(keys.nbytes) * rounds,
                   "payload": int(payload.nbytes) * rounds,
                   "payload_dtype": str(payload_dtype).replace("torch.", ""),
-                  "rounds": rounds}
+                  "rounds": rounds,
+                  # each leg sends every other process its equal block
+                  "cross": nbytes // p * (p - 1) * rounds}
 
 
-def record_stat(counter: str, value: torch.Tensor, record: bool) -> None:
+def record_stat(counter: str, value: torch.Tensor, record: bool,
+                mesh=None) -> None:
     """Gated host accumulation of a routed-exchange statistic (JAX's
     ``record_stat``): ``record`` is the caller's snapshot of
     ``observability.evaluate_performance()``. Off by default: it reads the
     device back. Eagerly the count goes to ``observability.GLOBAL`` at
     once; while a CUDA graph is captured it adds into a device
     accumulator (created by an eager call first, as a captured step's
-    warm-up is) that :func:`flush_stats` reads."""
+    warm-up is) that :func:`flush_stats` reads. On a mesh across
+    processes the count is summed over them first: a collective that
+    runs only where ``record`` is set, so every process must set
+    ``observability.evaluate_performance()`` alike (the ``Trainer``
+    checks it when it builds a step on such a mesh)."""
     if not record:
         return
+    if _procs(mesh) > 1:
+        from .. import distributed
+        value = distributed.all_reduce(value.to(torch.int64).reshape(1),
+                                       mesh)[0]
     key = (counter, value.device)
     if value.is_cuda and torch.cuda.is_current_stream_capturing():
         acc = _PENDING.get(key)
@@ -119,15 +148,21 @@ def record_stat(counter: str, value: torch.Tensor, record: bool) -> None:
 
 
 def record_float_stat(counter: str, value: torch.Tensor,
-                      record: bool) -> None:
+                      record: bool, mesh=None) -> None:
     """:func:`record_stat` for float telemetry of the int8_ef push
     (``quant_error_max``, ``quant_residual_norm``): ``value`` holds one
     number a sender, each added to ``observability.GLOBAL`` (a sum over
     senders and steps, as JAX's per-device callbacks give it) and
     observed in the histogram registry; inside a capture their sum
-    accumulates on the device for :func:`flush_stats`."""
+    accumulates on the device for :func:`flush_stats`. On a mesh across
+    processes every process records every sender's number, in sender
+    order, gathered by a collective that, as :func:`record_stat`'s, runs
+    only where ``record`` is set."""
     if not record:
         return
+    if _procs(mesh) > 1:
+        from .. import distributed
+        value = distributed.all_gather(value.reshape(-1), mesh).reshape(-1)
     key = (counter, value.device)
     if value.is_cuda and torch.cuda.is_current_stream_capturing():
         acc = _PENDING.get(key)
@@ -227,11 +262,24 @@ def fill_buckets(values: torch.Tensor, dest: torch.Tensor, num_shards: int,
         (p, num_shards, capacity) + tail)
 
 
-def grid_all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """The grid all-to-all of ``S`` shards in one process: ``x[src, dst]``
-    (each sender's per-destination blocks) becomes ``y[dst, src]``, the
-    blocks each shard receives, in sender order: one transpose."""
-    return x.transpose(0, 1).contiguous()
+def grid_all_to_all(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The grid all-to-all of ``S`` shards: ``x[src, dst]`` (each local
+    sender's per-destination blocks, ``[L, S, ...]``) becomes ``y[dst,
+    src]`` (``[L, S, ...]``, the blocks each local shard receives, in
+    sender order). In one process (``L = S``) one transpose; on a mesh
+    across ``P`` processes the blocks for each process gather into one
+    send buffer of ``[P, L, L, ...]`` and cross in one all-to-all."""
+    p = _procs(mesh)
+    if p == 1:
+        return x.transpose(0, 1).contiguous()
+    from .. import distributed
+    ln = x.shape[0]
+    tail = tuple(x.shape[2:])
+    rest = tuple(range(3, 3 + len(tail)))
+    # send[q, b, a] = x[a, q * L + b]: process q's block, by its owners
+    send = x.reshape((ln, p, ln) + tail).permute((1, 2, 0) + rest)
+    recv = distributed.all_to_all(send, mesh)   # [P_src, L_dst, L_src]
+    return recv.permute((1, 0, 2) + rest).reshape((ln, p * ln) + tail)
 
 
 def grid_info(mesh, shard_axes: Sequence[str], model_axis: str,
@@ -384,7 +432,8 @@ def exchange_pull(flat_idx: torch.Tensor,
                   capacity: int = 0,
                   slack: float = 2.0,
                   record_stats: bool = False,
-                  wire_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                  wire_dtype: Optional[torch.dtype] = None,
+                  mesh=None) -> torch.Tensor:
     """Owner-routed lookup of ``flat_idx`` ``[n]`` (or ``[n, k]`` composite
     keys: wide pairs, the grouped plane's tagged streams) -> rows ``[n,
     dim]`` of ``dtype``. EXACT for any skew.
@@ -401,44 +450,64 @@ def exchange_pull(flat_idx: torch.Tensor,
     ``wire_dtype`` (bfloat16): the owners' rows narrow before the
     response leg (the one lossy point, one round-to-nearest cast a row)
     and stay narrow, as their raw words, through the row assembly; they
-    widen to ``dtype`` at the end. None leaves the exchange as it was."""
+    widen to ``dtype`` at the end. None leaves the exchange as it was.
+
+    ``mesh`` across processes: ``flat_idx`` is this process's batch, the
+    slices of its own data rows, and ``resolve_fn`` its own owners'
+    (module note)."""
     s = num_shards
     parts = s // groups
     n = flat_idx.shape[0]
+    groups, ln = _local_split(s, groups, mesh)
     EXCHANGES["pull"] += 1
     sl, m = split_slice(flat_idx, parts, sentinel, groups)
     uniq, inverse = unique_per_sender(sl, sentinel)
     cap = bucket_capacity(m, s, capacity, slack)
     pending = owner_fn(uniq).to(torch.int64)
     acc_dtype = dtype if wire_dtype is None else wire_dtype
-    acc = torch.zeros((s, m, dim), dtype=acc_dtype, device=flat_idx.device)
+    acc = torch.zeros((ln, m, dim), dtype=acc_dtype, device=flat_idx.device)
     kw = tuple(sl.shape[2:])
     rounds = max_rounds(m, cap)
     for r in range(rounds):
         dest, ok = bucketize(pending, s, cap)
         send = fill_buckets(uniq, dest, s, cap, sentinel)
-        req = grid_all_to_all(send)                 # [S_own, S_src, cap]
-        rows = resolve_fn(req.reshape((s, s * cap) + kw))
+        req = grid_all_to_all(send, mesh)           # [L_own, S_src, cap]
+        rows = resolve_fn(req.reshape((ln, s * cap) + kw))
         if wire_dtype is not None:
             rows = pin_wire(rows.to(wire_dtype))
-        resp = grid_all_to_all(rows.reshape(s, s, cap, dim))
+        resp = grid_all_to_all(rows.reshape(ln, s, cap, dim), mesh)
         if r == 0:
-            _note_wire("pull", send, resp, acc_dtype, rounds)
+            _note_wire("pull", send, resp, acc_dtype, rounds, mesh)
         if wire_dtype is not None:
             resp = unpin_wire(resp, wire_dtype)
-        got = _take_rows(resp.reshape(s, s * cap, dim),
+        got = _take_rows(resp.reshape(ln, s * cap, dim),
                          torch.where(ok, dest, 0))
         acc = acc + torch.where(ok[..., None], got, torch.zeros_like(got))
         pending = torch.where(ok, s, pending)
         if r == 0:
             record_stat("a2a_extra_entries_pull", (pending < s).sum(),
-                        record_stats)
+                        record_stats, mesh)
     slice_rows = _take_rows(acc, inverse)
     if wire_dtype is not None:
         # the assembly moves the pinned 16-bit words; widening is exact
         assembled = unslice(pin_wire(slice_rows), n, groups)
         return unpin_wire(assembled, wire_dtype).to(dtype)
     return unslice(slice_rows, n, groups)
+
+
+def _local_split(num_shards: int, groups: int, mesh) -> Tuple[int, int]:
+    """``(groups, senders)`` of this process: its batch slices (its data
+    rows when batch-sharded) and its positions. A mesh across processes
+    needs a batch-sharded exchange: each process holds its own rows."""
+    p = _procs(mesh)
+    if p == 1:
+        return groups, num_shards
+    if groups % p or num_shards % p:
+        raise ValueError(
+            f"an exchange over {p} processes splits the batch over the data "
+            f"axis ({groups} batch slices, {num_shards} shards): pass each "
+            "process's own rows, batch-sharded")
+    return groups // p, num_shards // p
 
 
 def exchange_push(flat_idx: torch.Tensor,
@@ -453,7 +522,8 @@ def exchange_push(flat_idx: torch.Tensor,
                   slack: float = 2.0,
                   record_stats: bool = False,
                   wire_dtype: Optional[torch.dtype] = None,
-                  ef_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                  ef_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  mesh=None):
     """Owner-routed push: each sender pre-reduces its slice (dedup, sum,
     count), routes ``(key, count)`` and the summed gradient to the
     owners, and ``apply_fn(keys [S_owner, K(, 2)], grads [S_owner, K,
@@ -470,10 +540,13 @@ def exchange_push(flat_idx: torch.Tensor,
     int8 error-feedback push (:func:`_quantize_ef`); returns ``(result,
     (keys [S, m(, 2)], resid [S, m, dim]))``, each sender's new residual.
     Padding entries' received scales are zeroed by key validity before
-    the multiply, so no garbage bit pattern reaches an applier."""
+    the multiply, so no garbage bit pattern reaches an applier. ``mesh``
+    as in :func:`exchange_pull`: ``apply_fn`` gets this process's owners'
+    entries, ``[L, K, ...]``."""
     s = num_shards
     parts = s // groups
     dim = grads.shape[-1]
+    groups, ln = _local_split(s, groups, mesh)
     EXCHANGES["push"] += 1
     sl, m = split_slice(flat_idx, parts, sentinel, groups)
     g2 = split_slice_rows(grads.reshape(-1, dim), parts, groups)
@@ -487,24 +560,25 @@ def exchange_push(flat_idx: torch.Tensor,
         # order XLA's program adds them in: it folds the add of the carry
         # into the pre-reduce's scatter-add)
         summed = _carried_residual(uniq, valid, ef_state).to(
-            grads.dtype).reshape(s * m, dim)
+            grads.dtype).reshape(ln * m, dim)
     else:
-        summed = torch.zeros((s * m, dim), dtype=grads.dtype,
+        summed = torch.zeros((ln * m, dim), dtype=grads.dtype,
                              device=grads.device)
     # each sender's combine_gradients: sums in entry order, counts
-    flat_inv = (inverse + torch.arange(s, device=inverse.device)[:, None]
+    flat_inv = (inverse + torch.arange(ln, device=inverse.device)[:, None]
                 * m).reshape(-1)
     summed.index_add_(0, flat_inv, g2.reshape(-1, dim))
-    counts = torch.zeros(s * m, dtype=torch.int32, device=grads.device)
+    counts = torch.zeros(ln * m, dtype=torch.int32, device=grads.device)
     counts.index_add_(0, flat_inv, torch.ones_like(counts))
-    summed = summed.view(s, m, dim)
+    summed = summed.view(ln, m, dim)
     cap = bucket_capacity(m, s, capacity, slack)
     owners = owner_fn(uniq).to(torch.int64)
     ku = uniq if wide else uniq[..., None]
     kw = ku.shape[-1]
-    cols = [ku, counts.view(s, m, 1).to(ku.dtype)]
+    cols = [ku, counts.view(ln, m, 1).to(ku.dtype)]
     if quant:
-        q8, scale, new_ef = _quantize_ef(uniq, summed, valid, record_stats)
+        q8, scale, new_ef = _quantize_ef(uniq, summed, valid, record_stats,
+                                         mesh)
         # the f32 scale's bits ride the integer buffer as one more channel
         cols.append(scale.view(torch.int32).to(ku.dtype)[..., None])
         payload = q8
@@ -520,19 +594,19 @@ def exchange_push(flat_idx: torch.Tensor,
         dest, ok = bucketize(pending, s, cap)
         if r == 0 and cap < m:
             record_stat("a2a_extra_entries_push",
-                        ((owners < s) & ~ok).sum(), record_stats)
+                        ((owners < s) & ~ok).sum(), record_stats, mesh)
         got_kc.append(grid_all_to_all(fill_buckets(kc, dest, s, cap,
-                                                   sentinel)))
+                                                   sentinel), mesh))
         got_g.append(grid_all_to_all(fill_buckets(payload, dest, s, cap,
-                                                  0)))
+                                                  0), mesh))
         if r == 0:
             _note_wire("push", got_kc[0], got_g[0],
                        torch.int8 if quant else (wire_dtype or grads.dtype),
-                       rounds)
+                       rounds, mesh)
         pending = torch.where(ok, s, pending)
-    # [S_own, S_src, rounds, cap, ...]: each owner's entries by sender
-    rkc = torch.stack(got_kc, dim=2).reshape(s, -1, kc.shape[-1])
-    rg = torch.stack(got_g, dim=2).reshape(s, -1, dim)
+    # [L_own, S_src, rounds, cap, ...]: each owner's entries by sender
+    rkc = torch.stack(got_kc, dim=2).reshape(ln, -1, kc.shape[-1])
+    rg = torch.stack(got_g, dim=2).reshape(ln, -1, dim)
     keys = rkc[..., :kw] if wide else rkc[..., 0]
     if quant:
         rscale = rkc[..., kw + 1].to(torch.int32).view(torch.float32)
@@ -597,7 +671,7 @@ def _carried_residual(uniq: torch.Tensor, valid: torch.Tensor,
 
 
 def _quantize_ef(uniq: torch.Tensor, total: torch.Tensor,
-                 valid: torch.Tensor, record_stats: bool):
+                 valid: torch.Tensor, record_stats: bool, mesh=None):
     """int8 error-feedback quantization of every sender's residual-carried
     pre-reduced rows ``total`` (:func:`_carried_residual` plus the
     gradients; JAX's, a sender a row). Returns ``(q8, scale, (keys,
@@ -626,9 +700,10 @@ def _quantize_ef(uniq: torch.Tensor, total: torch.Tensor,
                                     device=t32.device))
     flat = resid.reshape(resid.shape[0], -1)
     record_float_stat("quant_error_max", flat.abs().amax(dim=-1),
-                      record_stats)
+                      record_stats, mesh)
     record_float_stat("quant_residual_norm",
-                      torch.sqrt((flat * flat).sum(dim=-1)), record_stats)
+                      torch.sqrt((flat * flat).sum(dim=-1)), record_stats,
+                      mesh)
     return q8, scale, (uniq, resid)
 
 

@@ -1,4 +1,4 @@
-"""Hash tables sharded over a one-process mesh
+"""Hash tables sharded over a mesh
 (``openembedding_tpu/parallel/sharded_hash.py``).
 
 Each shard is an open-addressing table of ``capacity_per_shard =
@@ -20,6 +20,13 @@ rows by one launch of KI; ``"psum"`` masks the batch to each model
 shard's own keys (the others EMPTY), pulls from every shard and sums,
 and pushes the masked global batch into each shard. All three key
 dtypes run: wide pairs, int32 and int64.
+
+On a mesh across processes a process holds the shards
+``sharded_table.local_shards`` names (its positions' on ``a2a``, every
+model shard on ``psum``), stacked from ``shard_lo``; ``shard_failures``
+counts its own shards' failed inserts, and :func:`total_insert_failures`
+sums them over the processes (a collective every process calls). The
+``psum`` push takes the global batch, gathered in rank order.
 
 The later ``a2a`` planes run as on array tables
 (``parallel/sharded_table.py``): the cached plane's replica holds probed
@@ -45,7 +52,8 @@ from .. import hash_table as hash_lib
 from . import alltoall as a2a
 from . import hot_cache, precision
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
-from .sharded_table import _PlaneProps, resolve_plane
+from .sharded_table import (_PlaneProps, _gather_global, held_fields,
+                            local_shards, resolve_plane)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +130,9 @@ def make_hash_sharding_spec(mesh: Mesh, total_capacity: int,
 @dataclasses.dataclass
 class ShardedHashState:
     """One hash table's shards, stacked (module note). ``shard_failures``
-    ``[S]`` int64 counts each shard's failed inserts."""
+    ``[S]`` int64 counts each shard's failed inserts. On a mesh across
+    processes the shards held, ``local_shards`` of them from
+    ``shard_lo``."""
 
     keys: torch.Tensor
     weights: torch.Tensor
@@ -130,10 +140,18 @@ class ShardedHashState:
     init_rng: Any
     shard_failures: torch.Tensor
     num_shards: int
+    shard_lo: int = 0
+    local_shards: int = 0
+
+    @property
+    def held(self) -> range:
+        """The shards held, global ids."""
+        return range(self.shard_lo,
+                     self.shard_lo + (self.local_shards or self.num_shards))
 
     @property
     def capacity_per_shard(self) -> int:
-        return self.keys.shape[0] // self.num_shards
+        return self.keys.shape[0] // len(self.held)
 
     @property
     def capacity(self) -> int:
@@ -149,7 +167,8 @@ class ShardedHashState:
 
     @property
     def insert_failures(self) -> torch.Tensor:
-        """Failed inserts over all shards (JAX's replicated total)."""
+        """Failed inserts over the shards held (JAX's replicated total in
+        one process; across processes see :func:`total_insert_failures`)."""
         return self.shard_failures.sum()
 
     def live(self) -> torch.Tensor:
@@ -161,8 +180,9 @@ class ShardedHashState:
         return int(self.live().sum())
 
     def shard(self, s: int) -> hash_lib.HashTableState:
-        """Shard ``s`` as a one-device table of views (its keys, rows,
-        slots and failure count); updates of it land here."""
+        """The ``s``-th shard held (global ``shard_lo + s``) as a
+        one-device table of views (its keys, rows, slots and failure
+        count); updates of it land here."""
         c = self.capacity_per_shard
         return hash_lib.HashTableState(
             keys=self.keys[s * c:(s + 1) * c],
@@ -187,7 +207,8 @@ def create_sharded_hash_table(meta: EmbeddingVariableMeta, optimizer: Any,
         raise ValueError(f"unknown hash key_dtype {key_dtype!r}; known: "
                          f"{hash_lib.KEY_DTYPES}")
     optimizer = make_optimizer(optimizer)
-    s = spec.num_shards
+    held = local_shards(mesh, spec)
+    s = len(held)
     rows = s * spec.capacity_per_shard
     dev = mesh.device
     dtype = resolve_dtype(meta)
@@ -201,7 +222,7 @@ def create_sharded_hash_table(meta: EmbeddingVariableMeta, optimizer: Any,
         slots=optimizer.init_slots(rows, dim, dtype, dev),
         init_rng=threefry_key(rng),
         shard_failures=torch.zeros(s, dtype=torch.int64, device=dev),
-        num_shards=s)
+        num_shards=spec.num_shards, **held_fields(held, spec))
     return hot_cache.attach_empty(state, spec)
 
 
@@ -233,6 +254,20 @@ def _owner_of(spec: HashShardingSpec):
     return owner
 
 
+def total_insert_failures(state: ShardedHashState, mesh: Mesh,
+                          spec: HashShardingSpec) -> int:
+    """Failed inserts over every shard of the table (JAX's replicated
+    total). On a mesh across processes an ``a2a`` table's shards are
+    spread over the processes, so their counts are summed over them: a
+    collective that every process must call. A ``psum`` table is a
+    replica on every process and counts its own."""
+    total = state.insert_failures
+    if mesh.spans_processes and spec.plane != "psum":
+        from .. import distributed
+        total = distributed.all_reduce(total.reshape(1).clone(), mesh)[0]
+    return int(total)
+
+
 def insert_rows_sharded(state: ShardedHashState, keys: torch.Tensor,
                         weights: torch.Tensor, slot_rows=None, *,
                         mesh: Mesh, spec: HashShardingSpec
@@ -243,8 +278,8 @@ def insert_rows_sharded(state: ShardedHashState, keys: torch.Tensor,
     In place; returns ``state``."""
     del mesh
     flat = _flat_query(spec, state, keys)
-    for s in range(spec.num_shards):
-        hash_lib.insert_rows(state.shard(s), _mask_non_owned(spec, flat, s),
+    for j, s in enumerate(state.held):
+        hash_lib.insert_rows(state.shard(j), _mask_non_owned(spec, flat, s),
                              weights, slot_rows,
                              max_probes=spec.max_probes)
     return state
@@ -306,9 +341,9 @@ def _pull(state, indices, initializer, mesh, spec, batch_sharded, record):
 
     def resolve(req: torch.Tensor) -> torch.Tensor:
         return torch.stack([
-            hash_lib.pull(state.shard(s), _mask_non_owned(spec, req[s], s),
+            hash_lib.pull(state.shard(j), _mask_non_owned(spec, req[j], s),
                           initializer, max_probes=spec.max_probes)
-            for s in range(spec.num_shards)])
+            for j, s in enumerate(state.held)])
 
     rows = a2a.exchange_pull(
         flat, resolve, _owner_of(spec),
@@ -316,7 +351,7 @@ def _pull(state, indices, initializer, mesh, spec, batch_sharded, record):
         dtype=state.weights.dtype, num_shards=spec.num_shards,
         groups=mesh.shape[spec.data_axis] if batch_sharded else 1,
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
-        record_stats=record, wire_dtype=spec.pull_wire_dtype)
+        record_stats=record, wire_dtype=spec.pull_wire_dtype, mesh=mesh)
     return rows.reshape(lead + (dim,))
 
 
@@ -370,7 +405,7 @@ def apply_gradients_sharded(state, optimizer: Any,
         n_flat = indices.numel() // (2 if spec.wide else 1)
         ef = precision.ensure_ef(
             state, dim=table.dim, wide=spec.wide, sentinel=sentinel,
-            n_flat=n_flat, data=mesh.shape[spec.data_axis],
+            n_flat=n_flat, data=mesh.local_data_rows,
             model=mesh.shape[spec.model_axis], batch_sharded=batch_sharded,
             key_dtype=key_dtype)
     observability.plane_timed(
@@ -388,6 +423,8 @@ def _push(state, optimizer, initializer, indices, grads, mesh, spec,
     flat = _flat_query(spec, state, indices)
     g2 = grads.reshape(-1, dim)
     if spec.plane == "psum":
+        if mesh.spans_processes:
+            flat, g2 = _gather_global(flat, g2, mesh)
         for s in range(spec.num_shards):
             hash_lib.apply_gradients(
                 state.shard(s), optimizer, initializer,
@@ -396,12 +433,12 @@ def _push(state, optimizer, initializer, indices, grads, mesh, spec,
         return state
 
     def apply_fn(keys, g, counts):
-        for s in range(spec.num_shards):
+        for j, s in enumerate(state.held):
             hash_lib.apply_gradients(
-                state.shard(s), optimizer, initializer,
-                _mask_non_owned(spec, keys[s], s), g[s],
+                state.shard(j), optimizer, initializer,
+                _mask_non_owned(spec, keys[j], s), g[j],
                 dedup_capacity=dedup_capacity, max_probes=spec.max_probes,
-                in_counts=counts[s])
+                in_counts=counts[j])
         return state
 
     from .sharded_table import _ef_views
@@ -412,7 +449,8 @@ def _push(state, optimizer, initializer, indices, grads, mesh, spec,
         groups=mesh.shape[spec.data_axis] if batch_sharded else 1,
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
         record_stats=record, wire_dtype=spec.push_wire_dtype,
-        ef_state=None if ef is None else _ef_views(ef, spec.num_shards))
+        ef_state=None if ef is None else _ef_views(ef, len(state.held)),
+        mesh=mesh)
     if ef is not None:
         _, (keys, resid) = out
         ef.keys.copy_(keys.reshape(ef.keys.shape))

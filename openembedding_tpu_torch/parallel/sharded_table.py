@@ -1,4 +1,4 @@
-"""Array tables sharded over a one-process mesh
+"""Array tables sharded over a mesh
 (``openembedding_tpu/parallel/sharded_table.py``).
 
 A table of ``vocab`` rows is cut into ``S`` shards of ``rows_per_shard =
@@ -35,6 +35,17 @@ mode straight into its slice of the stacked tensor, as JAX's
 start where a 1 x 1 one does (compare like with like). A one-shard
 ``a2a`` collection keeps the single-device table (``table.py``), which is
 JAX's one-shard program.
+
+On a mesh across processes (``distributed.create_global_mesh``) a
+process holds only its own shards (:func:`local_shards`): on ``a2a`` its
+positions' shards, stacked as above from its first (``shard_lo``), drawn
+by KI from the same per-shard keys, so the state is the one-process
+mesh's rows with nothing copied; on ``psum`` every model shard, the
+replica of its data rows, as JAX keeps one on every data row. The
+``psum`` push gathers the global batch from every process in rank order
+(JAX's ``all_gather`` over the data axis), so each replica takes the
+same update, the one-process mesh's. ``to_logical`` reads the shards
+held (:func:`held_ids`).
 
 The other planes of JAX ride the ``a2a`` layout:
 
@@ -217,28 +228,54 @@ def make_sharding_spec(meta: EmbeddingVariableMeta, mesh: Mesh,
 class ShardedTableState:
     """One table's shards, stacked: ``weights`` ``[S * rows_per_shard,
     dim]`` and each slot likewise, shard-major (JAX's global physical
-    arrays)."""
+    arrays). On a mesh across processes the shards this process holds,
+    ``local_shards`` of them from shard ``shard_lo`` (0: all ``S``)."""
 
     weights: torch.Tensor
     slots: Dict[str, torch.Tensor]
     num_shards: int
+    shard_lo: int = 0
+    local_shards: int = 0
+
+    @property
+    def held(self) -> range:
+        """The shards held, global ids."""
+        return range(self.shard_lo,
+                     self.shard_lo + (self.local_shards or self.num_shards))
 
     @property
     def rows_per_shard(self) -> int:
-        return self.weights.shape[0] // self.num_shards
+        return self.weights.shape[0] // len(self.held)
 
     @property
     def dim(self) -> int:
         return self.weights.shape[1]
 
     def shard(self, s: int) -> table_lib.TableState:
-        """Shard ``s`` as a one-device table of views into the stacked
-        tensors (its updates land in them)."""
+        """The ``s``-th shard held (global shard ``shard_lo + s``) as a
+        one-device table of views into the stacked tensors (its updates
+        land in them)."""
         rps = self.rows_per_shard
         return table_lib.TableState(
             weights=self.weights[s * rps:(s + 1) * rps],
             slots={k: v[s * rps:(s + 1) * rps]
                    for k, v in self.slots.items()})
+
+
+def local_shards(mesh: Optional[Mesh], spec) -> range:
+    """The shards this process holds, global ids: on a mesh across
+    processes its own positions' (``a2a`` planes) or every model shard
+    (``psum``, the replica of its data rows); else every shard."""
+    if mesh is None or not mesh.spans_processes or spec.plane == "psum":
+        return range(spec.num_shards)
+    return mesh.local_positions
+
+
+def held_fields(shards: range, spec) -> dict:
+    """The state fields that record which shards a process holds."""
+    if len(shards) == spec.num_shards:
+        return {}
+    return {"shard_lo": shards.start, "local_shards": len(shards)}
 
 
 def _mesh_groups(mesh: Mesh, spec: ShardingSpec,
@@ -254,9 +291,10 @@ def create_sharded_table(meta: EmbeddingVariableMeta, optimizer: Any,
                          rng=None):
     """Every shard's rows from ``fold_in(rng, shard)`` (JAX's per-device
     init; ``rng`` None: ``PRNGKey(0)``), drawn by KI's flat mode into the
-    shard's slice of the stacked tensor, and the optimizer's slots. On the
-    cached plane the table comes in a ``CachedState`` with an all-padding
-    replica, as in JAX."""
+    shard's slice of the stacked tensor, and the optimizer's slots: the
+    shards this process holds (:func:`local_shards`). On the cached plane
+    the table comes in a ``CachedState`` with an all-padding replica, as
+    in JAX."""
     optimizer = make_optimizer(optimizer)
     initializer = make_initializer(initializer
                                    or table_lib.DEFAULT_INITIALIZER)
@@ -265,19 +303,23 @@ def create_sharded_table(meta: EmbeddingVariableMeta, optimizer: Any,
     rng = threefry_key(rng)
     dtype = table_lib.resolve_dtype(meta)
     dim = meta.embedding_dim
-    s, rps = spec.num_shards, spec.rows_per_shard
-    weights = torch.empty((s * rps, dim), dtype=dtype, device=mesh.device)
-    for i in range(s):
+    held = local_shards(mesh, spec)
+    rps = spec.rows_per_shard
+    n = len(held) * rps
+    weights = torch.empty((n, dim), dtype=dtype, device=mesh.device)
+    for j, i in enumerate(held):
         key = fold_in(rng, i)
-        block = weights[i * rps:(i + 1) * rps]
+        block = weights[j * rps:(j + 1) * rps]
         if dtype in (torch.float32, torch.bfloat16):
             init_flat(block, key, 0, initializer)
         else:
             block.copy_(initializer.init(key, (rps, dim), dtype,
                                          mesh.device))
-    slots = optimizer.init_slots(s * rps, dim, dtype, mesh.device)
+    slots = optimizer.init_slots(n, dim, dtype, mesh.device)
     return hot_cache.attach_empty(
-        ShardedTableState(weights=weights, slots=slots, num_shards=s), spec)
+        ShardedTableState(weights=weights, slots=slots,
+                          num_shards=spec.num_shards,
+                          **held_fields(held, spec)), spec)
 
 
 def filled_sharded(mesh: Mesh, spec: ShardingSpec, tail: tuple, fill,
@@ -308,6 +350,17 @@ def logical_to_physical(spec: ShardingSpec, vocab: int,
     return spec.physical_rows(torch.arange(vocab, device=device))
 
 
+def held_ids(spec: ShardingSpec, vocab: int, held: range,
+             device) -> torch.Tensor:
+    """The logical ids ``0 .. vocab - 1`` that the shards ``held`` own,
+    ascending (int64): every id on one process's mesh."""
+    ids = torch.arange(vocab, device=device)
+    if len(held) == spec.num_shards:
+        return ids
+    shard, _ = spec.shard_and_local(ids)
+    return ids[(shard >= held.start) & (shard < held.stop)]
+
+
 def from_logical(state: table_lib.TableState, spec: ShardingSpec,
                  vocab: int, optimizer: Any) -> ShardedTableState:
     """A one-device table of ``vocab`` logical rows laid out on the shards:
@@ -332,10 +385,13 @@ def from_logical(state: table_lib.TableState, spec: ShardingSpec,
 
 def to_logical(state: ShardedTableState, spec: ShardingSpec,
                vocab: int) -> table_lib.TableState:
-    """The ``vocab`` logical rows of a sharded table as a one-device table
-    (JAX's ``gather_logical_window`` over the whole vocabulary): the
-    ``mod`` permutation undone, the padding dropped. A copy."""
-    phys = logical_to_physical(spec, vocab, state.weights.device)
+    """The logical rows a sharded table holds as a one-device table
+    (JAX's ``gather_logical_window``): the ``mod`` permutation undone,
+    the padding dropped; every id ``0 .. vocab - 1`` in one process, the
+    ids :func:`held_ids` lists on a mesh across processes. A copy."""
+    held = state.held
+    ids = held_ids(spec, vocab, held, state.weights.device)
+    phys = spec.physical_rows(ids) - held.start * spec.rows_per_shard
     return table_lib.TableState(
         weights=state.weights.index_select(0, phys),
         slots={k: v.index_select(0, phys) for k, v in state.slots.items()})
@@ -352,14 +408,16 @@ def _owner_of(spec: ShardingSpec):
     return owner
 
 
-def _owned_rows(spec: ShardingSpec, keys: torch.Tensor) -> torch.Tensor:
-    """``[S_owner, K]`` requests -> each key's stacked row where its row
-    owner is the requested owner, else ``-1`` (JAX's ``resolve`` mask)."""
+def _owned_rows(spec: ShardingSpec, keys: torch.Tensor,
+                shard_lo: int = 0) -> torch.Tensor:
+    """``[L_owner, K]`` requests of the owners ``shard_lo ..`` -> each
+    key's row in the stacked shards held where its row owner is the
+    requested owner, else ``-1`` (JAX's ``resolve`` mask)."""
     k = keys.to(torch.int64)
     shard, local = spec.shard_and_local(k)
-    me = torch.arange(keys.shape[0], device=keys.device)[:, None]
-    mine = (k >= 0) & (k < spec.padded_vocab) & (shard == me)
-    return torch.where(mine, me * spec.rows_per_shard + local, -1)
+    j = torch.arange(keys.shape[0], device=keys.device)[:, None]
+    mine = (k >= 0) & (k < spec.padded_vocab) & (shard == j + shard_lo)
+    return torch.where(mine, j * spec.rows_per_shard + local, -1)
 
 
 def pull_sharded(state, indices: torch.Tensor, *,
@@ -398,7 +456,7 @@ def _pull(state, indices, mesh, spec, batch_sharded, record):
         return out.reshape(tuple(indices.shape) + (dim,))
 
     def resolve(req: torch.Tensor) -> torch.Tensor:
-        ids = _owned_rows(spec, req)
+        ids = _owned_rows(spec, req, state.shard_lo)
         return gather_rows(state.weights, ids.reshape(-1)).view(
             req.shape[0], -1, dim)
 
@@ -407,7 +465,7 @@ def _pull(state, indices, mesh, spec, batch_sharded, record):
         dtype=state.weights.dtype, num_shards=spec.num_shards,
         groups=_mesh_groups(mesh, spec, batch_sharded),
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
-        record_stats=record, wire_dtype=spec.pull_wire_dtype)
+        record_stats=record, wire_dtype=spec.pull_wire_dtype, mesh=mesh)
     return rows.reshape(tuple(indices.shape) + (dim,))
 
 
@@ -454,7 +512,7 @@ def apply_gradients_sharded(state, optimizer: Any,
         sentinel, key_dtype = precision.ef_key_space(use_hash=False)
         ef = precision.ensure_ef(
             state, dim=table.dim, wide=False, sentinel=sentinel,
-            n_flat=indices.numel(), data=mesh.shape[spec.data_axis],
+            n_flat=indices.numel(), data=mesh.local_data_rows,
             model=mesh.shape[spec.model_axis], batch_sharded=batch_sharded,
             key_dtype=key_dtype)
     observability.plane_timed(
@@ -472,6 +530,10 @@ def _push(state, optimizer, indices, grads, mesh, spec, batch_sharded,
     if flat.shape[0] == 0:
         return state
     if spec.plane == "psum":
+        if mesh.spans_processes:
+            # every replica takes the global batch (JAX's all_gather over
+            # the data axis), in rank order
+            flat, g2 = _gather_global(flat, g2, mesh)
         shard, local = spec.shard_and_local(flat.to(torch.int64))
         valid = (flat >= 0) & (flat < spec.padded_vocab)
         for s in range(spec.num_shards):
@@ -484,11 +546,11 @@ def _push(state, optimizer, indices, grads, mesh, spec, batch_sharded,
         k = keys.to(torch.int64)
         shard, local = spec.shard_and_local(k)
         valid = (k >= 0) & (k < spec.padded_vocab)
-        for s in range(spec.num_shards):
-            masked = torch.where(valid[s] & (shard[s] == s), local[s], -1)
-            table_lib.apply_gradients(state.shard(s), optimizer, masked,
-                                      g[s], dedup_capacity=dedup_capacity,
-                                      in_counts=counts[s])
+        for j, s in enumerate(state.held):
+            masked = torch.where(valid[j] & (shard[j] == s), local[j], -1)
+            table_lib.apply_gradients(state.shard(j), optimizer, masked,
+                                      g[j], dedup_capacity=dedup_capacity,
+                                      in_counts=counts[j])
         return state
 
     out = a2a.exchange_push(
@@ -497,7 +559,8 @@ def _push(state, optimizer, indices, grads, mesh, spec, batch_sharded,
         groups=_mesh_groups(mesh, spec, batch_sharded),
         capacity=spec.a2a_capacity, slack=spec.a2a_slack,
         record_stats=record, wire_dtype=spec.push_wire_dtype,
-        ef_state=None if ef is None else _ef_views(ef, spec.num_shards))
+        ef_state=None if ef is None else _ef_views(ef, len(state.held)),
+        mesh=mesh)
     if ef is not None:
         _, (keys, resid) = out
         ef.keys.copy_(keys.reshape(ef.keys.shape))
@@ -505,9 +568,20 @@ def _push(state, optimizer, indices, grads, mesh, spec, batch_sharded,
     return state
 
 
+def _gather_global(flat: torch.Tensor, g2: torch.Tensor, mesh: Mesh):
+    """Every process's push entries, in rank order: the global batch of
+    a ``psum`` push (ids as int64, so every key dtype crosses alike)."""
+    from .. import distributed
+    tail = tuple(flat.shape[1:])
+    ids = distributed.all_gather(flat.to(torch.int64), mesh)
+    grads = distributed.all_gather(g2, mesh)
+    return (ids.reshape((-1,) + tail).to(flat.dtype),
+            grads.reshape(-1, g2.shape[-1]))
+
+
 def _ef_views(ef, num_shards: int):
     """An ``EFState``'s stacked buffers as ``[S, m(, 2)]`` and ``[S, m,
-    dim]``: sender ``p``'s block is row ``p``."""
+    dim]`` (``S`` the senders held): sender ``p``'s block is row ``p``."""
     s = num_shards
     return (ef.keys.view((s, -1) + tuple(ef.keys.shape[1:])),
             ef.resid.view(s, -1, ef.resid.shape[-1]))

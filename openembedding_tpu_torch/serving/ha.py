@@ -20,8 +20,13 @@ process IS a replica and replication is "run N identical daemons":
 - liveness: every replica answers GET /health, GET /cluster probes its
   peers, and :meth:`RoutingClient.nodes` probes the fleet.
 
-The shard-group client (JAX ``ShardedRoutingClient``) needs shard slices
-and is a later slice (ROADMAP Queue 1, multi-shard exchange planes).
+- shard groups: a model larger than one process serves from ``G``
+  groups of replicas, group ``k`` holding the ids or keys ≡ k (mod G)
+  (``--shard_index k --shard_count G``, ``registry.create_model``);
+  :class:`ShardedRoutingClient` partitions a lookup by owner, sends each
+  group its part through that group's failover rotation and merges the
+  rows by position. A replica of a group restores its slice, from the
+  dump or from a peer of its group.
 """
 
 from __future__ import annotations
@@ -199,6 +204,7 @@ def restore_from_peers(registry, peers: Sequence[str],
     (:func:`restore_model_from_peer`). Returns the number restored."""
     deadline = time.time() + wait
     catalog: Dict[str, tuple] = {}
+    slices: Dict[str, tuple] = {}
     while True:
         catalog.clear()
         creating = False
@@ -211,6 +217,9 @@ def restore_from_peers(registry, peers: Sequence[str],
                 if status == "NORMAL":
                     catalog.setdefault(m["model_sign"],
                                        (m["model_uri"], ep))
+                    slices.setdefault(m["model_sign"],
+                                      (int(m.get("shard_index", 0)),
+                                       int(m.get("shard_count", 1))))
                 elif status == "CREATING":
                     creating = True
         if not creating or time.time() >= deadline:
@@ -223,7 +232,10 @@ def restore_from_peers(registry, peers: Sequence[str],
     for sign, (uri, ep) in catalog.items():
         try:
             sync_point("ha.restore.model")
-            registry.create_model(uri, model_sign=sign, block=True)
+            k, g = slices[sign]
+            # a shard group's peer serves its group's slice: load the same
+            registry.create_model(uri, model_sign=sign, block=True,
+                                  shard_index=k, shard_count=g)
             n += 1
         except ValueError:
             pass  # already loading/loaded locally
@@ -279,8 +291,10 @@ def restore_model_from_peer(registry, endpoint: str, sign: str, *,
     (``GET /models/<sign>/meta``) gives the specs, empty states are made
     on the registry's device, and every variable's rows are paged over
     ``GET /models/<sign>/rows`` into them (hash keys by insertion, array
-    rows by id). The model starts at the peer's version. Returns the
-    sign."""
+    rows by id). The model starts at the peer's version. A shard-group
+    peer's model is rebuilt as the same group's slice: its pages carry
+    global ids, which this replica maps into its slice's rows. Returns
+    the sign."""
     from .. import hash_table as hash_lib
     from .. import table as table_lib
     from ..embedding import EmbeddingCollection
@@ -291,8 +305,11 @@ def restore_model_from_peer(registry, endpoint: str, sign: str, *,
             f"http://{endpoint}/models/{sign}/meta", timeout=timeout) as r:
         info = json.loads(r.read())
     meta = ModelMeta.loads(info["meta"])
+    shard_slice = ((int(info["shard_index"]), int(info["shard_count"]))
+                   if int(info.get("shard_count", 1)) > 1 else None)
     coll = EmbeddingCollection(
-        _specs_from_meta(meta, registry.default_hash_capacity),
+        _specs_from_meta(meta, registry.default_hash_capacity,
+                         shard_slice=shard_slice),
         device=registry.device)
     dev = coll.device
     codec = compress
@@ -338,13 +355,18 @@ def restore_model_from_peer(registry, endpoint: str, sign: str, *,
                 offset += page
                 if not ids.size:
                     continue
+                if shard_slice is not None:
+                    k, g = shard_slice
+                    mine = (ids % g) == k
+                    ids, rows = ids[mine] // g, rows[torch.from_numpy(mine)]
                 weights.index_copy_(0, torch.from_numpy(ids).to(dev),
                                     rows.to(dev, weights.dtype))
             out[name] = table_lib.TableState(weights=weights, slots={})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     model = ServingModel(sign, coll, out, meta,
-                         version=int(info.get("version", 0)))
+                         version=int(info.get("version", 0)),
+                         shard_slice=shard_slice)
     return registry.register_model(model)
 
 
@@ -358,11 +380,18 @@ def spawn_replica(port: int, *, load: Sequence[str] = (),
                   batch_wait_us: Optional[int] = None,
                   batch_queue_rows: Optional[int] = None,
                   adaptive: bool = False,
-                  config: str = "") -> subprocess.Popen:
+                  config: str = "",
+                  shard_index: int = 0,
+                  shard_count: int = 1) -> subprocess.Popen:
     """Start a replica daemon as a child process on ``device`` (cuda
-    unless the caller names cpu); its stdout and stderr are piped."""
+    unless the caller names cpu); its stdout and stderr are piped.
+    ``shard_count`` > 1: a member of shard group ``shard_index``, whose
+    ``load`` items load that group's slice."""
     cmd = [sys.executable, "-m", "openembedding_tpu_torch.serving.ha",
            "--port", str(port), "--device", str(device)]
+    if shard_count > 1:
+        cmd += ["--shard_index", str(shard_index),
+                "--shard_count", str(shard_count)]
     if config:
         cmd += ["--config", config]
     if compress:
@@ -863,6 +892,121 @@ class RoutingClient:
     def nodes(self) -> List[Dict[str, Any]]:
         """Cluster liveness, client-side aggregated."""
         return probe_nodes(self.endpoints)
+
+
+class ShardedRoutingClient:
+    """Shard-group lookup client (JAX's ``ShardedRoutingClient``): shards
+    x replicas over processes, the reference's placement over its
+    parameter servers (``client/Model.cpp:153-186``). ``groups[k]`` lists
+    the replica endpoints of shard ``k`` (ids or keys ≡ k (mod G)); a
+    lookup partitions its ids by owner, asks each owner group through
+    that group's failover rotation (a :class:`RoutingClient`) and merges
+    the rows back by position. It keeps serving while one replica of
+    every group lives."""
+
+    def __init__(self, groups: Sequence[Sequence[str]],
+                 timeout: float = 10.0, compress: str = "",
+                 policy: Optional["RetryPolicy"] = None):
+        if not groups or any(not g for g in groups):
+            raise ValueError("need >= 1 replica endpoint per shard group")
+        self.groups = [RoutingClient(list(g), timeout=timeout,
+                                     compress=compress, policy=policy)
+                       for g in groups]
+
+    @property
+    def shard_count(self) -> int:
+        return len(self.groups)
+
+    def close(self) -> None:
+        for g in self.groups:
+            g.close()
+
+    def __enter__(self) -> "ShardedRoutingClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def lookup(self, sign: str, variable: Any, indices, *,
+               wide: bool = False) -> np.ndarray:
+        """Rows of ``indices``: each id's owner group ``id % G`` (the
+        joined 64-bit value of a pair under ``wide=True``, where indices
+        are ``[..., 2]`` int32 (lo, hi) pairs, ``hash_table.split64``) is
+        asked for its ids, and the rows merge by position. One trace id
+        for the whole fan-out (``client.lookup`` span); the fan-out width
+        goes to ``serving_request_fanout`` and ``serving_fanout_width``."""
+        idx = np.asarray(indices)
+        g = self.shard_count
+        if wide:
+            from .. import hash_table as hash_lib
+            if idx.ndim < 2 or idx.shape[-1] != 2:
+                raise ValueError(
+                    f"wide lookup takes [..., 2] int32 pairs "
+                    f"(hash_table.split64), got shape {idx.shape}")
+            if idx.dtype != np.int32:
+                # pair words must fit int32: a bigger value is a raw
+                # 64-bit id, which belongs in split64
+                if (idx > np.iinfo(np.int32).max).any() or \
+                        (idx < np.iinfo(np.int32).min).any():
+                    raise ValueError(
+                        "wide lookup pair words exceed int32; pass "
+                        "hash_table.split64(ids), not raw 64-bit ids")
+                idx = idx.astype(np.int32)
+            flat = np.ascontiguousarray(idx.reshape(-1, 2))
+            owner = hash_lib.join64(flat) % g
+            out_shape = idx.shape[:-1]
+        else:
+            flat = idx.ravel()
+            owner = flat.astype(np.int64) % g
+            out_shape = idx.shape
+        with scope.trace_context(), \
+                scope.span("client.lookup", proto="sharded") as sp:
+            rows = None
+            fanout = 0
+            for k in range(g):
+                sel = np.nonzero(owner == k)[0]
+                if not sel.size:
+                    continue
+                fanout += 1
+                part = self.groups[k].lookup(sign, variable, flat[sel])
+                if rows is None:
+                    rows = np.zeros((flat.shape[0],) + part.shape[1:],
+                                    part.dtype)
+                rows[sel] = part
+            sp.detail = dict(sp.detail or {}, fanout=fanout)
+            scope.HISTOGRAMS.inc("serving_request_fanout", float(fanout))
+            scope.HISTOGRAMS.observe("serving_fanout_width", float(fanout))
+        if rows is None:
+            rows = np.zeros((0, 0), np.float32)
+        return rows.reshape(out_shape + rows.shape[1:])
+
+    def create_model(self, model_uri: str, *,
+                     model_sign: Optional[str] = None,
+                     block: bool = True) -> List[str]:
+        """Create the model on every replica of every group, each with
+        its group's shard slice."""
+        signs = []
+        for k, group in enumerate(self.groups):
+            for ep in group.endpoints:
+                out = group._request(
+                    ep, "POST", "/models",
+                    {"model_uri": model_uri, "model_sign": model_sign,
+                     "shard_index": k, "shard_count": self.shard_count,
+                     "block": block})
+                signs.append(out["model_sign"])
+        return signs
+
+    def push_delta(self, sign: str, delta) -> List[Dict[str, Any]]:
+        """Send a delta to every replica of every group (each keeps the
+        rows its slice owns), encoded once."""
+        from .. import checkpoint_delta as cd
+        body = bytes(delta) if isinstance(delta, (bytes, bytearray)) \
+            else cd.encode_delta(delta)
+        return [res for g in self.groups
+                for res in g.push_delta(sign, body)]
+
+    def nodes(self) -> List[Dict[str, Any]]:
+        return probe_nodes([ep for g in self.groups for ep in g.endpoints])
 
 
 if __name__ == "__main__":

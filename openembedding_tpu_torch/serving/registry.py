@@ -33,8 +33,17 @@ the ONE states snapshot they were captured on: a flush reading another
 snapshot captures anew for it and frees the old graphs (JAX's jitted
 pull takes the states as arguments and never meets this). On the CPU
 the bucket pull runs eagerly. ``warm_batch_programs`` captures the
-ladder JAX compiles. Serving a shard slice is a later slice and raises
-``NotImplementedError``.
+ladder JAX compiles.
+
+Shard groups (``create_model(shard_index=k, shard_count=G)``): a model
+larger than one process serves from ``G`` processes, each holding the
+ids or keys ≡ k (mod G) (``checkpoint.load_checkpoint(shard_slice=)``;
+the reference's shard x replica placement over its parameter servers).
+Lookups take global ids: an array id maps to its local row ``id // G``,
+and an id or key the member does not own reads a zero row (the router,
+``ha.ShardedRoutingClient``, sends each member only its own). Deltas
+keep the rows the member owns. ``num_shards`` > 1 lays each table over
+a one-process mesh of that many shards on the registry's device.
 
 The registry records JAX's serving metrics: each lookup request counts
 in ``record_serving_lookup`` (and ``record_batch_stats`` when the
@@ -58,7 +67,7 @@ import torch
 from .. import checkpoint as ckpt_lib
 from ..analysis import scope
 from ..analysis.concurrency import make_lock, sync_point
-from ..embedding import EmbeddingCollection, EmbeddingSpec, not_ported
+from ..embedding import EmbeddingCollection, EmbeddingSpec
 from ..meta import ModelMeta, ModelStatus, UNBOUNDED_VOCAB
 from ..parallel import hot_cache
 from ..utils import fs
@@ -108,9 +117,11 @@ class _BucketGraphs:
     reserved."""
 
     def __init__(self, collection: EmbeddingCollection,
-                 states: Dict[str, Any]):
+                 states: Dict[str, Any], map_ids):
         self.collection = collection
         self.states = states
+        # the shard slice's global-to-local id map (ServingModel.map_ids)
+        self.map_ids = map_ids
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[Tuple, Tuple[Any, torch.Tensor, torch.Tensor]] = {}
         self.build_s = 0.0
@@ -120,8 +131,9 @@ class _BucketGraphs:
         coll, states = self.collection, self.states
 
         def fn():
-            rows = coll.pull(states, {name: ids}, batch_sharded=False,
-                             read_only=True, serving_rows=True)[name]
+            rows = coll.pull(states, {name: self.map_ids(name, ids)},
+                             batch_sharded=False, read_only=True,
+                             serving_rows=True)[name]
             return rows.to(torch.float32)
         return fn
 
@@ -175,14 +187,19 @@ class _BucketGraphs:
 
 
 class ServingModel:
-    """One loaded model: collection + read-only states."""
+    """One loaded model: collection + read-only states.
+
+    ``shard_slice=(k, G)`` marks a shard-group member, holding the ids or
+    keys ≡ k (mod G); lookups take global ids (:meth:`map_ids`)."""
 
     def __init__(self, sign: str, collection: EmbeddingCollection,
-                 states: Dict[str, Any], meta: ModelMeta, version: int = 0):
+                 states: Dict[str, Any], meta: ModelMeta, version: int = 0,
+                 shard_slice: Optional[Tuple[int, int]] = None):
         self.sign = sign
         self.collection = collection
         self.states = states
         self.meta = meta
+        self.shard_slice = tuple(shard_slice) if shard_slice else None
         self.version = int(version)
         # serializes hot-swaps of this model (the version check and the
         # build); lookups never take it
@@ -234,7 +251,39 @@ class ServingModel:
         hi = min(offset + limit, total)
         ids = np.arange(offset, hi, dtype=np.int64)
         rows = state.weights[offset:hi].cpu()
+        if self.shard_slice is not None:
+            # local row l holds global id l * G + k
+            k, g = self.shard_slice
+            ids = ids * g + k
         return ids, rows, total
+
+    def map_ids(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        """A lookup's global ids (placed, pair-widened) in this member's
+        id space: on a shard slice ``(k, G)`` an owned array id ``i``
+        becomes its local row ``i // G``, an owned hash key stays as it
+        is, and what the member does not own becomes invalid (``-1``, or
+        an EMPTY key or pair, masked whole): a zero row. The owner rule
+        is ``id % G`` on the joined 64-bit value, the loader's and the
+        router's. Without a slice the ids pass."""
+        if self.shard_slice is None:
+            return idx
+        k, g = self.shard_slice
+        spec = self.collection.specs[name]
+        if not spec.use_hash:
+            return torch.where(idx % g == k, torch.div(
+                idx, g, rounding_mode="floor"), torch.full_like(idx, -1))
+        from .. import hash_table as hash_lib
+        empty = hash_lib.empty_key(idx.dtype)
+        if spec.key_dtype == "wide":
+            if idx.dim() < 1 or idx.shape[-1] != 2:
+                raise ValueError(
+                    f"variable {name!r} takes [..., 2] int32 pair queries "
+                    f"(hash_table.split64), got shape {tuple(idx.shape)}")
+            owned = hash_lib.pair_mod(idx, g) == k
+            return torch.where(owned[..., None], idx,
+                               torch.full_like(idx, empty))
+        return torch.where(idx.to(torch.int64) % g == k, idx,
+                           torch.full_like(idx, empty))
 
     def lookup(self, variable: Any, indices) -> torch.Tensor:
         """Read-only pull for one variable (by name or variable_id), on the
@@ -301,7 +350,8 @@ class ServingModel:
         ctx = (scope.span("serving.lookup", table=name) if span
                else contextlib.nullcontext())
         with ctx:
-            rows = self.collection.pull(states, {name: idx},
+            rows = self.collection.pull(states,
+                                        {name: self.map_ids(name, idx)},
                                         batch_sharded=False, read_only=True,
                                         serving_rows=as_rows)
         return rows[name]
@@ -334,7 +384,7 @@ class ServingModel:
                 if graphs is not None:
                     graphs.release()
                 graphs = self._graphs = _BucketGraphs(self.collection,
-                                                      states)
+                                                      states, self.map_ids)
             rows = graphs.pull(name, host)
         return rows[:n]
 
@@ -356,25 +406,37 @@ class ServingModel:
                 self._graphs = None
 
 
-def _specs_from_meta(meta: ModelMeta,
-                     hash_capacity: int) -> List[EmbeddingSpec]:
+def _specs_from_meta(meta: ModelMeta, hash_capacity: int,
+                     num_shards: int = -1,
+                     shard_slice: Optional[Tuple[int, int]] = None
+                     ) -> List[EmbeddingSpec]:
     """Rebuild EmbeddingSpecs from a checkpoint's model_meta alone, with
     the stateless ``default`` optimizer (serving allocates and loads no
     slot tensors) and the combiners of ``variable_pooling``. Hash capacity and key dtype come from the meta's
     ``hash_variables`` extra where the dump recorded them, else
-    ``hash_capacity`` and ``"int32"``, as in the JAX registry."""
+    ``hash_capacity`` and ``"int32"``, as in the JAX registry. A shard
+    slice ``(k, G)`` shrinks an array vocabulary to the slice's rows
+    (``checkpoint.shard_slice_vocab``) and a hash capacity to its share
+    (``ceil(capacity / G)``)."""
     hash_info = meta.extra.get("hash_variables", {})
     poolings = meta.extra.get("variable_pooling", {})
     specs = []
     for v in sorted(meta.variables, key=lambda v: v.variable_id):
         hash_var = v.meta.vocabulary_size >= UNBOUNDED_VOCAB
         info = hash_info.get(v.name, {})
+        vocab = v.meta.vocabulary_size
+        cap = int(info.get("hash_capacity", hash_capacity))
+        if shard_slice is not None:
+            k, g = shard_slice
+            vocab = ckpt_lib.shard_slice_vocab(vocab, k, g)
+            cap = max(1, -(-cap // g))
         specs.append(EmbeddingSpec(
-            name=v.name, input_dim=-1 if hash_var else v.meta.vocabulary_size,
+            name=v.name, input_dim=-1 if hash_var else vocab,
             output_dim=v.meta.embedding_dim, dtype=v.meta.datatype,
             optimizer={"category": "default"},
-            hash_capacity=int(info.get("hash_capacity", hash_capacity)),
+            hash_capacity=cap,
             key_dtype=info.get("key_dtype", "int32"),
+            num_shards=num_shards,
             pooling=poolings.get(v.name)))
     return specs
 
@@ -421,13 +483,18 @@ class ModelRegistry:
                      block: bool = True) -> str:
         """Load a checkpoint for serving; returns the model_sign. With
         ``block=False`` the load runs on a thread and the status is
-        CREATING until it ends in NORMAL or ERROR."""
-        if shard_count > 1:
-            raise not_ported("serving a shard slice (shard_count > 1)",
-                             "multi-shard exchange planes")
-        if num_shards not in (-1, 1):
-            raise not_ported(f"num_shards={num_shards}",
-                             "multi-shard exchange planes")
+        CREATING until it ends in NORMAL or ERROR. ``shard_count`` > 1
+        loads only this process's shard slice, the ids or keys ≡
+        ``shard_index`` (mod ``shard_count``), so a model larger than one
+        process serves from a shard group (module note). ``num_shards``
+        > 1 lays the tables over a one-process mesh of that many shards
+        (-1 and 1: one)."""
+        if shard_count < 1 or not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
+        if num_shards == 0 or num_shards < -1:
+            raise ValueError(f"num_shards={num_shards}")
+        shard_slice = (shard_index, shard_count) if shard_count > 1 \
+            else None
         with fs.open_file(fs.join(model_uri, ckpt_lib.MODEL_META_FILE),
                           "rb") as f:
             meta = ModelMeta.loads(f.read().decode("utf-8"))
@@ -447,22 +514,22 @@ class ModelRegistry:
             try:
                 sync_point("registry.load.start")
                 with scope.span("registry.load", detail={"sign": sign}):
-                    coll = EmbeddingCollection(
-                        _specs_from_meta(meta, self.default_hash_capacity),
-                        device=self.device)
+                    coll = self._collection(meta, num_shards, shard_slice)
                     # the hot-swap version is the chain seq THIS load
                     # replayed, as the load reports it: a separate read
                     # could see a delta committed after the replay
                     load_info: Dict[str, Any] = {}
-                    states = ckpt_lib.load_checkpoint(model_uri, coll,
-                                                      info=load_info)
+                    states = ckpt_lib.load_checkpoint(
+                        model_uri, coll, shard_slice=shard_slice,
+                        info=load_info)
                     if self.device.type == "cuda":
                         # a failed copy must surface here, as an ERROR
                         # status, not under the first lookup
                         torch.cuda.synchronize(self.device)
                     model = ServingModel(
                         sign, coll, states, meta,
-                        version=int(load_info.get("applied_seq", 0)))
+                        version=int(load_info.get("applied_seq", 0)),
+                        shard_slice=shard_slice)
                 sync_point("registry.load.commit")
                 with self._lock:
                     replaced = self._models.get(sign)
@@ -499,6 +566,20 @@ class ModelRegistry:
                 self._loaders[sign] = t
                 t.start()
         return sign
+
+    def _collection(self, meta: ModelMeta, num_shards: int = -1,
+                    shard_slice: Optional[Tuple[int, int]] = None
+                    ) -> EmbeddingCollection:
+        """The serving collection of a dump's meta: on the registry's
+        device, or over a one-process mesh of ``num_shards`` shards."""
+        from ..parallel.mesh import create_mesh
+        specs = _specs_from_meta(meta, self.default_hash_capacity,
+                                 num_shards if num_shards > 1 else -1,
+                                 shard_slice)
+        if num_shards > 1:
+            return EmbeddingCollection(
+                specs, create_mesh(1, num_shards, device=self.device))
+        return EmbeddingCollection(specs, device=self.device)
 
     # --- micro-batched lookups (serving/batcher.py) ------------------------
     def enable_batching(self, *, max_batch_rows: int = 0,
@@ -662,6 +743,7 @@ class ModelRegistry:
                        replica_num: int = 3) -> str:
         """Install an externally assembled model (the peer restore: its
         states were streamed from a living replica, not a dump)."""
+        k, g = model.shard_slice or (0, 1)
         with self._lock:
             self._models[model.sign] = model
             self._status[model.sign] = {
@@ -669,7 +751,7 @@ class ModelRegistry:
                 "model_uri": model.meta.model_uri or "",
                 "model_status": ModelStatus.NORMAL, "model_error": "",
                 "replica_num": replica_num,
-                "shard_index": 0, "shard_count": 1,
+                "shard_index": k, "shard_count": g,
                 "version": model.version,
             }
         self._close_batchers([model.sign], keep_model=model)
@@ -706,7 +788,8 @@ class ModelRegistry:
                             detail={"sign": sign, "seq": delta.seq}):
                 new_states = cd.apply_delta_to_states(
                     model.collection, model.states, delta.vars,
-                    with_opt=False, donate=False)
+                    with_opt=False, donate=False,
+                    shard_slice=model.shard_slice)
                 if self.device.type == "cuda":
                     # apply errors surface here, not under a reader
                     torch.cuda.synchronize(self.device)

@@ -1,5 +1,5 @@
-"""Training on one device: ``TrainState``, the loss and the ``Trainer``
-(``openembedding_tpu/training.py``).
+"""Training on one device, or one a process: ``TrainState``, the loss
+and the ``Trainer`` (``openembedding_tpu/training.py``).
 
 A step does what the JAX package's jitted step does, as PyTorch ops:
 pull the batch's rows through the collection (on the card the CUDA
@@ -55,6 +55,18 @@ program that consumes the rows prefetched by the step before, pushes,
 and prefetches the next batch's rows (given as ``train_step(next_batch=
 )``, ``fit``'s window head) into the same buffer, the numbers ``a2a``'s
 bit for bit.
+
+On a collection whose mesh spans processes (``distributed.py``), each
+process steps its own slice of the global batch: the dense half runs on
+the local rows, the loss is the local sum over the global count (each
+process adds its share; the sum over the processes is the global
+mean), the dense gradients are summed over the processes before the
+update, so the dense parameters, which start equal from the same key,
+stay equal, and the pushes exchange through the planes. Gloo's
+collectives run on the host, which a CUDA graph cannot capture, so on
+such a mesh ``train_step`` and ``eval_step`` run the eager step (their
+programs are ``_EagerProgram`` s, counted as builds the same way); a
+captured step over ``nccl`` is for a later slice.
 
 ``Trainer(offload=)`` trains variables whose rows live in a host store
 (``offload.ShardedOffloadedTable``): before each step the batch's missing
@@ -140,15 +152,33 @@ def copy_state(state: TrainState, device) -> TrainState:
     return _copy_tree(state, device)
 
 
-def binary_logloss(logits: torch.Tensor, labels: torch.Tensor
-                   ) -> torch.Tensor:
+def binary_logloss(logits: torch.Tensor, labels: torch.Tensor,
+                   count: Optional[int] = None) -> torch.Tensor:
     """Mean sigmoid cross-entropy, in ``optax.sigmoid_binary_cross_entropy``'s
-    form: ``-y·log σ(x) - (1 - y)·log σ(-x)``."""
+    form: ``-y·log σ(x) - (1 - y)·log σ(-x)``. ``count``: divide the sum
+    by it instead of the batch's own size (one process's share of a
+    global batch's mean)."""
     logits = logits.reshape(-1)
     labels = labels.reshape(-1).to(logits.dtype)
     loss = -labels * F.logsigmoid(logits) \
         - (1.0 - labels) * F.logsigmoid(-logits)
-    return torch.mean(loss)
+    if count is None:
+        return torch.mean(loss)
+    return torch.sum(loss) / count
+
+
+def _sum_over_processes(grads, loss, mesh):
+    """The dense gradients and the loss summed over the processes: one
+    all-reduce of their float32 concatenation."""
+    from . import distributed
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads]
+                     + [loss.reshape(1).to(torch.float32)])
+    distributed.all_reduce(flat, mesh)
+    out, o = [], 0
+    for g in grads:
+        out.append(flat[o:o + g.numel()].view(g.shape).to(g.dtype))
+        o += g.numel()
+    return out, flat[o].to(loss.dtype)
 
 
 def _host(x):
@@ -455,8 +485,19 @@ class Trainer:
         JAX's SPMD program computes it; each sharded variable's exchange
         splits the batch over the data axis itself
         (``parallel/alltoall.py``), so the placed batch is
-        :meth:`place_batch`'s."""
+        :meth:`place_batch`'s. On a mesh across processes ``batch`` is
+        this process's slice, checked and placed by
+        ``distributed.local_batch_to_global``."""
+        if self.spans_processes:
+            from . import distributed
+            batch = distributed.local_batch_to_global(batch,
+                                                      self.collection.mesh)
         return self.place_batch(batch)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the collection's mesh spans processes."""
+        return self.collection.mesh.spans_processes
 
     def _split_sparse(self, sparse: Dict[str, Any]):
         """A batch's columns split by name: the collection's, and the
@@ -592,10 +633,18 @@ class Trainer:
         if program is not None and program.live():
             return program(state, host), False
         self._drop_stale_programs()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self.spans_processes:
             program = _CapturedProgram(self, state, host, fn)
             out = program.first
         else:
+            if self.spans_processes:
+                # the flag decides whether the exchanges' stats run a
+                # collective (``alltoall.record_stat``)
+                from . import distributed
+                distributed.check_agree(
+                    observability.evaluate_performance(),
+                    "observability.evaluate_performance() must be set "
+                    "alike on every process")
             program = _EagerProgram(self, state, fn)
             out = program(state, host)
         cache[key] = program
@@ -856,20 +905,32 @@ class Trainer:
         tables among them) and the rows, and the dense update (in place).
         ``batch`` is placed (:meth:`place_batch`). Returns ``(loss, row
         gradients)``; a column the model does not read gets zero
-        gradients, as ``jax.grad`` gives them."""
+        gradients, as ``jax.grad`` gives them. On a mesh across
+        processes (module note) ``loss_fn`` takes ``count=``, the global
+        batch's size; the dense gradients and the loss are summed over
+        the processes."""
         _, dense_ids = self._split_sparse(batch["sparse"])
         params = {k: v.detach().requires_grad_()
                   for k, v in state.params.items()}
         rows = {k: v.detach().requires_grad_() for k, v in rows.items()}
-        loss = self.loss_fn(
-            self._logits(params, batch["dense"], rows, dense_ids),
-            batch["label"])
+        logits = self._logits(params, batch["dense"], rows, dense_ids)
+        mesh = self.collection.mesh
+        if mesh.spans_processes:
+            loss = self.loss_fn(
+                logits, batch["label"],
+                count=batch["label"].shape[0] * mesh.process_count)
+        else:
+            loss = self.loss_fn(logits, batch["label"])
         grads = torch.autograd.grad(
             loss, list(params.values()) + list(rows.values()),
             allow_unused=True, materialize_grads=True)
-        self.tx.apply(state.params, dict(zip(params, grads[:len(params)])),
+        dense_grads = list(grads[:len(params)])
+        loss = loss.detach()
+        if mesh.spans_processes:
+            dense_grads, loss = _sum_over_processes(dense_grads, loss, mesh)
+        self.tx.apply(state.params, dict(zip(params, dense_grads)),
                       state.opt_state)
-        return loss.detach(), dict(zip(rows, grads[len(params):]))
+        return loss, dict(zip(rows, grads[len(params):]))
 
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
         """Scores ``sigmoid(logits)`` for a batch, ``[B]``, through the

@@ -206,10 +206,19 @@ def test_driver_later_planes_save_and_load(argv, capsys, tmp_path):
                                             coll))[name])
 
 
-def test_serving_cluster_refuses_shard_groups():
-    with pytest.raises(NotImplementedError,
-                       match="multi-shard exchange planes"):
-        serving_cluster.main(["--shards", "2", "--device", "cpu"])
+def test_serving_cluster_refuses_shard_groups(capsys):
+    """Shard groups are served since slice 15: ``--shards 2`` runs a 2 x 1
+    grid behind the sharded router; shard and replica counts below one
+    are refused."""
+    for bad in (["--shards", "0"], ["--replicas", "0"]):
+        with pytest.raises(ValueError, match="at least 1"):
+            serving_cluster.main(bad + ["--device", "cpu"])
+    assert serving_cluster.main(["--shards", "2", "--replicas", "1",
+                                 "--steps", "2", "--lookups", "1",
+                                 "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "shard-group cluster up: [['127.0.0.1:" in out
+    assert re.search(r"lookup fields\[0:8\] -> shape \(8, 8\)", out)
 
 
 def test_drivers_need_a_device_named_without_a_gpu(monkeypatch):

@@ -190,8 +190,10 @@ def test_registry_refuses_later_slices(served, tmp_path, devices8):
     from openembedding_tpu_torch.checkpoint_delta import DeltaDecodeError
     with pytest.raises(DeltaDecodeError, match="no header line"):
         reg.apply_delta(SIGN, b"")
-    with pytest.raises(NotImplementedError, match="shard"):
-        reg.create_model(served["path"], shard_count=2)
+    # shard slices are served since slice 15; a slice outside its group
+    # is refused
+    with pytest.raises(ValueError, match="shard 2 of 2"):
+        reg.create_model(served["path"], shard_index=2, shard_count=2)
     # a hash-table checkpoint loads and serves
     mesh = create_mesh(2, 4, devices8)
     hcoll = oe.EmbeddingCollection(

@@ -9,12 +9,23 @@ fails.
 ``_resid_close`` and ``_EFScales``: a card's int8_ef residual against the
 CPU's, in units of the CPU quantization's per-row scale. Equal residuals
 and one-unit flips pass (the flips counted); a residual zeroed, off by
-two units or half a unit, of the wrong sign or of another row fails."""
+two units or half a unit, of the wrong sign or of another row fails.
+
+Phase 19's gates (``wait_procs``, ``bitwise_equal``, ``tables_close``):
+a worker that exits nonzero fails the phase at once, its peer killed; a
+wrong row from the sharded router, or a value one float32 unit off where
+the phase holds bit equality (served rows, the ranks' losses and dense
+parameters), fails; a table beyond atol 1e-6 + rtol 1e-5 of the
+one-process mesh's fails, one within it passes."""
 
 import os
+import subprocess
 import sys
+import time
 
+import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -178,3 +189,82 @@ def test_ef_scales_keep_the_push_scales():
                                    scale)["one_unit_flips"] == 0
     with pytest.raises(AssertionError, match="no int8 quantization"):
         kept.scale_of("t", resid + 1.0)
+
+
+def _proc(code: str, tmp_path, name: str):
+    out = str(tmp_path / f"{name}.log")
+    with open(out, "w") as f:
+        p = subprocess.Popen([sys.executable, "-c", code], stdout=f,
+                             stderr=subprocess.STDOUT)
+    p.out = out
+    return p
+
+
+def test_worker_exiting_nonzero_fails_the_phase(tmp_path):
+    """A worker that exits 3 while its peer waits in a collective: the
+    gate raises at once with the worker's output, and kills the peer."""
+    peer = _proc("import time; time.sleep(60)", tmp_path, "peer")
+    bad = _proc("import sys; print('worker broke'); sys.exit(3)", tmp_path,
+                "bad")
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError, match="worker 1 exited 3"):
+        chip_smoke.wait_procs({"worker 0": peer, "worker 1": bad}, 60,
+                              "multiprocess training")
+    assert time.monotonic() - t0 < 30
+    assert peer.returncode is not None
+    ok = {f"w{r}": _proc("pass", tmp_path, f"ok{r}") for r in range(2)}
+    chip_smoke.wait_procs(ok, 60, "fine")
+
+
+def test_worker_timeout_fails_the_phase(tmp_path):
+    slow = _proc("import time; time.sleep(60)", tmp_path, "slow")
+    with pytest.raises(AssertionError, match="worker 0 exited"):
+        chip_smoke.wait_procs({"worker 0": slow}, 0.5, "multiprocess")
+
+
+def _rows():
+    rng = np.random.default_rng(0)
+    return rng.standard_normal((64, 9)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mutation", ["row_swapped", "one_unit",
+                                      "zero_row", "shape"])
+def test_served_rows_gate_refuses(mutation):
+    """A wrong row from the sharded client fails, and so does one value
+    one float32 unit off."""
+    want = _rows()
+    got = want.copy()
+    if mutation == "row_swapped":
+        got[[3, 4]] = got[[4, 3]]
+    elif mutation == "one_unit":
+        got[7, 2] = np.nextafter(got[7, 2], np.float32(np.inf))
+    elif mutation == "zero_row":
+        got[10] = 0.0
+    else:
+        got = got[:-1]
+    with pytest.raises(AssertionError):
+        chip_smoke.bitwise_equal("served rows", got, want)
+    chip_smoke.bitwise_equal("served rows", want.copy(), want)
+    chip_smoke.bitwise_equal("losses", [0.5, 0.25], [0.5, 0.25])
+    with pytest.raises(AssertionError):
+        chip_smoke.bitwise_equal("losses", [0.5, 0.25],
+                                 [0.5, float(np.nextafter(0.25, 1.0))])
+
+
+def test_table_gate():
+    """A table one float32 unit off a one-process table passes the
+    tolerance gate; off by 1e-4 relative, or one element off by 1e-5
+    absolute near zero, it fails; a wrong shape fails."""
+    want = torch.from_numpy(_rows())
+    ulp = torch.from_numpy(np.nextafter(want.numpy(), np.float32(np.inf)))
+    assert chip_smoke.tables_close("t", ulp, want) > 0
+    with pytest.raises(AssertionError, match="beyond"):
+        chip_smoke.tables_close("t", want * (1 + 1e-4), want)
+    near = want.clone()
+    near[0, 0] = 0.0
+    off = near.clone()
+    off[0, 0] = 1e-5
+    with pytest.raises(AssertionError, match="1 elements beyond"):
+        chip_smoke.tables_close("t", off, near)
+    with pytest.raises(AssertionError, match="shape"):
+        chip_smoke.tables_close("t", want[:-1], want)
