@@ -10,7 +10,8 @@ two versions of the kernel in turns within one call; see ``ki_only``.
 phase 12, ``--ingest`` phase 13, ``--serving`` phase 14, ``--offload``
 phase 15, ``--drivers`` phase 16, ``--sharded`` phase 17, ``--planes``
 phase 18, ``--sharded --planes`` both, phase 18 on phase 17's ``a2a``
-run, ``--multiprocess`` phase 19. None of them prints a result line.)
+run, ``--multiprocess`` phase 19, ``--sharded-delta`` phase 20. None of
+them prints a result line.)
 
 Phase 19, after phase 18: ``deepfm_dim9`` and ``deepfm_dim9_hash``
 trained by two processes (``distributed.py`` over gloo, both on the one
@@ -20,6 +21,14 @@ through their part dumps; the dump served by a 2 x 2 grid of shard
 groups and replicas behind a ``ShardedRoutingClient``, a replica of
 each group killed under lookups; the multihost driver; ``nccl`` refused
 for two ranks on one card (``--mp-nccl``).
+
+Phase 20, after phase 19 (``phase_sharded_delta``): ``ckpt_delta_ab`` on
+a 1 x 4 mesh; ``deepfm_dim9`` on 2 x 2 ``a2a`` fitting with delta
+autosaves, killed, resumed (appending to its chain) and published into a
+whole registry and a shard group bit for bit, then ``deepfm_dim9_hash``'s
+base and delta into the same three; ``offload_ab_k4`` on 1 x 4 against
+one shard, persisted and restored, then with caches small enough to
+evict.
 
 Phases, in order; any failure raises and the run exits nonzero:
 
@@ -285,6 +294,7 @@ It imports torch, numpy and the port, never jax or openembedding_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import os
@@ -3223,19 +3233,24 @@ KILLED_AT = 8                  # the interrupted fit's steps
 SHARE_AT = (1, 4, 8)           # steps after which the dirty share is read
 
 
-def ckpt_delta_ab(tmp: str) -> dict:
+def ckpt_delta_ab(tmp: str, mesh=None) -> dict:
     """``ckpt_delta_ab`` on the card: a ``[2^22, 9]`` Adagrad table saved
     full (parallel writers), then 5 % of its rows pushed and 3 delta saves
     of those rows' chunks (1024 chunks; each repeat re-marks the same
     rows, as bench.py does), then the base and chain loaded (replayed) and
-    held against the live table exactly, weights and slots."""
+    held against the live table exactly, weights and slots. ``mesh``: a
+    one-process ``(data, model)`` shape the table shards over
+    (``run_ckpt_delta_ab``'s ``create_mesh(1, n_dev)``), else one
+    device."""
     from openembedding_tpu_torch import checkpoint as ck
     from openembedding_tpu_torch import checkpoint_delta as cd
     from openembedding_tpu_torch.embedding import (EmbeddingCollection,
                                                     EmbeddingSpec)
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
     coll = EmbeddingCollection((EmbeddingSpec(
         name="big", input_dim=AB_VOCAB, output_dim=AB_DIM,
         optimizer={"category": "adagrad", "learning_rate": 0.01}),),
+        None if mesh is None else create_mesh(*mesh, device=SD_DEVICE),
         seed=SEED)
     states = coll.init()
     torch.cuda.synchronize()
@@ -3271,6 +3286,7 @@ def ckpt_delta_ab(tmp: str) -> dict:
         raise AssertionError(f"ckpt_delta_ab: replay exact={exact}, "
                              f"applied_seq {info['applied_seq']}")
     return {"vocab": AB_VOCAB, "dim": AB_DIM, "dirty_rows": n_dirty,
+            "mesh": list(mesh or (1, 1)),
             "full_s": full["seconds"], "full_bytes": full["bytes"],
             "full_gbps": full["bytes"] / full["seconds"] / 1e9,
             "deltas": deltas,
@@ -3486,9 +3502,8 @@ def elastic_and_swap(kind: str, tmp: str) -> dict:
         t2, _ = fresh()
         s2 = t2.init(prng_key(SEED), batches[0])
         resume0 = scope.HISTOGRAMS.sum("span_trainer_resume_seconds")
-        s2, m2 = t2.fit(s2, batches, resume_from=killed,
-                        autosave_every=AUTOSAVE_EVERY, autosave_dir=killed,
-                        retrace_budget=0)
+        # the resumed fit writes no autosave: the gate reads its state
+        s2, m2 = t2.fit(s2, batches, resume_from=killed, retrace_budget=0)
         torch.cuda.synchronize()
         resume_s = scope.HISTOGRAMS.sum("span_trainer_resume_seconds") \
             - resume0
@@ -5000,7 +5015,7 @@ def _zipf_uid_batch_maker(rng, batch, vocab, zipf_a):
 
 
 def build_offload_trainer(device, cache=None, backing=None, depth=4,
-                          offloaded=True, vocab=None):
+                          offloaded=True, vocab=None, mesh=None):
     """``run_offload``'s trainer (bench.py:286-341): ``uid`` and
     ``uid:linear`` as ``ShardedOffloadedTable`` s (vocab 5 x 10^7, dims 8
     and 1, Adagrad 0.01, constant 0.01, host store a disk memmap under
@@ -5009,8 +5024,10 @@ def build_offload_trainer(device, cache=None, backing=None, depth=4,
     ``offloaded=False``: ``uid`` as in-HBM array tables instead, the same
     configs. ``cache``: rows of each cache (``OFFLOAD_CACHE`` unless
     given); ``vocab``: the host stores' rows (``OFFLOAD_VOCAB`` unless
-    given, ``offload_bigvocab``'s 4 x 10^8). Returns ``(trainer, {name:
-    table})``."""
+    given, ``offload_bigvocab``'s 4 x 10^8); ``mesh``: a one-process
+    ``(data, model)`` shape every table shards over (the caches too, as
+    ``run_offload`` builds them on its mesh), else one device. Returns
+    ``(trainer, {name: table})``."""
     cache = cache or OFFLOAD_CACHE
     vocab = vocab or OFFLOAD_VOCAB
     from openembedding_tpu_torch.embedding import (EmbeddingCollection,
@@ -5020,15 +5037,18 @@ def build_offload_trainer(device, cache=None, backing=None, depth=4,
     from openembedding_tpu_torch.offload import ShardedOffloadedTable
     from openembedding_tpu_torch.optim import dense
     from openembedding_tpu_torch.training import Trainer
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
     opt = {"category": "adagrad", "learning_rate": 0.01}
     init = {"category": "constant", "value": 0.01}
+    where = {"device": device} if mesh is None \
+        else {"mesh": create_mesh(*mesh, device=device)}
     tables = {}
     if offloaded:
         tables = {name: ShardedOffloadedTable(
             name, EmbeddingVariableMeta(embedding_dim=d,
                                         vocabulary_size=vocab),
             opt, init, vocab=vocab, cache_capacity=cache,
-            device=device, backing_dir=backing)
+            backing_dir=backing, **where)
             for name, d in (("uid", OFFLOAD_DIM), ("uid:linear", 1))}
         uid_specs = tuple(t.embedding_spec() for t in tables.values())
     else:
@@ -5041,7 +5061,7 @@ def build_offload_trainer(device, cache=None, backing=None, depth=4,
                       output_dim=OFFLOAD_DIM, optimizer=opt),
         EmbeddingSpec(name="ctx:linear", input_dim=OFFLOAD_CTX,
                       output_dim=1, optimizer=opt))
-    coll = EmbeddingCollection(specs, device=device)
+    coll = EmbeddingCollection(specs, **where)
     trainer = Trainer(deepctr.build_model("deepfm", ("uid", "ctx"),
                                           embedding_dim=OFFLOAD_DIM),
                       coll, dense.adagrad(0.01), offload=tables,
@@ -6581,23 +6601,24 @@ def plane_readings(what, trainer, state, batch, after) -> dict:
 # (config, plane, build keywords, timed blocks, parity: (mode, baseline)):
 # deepfm_dim9 on a2a is phase 17's run
 PLANE_RUNS = (
-    ("deepfm_dim9", "a2a+bf16", {}, BLOCKS, ("bound", "adagrad")),
-    ("deepfm_dim9", "a2a+int8", {}, BLOCKS, ("bound", "adagrad")),
-    ("deepfm_dim9", "a2a+pipelined", {}, BLOCKS, ("exact", "adagrad")),
-    ("deepfm_dim9_zipf", "a2a+cache", {"cache_k": PLANE_CACHE_K}, BLOCKS,
+    # 3 timed blocks each (phase 17's a2a baseline keeps its 5)
+    ("deepfm_dim9", "a2a+bf16", {}, 3, ("bound", "adagrad")),
+    ("deepfm_dim9", "a2a+int8", {}, 3, ("bound", "adagrad")),
+    ("deepfm_dim9", "a2a+pipelined", {}, 3, ("exact", "adagrad")),
+    ("deepfm_dim9_zipf", "a2a+cache", {"cache_k": PLANE_CACHE_K}, 3,
      ("close", "sgd")),
     # its eager step is ~0.55 s (24,000 device operations): 2 blocks of
-    # 10 steps; the grouped ones' eager ~0.22 s: 3 blocks
-    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, (2, 10),
+    # 6 steps; the grouped ones' eager ~0.22 s: 2 blocks
+    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, (2, 6),
      None),
     ("deepfm_dim9_per_feature", "a2a+grouped", {"per_feature": True},
-     3, ("close", "sgd")),
+     2, ("close", "sgd")),
     ("deepfm_dim9_per_feature", "a2a+grouped+pipelined",
-     {"per_feature": True}, 3, ("close", "sgd")),
-    ("deepfm_dim9_hash", "a2a+int8", {"hashed": True}, 3,
+     {"per_feature": True}, 2, ("close", "sgd")),
+    ("deepfm_dim9_hash", "a2a+int8", {"hashed": True}, 2,
      ("bound", "adagrad")),
     ("deepfm_dim9_hash", "a2a+cache", {"hashed": True,
-                                       "cache_k": PLANE_CACHE_K}, 3,
+                                       "cache_k": PLANE_CACHE_K}, 2,
      ("close", "sgd")),
 )
 
@@ -7358,6 +7379,586 @@ def phase_multiprocess() -> dict:
 
 
 
+# --- phase 20: sharded delta checkpoints, hot-swap, sharded offload -----------
+
+SD_DEVICE = "cuda"            # the device of phase 20's meshes
+SD_AB_MESH = (1, 4)           # run_ckpt_delta_ab's create_mesh(1, n_dev)
+SD_FIT_STEPS = 3              # the 2 x 2 fit: 3 captured steps, an autosave
+SD_AUTOSAVE = 1               # after each (a full base, then 2 deltas); the
+SD_KILLED_AT = 2              # interrupted fit stops after its 2nd, the
+                              # resumed one appends the 3rd to its chain
+SD_CHUNKS = 1 << 20           # the fit's dirty chunks (26 rows of
+                              # `fields` each; JAX's default 1024 marks
+                              # every chunk of this table a step)
+SD_GROUPS = 2                 # the shard group the deltas also go to
+SD_HASH_STEPS = 2             # deepfm_dim9_hash: a base and a delta
+SD_OFFLOAD_MESH = (1, 4)      # run_offload's create_mesh(1, n_dev)
+SD_OFFLOAD_CHECK = 4          # gate steps, 1 x 4 against one shard
+SD_OFFLOAD_TIMED = 16         # timed K=4 steps a trainer and a round
+SD_OFFLOAD_ROUNDS = 2
+SD_PERSIST_PUSHES = 2         # pushes after the persist, both ways
+SD_EVICT_CACHE = 1 << 15      # caches smaller than the working set: evict
+SD_EVICT_STEPS = 24           # steps through them, 1 x 4 and one shard
+SD_STORE_RTOL, SD_STORE_ATOL = 1e-5, 1e-6     # 1 x 4 against one shard
+SD_RESTORE_RTOL, SD_RESTORE_ATOL = 1e-6, 1e-7  # restored against kept
+
+
+def _logical_rows(trainer, state, name: str, ids: np.ndarray) -> np.ndarray:
+    """A sharded table's rows of logical ``ids`` read from its stacked
+    shards (no kernel)."""
+    st_ = state.emb[name]
+    phys = trainer.collection.sharding_spec(name).physical_rows(
+        torch.from_numpy(ids.astype(np.int64)).to(st_.weights.device))
+    return st_.weights.index_select(0, phys).cpu().numpy()
+
+
+@contextlib.contextmanager
+def _recorded_saves(saves: list, published: list | None = None):
+    """``checkpoint_delta.save_delta`` wrapped: each save's mode, seconds,
+    bytes, rows and seq appended to ``saves``; with ``published``, each
+    delta's ``Delta`` taken from memory into it, compaction parked."""
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    orig = cd.save_delta
+
+    def recording(*a, **k):
+        if published is not None:
+            k = {**k, "return_payload": True, "compact_chain_len": 10 ** 6,
+                 "compact_bytes_ratio": float("inf")}
+        info = orig(*a, **k)
+        saves.append({f: info.get(f) for f in ("mode", "seconds", "bytes",
+                                               "rows", "seq")})
+        if published is not None and "delta" in info:
+            published.append(info.pop("delta"))
+        return info
+    cd.save_delta = recording
+    try:
+        yield
+    finally:
+        cd.save_delta = orig
+
+
+def _fit_publishing(trainer, state, batches, auto: str):
+    """``fit(autosave_every=SD_AUTOSAVE, retrace_budget=0)`` over
+    ``batches`` into ``auto``, its deltas published from memory
+    (``_recorded_saves``); after the first autosave (the full base) a
+    one-shard registry and the ``SD_GROUPS`` members of a shard group load
+    the base in process. Returns the state, the saves, the published
+    ``Delta`` s, the registries (``{key: (registry, k, G, load s)}``), the
+    fit's seconds and its program builds."""
+    from openembedding_tpu_torch.serving.registry import ModelRegistry
+    published, saves, registries = [], [], {}
+    orig_step, calls = trainer.train_step, [0]
+
+    def hooked_step(state_, b, **kw):
+        i, calls[0] = calls[0], calls[0] + 1
+        if i == SD_AUTOSAVE:
+            # after the first autosave, the full base: load it whole and
+            # as the shard group's members (version 0)
+            for key, k, g in [("whole", 0, 1)] + [
+                    (f"slice{k}", k, SD_GROUPS) for k in range(SD_GROUPS)]:
+                reg = ModelRegistry(device=SD_DEVICE)
+                t0 = time.perf_counter()
+                reg.create_model(auto, model_sign="sd", shard_index=k,
+                                 shard_count=g)
+                registries[key] = (reg, k, g, time.perf_counter() - t0)
+        return orig_step(state_, b, **kw)
+    builds0 = trainer.builds
+    trainer.train_step = hooked_step
+    try:
+        with _recorded_saves(saves, published):
+            t0 = time.perf_counter()
+            state, _ = trainer.fit(state, batches,
+                                   autosave_every=SD_AUTOSAVE,
+                                   autosave_dir=auto, retrace_budget=0)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        del trainer.train_step
+    return (state, saves, published, registries, fit_s,
+            trainer.builds - builds0)
+
+
+def _swap_into(registries, published, probe: np.ndarray, want: dict,
+               owner: np.ndarray) -> dict:
+    """Each published delta applied to each registry (``apply_delta`` of
+    the ``Delta`` in process), seconds each; then every registry's rows of
+    ``probe`` equal ``want`` (the trainer's, by table) bit for bit: a
+    member ``k`` of the group the ids whose ``owner % G == k``, zeros for
+    the rest, the members' sum the whole."""
+    swaps = {}
+    total = {n: np.zeros_like(w) for n, w in want.items()}
+    for key, (reg, k, g, load_s) in registries.items():
+        model = reg.find_model("sd")
+        if model.version != 0:
+            raise AssertionError(f"registry {key}: base version "
+                                 f"{model.version}")
+        secs = []
+        for d in published:
+            t0 = time.perf_counter()
+            res = reg.apply_delta("sd", d)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if not res["applied"] or res["version"] != d.seq:
+                raise AssertionError(f"registry {key}: delta {d.seq} {res}")
+        owned = (owner % g) == k
+        for n, w in want.items():
+            got = model.lookup(n, probe).cpu().numpy()
+            if not np.array_equal(got[owned], w[owned]) \
+                    or np.any(got[~owned]):
+                raise AssertionError(f"registry {key}: served {n} rows "
+                                     "differ from the trainer's")
+            if g > 1:
+                total[n] += got
+        swaps[key] = {"load_s": load_s, "swap_s": secs,
+                      "rows": [d.rows for d in published]}
+    for n, w in want.items():
+        if not np.array_equal(total[n], w):
+            raise AssertionError(f"shard group: {n} rows of the members do "
+                                 "not add up to the whole")
+    return swaps
+
+
+def _check_saves(what, saves, published, steps, reading) -> None:
+    """One full base, then a delta at every later autosave, each
+    published; the bytes into ``reading``."""
+    full = [x for x in saves if x["mode"] == "full"]
+    deltas = [x for x in saves if x["mode"] == "delta"]
+    if len(full) != 1 or len(deltas) != len(published) \
+            or len(published) != steps // SD_AUTOSAVE - 1:
+        raise AssertionError(f"{what}: saves {json.dumps(saves)}")
+    reading["full_base_bytes"] = full[0]["bytes"]
+    reading["delta_bytes"] = [x["bytes"] for x in deltas]
+    reading["full_over_delta_bytes"] = full[0]["bytes"] / max(
+        x["bytes"] for x in deltas)
+
+
+def sharded_fit_and_swap(tmp: str) -> dict:
+    """Phase 20 (b): ``deepfm_dim9`` on the 2 x 2 ``a2a`` mesh with dirty
+    tracking armed at ``SD_CHUNKS`` chunks a table (phase 12 keeps JAX's
+    default), under deterministic algorithms (two runs must be bit for
+    bit equal):
+
+    * uninterrupted: ``_fit_publishing`` over ``SD_FIT_STEPS`` captured
+      steps;
+    * interrupted: a fresh trainer fits ``SD_KILLED_AT`` steps (default
+      compaction) and is dropped; a fresh trainer and collection
+      ``fit(resume_from=, retrace_budget=0)`` the rest, autosaving into
+      the chain it replayed, and must equal the uninterrupted run bit for
+      bit, one program build each; the chain must have grown by a delta
+      over the same base, and a third trainer resumed from it (no step
+      left) must equal the run too;
+    * hot-swap: ``_swap_into`` the three registries, against the
+      trainer's logical rows of the last batch's ids (phase 12 sends
+      wire bytes over HTTP);
+    * the captured step with tracking armed and off, in turns;
+    * ``deepfm_dim9_hash`` at reduced depth: ``_fit_publishing`` over
+      ``SD_HASH_STEPS`` steps (a base and a delta of the hash tables,
+      the payload read from every shard) and ``_swap_into`` the three
+      registries (inserted through the owner shards), against the
+      trainer's rows of the last batch's keys."""
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    from openembedding_tpu_torch.hash_table import join64
+    from openembedding_tpu_torch.optim.initializers import prng_key
+
+    def fresh(hashed=False):
+        trainer, mapper = build_sharded_trainer(SD_DEVICE, hashed=hashed)
+        trainer.collection.enable_dirty_tracking(target_chunks=SD_CHUNKS)
+        return trainer, mapper
+    trainer, _ = fresh()
+    batches = sharded_batches(SD_FIT_STEPS)
+    probe = np.unique(batches[-1]["sparse"]["fields"].ravel())
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    auto = os.path.join(tmp, "sd_auto")
+    registries = {}
+    try:
+        state = trainer.init(prng_key(SEED), batches[0])
+        state, saves, published, registries, fit_s, builds_u = \
+            _fit_publishing(trainer, state, batches, auto)
+
+        killed = os.path.join(tmp, "sd_killed")
+        t1, _ = fresh()
+        t1.fit(t1.init(prng_key(SEED), batches[0]), batches[:SD_KILLED_AT],
+               autosave_every=SD_AUTOSAVE, autosave_dir=killed)
+        del t1
+        torch.cuda.empty_cache()
+        t2, _ = fresh()
+        s2 = t2.init(prng_key(SEED), batches[0])
+        resumed_saves = []
+        with _recorded_saves(resumed_saves):
+            t0 = time.perf_counter()
+            s2, _ = t2.fit(s2, batches, resume_from=killed,
+                           autosave_every=SD_AUTOSAVE, autosave_dir=killed,
+                           retrace_budget=0)
+            torch.cuda.synchronize()
+            resumed_fit_s = time.perf_counter() - t0
+        diff = _spread(state_tensors(state), state_tensors(s2))
+        builds_r = t2.builds
+        del t2, s2
+        torch.cuda.empty_cache()
+        cd.join_compactor(killed)
+        chain = cd.chain_state(killed)
+        t3, _ = fresh()
+        s3, _ = t3.fit(t3.init(prng_key(SEED), batches[0]), batches,
+                       resume_from=killed, retrace_budget=0)
+        diff_chain = _spread(state_tensors(state), state_tensors(s3))
+        del t3, s3
+        torch.cuda.empty_cache()
+        reading = {"config": "deepfm_dim9", "mesh": list(SHARD_MESH),
+                   "plane": "a2a", "steps": SD_FIT_STEPS,
+                   "autosave_every": SD_AUTOSAVE, "saves": saves,
+                   "fit_s": fit_s, "resumed_fit_s": resumed_fit_s,
+                   "builds_uninterrupted": builds_u,
+                   "builds_resumed": builds_r,
+                   "resumed_vs_uninterrupted": diff,
+                   "resumed_saves": resumed_saves, "chain_killed": chain,
+                   "chain_restored_vs_uninterrupted": diff_chain}
+        appended = [x["mode"] for x in resumed_saves] == ["delta"] * (
+            (SD_FIT_STEPS - SD_KILLED_AT) // SD_AUTOSAVE)
+        if diff["tensors"] or diff_chain["tensors"] or builds_u != 1 \
+                or builds_r != 1 or not appended \
+                or chain["last_seq"] != SD_FIT_STEPS // SD_AUTOSAVE - 1:
+            raise AssertionError(f"sharded elastic fit: "
+                                 f"{json.dumps(reading)}")
+        _check_saves("sharded elastic fit", saves, published,
+                     SD_FIT_STEPS, reading)
+        want = {n: _logical_rows(trainer, state, n, probe)
+                for n in ("fields", "fields:linear")}
+        reading["swap"] = _swap_into(registries, published, probe, want,
+                                     probe.astype(np.int64))
+        reading["probe_ids"] = int(probe.size)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        registries.clear()
+        cd.join_compactor(auto)
+    trainer.programs.clear()
+    reading["tracking"] = _tracking_cost(trainer, state, batches)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    trainer, _ = fresh(hashed=True)
+    batches = sharded_batches(SD_HASH_STEPS, hashed=True)
+    probe = np.unique(batches[-1]["sparse"]["fields"].reshape(-1, 2),
+                      axis=0)
+    auto = os.path.join(tmp, "sd_hash_auto")
+    try:
+        state = trainer.init(prng_key(SEED), batches[0])
+        state, saves, published, registries, fit_s, builds = \
+            _fit_publishing(trainer, state, batches, auto)
+        hreading = {"config": "deepfm_dim9_hash", "steps": SD_HASH_STEPS,
+                  "autosave_every": SD_AUTOSAVE, "saves": saves,
+                  "fit_s": fit_s, "builds": builds}
+        if builds != 1:
+            raise AssertionError(f"sharded hash fit: {json.dumps(hreading)}")
+        _check_saves("sharded hash fit", saves, published, SD_HASH_STEPS,
+                     hreading)
+        want = {n: _expected(state, n, probe, True)
+                for n in ("fields", "fields:linear")}
+        hreading["swap"] = _swap_into(registries, published, probe, want,
+                                    join64(probe))
+        hreading["probe_keys"] = int(probe.shape[0])
+    finally:
+        registries.clear()
+        cd.join_compactor(auto)
+    reading["hash"] = hreading
+    return reading
+
+
+def _align_offload(t4, s4, s1) -> None:
+    """The 1 x 4 trainer's state made the one-shard trainer's: the dense
+    parameters and optimizer state, and the ``ctx`` tables' logical rows
+    laid out on the shards (``sharded_table.from_logical``); the caches
+    start empty and the host stores equal in both."""
+    from openembedding_tpu_torch.parallel import sharded_table as st
+    coll = t4.collection
+    for name in ("ctx", "ctx:linear"):
+        laid = st.from_logical(s1.emb[name], coll.sharding_spec(name),
+                               coll.specs[name].input_dim,
+                               coll.optimizer(name))
+        dst = s4.emb[name]
+        dst.weights.copy_(laid.weights)
+        for k, v in dst.slots.items():
+            v.copy_(laid.slots[k])
+    for k, v in s4.params.items():
+        v.copy_(s1.params[k])
+    for k, v in s4.opt_state.items():
+        v.copy_(s1.opt_state[k])
+
+
+def _stores_close(what, a, b, rtol, atol, work_ids=True) -> float:
+    """Two tables' host stores: the touched rows within ``rtol``/``atol``
+    (with equal work ids unless ``work_ids`` is off), a sample of
+    untouched rows bit for bit; the largest difference."""
+    stamped = (a.host_work_id > 0) | (b.host_work_id > 0)
+    touched = np.nonzero(stamped)[0]
+    sample = np.random.RandomState(SEED).randint(0, a.vocab, OFFLOAD_SAMPLE)
+    sample = sample[~stamped[sample]]
+    worst = 0.0
+    for name, x, y in [("weights", a.host_weights, b.host_weights)] + [
+            (k, a.host_slots[k], b.host_slots[k]) for k in a.host_slots]:
+        xs, ys = x[touched], y[touched]
+        worst = max(worst, float(np.abs(xs - ys).max()) if xs.size else 0.0)
+        if not np.allclose(xs, ys, rtol=rtol, atol=atol) \
+                or not np.array_equal(x[sample], y[sample]):
+            raise AssertionError(f"{what}: host {name} differ (largest "
+                                 f"difference {worst})")
+    if work_ids and not np.array_equal(a.host_work_id[touched],
+                                       b.host_work_id[touched]):
+        raise AssertionError(f"{what}: host work ids differ")
+    return worst
+
+
+def sharded_offload(tmp: str) -> dict:
+    """Phase 20 (c): ``offload_ab_k4`` on the 1 x 4 mesh (the caches 4
+    stacked shards, the ``ctx`` tables sharded too), beside phase 15's
+    one-shard trainer on the same zipf batches, both prefetched at K=4:
+
+    * gate, under deterministic algorithms: from the same state
+      (``_align_offload``), ``SD_OFFLOAD_CHECK`` steps each; losses
+      within rtol 1e-5 and the host stores after a flush within
+      ``SD_STORE_RTOL``/``SD_STORE_ATOL`` (JAX's eviction tolerance);
+    * throughput: ``SD_OFFLOAD_ROUNDS`` rounds of ``SD_OFFLOAD_TIMED``
+      steps each trainer in turns, on new batches; examples/s, hit rate,
+      evictions, recaptures; the 1 x 4 trainer's K1/K2/KI launches a step
+      from the counters, the same in every round;
+    * persist, kill, restore and continue on the 1 x 4 ``uid:linear``
+      table: persisted, ``SD_PERSIST_PUSHES`` pushes on it
+      (uninterrupted); a fresh table restores the persist and takes the
+      same pushes; host rows within ``SD_RESTORE_RTOL``/
+      ``SD_RESTORE_ATOL``, and the restore resumes one work id past the
+      persisted watermark (JAX's rule), so the stamps are not compared."""
+    from openembedding_tpu_torch.meta import EmbeddingVariableMeta
+    from openembedding_tpu_torch.offload import ShardedOffloadedTable
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    from openembedding_tpu_torch.parallel import sharded_hash as sh
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    make_batch = _zipf_uid_batch_maker(np.random.RandomState(SEED), BATCH,
+                                       OFFLOAD_VOCAB, OFFLOAD_ZIPF)
+    check = [make_batch() for _ in range(SD_OFFLOAD_CHECK + 1)]
+    out = {"config": {"vocab": OFFLOAD_VOCAB, "cache": OFFLOAD_CACHE,
+                      "dim": OFFLOAD_DIM, "batch": BATCH,
+                      "zipf_a": OFFLOAD_ZIPF, "depth": 4,
+                      "mesh": list(SD_OFFLOAD_MESH)}}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        t1, tab1 = build_offload_trainer(SD_DEVICE)
+        t4, tab4 = build_offload_trainer(SD_DEVICE, mesh=SD_OFFLOAD_MESH)
+        out["alloc_s"] = time.perf_counter() - t0
+        s1 = t1.init(prng_key(SEED), check[0])
+        s4 = t4.init(prng_key(SEED), check[0])
+        _align_offload(t4, s4, s1)
+        shards = {n: s4.emb[n].num_shards for n in tab4}
+        if set(shards.values()) != {SD_OFFLOAD_MESH[0] * SD_OFFLOAD_MESH[1]}:
+            raise AssertionError(f"offload caches' shards {shards}")
+        s1, l1 = _offload_steps(t1, s1, check[1:], True)
+        s4, l4 = _offload_steps(t4, s4, check[1:], True)
+        _rel_close("1 x 4 against one shard", l4, l1, rtol=1e-5)
+        _join_tables(tab1, s1)
+        _join_tables(tab4, s4)
+        out["gate"] = {"steps": SD_OFFLOAD_CHECK, "losses_1x4": l4,
+                       "losses_one_shard": l1,
+                       "store_max_abs": max(_stores_close(
+                           f"{n} 1 x 4 against one shard", tab4[n], tab1[n],
+                           SD_STORE_RTOL, SD_STORE_ATOL) for n in tab4)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # both programs were captured under deterministic algorithms
+    t1.programs.clear()
+    t4.programs.clear()
+    wrappers = _wrappers()
+    modes = {"one_shard": (t1, tab1, s1), "mesh_1x4": (t4, tab4, s4)}
+    warm = [make_batch() for _ in range(OFFLOAD_WARMUP)]
+    for name, (tr, tabs, st_) in modes.items():
+        st_, _ = _offload_steps(tr, st_, warm, True)
+        modes[name] = (tr, tabs, st_)
+    builds = {name: m[0].builds for name, m in modes.items()}
+    blocks = {name: [] for name in modes}
+    per_round = []
+    for _ in range(SD_OFFLOAD_ROUNDS):
+        timed = [make_batch() for _ in range(SD_OFFLOAD_TIMED)]
+        for name, (tr, tabs, st_) in modes.items():
+            before = {k: w.launches for k, w in wrappers.items()}
+            st_, r = _timed_mode(tr, tabs["uid"], st_, timed, "k4", [])
+            modes[name] = (tr, tabs, st_)
+            blocks[name].append(r)
+            if name == "mesh_1x4":
+                per_round.append({k: (w.launches - before[k])
+                                  / SD_OFFLOAD_TIMED
+                                  for k, w in wrappers.items()})
+    out["modes"] = {}
+    for name, rs in blocks.items():
+        steps = sum(r["steps"] for r in rs)
+        secs = sum(r["seconds"] for r in rs)
+        hits = sum(r["hits"] for r in rs)
+        misses = sum(r["misses"] for r in rs)
+        out["modes"][name] = {
+            "examples_per_s": steps * BATCH / secs,
+            "step_ms": 1e3 * secs / steps,
+            "block_step_ms": [1e3 * r["seconds"] / r["steps"] for r in rs],
+            "cache_hit_rate": hits / max(hits + misses, 1),
+            "evictions": modes[name][1]["uid"].evictions,
+            "recaptures": modes[name][0].builds - builds[name]}
+    per_step = per_round[0]
+    if any(r != per_step for r in per_round) or any(
+            v != int(v) for v in per_step.values()) or not (
+            per_step["gather_rows"] and per_step["probe_gather"]
+            and per_step["init_rows"]):
+        raise AssertionError(f"1 x 4 offload launches a step {per_round}")
+    out["launches_per_step"] = per_step
+    t1, tab1, s1 = modes.pop("one_shard")
+    _join_tables(tab1, s1)
+    del t1, tab1, s1
+    t4, tab4, s4 = modes.pop("mesh_1x4")
+    _join_tables(tab4, s4)
+
+    # persist, kill, restore and continue: uid:linear on the mesh
+    lin = tab4["uid:linear"]
+    pdir = os.path.join(tmp, "sd_persist_uid_linear")
+    rng = np.random.RandomState(SEED + 1)
+    pushes = [(make_batch()["sparse"]["uid"],
+               rng.randn(BATCH, 1).astype(np.float32))
+              for _ in range(SD_PERSIST_PUSHES)]
+
+    def run(table, cache):
+        for ids, grads in pushes:
+            cache = table.prepare(cache, ids)
+            sh.apply_gradients_sharded(
+                cache, table.optimizer, table.initializer,
+                torch.from_numpy(ids).to(SD_DEVICE),
+                torch.from_numpy(grads).to(SD_DEVICE), mesh=table.mesh,
+                spec=table.spec, batch_sharded=False)
+            table.note_update(ids)
+        table.flush(cache)
+        table._join_writeback()
+        return cache
+    t0 = time.perf_counter()
+    base = lin.persist(s4.emb["uid:linear"], pdir)
+    persist_s = time.perf_counter() - t0
+    work = lin.work_id
+    run(lin, s4.emb["uid:linear"])
+    fresh = ShardedOffloadedTable(
+        "uid:linear", EmbeddingVariableMeta(embedding_dim=1,
+                                            vocabulary_size=OFFLOAD_VOCAB),
+        {"category": "adagrad", "learning_rate": 0.01},
+        {"category": "constant", "value": 0.01}, vocab=OFFLOAD_VOCAB,
+        cache_capacity=OFFLOAD_CACHE,
+        mesh=create_mesh(*SD_OFFLOAD_MESH, device=SD_DEVICE))
+    t0 = time.perf_counter()
+    cache = fresh.restore(pdir)
+    restore_s = time.perf_counter() - t0
+    if fresh.work_id != work + 1 or fresh.persisted_work != work:
+        raise AssertionError(f"uid:linear restored at work id "
+                             f"{fresh.work_id} (persisted {work})")
+    run(fresh, cache)
+    worst = _stores_close("uid:linear restored and continued", fresh, lin,
+                          SD_RESTORE_RTOL, SD_RESTORE_ATOL, work_ids=False)
+    out["persist_restore"] = {
+        "persist_s": persist_s, "base_rows": base["rows"],
+        "restore_s": restore_s, "pushes": SD_PERSIST_PUSHES,
+        "max_abs": worst, "persisted_work": work}
+    for t in tab4.values():
+        t.finish()
+    del t4, tab4, s4, lin, fresh, cache
+    out["small_cache"] = _sharded_evictions(make_batch)
+    return out
+
+
+def _sharded_evictions(make_batch) -> dict:
+    """Phase 20 (c), eviction: caches of ``SD_EVICT_CACHE`` rows, smaller
+    than the working set, on the 1 x 4 mesh and on one shard, under
+    deterministic algorithms, from the same state (``_align_offload``),
+    ``SD_EVICT_STEPS`` prefetched steps each: losses within rtol 1e-5,
+    the same evictions (one or more, each streaming every shard to the
+    host and re-inserting the survivors) and the host stores after a
+    flush within ``SD_STORE_RTOL``/``SD_STORE_ATOL``."""
+    from openembedding_tpu_torch.optim.initializers import prng_key
+    batches = [make_batch() for _ in range(SD_EVICT_STEPS + 1)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        t1, tab1 = build_offload_trainer(SD_DEVICE, cache=SD_EVICT_CACHE)
+        t4, tab4 = build_offload_trainer(SD_DEVICE, cache=SD_EVICT_CACHE,
+                                         mesh=SD_OFFLOAD_MESH)
+        s1 = t1.init(prng_key(SEED), batches[0])
+        s4 = t4.init(prng_key(SEED), batches[0])
+        _align_offload(t4, s4, s1)
+        s1, l1 = _offload_steps(t1, s1, batches[1:], True)
+        t0 = time.perf_counter()
+        s4, l4 = _offload_steps(t4, s4, batches[1:], True)
+        steps_s = time.perf_counter() - t0
+        _rel_close("small caches, 1 x 4 against one shard", l4, l1,
+                   rtol=1e-5)
+        _join_tables(tab1, s1)
+        _join_tables(tab4, s4)
+        ev = {n: (tab4[n].evictions, tab1[n].evictions) for n in tab4}
+        out = {"rows": SD_EVICT_CACHE, "steps": SD_EVICT_STEPS,
+               "evictions": {n: e[0] for n, e in ev.items()},
+               "gen_retries": tab4["uid"].gen_retries,
+               "recaptures": t4.builds - 1, "mesh_steps_s": steps_s}
+        if any(a < 1 or a != b for a, b in ev.values()) or t4.builds != 1:
+            raise AssertionError(f"small caches on 1 x 4: {json.dumps(out)}"
+                                 f", one shard's evictions {ev}")
+        out["store_max_abs"] = max(_stores_close(
+            f"{n} small caches, 1 x 4 against one shard", tab4[n], tab1[n],
+            SD_STORE_RTOL, SD_STORE_ATOL) for n in tab4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for t in list(tab1.values()) + list(tab4.values()):
+        t.finish()
+    return out
+
+
+def phase_sharded_delta() -> dict:
+    """Phase 20: delta checkpoints and hot-swap of sharded variables, and
+    ``ShardedOffloadedTable`` over a one-process mesh, at full width:
+    (a) ``ckpt_delta_ab`` on the 1 x 4 mesh (``ckpt_delta_ab(tmp,
+    SD_AB_MESH)``: full and delta saves, the chain loaded bit for bit);
+    (b) ``deepfm_dim9`` on 2 x 2 ``a2a``, then ``deepfm_dim9_hash`` at
+    reduced depth (``sharded_fit_and_swap``); (c) ``offload_ab_k4`` on
+    1 x 4, then caches small enough to evict (``sharded_offload``,
+    ``_sharded_evictions``). Checkpoints and
+    host stores under a ``tempfile.mkdtemp()``, removed at the end.
+    Prints one ``{"sharded_delta": ...}`` line; returns the kernels'
+    launches of the phase (counters zeroed at its start), each of which
+    must have launched."""
+    import tempfile
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="oe_smoke_sd_")
+    t0 = time.perf_counter()
+    reading = {}
+    try:
+        reading["ckpt_delta_ab"] = ckpt_delta_ab(tmp, SD_AB_MESH)
+        reading["ckpt_delta_ab"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        reading["fit_swap"] = sharded_fit_and_swap(tmp)
+        reading["fit_swap"]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        reading["offload"] = sharded_offload(tmp)
+        reading["offload"]["seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    finally:
+        for d in os.listdir(tmp):
+            try:
+                cd.join_compactor(os.path.join(tmp, d))
+            except RuntimeError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+    reading["phase_s"] = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    reading["launches"] = launches
+    log(json.dumps({"sharded_delta": reading}))
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        raise AssertionError(f"sharded delta: {missing} never launched")
+    return launches
+
+
 def setup_array():
     """The ``deepfm_dim9`` collection initialized from the seed, its host
     copy and the main-path ids (one fused ``[4096, 26]`` batch, flat)."""
@@ -7479,6 +8080,9 @@ def main() -> None:
     if sys.argv[1:] == ["--multiprocess"]:
         phase_multiprocess()
         return
+    if sys.argv[1:] == ["--sharded-delta"]:
+        phase_sharded_delta()
+        return
     if sys.argv[1:] == ["--sharded", "--planes"]:
         sharded = phase_sharded()
         phase_planes(sharded["a2a_run"], sharded["parity_runs"])
@@ -7545,6 +8149,10 @@ def main() -> None:
     multi = _timed("19 multiprocess", phase_multiprocess)
     launches += multi["gather_rows"]
     flat_training += multi["init_flat"]
+    torch.cuda.empty_cache()
+    sdelta = _timed("20 sharded delta", phase_sharded_delta)
+    launches += sdelta["gather_rows"]
+    flat_training += sdelta["init_flat"]
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
@@ -7570,7 +8178,7 @@ def main() -> None:
         + ingest["probe_gather"] + served["probe_gather"]
         + offload["probe_gather"] + drivers["probe_gather"]
         + sharded["probe_gather"] + planes["probe_gather"]
-        + multi["probe_gather"],
+        + multi["probe_gather"] + sdelta["probe_gather"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"] for c in pcases),
         "ms": pmain["kernel_ms"], "call_ms": pmain["kernel_call_ms"],
@@ -7588,11 +8196,12 @@ def main() -> None:
         "launches": hash_launches["init_rows"] + hybrid["init_rows"]
         + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
         + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"]
-        + multi["init_rows"] + flat_training + hash_launches["init_flat"],
+        + multi["init_rows"] + sdelta["init_rows"] + flat_training
+        + hash_launches["init_flat"],
         "launches_per_key": hash_launches["init_rows"] + hybrid["init_rows"]
         + delta["init_rows"] + ingest["init_rows"] + offload["init_rows"]
         + drivers["init_rows"] + sharded["init_rows"] + planes["init_rows"]
-        + multi["init_rows"],
+        + multi["init_rows"] + sdelta["init_rows"],
         "launches_array": flat_training + hash_launches["init_flat"],
         "checked_against_plain": True,
         "max_abs_err": max(c["max_abs_err"]

@@ -30,9 +30,14 @@ cannot place in ``insert_failures``). bfloat16 payload fields are numpy
 numpy gives ml_dtypes' bfloat16, so the files and wire frames are the
 JAX package's.
 
-Delta mode is local, single-process and over an uncompressed base (the
-delta files themselves may be zlib-compressed). A dump written with
-dirty tracking off has no manifest and loads as before.
+Delta mode is local, one process (one device or a one-process mesh;
+across processes it raises, as JAX's does) and over an uncompressed base
+(the delta files themselves may be zlib-compressed). A sharded
+variable's payload holds logical rows and keys, gathered from its
+stacked shards, so a chain written from a mesh is byte for byte the chain
+one shard writes with the same rows, and any layout, one shard or a
+mesh or a serving shard slice, applies it. A dump written with dirty
+tracking off has no manifest and loads as before.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ from . import hash_table as hash_lib
 from .analysis.concurrency import make_lock, sync_point
 from .embedding import EmbeddingCollection
 from .parallel import hot_cache
+from .parallel import sharded_hash as sh
+from .parallel import sharded_table as st
 from .utils import fs
 
 DELTA_MANIFEST_FILE = "delta_manifest"
@@ -63,7 +70,7 @@ DELTA_FORMAT = 1
 # compaction budget: fold the chain into a new base past either bound
 COMPACT_CHAIN_LEN = 8
 COMPACT_BYTES_RATIO = 0.5
-_APPLY_CHUNK = 1 << 16
+_APPLY_CHUNK = 1 << 16        # payload rows a delta apply moves at a time
 _BF16_DESCR = "<V2"          # numpy's descr of ml_dtypes' bfloat16
 
 
@@ -247,50 +254,51 @@ def _payload_fields(state, include_optimizer: bool,
     return fields
 
 
-def _array_delta_payload(state, vocab: int, rows_per_chunk: int,
+def _array_delta_payload(state, sspec, vocab: int, rows_per_chunk: int,
                          chunks: np.ndarray, include_optimizer: bool
                          ) -> Tuple[Dict[str, np.ndarray], List[int]]:
     """One array variable's dirty chunks as a payload dict and a crc32 per
-    chunk (over the chunk's weights and slots bytes, in field order).
-    Consecutive chunks copy to the host as one row run."""
+    chunk (over the chunk's weights and slots bytes, in field order). The
+    chunks' logical rows, in chunk order, copy to the host in one gather a
+    field (of the stacked shards of a sharded table, ``sspec`` its
+    ``ShardingSpec``; None for one shard), so a chain written from a mesh
+    is the chain one shard writes, and the payload owns its memory: a
+    later in-place step changes no committed delta."""
     fields = _payload_fields(state, include_optimizer)
     chunks = np.asarray(chunks, np.int64)
-    parts: Dict[str, list] = {f: [] for f in fields}
-    chunk_crcs: List[int] = []
     R = int(rows_per_chunk)
-    runs: List[Tuple[int, int]] = []
-    for c in chunks:
-        c = int(c)
-        if runs and runs[-1][1] == c:
-            runs[-1] = (runs[-1][0], c + 1)
-        else:
-            runs.append((c, c + 1))
-    order = _field_order(fields)
-    for c0, c1 in runs:
-        l0 = c0 * R
-        l1 = min(c1 * R, vocab)
-        if l1 <= l0:
-            continue
-        bufs = {f: _host_array(t[l0:l1]) for f, t in fields.items()}
-        for f in fields:
-            parts[f].append(bufs[f])
-        for c in range(c0, c1):
-            a = c * R - l0
-            b = min((c + 1) * R, vocab) - l0
-            if b <= a:
-                continue
-            crc = 0
-            for f in order:
-                crc = zlib.crc32(bufs[f][a:b].tobytes(), crc)
-            chunk_crcs.append(crc)
-    payload = {}
-    for f, t in fields.items():
-        payload[f] = np.concatenate(parts[f]) if parts[f] \
-            else _host_array(t[:0])
+    lo = chunks * R
+    n = np.maximum(np.minimum(lo + R, vocab) - lo, 0)
+    total = int(n.sum())
+    ends = np.cumsum(n)
+    ids = np.arange(total, dtype=np.int64) + np.repeat(lo - (ends - n), n)
+    idx = torch.from_numpy(ids).to(state.weights.device)
+    if sspec is not None:
+        idx = sspec.physical_rows(idx)
+    bufs = {f: _host_array(t.index_select(0, idx))
+            for f, t in fields.items()}
+    views = [bufs[f].reshape(total, -1).view(np.uint8)
+             for f in _field_order(fields)] if total else []
+    chunk_crcs = []
+    for i in np.nonzero(n)[0]:
+        a, b = int(ends[i] - n[i]), int(ends[i])
+        crc = 0
+        for v in views:
+            crc = zlib.crc32(v[a:b], crc)
+        chunk_crcs.append(crc)
+    payload = dict(bufs)
     payload["chunks"] = chunks
     payload["rows_per_chunk"] = np.int64(R)
     payload["vocab"] = np.int64(vocab)
     return payload, chunk_crcs
+
+
+def _sharding(collection: EmbeddingCollection, name: str, state):
+    """Variable ``name``'s sharding spec when ``state`` is a sharded
+    table (stacked shards), else None (the one-device table)."""
+    if isinstance(state, (st.ShardedTableState, sh.ShardedHashState)):
+        return collection.sharding_spec(name)
+    return None
 
 
 def _keys64(keys: torch.Tensor) -> torch.Tensor:
@@ -308,7 +316,9 @@ def _hash_delta_payload(state, tracker, chunks: np.ndarray,
     """One hash variable's live rows whose key chunk (``key %
     num_chunks``) is dirty, in slot order: selected on the device, only
     those rows copied to the host. Every live row of a dirty chunk ships
-    (replay is newest-wins, so over-collection is safe)."""
+    (replay is newest-wins, so over-collection is safe). A sharded
+    table's stacked shards are JAX's global physical array, so their slot
+    order is the order JAX collects its shards in."""
     fields = _payload_fields(state, include_optimizer, keys=True)
     dev = state.keys.device
     dirty = torch.zeros(tracker.num_chunks, dtype=torch.bool, device=dev)
@@ -342,7 +352,9 @@ def _savez(payload: Dict[str, np.ndarray], compressed: bool) -> bytes:
         for key, val in payload.items():
             with zipf.open(key + ".npy", "w", force_zip64=True) as fid:
                 _write_npy(fid, np.asanyarray(val))
-    return bio.getvalue()
+    # a view of the buffer, not a copy of it (a delta of a whole table is
+    # gigabytes)
+    return bio.getbuffer()
 
 
 def _serialize_payload(payload: Dict[str, np.ndarray],
@@ -481,8 +493,8 @@ def save_delta(path: str, collection: EmbeddingCollection,
             chunk_crc = None
         else:
             payload, chunk_crc = _array_delta_payload(
-                state, spec.input_dim, tracker.rows_per_chunk, chunks,
-                include_optimizer)
+                state, _sharding(collection, name, state), spec.input_dim,
+                tracker.rows_per_chunk, chunks, include_optimizer)
         rows = int(payload["weights"].shape[0])
         raw, crc = _serialize_payload(payload, compress)
         fname = _delta_fname(seq, collection.variable_id(name))
@@ -714,7 +726,13 @@ def apply_delta_to_states(collection: EmbeddingCollection,
     ``shard_slice=(k, G)``: states of a serving shard group's member,
     which keeps the payload rows it owns (array ids ≡ k (mod G) at row
     ``id // G``, hash keys whose joined value is ≡ k (mod G)), the rule
-    of ``checkpoint.load_checkpoint(shard_slice=)``."""
+    of ``checkpoint.load_checkpoint(shard_slice=)``. Payloads hold
+    logical rows and keys: a sharded state takes them through its layout
+    (array rows at their stacked positions, ``sharded_table.
+    deliver_rows_sharded``; hash rows inserted by their owner shards,
+    ``sharded_hash.insert_rows_sharded``), as JAX's does on any mesh. A
+    plane's derived state (a hot-row replica, an int8 residual) comes
+    back empty around the patched table."""
     out = dict(states)
     for name, payload in payloads.items():
         if name not in collection.specs:
@@ -728,6 +746,8 @@ def apply_delta_to_states(collection: EmbeddingCollection,
                     "variable is bounded — delta chains cannot "
                     "category-swap; load the base full or re-save")
             state = _apply_hash_payload(name, state, payload,
+                                        _sharding(collection, name, state),
+                                        mesh=collection.mesh,
                                         with_opt=with_opt, donate=donate,
                                         shard_slice=shard_slice)
         else:
@@ -736,10 +756,13 @@ def apply_delta_to_states(collection: EmbeddingCollection,
                     f"delta for {name!r} is an array payload but the "
                     "variable is hash — delta chains cannot "
                     "category-swap; load the base full or re-save")
-            state = _apply_array_payload(state, payload, with_opt=with_opt,
-                                         donate=donate,
+            state = _apply_array_payload(state, payload,
+                                         _sharding(collection, name, state),
+                                         with_opt=with_opt, donate=donate,
                                          shard_slice=shard_slice)
-        out[name] = state
+        # a plane's derived state comes back empty, as JAX's
+        # wrap_hot_cache leaves it
+        out[name] = collection.attach_derived(name, state)
     return out
 
 
@@ -766,9 +789,10 @@ def _payload_ids(payload: Dict[str, np.ndarray]) -> np.ndarray:
         raise DeltaDecodeError(
             f"array delta chunk id out of range: [{lo}, {hi}] outside "
             f"[0, {nchunks})")
-    return np.concatenate([
-        np.arange(int(c) * R, min((int(c) + 1) * R, vocab),
-                  dtype=np.int64) for c in chunks])
+    lo = chunks * R
+    n = np.maximum(np.minimum(lo + R, vocab) - lo, 0)
+    return np.arange(int(n.sum()), dtype=np.int64) \
+        + np.repeat(lo - (np.cumsum(n) - n), n)
 
 
 def _owned(ids: np.ndarray, shard_slice: Optional[tuple]):
@@ -779,18 +803,24 @@ def _owned(ids: np.ndarray, shard_slice: Optional[tuple]):
     return (ids % g) == k
 
 
-def _apply_array_payload(state, payload, *, with_opt: bool, donate: bool,
-                         shard_slice: Optional[tuple] = None):
-    from .table import TableState
+def _apply_array_payload(state, payload, sspec, *, with_opt: bool,
+                         donate: bool, shard_slice: Optional[tuple] = None):
     ids = _payload_ids(payload)
-    sel = _owned(ids, shard_slice)
-    if sel is not None:
-        payload = {f: np.asarray(v)[sel] if f == "weights"
-                   or f.startswith("slot_") else v
-                   for f, v in payload.items()}
-        ids = ids[sel] // shard_slice[1]
     names = ["weights"] + [f"slot_{s}" for s in state.slots
                            if with_opt and f"slot_{s}" in payload]
+    if ids.size:
+        for f in names:
+            if np.asarray(payload[f]).shape[0] != ids.size:
+                raise DeltaDecodeError(
+                    f"array delta field {f!r} holds "
+                    f"{np.asarray(payload[f]).shape[0]} rows for "
+                    f"{ids.size} ids")
+    # the payload rows applied (a shard slice's own; None: all, in order)
+    rows_at = None
+    sel = _owned(ids, shard_slice)
+    if sel is not None:
+        rows_at = np.nonzero(sel)[0]
+        ids = ids[sel] // shard_slice[1]
     weights = state.weights if donate else state.weights.clone()
     slots = dict(state.slots)
     targets = {"weights": weights}
@@ -801,19 +831,21 @@ def _apply_array_payload(state, payload, *, with_opt: bool, donate: bool,
         targets[f] = slots[s]
     dev = weights.device
     for lo in range(0, ids.size, _APPLY_CHUNK):
-        idx = torch.from_numpy(ids[lo:lo + _APPLY_CHUNK]).to(dev)
+        hi = lo + _APPLY_CHUNK
+        idx = torch.from_numpy(ids[lo:hi]).to(dev)
+        if sspec is not None:
+            # logical ids to the stacked shards' rows
+            idx = sspec.physical_rows(idx)
         for f, target in targets.items():
-            rows = payload[f][lo:lo + _APPLY_CHUNK]
-            if rows.shape[0] != idx.shape[0]:
-                raise DeltaDecodeError(
-                    f"array delta field {f!r} holds {payload[f].shape[0]} "
-                    f"rows for {ids.size} ids")
+            rows = payload[f][lo:hi] if rows_at is None \
+                else np.asarray(payload[f])[rows_at[lo:hi]]
             target.index_copy_(0, idx, _to_tensor(rows, target.dtype, dev))
-    return TableState(weights=weights, slots=slots)
+    return dataclasses.replace(state, weights=weights, slots=slots)
 
 
-def _apply_hash_payload(name: str, state, payload, *, with_opt: bool,
-                        donate: bool, shard_slice: Optional[tuple] = None):
+def _apply_hash_payload(name: str, state, payload, sspec, *, mesh,
+                        with_opt: bool, donate: bool,
+                        shard_slice: Optional[tuple] = None):
     keys = np.asarray(payload["keys"])
     sel = _owned(hash_lib.join64(keys) if keys.ndim == 2
                  else keys.astype(np.int64), shard_slice)
@@ -832,20 +864,26 @@ def _apply_hash_payload(name: str, state, payload, *, with_opt: bool,
     slot_names = [s for s in state.slots if f"slot_{s}" in payload] \
         if with_opt else []
     if not donate:
+        counter = "insert_failures" if sspec is None else "shard_failures"
         state = dataclasses.replace(
             state, keys=state.keys.clone(), weights=state.weights.clone(),
             slots={k: v.clone() for k, v in state.slots.items()},
-            insert_failures=state.insert_failures.clone())
+            **{counter: getattr(state, counter).clone()})
     before = int(state.insert_failures)
     dev = state.keys.device
+    kdt = np.int64 if state.keys.dtype == torch.int64 else np.int32
     for lo in range(0, keys.shape[0], _APPLY_CHUNK):
         hi = lo + _APPLY_CHUNK
-        ck = torch.from_numpy(np.array(keys[lo:hi], dtype=np.int32)).to(dev)
+        ck = torch.from_numpy(np.array(keys[lo:hi], dtype=kdt)).to(dev)
         cw = _to_tensor(payload["weights"][lo:hi], state.weights.dtype, dev)
         srows = {s: _to_tensor(payload[f"slot_{s}"][lo:hi],
                                state.slots[s].dtype, dev)
                  for s in slot_names}
-        hash_lib.insert_rows(state, ck, cw, srows)
+        if sspec is None:
+            hash_lib.insert_rows(state, ck, cw, srows)
+        else:
+            sh.insert_rows_sharded(state, ck, cw, srows or None, mesh=mesh,
+                                   spec=sspec)
     grew = int(state.insert_failures) - before
     if grew > 0:
         raise RuntimeError(

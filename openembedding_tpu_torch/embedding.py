@@ -31,10 +31,10 @@ an ``EFState``). On a mesh across processes
 (``distributed.create_global_mesh``) the collection holds this process's
 shards and ``pull``/``apply_gradients`` take this process's slice of the
 batch (``batch_sharded``: the global batch is the processes' slices in
-rank order), on ``a2a`` (``+bf16``, ``+int8``) and ``psum``. What the
-port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: dirty tracking over a sharded variable, and the cached,
-grouped and pipelined planes over processes.
+rank order), on ``a2a`` (``+bf16``, ``+int8``) and ``psum``. Dirty
+tracking marks logical rows and keys on every plane. What the port does
+not run yet raises ``NotImplementedError`` naming its ROADMAP.md item:
+the cached, grouped and pipelined planes over processes.
 """
 
 from __future__ import annotations
@@ -374,15 +374,20 @@ class EmbeddingCollection:
                               names=None) -> None:
         """Arm chunk-level dirty bitmaps for every variable (idempotent),
         or for the variables in ``names`` (an unknown name raises
-        ``ValueError``): about ``target_chunks`` chunks of contiguous rows
-        an array variable, ``min(target_chunks, hash_capacity)`` key
-        chunks a hash variable, as in JAX. Required before
-        ``checkpoint.save_checkpoint(mode="delta")``, which writes only
-        the marked chunks. A delta save writes tracked variables only: an
-        untracked variable that trains reverts to its base rows on a
-        restore. A loop that runs its own pushes without
-        :meth:`apply_gradients` must call :meth:`mark_dirty` with each
-        step's ids, as ``Trainer.train_step`` does."""
+        ``ValueError``): about ``target_chunks`` chunks of contiguous
+        LOGICAL rows an array variable, ``min(target_chunks,
+        hash_capacity)`` key chunks a hash variable, as in JAX, whatever
+        the variable's shards, layout or plane (a sharded variable's
+        chunks name logical rows and keys, never stacked shard rows).
+        Required before ``checkpoint.save_checkpoint(mode="delta")``,
+        which writes only the marked chunks. A delta save writes tracked
+        variables only: an untracked variable that trains reverts to its
+        base rows on a restore, so ``names`` is for variables whose rows
+        persist another way (an offloaded table's cache, which
+        ``ShardedOffloadedTable.persist`` owns). A loop that runs its own
+        pushes without :meth:`apply_gradients` must call
+        :meth:`mark_dirty` with each step's ids, as
+        ``Trainer.train_step`` does."""
         from .dirty import make_array_tracker, make_hash_tracker
         if names is not None:
             unknown = set(names) - set(self.specs)
@@ -390,12 +395,6 @@ class EmbeddingCollection:
                 raise ValueError(
                     f"enable_dirty_tracking: unknown variable(s) "
                     f"{sorted(unknown)}; known: {sorted(self.specs)}")
-        sharded = [n for n in self.specs if self.sharded(n)
-                   and (names is None or n in names)]
-        if sharded:
-            raise not_ported(f"dirty tracking (delta checkpoints) of the "
-                             f"sharded variables {sharded}",
-                             "multi-shard exchange planes")
         for name, spec in self.specs.items():
             if name in self._dirty_trackers:
                 continue

@@ -56,7 +56,9 @@ def tensor_from_numpy(arr: np.ndarray, device: DeviceLike = None
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu().contiguous()
+    """A numpy copy of ``t`` (bfloat16 as uint16 words): memory of its
+    own, so a CPU tensor updated in place later leaves it unchanged."""
+    t = t.detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()

@@ -9,12 +9,14 @@ through a per-row ``work_id`` watermark. As in JAX:
 * :class:`HostOffloadedTable`: one variable, host rows and a device hash
   cache, flushed whole when full;
 * :class:`ShardedOffloadedTable`: the ``Trainer``'s tier (``Trainer(
-  offload=)``), here at one shard. Its cache is an ordinary int32-key hash
-  table (``embedding_spec()``) that the step pulls and pushes like any hash
-  variable; the object holds the host store (numpy, optionally disk
-  memmaps under ``backing_dir``) and exact ``resident`` / ``planned`` /
-  ``dirty`` / ``last_touch`` books, so it knows cache membership without
-  reading the device. ``host_prepare`` runs on the trainer's lookahead
+  offload=)``), at one shard or over a one-process mesh. Its cache is an
+  ordinary int32-key hash table (``embedding_spec()``; on a mesh a
+  ``sharded_hash`` table of ``make_hash_sharding_spec(mesh,
+  cache_capacity)``, stacked shards, as JAX's) that the step pulls and
+  pushes like any hash variable; the object holds the host store (numpy,
+  optionally disk memmaps under ``backing_dir``) and exact ``resident`` /
+  ``planned`` / ``dirty`` / ``last_touch`` books, so it knows cache
+  membership without reading the device. ``host_prepare`` runs on the trainer's lookahead
   thread and ``apply_prepared`` inserts its rows before the step; an
   overflowing batch evicts the least recently touched rows (dirty rows
   written back, the survivors re-inserted); writebacks copy the cache into
@@ -40,8 +42,13 @@ insert-overflow counter is read only at join points (``flush``,
 ``persist``, ``restore``, ``finish``, an eviction), or every
 ``overflow_check_every_n_batches`` batches.
 
-Only one shard: a ``mesh`` or ``num_shards`` > 1 raises, naming ROADMAP
-item 9.
+On a mesh every shard's part of the cache is handled as one table: host
+inserts go to each key's owner shard (``sharded_hash.insert_rows_sharded``
+and its packed form), an eviction streams every shard to the host and
+re-inserts the survivors the same way, and the overflow counter is the
+shards' ``shard_failures``. The host books know nothing of shards, as in
+JAX, so they assume one process sees the whole batch: a mesh across
+processes raises, naming ROADMAP item 9.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from .optim.optimizers import make_optimizer
 from .utils import compress as compress_lib
 from .utils import fs
 from .utils.device import DeviceLike, resolve_device
+from .parallel import sharded_hash as sh
 from . import hash_table as hash_lib
 from . import table as table_lib
 
@@ -75,6 +83,15 @@ INSERT_CHUNK = 1 << 16  # rows one host insert ships at a time
 
 
 # --- host arrays and device tensors ----------------------------------------
+
+def _failures(cache) -> torch.Tensor:
+    """A cache's cumulative insert-failure counter, the tensor itself
+    (updated in place): one shard's scalar, or a sharded cache's
+    ``shard_failures`` (summed where read)."""
+    if isinstance(cache, sh.ShardedHashState):
+        return cache.shard_failures
+    return cache.insert_failures
+
 
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     """The host store's dtype for a table dtype: bfloat16 as its 16-bit
@@ -408,19 +425,21 @@ class PreparedBatch:
 
 
 class ShardedOffloadedTable:
-    """The ``Trainer``'s offload tier at one shard: a host store plus a
-    device hash cache registered in the collection (:meth:`embedding_spec`)
-    and kept in ``TrainState.emb``.
+    """The ``Trainer``'s offload tier: a host store plus a device hash
+    cache registered in the collection (:meth:`embedding_spec`) and kept
+    in ``TrainState.emb``.
 
-    ``device`` (cuda unless named) is the cache's device, where the host
-    store's initial rows are drawn unless the initializer is constant. A
-    ``mesh`` or ``num_shards`` > 1 raises ``NotImplementedError`` naming
-    ROADMAP item 9. Every other argument is JAX's."""
+    ``mesh`` (a one-process ``parallel.mesh.Mesh``, as JAX's argument)
+    shards the cache over its positions (``spec``, a
+    ``HashShardingSpec``); None, or a mesh of one position, keeps the
+    one-device cache. ``device`` (cuda unless named; the mesh's device on
+    a mesh) is the cache's device, where the host store's initial rows
+    are drawn unless the initializer is constant. A mesh across processes raises ``NotImplementedError``
+    naming ROADMAP item 9. Every other argument is JAX's."""
 
     def __init__(self, name: str, meta: EmbeddingVariableMeta,
                  optimizer: Any, initializer: Any = None, *,
                  vocab: int, cache_capacity: int, mesh=None,
-                 num_shards: int = 1,
                  device: DeviceLike = None,
                  persist_pending_window: int = 64,
                  occupancy_threshold: float = 0.7,
@@ -429,13 +448,20 @@ class ShardedOffloadedTable:
                  persist_compress: str = "",
                  seed: int = 0,
                  overflow_check_every_n_batches: int = 0):
-        if mesh is not None or num_shards > 1:
+        if mesh is not None and mesh.spans_processes:
             raise not_ported(
-                f"ShardedOffloadedTable {name!r} over a mesh or "
-                f"{num_shards} shards", "multi-shard exchange planes")
+                f"ShardedOffloadedTable {name!r} over a mesh across "
+                "processes", "multi-shard exchange planes")
         self.name = name
         self.meta = meta
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # the cache's layout: the collection's for a hash variable of
+        # hash_capacity=cache_capacity on this mesh
+        self.spec = None if mesh is None else sh.make_hash_sharding_spec(
+            mesh, cache_capacity)
+        self.sharded = self.spec is not None and self.spec.num_shards > 1
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.optimizer = make_optimizer(optimizer)
         self.initializer = make_initializer(
             initializer or table_lib.DEFAULT_INITIALIZER)
@@ -565,17 +591,23 @@ class ShardedOffloadedTable:
             key_dtype="int32")
         return EmbeddingSpec(**{**base, **kw})
 
-    def create_cache(self, rng=None) -> hash_lib.HashTableState:
-        """An empty cache on the table's device, its init key ``rng``
-        (default ``PRNGKey(0)``) held on the device (:meth:`adopt`)."""
-        cache = hash_lib.create_hash_table(
-            self.meta, self.optimizer, capacity=self.cache_capacity,
-            rng=prng_key(0) if rng is None else rng, key_dtype="int32",
-            device=self.device)
+    def create_cache(self, rng=None):
+        """An empty cache on the table's device (stacked shards on a mesh,
+        a ``ShardedHashState``), its init key ``rng`` (default
+        ``PRNGKey(0)``) held on the device (:meth:`adopt`)."""
+        rng = prng_key(0) if rng is None else rng
+        if self.sharded:
+            cache = sh.create_sharded_hash_table(
+                self.meta, self.optimizer, mesh=self.mesh, spec=self.spec,
+                rng=rng, key_dtype="int32")
+        else:
+            cache = hash_lib.create_hash_table(
+                self.meta, self.optimizer, capacity=self.cache_capacity,
+                rng=rng, key_dtype="int32", device=self.device)
         return self.adopt(cache)
 
     @staticmethod
-    def adopt(cache: hash_lib.HashTableState) -> hash_lib.HashTableState:
+    def adopt(cache):
         """Move a cache's init key onto its device, as a ``[2]`` int32
         tensor of the key's words, in place (a no-op when it is there):
         the form an eviction can rewrite under a captured step. The
@@ -587,7 +619,7 @@ class ShardedOffloadedTable:
                 cache.keys.device)
         return cache
 
-    def _rebuild(self, cache, rng) -> hash_lib.HashTableState:
+    def _rebuild(self, cache, rng):
         """Empty ``cache`` in place, as ``create_cache(rng)`` makes it: keys
         EMPTY, weights zero, slots at their initial values, the failure
         count zero and the init key ``rng``. Every tensor keeps its
@@ -597,7 +629,7 @@ class ShardedOffloadedTable:
         cache.weights.zero_()
         for sname, sval in cache.slots.items():
             sval.fill_(self.optimizer.slot_init(sname))
-        cache.insert_failures.zero_()
+        _failures(cache).zero_()
         words = np.asarray(threefry_key(rng), np.uint32).view(np.int32)
         cache.init_rng[0].fill_(int(words[0]))
         cache.init_rng[1].fill_(int(words[1]))
@@ -754,6 +786,11 @@ class ShardedOffloadedTable:
                 self.insert_bytes += buf.numel() * 4
                 keys = d[:, 0].contiguous().view(torch.int32)
                 w = d[:, 1:1 + dim]
+                if self.sharded:
+                    sh.insert_rows_sharded_packed(cache, d, layout,
+                                                  mesh=self.mesh,
+                                                  spec=self.spec)
+                    continue
                 srows = {sname: d[:, s:s + c].reshape((n,) + shape)
                          for sname, s, c, shape in layout}
                 hash_lib.insert_rows(cache, keys, w, srows)
@@ -765,10 +802,14 @@ class ShardedOffloadedTable:
                 for k in self.host_slots}
             self.insert_bytes += sub.nbytes + rows[lo:lo + n].nbytes + sum(
                 slot_rows[k][lo:lo + n].nbytes for k in self.host_slots)
-            hash_lib.insert_rows(cache, keys, w, srows)
+            if self.sharded:
+                sh.insert_rows_sharded(cache, keys, w, srows or None,
+                                       mesh=self.mesh, spec=self.spec)
+            else:
+                hash_lib.insert_rows(cache, keys, w, srows)
         # the counter is cumulative and updated in place: keep it, and
         # read it only at a join point (check_overflow)
-        self._overflow_latest = cache.insert_failures
+        self._overflow_latest = _failures(cache)
         return cache
 
     def check_overflow(self, cache=None) -> None:
@@ -779,12 +820,12 @@ class ShardedOffloadedTable:
         ``cache``: the live cache, whose counter also holds the step's own
         push failures; else the counter of the last host insert."""
         if cache is not None:
-            v = cache.insert_failures
+            v = _failures(cache)
         elif self._overflow_latest is not None:
             v = self._overflow_latest
         else:
             return
-        overflowed = int(v) > 0   # may raise; keep v
+        overflowed = int(v.sum()) > 0   # may raise; keep v
         self._overflow_latest = None
         self._batches_since_overflow_check = 0
         if overflowed:

@@ -10,18 +10,27 @@ adds that tally to the counters on every replay. A wrapper called while
 a stream captures outside a ``CountedGraph`` raises: its launches could
 not be counted.
 
+A capture holds Python's cyclic garbage collector off (:func:`gc_held`):
+a collection on the capturing thread can free an unreachable CUDA graph
+of an earlier program, and destroying a graph while the thread captures
+invalidates the capture.
+
 Nothing here touches CUDA at import.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 from typing import Callable, Dict, List
 
 import torch
 
 _local = threading.local()      # .tallies: this thread's captures in progress
+_gc_lock = threading.Lock()
+_gc_holds = 0                   # captures in progress, every thread
+_gc_was_enabled = False         # the collector's state before the first
 
 
 def _tallies() -> List[Dict[Callable, int]]:
@@ -46,6 +55,26 @@ def count(wrapper: Callable) -> None:
     wrapper.launches += 1
 
 
+@contextlib.contextmanager
+def gc_held():
+    """No cyclic garbage collection in the ``with`` body, on any thread;
+    nested and concurrent holds restore the collector's state when the
+    last one ends."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
+
+
 class CountedGraph:
     """A ``torch.cuda.CUDAGraph`` whose replays count the kernel launches
     it holds. ``tally`` maps each wrapper to its launches in one replay."""
@@ -59,12 +88,13 @@ class CountedGraph:
         """Capture the CUDA work of the ``with`` body (``torch.cuda.graph``
         on its side stream, into the memory ``pool`` if one is given).
         Errors only for unsafe calls of this thread, so a server thread
-        of the same process may go on using the card."""
+        of the same process may go on using the card. The garbage
+        collector is held off meanwhile (:func:`gc_held`)."""
         tallies = _tallies()
         tallies.append(self.tally)
         try:
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode="thread_local"):
+            with gc_held(), torch.cuda.graph(
+                    self.graph, pool=pool, capture_error_mode="thread_local"):
                 yield self
         finally:
             tallies.remove(self.tally)

@@ -367,10 +367,20 @@ class Trainer:
                 raise ValueError(
                     f"offloaded variable {oname!r} is not in the collection; "
                     "register table.embedding_spec() in its specs")
-            if collection.sharded(oname):
+            if collection.mesh.spans_processes:
                 from .embedding import not_ported
-                raise not_ported(f"offloaded variable {oname!r} sharded "
-                                 "over a mesh", "multi-shard exchange planes")
+                raise not_ported(f"offloaded variable {oname!r} over a "
+                                 "mesh across processes",
+                                 "multi-shard exchange planes")
+            want = collection.sharding_spec(oname).num_shards \
+                if collection.sharded(oname) else 1
+            tspec = getattr(self.offload[oname], "spec", None)
+            got = tspec.num_shards if tspec is not None else 1
+            if got != want:
+                raise ValueError(
+                    f"offloaded variable {oname!r}: its cache has {got} "
+                    f"shard(s) but the collection's variable {want}; build "
+                    "the table on the collection's mesh")
         self.pipeline_depth = max(1, int(pipeline_depth))
         # in-flight lookahead prepares, oldest first; each entry's thread
         # chains on the previous one, so host prepares run in batch order
@@ -990,8 +1000,11 @@ class Trainer:
         dense state; the first save into an empty directory is full),
         committing ``{"fit": {"step", "epoch", "cursor"}}``, ``cursor``
         the batches trained so far. The collection's dirty tracking must
-        be armed (a collection with sharded variables, which cannot be
-        tracked yet, autosaves full). ``resume_from=DIR``: before the loop, restore the state
+        be armed, on one shard or a one-process mesh; on a mesh across
+        processes ``autosave_every`` raises ``ValueError`` before the
+        first step, since a delta save there raises, as JAX's does).
+        ``resume_from=DIR``: before
+        the loop, restore the state
         from the newest committed autosave under DIR (a torn last delta
         resumes one autosave earlier, a missing or unarmed DIR starts
         fresh at cursor 0) and skip the batches it holds
@@ -1027,6 +1040,11 @@ class Trainer:
                     "fit autosave covers the TrainState only; offloaded "
                     "tables persist via persist_dir= — don't combine "
                     "autosave_every with offload")
+            if self.spans_processes:
+                raise ValueError(
+                    "fit(autosave_every=) saves mode='delta', which is "
+                    "single-process; dumps across processes use the full "
+                    "part format")
         if resume_from is not None and self.offload:
             raise ValueError(
                 "fit(resume_from=) does not restore offloaded tables; "
@@ -1159,22 +1177,17 @@ class Trainer:
                       cursor: int) -> None:
         """One blocking delta autosave of the whole state with the resume
         extra ``{"fit": {step, epoch, cursor}}`` (``cursor`` spans epochs
-        of the batch sequence, so ``epoch`` is informational). It reads
-        the state and changes none of its tensors. A collection with
-        sharded variables has no dirty tracking yet (ROADMAP item 9):
-        each of its autosaves is a full save, the extra committed in a
-        manifest with an empty chain, which ``resume_from`` reads the
-        same way."""
+        of the batch sequence, so ``epoch`` is informational): the first
+        into an unarmed directory is a full base, every later one a delta
+        of the chunks the steps since marked, on one shard or a
+        one-process mesh alike (a sharded variable's deltas hold its
+        logical rows). It reads the state and changes none of its
+        tensors."""
         from . import checkpoint as ckpt_mod
-        from . import checkpoint_delta as cd
         step = int(state.step)
         extra = {"fit": {"step": step, "epoch": 0, "cursor": int(cursor)}}
-        full = any(self.collection.sharded(n) for n in self.collection.specs)
         with scope.span("trainer.autosave", step=str(step)):
             ckpt_mod.save_checkpoint(
                 path, self.collection, state.emb,
                 dense_state=(state.params, state.opt_state),
-                mode="full" if full else "delta", step=step, extra=extra)
-            if full:
-                cd.init_manifest(path, step=step, include_optimizer=True,
-                                 extra=extra)
+                mode="delta", step=step, extra=extra)

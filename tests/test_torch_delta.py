@@ -5,7 +5,9 @@ package (``checkpoint_delta.py``, ``dirty.py``, the chain in
 
 The first half mirrors ``tests/test_delta_checkpoint.py`` case for case
 on the port (the compressed-base and peer-restore cases belong to later
-slices). The second half holds the port against JAX: chains written by
+slices). Its cases take the ``layout`` fixture: here one shard
+(``device="cpu"``); ``tests/test_torch_delta_sharded.py`` runs the same
+bodies on JAX's 2 x 4 mesh. The second half holds the port against JAX: chains written by
 either package (array and wide hash variables, float32 and bfloat16)
 load in the other bit for bit, with equal payload arrays, per-chunk
 crc32s, dirty chunk sets, manifests and wire frames; faults injected at
@@ -44,6 +46,7 @@ from openembedding_tpu_torch.analysis.concurrency import (PointGate,
 from openembedding_tpu_torch.dirty import DirtyTracker
 from openembedding_tpu_torch.embedding import (EmbeddingCollection,
                                                 EmbeddingSpec)
+from openembedding_tpu_torch.parallel.mesh import create_mesh as tmesh
 from openembedding_tpu_torch.serving.registry import ModelRegistry
 from openembedding_tpu_torch.utils import observability as obs
 
@@ -51,12 +54,24 @@ VOCAB, DIM = 256, 4
 ADAGRAD = {"category": "adagrad", "learning_rate": 0.1}
 
 
-def make_coll(vocab=VOCAB, chunks=32, track=True):
-    specs = (EmbeddingSpec(name="arr", input_dim=vocab, output_dim=DIM),
+@pytest.fixture
+def layout():
+    """Where the collection's tables live: ``"one"``, one shard on the
+    CPU; ``"a2a"`` and ``"psum"`` (``tests/test_torch_delta_sharded.py``),
+    JAX's 2 x 4 mesh with the array variable on that plane and the hash
+    variable on ``a2a``."""
+    return "one"
+
+
+def make_coll(vocab=VOCAB, chunks=32, track=True, layout="one"):
+    plane = "a2a" if layout == "one" else layout
+    specs = (EmbeddingSpec(name="arr", input_dim=vocab, output_dim=DIM,
+                           plane=plane),
              EmbeddingSpec(name="hsh", input_dim=-1, output_dim=DIM,
                            hash_capacity=1024))
-    coll = EmbeddingCollection(specs, device="cpu",
-                               default_optimizer=ADAGRAD)
+    where = {"device": "cpu"} if layout == "one" \
+        else {"mesh": tmesh(2, 4, device="cpu")}
+    coll = EmbeddingCollection(specs, default_optimizer=ADAGRAD, **where)
     if track:
         coll.enable_dirty_tracking(target_chunks=chunks)
     return coll
@@ -68,34 +83,41 @@ def train(coll, states, seed, *, arr_ids=None, n=16, vocab=VOCAB):
         arr_ids = rng.randint(0, vocab, n)
     idx = {"arr": np.asarray(arr_ids, np.int32),
            "hsh": rng.randint(0, 2**20, n).astype(np.int32)}
-    rows = coll.pull(states, idx)
+    rows = coll.pull(states, idx, batch_sharded=False)
     coll.apply_gradients(states, idx,
-                         {k: torch.ones_like(v) * 0.2 for k, v in rows.items()})
+                         {k: torch.ones_like(v) * 0.2 for k, v in rows.items()},
+                         batch_sharded=False)
     return idx
 
 
 def snapshot(states):
-    """A copy of the states (the port's pushes update in place)."""
+    """A copy of the states (the port's pushes update in place): every
+    tensor field cloned, one shard's or a sharded state's."""
     import dataclasses
-    return {n: dataclasses.replace(
-        s, weights=s.weights.clone(),
-        slots={k: v.clone() for k, v in s.slots.items()},
-        **({"keys": s.keys.clone(),
-            "insert_failures": s.insert_failures.clone()}
-           if hasattr(s, "keys") else {}))
+
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        return v
+    return {n: dataclasses.replace(s, **{
+        f.name: copy(getattr(s, f.name)) for f in dataclasses.fields(s)})
         for n, s in states.items()}
 
 
 def assert_states_equal(coll, a, b, vocab=VOCAB, probe_keys=None):
     allv = np.arange(vocab, dtype=np.int32)
-    assert torch.equal(coll.pull(a, {"arr": allv})["arr"],
-                       coll.pull(b, {"arr": allv})["arr"])
+    assert torch.equal(
+        coll.pull(a, {"arr": allv}, batch_sharded=False)["arr"],
+        coll.pull(b, {"arr": allv}, batch_sharded=False)["arr"])
     for s in a["arr"].slots:
         assert torch.equal(a["arr"].slots[s], b["arr"].slots[s])
     if probe_keys is not None:
         pk = {"hsh": np.asarray(probe_keys, np.int32)}
-        assert torch.equal(coll.pull(a, pk, read_only=True)["hsh"],
-                           coll.pull(b, pk, read_only=True)["hsh"])
+        assert torch.equal(
+            coll.pull(a, pk, read_only=True, batch_sharded=False)["hsh"],
+            coll.pull(b, pk, read_only=True, batch_sharded=False)["hsh"])
 
 
 # --- the port, case for case -------------------------------------------------
@@ -164,9 +186,9 @@ def test_delta_requires_tracking_and_matching_optimizer(tmp_path):
     assert info["forced_full"]
 
 
-def test_delta_bytes_ratio_10x(tmp_path):
+def test_delta_bytes_ratio_10x(tmp_path, layout):
     vocab = 8192
-    coll = make_coll(vocab=vocab, chunks=256)
+    coll = make_coll(vocab=vocab, chunks=256, layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     c0 = obs.ckpt_stats()
@@ -183,8 +205,8 @@ def test_delta_bytes_ratio_10x(tmp_path):
     assert c2["ckpt_chain_len"] >= 1 and c2["ckpt_write_gbps"] > 0
 
 
-def test_delta_roundtrip_bit_identical(tmp_path):
-    coll = make_coll()
+def test_delta_roundtrip_bit_identical(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     train(coll, states, 0)
     path = str(tmp_path / "m")
@@ -200,14 +222,14 @@ def test_delta_roundtrip_bit_identical(tmp_path):
     probe = np.concatenate(keys)
     assert_states_equal(coll, states, loaded, probe_keys=probe)
     full_path = str(tmp_path / "full")
-    coll2 = make_coll(track=False)
+    coll2 = make_coll(track=False, layout=layout)
     ck.save_checkpoint(full_path, coll2, states)
     assert_states_equal(coll, ck.load_checkpoint(full_path, coll2), loaded,
                         probe_keys=probe)
 
 
-def test_torn_final_delta_discarded(tmp_path):
-    coll = make_coll()
+def test_torn_final_delta_discarded(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)
@@ -234,8 +256,8 @@ def test_torn_final_delta_discarded(tmp_path):
         ck.load_checkpoint(path, coll)
 
 
-def test_writer_killed_mid_delta_recovers(tmp_path):
-    coll = make_coll()
+def test_writer_killed_mid_delta_recovers(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)
@@ -265,8 +287,8 @@ def test_writer_killed_mid_delta_recovers(tmp_path):
     assert on_disk == live
 
 
-def test_compaction_folds_chain(tmp_path):
-    coll = make_coll()
+def test_compaction_folds_chain(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)
@@ -292,8 +314,8 @@ def test_compaction_folds_chain(tmp_path):
                         probe_keys=idx["hsh"])
 
 
-def test_full_save_resets_stale_chain(tmp_path):
-    coll = make_coll()
+def test_full_save_resets_stale_chain(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)
@@ -308,8 +330,8 @@ def test_full_save_resets_stale_chain(tmp_path):
                         probe_keys=idx["hsh"])
 
 
-def test_dense_state_persists_through_skipped_delta(tmp_path):
-    coll = make_coll()
+def test_dense_state_persists_through_skipped_delta(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     v1 = ({"w": torch.ones(3)}, {"w": torch.full((3,), 0.1)})
@@ -386,8 +408,8 @@ def test_delta_wire_roundtrip_and_bytes_equal_jax():
         assert str(got.value) == str(want.value)
 
 
-def test_apply_delta_hot_swap_e2e(tmp_path):
-    coll = make_coll()
+def test_apply_delta_hot_swap_e2e(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     train(coll, states, 0)
     path = str(tmp_path / "m")
@@ -418,6 +440,27 @@ def test_apply_delta_hot_swap_e2e(tmp_path):
     assert res["applied"] is False and res["version"] == 1
     with pytest.raises(RuntimeError, match="gap"):
         reg.apply_delta(sign, cd.Delta(seq=3, step=9, vars={}))
+
+
+def test_returned_payload_owns_its_rows(tmp_path, layout):
+    """A published delta keeps the rows it was saved with: a push made
+    after the save, in place on the same contiguous chunks, changes
+    neither its bytes nor its per-chunk crcs."""
+    coll = make_coll(layout=layout)
+    states = coll.init()
+    path = str(tmp_path / "m")
+    ck.save_checkpoint(path, coll, states, mode="delta", step=0)
+    run = np.arange(24)            # chunks 0, 1 and 2: one run of rows
+    train(coll, states, 1, arr_ids=run)
+    info = cd.save_delta(path, coll, states, step=1,
+                         background_compact=False, return_payload=True)
+    arr = info["delta"].vars["arr"]
+    assert list(arr["chunks"]) == [0, 1, 2]
+    before = {f: np.asarray(v).tobytes() for f, v in arr.items()}
+    crcs = cd.read_manifest(path)["chain"][-1]["vars"]["arr"]["chunk_crc"]
+    train(coll, states, 2, arr_ids=run)
+    assert {f: np.asarray(v).tobytes() for f, v in arr.items()} == before
+    assert cd._verify_array_chunks(arr, crcs)
 
 
 def test_hash_delta_apply_draws_no_init_rows(tmp_path, monkeypatch):
@@ -476,8 +519,8 @@ def test_swap_during_lookup_schedule(tmp_path):
     assert torch.equal(model.lookup("arr", allv), new)
 
 
-def test_full_save_carries_burned_seqs(tmp_path):
-    coll = make_coll()
+def test_full_save_carries_burned_seqs(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)
@@ -499,8 +542,8 @@ def test_full_save_carries_burned_seqs(tmp_path):
     assert reg.find_model(sign).version == 3
 
 
-def test_applied_seq_survives_compaction(tmp_path):
-    coll = make_coll()
+def test_applied_seq_survives_compaction(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)
@@ -524,8 +567,8 @@ def test_applied_seq_survives_compaction(tmp_path):
                        model.lookup("arr", idx["arr"]))
 
 
-def test_compactor_refuses_torn_entry(tmp_path):
-    coll = make_coll()
+def test_compactor_refuses_torn_entry(tmp_path, layout):
+    coll = make_coll(layout=layout)
     states = coll.init()
     path = str(tmp_path / "m")
     ck.save_checkpoint(path, coll, states, mode="delta", step=0)

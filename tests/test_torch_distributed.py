@@ -181,6 +181,9 @@ def _worker_case(rank, mesh, case, out):
     local = [_rows(b, rank * half, (rank + 1) * half)
              for b in _batches(mapper)]
     s = t.init(ti.prng_key(0), local[0])
+    with pytest.raises(ValueError, match="single-process"):
+        t.fit(s, local, autosave_every=1, autosave_dir=out)
+    assert int(s.step) == 0
     losses = []
     for b in local:
         s, m = t.train_step(s, t.shard_batch(b))

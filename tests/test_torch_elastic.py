@@ -9,7 +9,11 @@ for bit where the uninterrupted fit ends: the step, every dense
 parameter and optimizer state, and every table's rows and slots (a hash
 table's keys and failure count too, at a load where no bucket
 overflows). The uninterrupted fit's losses agree with the JAX ``fit``'s
-at rtol 1e-5 from the same initial state (nothing copied).
+at rtol 1e-5 from the same initial state (nothing copied). The same on a
+one-process 2 x 2 mesh: a sharded ``fit`` autosaves a full base and then
+deltas of its logical rows, and resumes from them bit for bit, on array
+tables (``a2a``, ``psum``, ``a2a+pipelined``) and hash tables; its losses
+agree with JAX's ``fit`` on JAX's 2 x 2 mesh.
 """
 
 import os
@@ -33,6 +37,8 @@ from openembedding_tpu_torch.embedding import EmbeddingCollection
 from openembedding_tpu_torch.models import deepctr as tm
 from openembedding_tpu_torch.optim import dense
 from openembedding_tpu_torch.optim.initializers import prng_key
+from openembedding_tpu_torch.parallel import hot_cache
+from openembedding_tpu_torch.parallel.mesh import create_mesh as tmesh
 
 FEATURES = ("c0", "c1", "c2")
 VOCAB, DIM, B = 48, 4, 8
@@ -83,7 +89,7 @@ def _fingerprint(state):
     out += [v.clone() for _, v in sorted(state.params.items())]
     out += [v.clone() for _, v in sorted(state.opt_state.items())]
     for name in sorted(state.emb):
-        st = state.emb[name]
+        st = hot_cache.unwrap(state.emb[name])
         out += [st.weights.clone()] + [v.clone() for _, v in
                                        sorted(st.slots.items())]
         if hasattr(st, "keys"):
@@ -274,4 +280,78 @@ def test_losses_match_jax_fit(world, devices8):
     rec.losses = []
     s = rec.init(prng_key(0), world["batches"][0])
     rec.fit(s, list(world["batches"]))
+    np.testing.assert_allclose(rec.losses, jlosses, rtol=1e-5)
+
+
+# --- on a one-process 2 x 2 mesh ----------------------------------------------
+
+def _build_sharded(plane, hashed, vocab=1 << 12, chunks=1024):
+    kw = {"hash_capacity": 1 << 14} if hashed else {}
+    specs = tm.make_feature_specs(FEATURES, -1 if hashed else vocab, DIM,
+                                  plane=plane, **kw)
+    coll = EmbeddingCollection(specs, tmesh(2, 2, device="cpu"),
+                               default_optimizer=OPT)
+    coll.enable_dirty_tracking(target_chunks=chunks)
+    model = tm.build_model("deepfm", FEATURES, embedding_dim=DIM,
+                           num_dense=4, dnn_units=UNITS)
+    return tr.Trainer(model, coll, dense.adam(1e-2))
+
+
+@pytest.mark.parametrize("plane,hashed", [
+    ("a2a", False), ("psum", False), ("a2a+pipelined", False),
+    ("a2a", True)], ids=["a2a", "psum", "a2a+pipelined", "hash-a2a"])
+def test_sharded_fit_autosaves_deltas_and_resumes(tmp_path, plane, hashed):
+    """A 2 x 2 ``fit`` autosaving every step writes a full base and then a
+    delta a step (array tables: a chain of ``INTERRUPT - 1`` entries, each
+    well under the base's bytes; hash tables fold into the base as they
+    go, as one shard's do); a fresh trainer resumed from it ends bit for
+    bit where the uninterrupted fit ends."""
+    batches = _synthetic_batches(N_BATCHES, seed=5,
+                                 vocab=(1 << 20) if hashed else 1 << 12)
+    t0 = _build_sharded(plane, hashed)
+    whole, _ = t0.fit(t0.init(prng_key(0), batches[0]), list(batches))
+    ck = str(tmp_path / "auto")
+    t1 = _build_sharded(plane, hashed)
+    t1.fit(t1.init(prng_key(0), batches[0]), list(batches[:INTERRUPT]),
+           autosave_every=1, autosave_dir=ck)
+    cd.join_compactor(ck)
+    manifest = cd.read_manifest(ck)
+    assert manifest["last_seq"] == INTERRUPT - 1
+    if hashed:
+        assert manifest["content_seq"] >= 1 or manifest["chain"]
+    else:
+        assert len(manifest["chain"]) == INTERRUPT - 1
+        base = cd._base_bytes(ck)
+        assert all(0 < 10 * e["bytes"] < base for e in manifest["chain"])
+    t2 = _build_sharded(plane, hashed)
+    resumed, _ = t2.fit(t2.init(prng_key(0), batches[0]), list(batches),
+                        resume_from=ck)
+    _assert_identical(_fingerprint(whole), _fingerprint(resumed))
+
+
+@pytest.mark.parametrize("plane", ["a2a", "psum"])
+def test_sharded_losses_match_jax_fit(devices8, plane):
+    """The 2 x 2 fit's per-step losses against JAX's fit on JAX's 2 x 2
+    mesh, both from ``PRNGKey(0)``, nothing copied."""
+    batches = _synthetic_batches(N_BATCHES, seed=5, vocab=1 << 12)
+    jspecs = jax_models.make_feature_specs(FEATURES, 1 << 12, DIM,
+                                           plane=plane)
+    jcoll = JaxCollection(jspecs, create_mesh(2, 2, devices8[:4]),
+                          default_optimizer=OPT)
+    jlosses = []
+
+    class JRecording(JaxTrainer):
+        def train_step(self, state, batch, **kw):
+            state, m = super().train_step(state, batch, **kw)
+            jlosses.append(float(m["loss"]))
+            return state, m
+    jt = JRecording(jax_models.build_model("deepfm", FEATURES,
+                                           dnn_units=UNITS),
+                    jcoll, optax.adam(1e-2))
+    js = jt.init(jax.random.PRNGKey(0), jt.shard_batch(batches[0]))
+    jt.fit(js, list(batches))
+    port = _build_sharded(plane, False)
+    rec = _Recording(port.module, port.collection, dense.adam(1e-2))
+    rec.losses = []
+    rec.fit(rec.init(prng_key(0), batches[0]), list(batches))
     np.testing.assert_allclose(rec.losses, jlosses, rtol=1e-5)

@@ -37,6 +37,8 @@ from openembedding_tpu_torch import offload as toff
 from openembedding_tpu_torch import table as ttable
 from openembedding_tpu_torch.meta import EmbeddingVariableMeta
 from openembedding_tpu_torch.optim import initializers as ti
+from openembedding_tpu_torch.parallel import sharded_hash as tsh
+from openembedding_tpu_torch.parallel.mesh import create_mesh as tmesh
 
 DIM = 4
 SGD = {"category": "sgd", "learning_rate": 1.0}
@@ -234,8 +236,21 @@ def test_host_store_initial_rows_equal_jax():
 
 # --- ShardedOffloadedTable at one shard ------------------------------------
 
+# the (data, model) mesh of the cases below: one shard here;
+# tests/test_torch_offload_sharded.py runs them again on JAX's 2 x 4
+GRID = (1, 1)
+
+
 def _mesh():
-    return create_mesh(1, 1, jax.devices()[:1])
+    return create_mesh(*GRID, jax.devices()[:GRID[0] * GRID[1]])
+
+
+def _port_where():
+    """The port table's placement: one device, or the one-process mesh of
+    ``GRID``."""
+    if GRID == (1, 1):
+        return {"device": "cpu"}
+    return {"mesh": tmesh(*GRID, device="cpu")}
 
 
 def sharded_pair(vocab=1024, cache=256, opt=ADAGRAD, init=QUARTER,
@@ -246,8 +261,8 @@ def sharded_pair(vocab=1024, cache=256, opt=ADAGRAD, init=QUARTER,
                                        mesh=_mesh(), **kw),
             toff.ShardedOffloadedTable(name, EmbeddingVariableMeta(**meta),
                                        opt, init, vocab=vocab,
-                                       cache_capacity=cache, device="cpu",
-                                       **kw))
+                                       cache_capacity=cache, **kw,
+                                       **_port_where()))
 
 
 def _stream(steps, seed=0):
@@ -269,9 +284,29 @@ def _jax_push(table, cache, ids, grads):
 
 
 def _port_push(table, cache, ids, grads):
+    if table.sharded:
+        tsh.apply_gradients_sharded(
+            cache, table.optimizer, table.initializer, torch.from_numpy(ids),
+            torch.from_numpy(grads), mesh=table.mesh, spec=table.spec,
+            batch_sharded=False)
+        return cache
     th.apply_gradients(cache, table.optimizer, table.initializer,
                        torch.from_numpy(ids), torch.from_numpy(grads))
     return cache
+
+
+def _port_pull(table, cache, ids):
+    if table.sharded:
+        return tsh.pull_sharded(cache, torch.from_numpy(ids), None,
+                                mesh=table.mesh, spec=table.spec,
+                                batch_sharded=False)
+    return th.pull(cache, torch.from_numpy(ids), None)
+
+
+def _port_failures(cache):
+    """The port cache's live failure counter (a sharded cache's per
+    shard)."""
+    return getattr(cache, "shard_failures", cache.insert_failures)
 
 
 def _run_stream(table, cache, items, push):
@@ -403,7 +438,7 @@ def test_persist_compress_chain(tmp_path):
             return joff.ShardedOffloadedTable("t", JaxMeta(**meta), SGD,
                                               HALF, mesh=_mesh(), **kw)
         return toff.ShardedOffloadedTable("t", EmbeddingVariableMeta(**meta),
-                                          SGD, HALF, device="cpu", **kw)
+                                          SGD, HALF, **kw, **_port_where())
 
     stores = {}
     for pkg in ("jax", "port"):
@@ -476,7 +511,7 @@ def test_stale_prepare_recomputed_at_apply():
     (jt, jc), (tt, tc) = out
     assert (tt.gen_retries, tt._gen) == (jt.gen_retries, jt._gen)
     _assert_cache_equal(jc, tc)
-    got = th.pull(tc, torch.arange(50, dtype=torch.int32), None).numpy()
+    got = _port_pull(tt, tc, np.arange(50, dtype=np.int32)).numpy()
     np.testing.assert_array_equal(got, tt.host_weights[:50])
 
 
@@ -551,22 +586,33 @@ def test_check_overflow_prefers_live_cache_counter():
     assert jt._overflow_latest is None and tt._overflow_latest is None
     with pytest.raises(RuntimeError, match="insert overflow"):
         jt.flush(jc.replace(insert_failures=jnp.asarray(2, jnp.int32)))
-    tc.insert_failures.fill_(2)
+    _port_failures(tc).fill_(2)
     with pytest.raises(RuntimeError, match="insert overflow"):
         tt.flush(tc)
-    tc.insert_failures.zero_()
+    _port_failures(tc).zero_()
     assert tt.flush(tc) == jt.flush(jc) == 0
     tt._join_writeback()
 
 
 def test_mesh_or_shards_raise_naming_item_9():
+    """Only a mesh across processes raises, naming item 9 (the host books
+    assume one process sees the whole batch); a one-process mesh shards
+    the cache; the arguments are JAX's and ``device``."""
+    import inspect
+    from openembedding_tpu_torch.parallel.mesh import Mesh
     meta = EmbeddingVariableMeta(embedding_dim=DIM, vocabulary_size=64)
-    for kw in ({"mesh": object()}, {"num_shards": 2}):
-        with pytest.raises(NotImplementedError,
-                           match="multi-shard exchange planes"):
-            toff.ShardedOffloadedTable("x", meta, SGD, vocab=64,
-                                       cache_capacity=128, device="cpu",
-                                       **kw)
+    spanning = Mesh(["cpu"] * 4, 2, 2, process_count=2, process_index=1)
+    with pytest.raises(NotImplementedError,
+                       match="multi-shard exchange planes"):
+        toff.ShardedOffloadedTable("x", meta, SGD, vocab=64,
+                                   cache_capacity=128, mesh=spanning)
+    params = set(inspect.signature(toff.ShardedOffloadedTable).parameters)
+    assert params - {"device"} == set(
+        inspect.signature(joff.ShardedOffloadedTable).parameters)
+    t = toff.ShardedOffloadedTable("x", meta, SGD, vocab=64,
+                                   cache_capacity=128,
+                                   mesh=tmesh(1, 2, device="cpu"))
+    assert t.sharded and t.create_cache().num_shards == 2
 
 
 _KILL_CHILD = r"""

@@ -42,14 +42,29 @@ from openembedding_tpu_torch.meta import EmbeddingVariableMeta
 from openembedding_tpu_torch.models import deepctr as tm
 from openembedding_tpu_torch.optim import dense
 from openembedding_tpu_torch.optim.initializers import prng_key
+from openembedding_tpu_torch.parallel.mesh import create_mesh as tmesh
 
 ADAGRAD = {"category": "adagrad", "learning_rate": 0.1}
 QUARTER = {"category": "constant", "value": 0.25}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the (data, model) mesh of both packages' tables: one shard here;
+# tests/test_torch_offload_sharded.py runs the TestPipelinedOffload cases
+# again on JAX's 2 x 4
+GRID = (1, 1)
+
+
 def _mesh():
-    return create_mesh(1, 1, jax.devices()[:1])
+    return create_mesh(*GRID, jax.devices()[:GRID[0] * GRID[1]])
+
+
+def _port_where():
+    """The port's placement: one device, or the one-process mesh of
+    ``GRID``."""
+    if GRID == (1, 1):
+        return {"device": "cpu"}
+    return {"mesh": tmesh(*GRID, device="cpu")}
 
 
 def _tables(pkg, vocab, cache, names=("off", "off:linear"), **kw):
@@ -66,7 +81,7 @@ def _tables(pkg, vocab, cache, names=("off", "off:linear"), **kw):
                 name, EmbeddingVariableMeta(embedding_dim=dim,
                                             vocabulary_size=vocab),
                 ADAGRAD, QUARTER, vocab=vocab, cache_capacity=cache,
-                device="cpu", **kw)
+                **kw, **_port_where())
     return out
 
 
@@ -84,7 +99,7 @@ def lr_trainer(pkg, vocab=2048, cache=256, depth=2,
     else:
         trainer = tr.Trainer(
             tm.LogisticRegression(feature_names=("off",)),
-            EmbeddingCollection(specs, device="cpu"), dense.sgd(0.1),
+            EmbeddingCollection(specs, **_port_where()), dense.sgd(0.1),
             offload=tabs, pipeline_depth=depth)
     return trainer, tabs
 
@@ -411,7 +426,9 @@ def test_pipeline_parity_under_timing_fuzz():
 def test_offload_refusals():
     """As in JAX: an offloaded name outside the collection, and
     ``autosave_every`` / ``resume_from`` with offload, raise
-    ``ValueError``; no offload argument is left unported."""
+    ``ValueError``; an offloaded variable over a mesh across processes
+    raises, naming item 9; no other offload argument is left
+    unported."""
     trainer, tabs = lr_trainer("port")
     with pytest.raises(ValueError, match="not in the collection"):
         tr.Trainer(tm.LogisticRegression(feature_names=("off",)),
@@ -425,6 +442,14 @@ def test_offload_refusals():
         trainer.fit(state, lr_batches(1), resume_from="unused")
     assert tr.Trainer(tm.LogisticRegression(feature_names=("off",)),
                       trainer.collection, dense.sgd(0.1)).pipeline_depth == 4
+    from openembedding_tpu_torch.parallel.mesh import Mesh
+    spanning = Mesh(["cpu"] * 4, 2, 2, process_count=2, process_index=0)
+    with pytest.raises(NotImplementedError,
+                       match="multi-shard exchange planes"):
+        tr.Trainer(tm.LogisticRegression(feature_names=("off",)),
+                   EmbeddingCollection(
+                       (tabs["off"].embedding_spec(),), spanning),
+                   dense.sgd(0.1), offload={"off": tabs["off"]})
 
 
 _PIPELINE_KILL_CHILD = r"""

@@ -205,8 +205,9 @@ def test_insert_failures_per_shard(devices8):
 
 def test_interop_and_refusals(devices8):
     """JAX's global physical arrays become the port's stacked shards and
-    back; dirty tracking of a sharded variable raises, naming item 9;
-    the later planes build, their specs JAX's."""
+    back; dirty tracking arms on a sharded variable and marks its
+    logical rows, as JAX's does; the later planes build, their specs
+    JAX's."""
     kw = dict(name="t", input_dim=VOCAB, output_dim=DIM, optimizer=ADAGRAD)
     jcoll, tcoll = _pair(kw, devices8, 2, 2)
     js = jcoll.init(jax.random.PRNGKey(4))["t"]
@@ -227,8 +228,12 @@ def test_interop_and_refusals(devices8):
         init_rng=np.asarray(jhs.init_rng), insert_failures=3)
     assert hs.shard_failures.tolist() == [3, 0, 0, 0]
     assert isinstance(hs, sharded_hash.ShardedHashState)
-    with pytest.raises(NotImplementedError, match="multi-shard exchange"):
-        tcoll.enable_dirty_tracking()
+    tcoll.enable_dirty_tracking(target_chunks=8)
+    jcoll.enable_dirty_tracking(target_chunks=8)
+    tcoll.mark_dirty({"t": ids})
+    jcoll.mark_dirty({"t": ids})
+    assert list(tcoll.dirty_trackers["t"].dirty_chunks()) == \
+        list(jcoll.dirty_trackers["t"].dirty_chunks()) != []
     for plane in ("a2a+grouped", "a2a+pipelined", "a2a+bf16"):
         t, j = EmbeddingSpec("x", 8, 2, plane=plane), \
             oe.EmbeddingSpec("x", 8, 2, plane=plane)

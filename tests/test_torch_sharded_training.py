@@ -175,19 +175,20 @@ def test_checkpoints_across_topologies(devices8, tmp_path, plane):
 
 
 def test_fit_autosaves_full_and_resumes_on_a_mesh(tmp_path):
-    """A sharded collection has no dirty tracking yet: ``fit``'s autosave
-    writes full saves with the cursor in a chainless manifest, and a
-    fresh trainer resumed from it trains on bit for bit; an offloaded
-    variable sharded over the mesh raises, naming item 9."""
+    """A sharded collection tracks its logical rows: ``fit``'s autosave
+    writes a full base and then a delta chain with the cursor in its
+    manifest, and a fresh trainer resumed from it trains on bit for bit;
+    an offloaded variable whose cache is not sharded like the
+    collection's variable raises."""
     specs, mapper = make_fused_specs(criteo.SPARSE_NAMES, 64, DIM,
                                      optimizer=ADAGRAD)
 
     def trainer():
+        coll = EmbeddingCollection(specs, create_mesh(2, 2, device="cpu"))
+        coll.enable_dirty_tracking(target_chunks=64)
         return tr.Trainer(
             tm.build_model("deepfm", criteo.SPARSE_NAMES, embedding_dim=DIM,
-                           dnn_units=(16, 8)),
-            EmbeddingCollection(specs, create_mesh(2, 2, device="cpu")),
-            dense.adagrad(0.01))
+                           dnn_units=(16, 8)), coll, dense.adagrad(0.01))
     batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
         32, num_buckets=64, seed=2, num_batches=6)]
     t = trainer()
@@ -196,6 +197,11 @@ def test_fit_autosaves_full_and_resumes_on_a_mesh(tmp_path):
     d = str(tmp_path / "auto")
     t.fit(tr.copy_state(s0, "cpu"), batches[:4], autosave_every=2,
           autosave_dir=d)
+    from openembedding_tpu_torch import checkpoint_delta as cd
+    cd.join_compactor(d)
+    manifest = cd.read_manifest(d)
+    assert manifest["chain"] or manifest["content_seq"] >= 1
+    assert manifest["last_seq"] == 1
     t2 = trainer()
     resumed, _ = t2.fit(t2.init(ti.prng_key(0), batches[0]), batches,
                         resume_from=d)
@@ -204,7 +210,7 @@ def test_fit_autosaves_full_and_resumes_on_a_mesh(tmp_path):
         assert torch.equal(resumed.emb[name].weights, whole.emb[name].weights)
     for k, v in whole.params.items():
         assert torch.equal(resumed.params[k], v)
-    with pytest.raises(NotImplementedError, match="multi-shard"):
+    with pytest.raises(ValueError, match="shard"):
         tr.Trainer(tm.build_model("lr", criteo.SPARSE_NAMES),
                    EmbeddingCollection(specs, create_mesh(1, 2,
                                                           device="cpu")),

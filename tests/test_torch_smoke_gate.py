@@ -16,7 +16,18 @@ a worker that exits nonzero fails the phase at once, its peer killed; a
 wrong row from the sharded router, or a value one float32 unit off where
 the phase holds bit equality (served rows, the ranks' losses and dense
 parameters), fails; a table beyond atol 1e-6 + rtol 1e-5 of the
-one-process mesh's fails, one within it passes."""
+one-process mesh's fails, one within it passes.
+
+Phase 20's gates: ``_stores_close`` holds two offload host stores
+(1 x 4 against one shard, a restored table against the kept one): rows
+within the tolerance pass, a touched row beyond it, an untouched row
+that moved or a work id that differs (where compared) fails;
+``_logical_rows`` reads a sharded table's logical rows, the rows the
+served ones are held to; ``_swap_into`` holds the rows a whole registry
+and a shard group's members serve after the deltas to the trainer's (a
+wrong row, a row a member does not own, a base at another version or a
+refused delta fails); ``_check_saves`` wants one full base and a
+published delta at every later autosave."""
 
 import os
 import subprocess
@@ -268,3 +279,155 @@ def test_table_gate():
         chip_smoke.tables_close("t", off, near)
     with pytest.raises(AssertionError, match="shape"):
         chip_smoke.tables_close("t", want[:-1], want)
+
+
+# --- phase 20 ----------------------------------------------------------------
+
+class _Store:
+    """The host half of an offload table, as ``_stores_close`` reads it."""
+
+    def __init__(self, vocab=1 << 13, dim=2, seed=0):
+        rng = np.random.RandomState(seed)
+        self.vocab = vocab
+        self.host_weights = rng.rand(vocab, dim).astype(np.float32)
+        self.host_slots = {"accum": rng.rand(vocab, dim).astype(np.float32)}
+        self.host_work_id = np.zeros(vocab, np.int64)
+        self.host_work_id[:64] = 3
+
+    def copy(self):
+        out = _Store.__new__(_Store)
+        out.vocab = self.vocab
+        out.host_weights = self.host_weights.copy()
+        out.host_slots = {k: v.copy() for k, v in self.host_slots.items()}
+        out.host_work_id = self.host_work_id.copy()
+        return out
+
+
+def test_store_gate_passes_within_tolerance():
+    a = _Store()
+    b = a.copy()
+    b.host_weights[:64] *= 1 + 5e-6
+    worst = chip_smoke._stores_close("ok", a, b, 1e-5, 1e-6)
+    assert 0 < worst < 1e-5
+    assert chip_smoke._stores_close("same", a, a.copy(), 1e-6, 1e-7) == 0
+
+
+@pytest.mark.parametrize("mutation", ["touched", "untouched", "slot",
+                                      "work_id"])
+def test_store_gate_refuses(mutation):
+    a = _Store()
+    b = a.copy()
+    if mutation == "touched":
+        b.host_weights[5, 1] += 1e-3
+    elif mutation == "untouched":
+        # every untouched row is in the bit-for-bit sample's reach
+        b.host_weights[64:] += 1e-3
+    elif mutation == "slot":
+        b.host_slots["accum"][7, 0] *= 1.01
+    else:
+        b.host_work_id[10] = 4
+    with pytest.raises(AssertionError):
+        chip_smoke._stores_close(mutation, a, b, 1e-5, 1e-6)
+    if mutation == "work_id":
+        chip_smoke._stores_close("stamps off", a, b, 1e-5, 1e-6,
+                                 work_ids=False)
+
+
+def test_logical_rows_read_the_stacked_shards():
+    from openembedding_tpu_torch.data.criteo import SPARSE_NAMES
+    from openembedding_tpu_torch.embedding import EmbeddingCollection
+    from openembedding_tpu_torch.fused import make_fused_specs
+    from openembedding_tpu_torch.parallel import sharded_table as st
+    from openembedding_tpu_torch.parallel.mesh import create_mesh
+    specs, _ = make_fused_specs(SPARSE_NAMES[:2], 8, 3)
+    coll = EmbeddingCollection(specs, create_mesh(2, 2, device="cpu"))
+    states = coll.init()
+    trainer = type("T", (), {"collection": coll})()
+    state = type("S", (), {"emb": states})()
+    ids = np.asarray([0, 5, 15, 6, 1], np.int64)
+    want = st.to_logical(states["fields"], coll.sharding_spec("fields"),
+                         16).weights.numpy()[ids]
+    np.testing.assert_array_equal(
+        chip_smoke._logical_rows(trainer, state, "fields", ids), want)
+
+
+class _Model:
+    """A registry's model as ``_swap_into`` reads it: a version and the
+    rows it serves."""
+
+    def __init__(self, rows):
+        self.version, self.rows = 0, rows
+
+    def lookup(self, name, ids):
+        return torch.from_numpy(self.rows[name])
+
+
+class _Registry:
+    def __init__(self, rows, applied=True):
+        self.model, self.applied = _Model(rows), applied
+
+    def find_model(self, sign):
+        return self.model
+
+    def apply_delta(self, sign, delta):
+        self.model.version = delta.seq
+        return {"applied": self.applied, "version": delta.seq}
+
+
+@pytest.mark.parametrize("mutation", ["none", "row", "foreign", "base",
+                                      "refused"])
+def test_swap_gate(monkeypatch, mutation):
+    """Served rows of a whole registry and of a shard group's members:
+    the trainer's rows pass; a wrong owned row, a row a member does not
+    own, a base at another version, or a refused delta fail."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    ids = np.arange(10, dtype=np.int64) * 3 + 1
+    want = {"t": np.random.RandomState(0).rand(10, 2).astype(np.float32)}
+    members = []
+    for k in range(2):
+        rows = want["t"].copy()
+        rows[ids % 2 != k] = 0
+        members.append({"t": rows})
+    whole = {"t": want["t"].copy()}
+    applied = True
+    if mutation == "row":
+        whole["t"][3, 1] += 1e-7
+    elif mutation == "foreign":
+        members[0]["t"][ids % 2 == 1] = want["t"][ids % 2 == 1]
+    elif mutation == "refused":
+        applied = False
+    registries = {"whole": (_Registry(whole, applied), 0, 1, 0.0)}
+    if mutation == "base":
+        registries["whole"][0].model.version = 1
+    for k in range(2):
+        registries[f"slice{k}"] = (_Registry(members[k]), k, 2, 0.0)
+    published = [type("D", (), {"seq": 1, "rows": 10})()]
+    if mutation == "none":
+        swaps = chip_smoke._swap_into(registries, published, ids, want, ids)
+        assert set(swaps) == {"whole", "slice0", "slice1"}
+        assert all(len(s["swap_s"]) == 1 for s in swaps.values())
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._swap_into(registries, published, ids, want, ids)
+
+
+@pytest.mark.parametrize("modes,published,ok", [
+    (["full", "delta", "delta"], 2, True),
+    (["full", "full", "delta"], 1, False),
+    (["full", "delta", "delta"], 1, False),
+    (["full", "delta"], 1, False),
+])
+def test_save_gate(modes, published, ok):
+    """A 3-step fit autosaving each step: one full base, then a published
+    delta at every later autosave."""
+    saves = [{"mode": m, "bytes": 100 if m == "full" else 10}
+             for m in modes]
+    reading = {}
+    if ok:
+        chip_smoke._check_saves("fit", saves, [None] * published, 3,
+                                reading)
+        assert reading["full_over_delta_bytes"] == 10
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._check_saves("fit", saves, [None] * published, 3,
+                                    reading)
