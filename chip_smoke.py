@@ -13,14 +13,20 @@ phase 18, ``--sharded --planes`` both, phase 18 on phase 17's ``a2a``
 run, ``--multiprocess`` phase 19, ``--sharded-delta`` phase 20. None of
 them prints a result line.)
 
-Phase 19, after phase 18: ``deepfm_dim9`` and ``deepfm_dim9_hash``
+Phase 19, after phase 18: ``deepfm_dim9`` (``a2a``, ``psum``,
+``a2a+pipelined``), ``deepfm_dim9_hash`` (``a2a``, ``a2a+cache``),
+``deepfm_dim9_zipf`` (``a2a+cache``, a refresh inside the run) and the
+52 per-feature variables (``a2a+grouped``, ``a2a+grouped+pipelined``)
 trained by two processes (``distributed.py`` over gloo, both on the one
 card, spawned as fresh interpreters: ``--mp-worker``) on a 2 x 2 mesh
 that spans them, held against one process's mesh on the same batches
-through their part dumps; the dump served by a 2 x 2 grid of shard
-groups and replicas behind a ``ShardedRoutingClient``, a replica of
-each group killed under lookups; the multihost driver; ``nccl`` refused
-for two ranks on one card (``--mp-nccl``).
+through their part dumps (a cached run's replica keys and a hash run's
+table keys bit for bit too), each plane run's examples/s, collectives,
+busy share, hit rate and launches a step read; the ``a2a`` dump served
+by a 2 x 2 grid of shard groups and replicas behind a
+``ShardedRoutingClient``, a replica of each group killed under lookups;
+the multihost driver; ``nccl`` refused for two ranks on one card
+(``--mp-nccl``).
 
 Phase 20, after phase 19 (``phase_sharded_delta``): ``ckpt_delta_ab`` on
 a 1 x 4 mesh; ``deepfm_dim9`` on 2 x 2 ``a2a`` fitting with delta
@@ -5741,7 +5747,7 @@ def phase_drivers() -> dict:
 
 SHARD_MESH = (2, 2)            # bench.py:150-152: deepfm_dim9 on 4 chips
 SHARD_CHECK_STEPS = 2          # card steps held against CPU steps
-SHARD_TRACE_STEPS = 10
+SHARD_TRACE_STEPS = 5
 PARITY_STEPS = 3               # SGD + constant init steps a plane
 INT64_OFFSET = 1 << 40         # raw ids of the int64 run: 64-bit keys
 SHARD_DEVICE = "cuda"          # the device of phase 17's meshes
@@ -6436,9 +6442,9 @@ def phase_sharded() -> dict:
 
 # --- phase 18: the other exchange planes ---------------------------------------
 
-PLANE_TRACE_STEPS = 3
+PLANE_TRACE_STEPS = 2
 PLANE_ORACLE_STEPS = 2          # captured steps held against eager ones
-PLANE_STAGE_REPS = 5            # each stage timed alone, median of these
+PLANE_STAGE_REPS = 3            # each stage timed alone, median of these
 PLANE_CACHE_K = 4096            # deepfm_dim9_zipf (bench.py:1578-1582)
 PLANE_CACHE_REFRESH = 16
 PER_FEATURE_VOCAB = 1 << 18     # deepfm_dim9_per_feature (bench.py:1632)
@@ -6601,24 +6607,26 @@ def plane_readings(what, trainer, state, batch, after) -> dict:
 # (config, plane, build keywords, timed blocks, parity: (mode, baseline)):
 # deepfm_dim9 on a2a is phase 17's run
 PLANE_RUNS = (
-    # 3 timed blocks each (phase 17's a2a baseline keeps its 5)
+    # 3 timed blocks for the wires (phase 17's a2a baseline keeps its
+    # 5); 2 for the pipelined and cached ones, whose runs across
+    # processes are phase 19's
     ("deepfm_dim9", "a2a+bf16", {}, 3, ("bound", "adagrad")),
     ("deepfm_dim9", "a2a+int8", {}, 3, ("bound", "adagrad")),
-    ("deepfm_dim9", "a2a+pipelined", {}, 3, ("exact", "adagrad")),
-    ("deepfm_dim9_zipf", "a2a+cache", {"cache_k": PLANE_CACHE_K}, 3,
+    ("deepfm_dim9", "a2a+pipelined", {}, 2, ("exact", "adagrad")),
+    ("deepfm_dim9_zipf", "a2a+cache", {"cache_k": PLANE_CACHE_K}, 2,
      ("close", "sgd")),
-    # its eager step is ~0.55 s (24,000 device operations): 2 blocks of
-    # 6 steps; the grouped ones' eager ~0.22 s: 2 blocks
-    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, (2, 6),
+    # its eager step is ~0.55 s (24,000 device operations): 1 block of
+    # 6 steps; the grouped ones' eager ~0.22 s: 1 block
+    ("deepfm_dim9_per_feature", "a2a", {"per_feature": True}, (1, 6),
      None),
     ("deepfm_dim9_per_feature", "a2a+grouped", {"per_feature": True},
-     2, ("close", "sgd")),
+     1, ("close", "sgd")),
     ("deepfm_dim9_per_feature", "a2a+grouped+pipelined",
-     {"per_feature": True}, 2, ("close", "sgd")),
+     {"per_feature": True}, 1, ("close", "sgd")),
     ("deepfm_dim9_hash", "a2a+int8", {"hashed": True}, 2,
      ("bound", "adagrad")),
     ("deepfm_dim9_hash", "a2a+cache", {"hashed": True,
-                                       "cache_k": PLANE_CACHE_K}, 2,
+                                       "cache_k": PLANE_CACHE_K}, 1,
      ("close", "sgd")),
 )
 
@@ -6690,7 +6698,7 @@ MP_WORKERS = 2                 # processes on the one card, over gloo
 MP_WARMUP = 3                  # the a2a run's untimed first steps
 MP_BLOCKS, MP_BLOCK_STEPS = 3, 5
 MP_PROFILE_STEPS = 2           # profiled steps (busy share), after the blocks
-MP_CHECK_STEPS = 2             # the psum and hash runs' steps
+MP_CHECK_STEPS = 2             # the psum, hash and grouped runs' steps
 MP_TIMEOUT_S = 480.0           # a worker's whole run; collectives' timeout
 MP_GROUPS, MP_REPLICAS = 2, 2  # shard groups x replicas of the serving grid
 MP_LOOKUP_IDS = 4096           # ids of every variable through the router
@@ -6710,10 +6718,25 @@ MP_DEVICE = "cuda"             # the workers', references' and replicas'
 MP_CONFIG = ("VOCAB_PER_FEATURE", "HASH_CAPACITY", "HASH_VOCAB", "BATCH",
              "INIT_ROWS", "TRAIN_BATCHES", "MP_WARMUP", "MP_BLOCKS",
              "MP_BLOCK_STEPS", "MP_PROFILE_STEPS", "MP_CHECK_STEPS",
-             "MP_TIMEOUT_S", "MP_DEVICE")
+             "MP_TIMEOUT_S", "MP_DEVICE", "PER_FEATURE_VOCAB",
+             "PLANE_CACHE_K", "PLANE_CACHE_REFRESH", "MP_RUNS")
 # (run, build keywords): the a2a run is timed and served
 MP_RUNS = (("a2a", {}), ("psum", {"plane": "psum"}),
-           ("hash", {"hashed": True}))
+           ("hash", {"hashed": True}),
+           # the other planes across the processes: deepfm_dim9_zipf and
+           # deepfm_dim9_hash on the replica (bench.py:1580, :1624),
+           # deepfm_dim9 pipelined, the 52 per-feature variables grouped
+           # (bench.py:1640), none cut in width
+           ("zipf-cache", {"plane": "a2a+cache", "cache_k": PLANE_CACHE_K}),
+           ("hash-cache", {"plane": "a2a+cache", "hashed": True,
+                           "cache_k": PLANE_CACHE_K}),
+           ("pipelined", {"plane": "a2a+pipelined"}),
+           ("grouped", {"plane": "a2a+grouped", "per_feature": True}),
+           ("grouped-pipelined", {"plane": "a2a+grouped+pipelined",
+                                  "per_feature": True}))
+# the runs whose init is held against the CPU's draws; the plane runs
+# are held by their steps
+MP_INIT_CHECKED = ("a2a", "psum", "hash")
 
 
 def _mp_sync() -> None:
@@ -6723,10 +6746,85 @@ def _mp_sync() -> None:
 
 def mp_steps(what: str) -> int:
     """Steps of a phase 19 run, the same in the workers and in the
-    one-process reference."""
+    one-process reference: a cached run refreshes once after step
+    ``PLANE_CACHE_REFRESH`` and takes two steps on the replica; a
+    pipelined run one step more than a check, so that a step between the
+    first and the last prefetches the next."""
     if what == "a2a":
         return MP_WARMUP + MP_BLOCKS * MP_BLOCK_STEPS + MP_PROFILE_STEPS
+    if what.endswith("cache"):
+        return PLANE_CACHE_REFRESH + 2
+    if what == "pipelined":
+        return MP_CHECK_STEPS + 1
     return MP_CHECK_STEPS
+
+
+def _replica_hits(trainer, state, batches) -> dict:
+    """This process's hits and valid ids in ``batches`` against each
+    cached variable's replica keys, counted on the host as the step's
+    lookup counts them: ``{name: [hits, valid]}``."""
+    out = {}
+    for name in trainer.collection.cached_names():
+        mgr = trainer._hot[name]
+        keys = mgr._valid_keys(state.emb[name].cache.keys)
+        hits = valid = 0
+        for b in batches:
+            ids = mgr._valid_keys(b["sparse"][name])
+            hits += int(np.isin(ids, keys).sum())
+            valid += int(ids.size)
+        out[name] = [hits, valid]
+    return out
+
+
+def mp_plane_steps(trainer, state, order, rank: int, out: str):
+    """The steps of a plane run in a worker: the first a warm-up, the
+    ones between timed (examples/s of the global batch, the
+    collectives' calls, seconds and bytes a step), the last profiled
+    (the card's busy share; a two-step run's examples/s comes from it),
+    each pipelined step but the last with its lookahead. Returns the
+    state, the losses and the readings: those, the kernels' launches a
+    step and, on a cached run, the hits of the steps after the refresh
+    (``_replica_hits``)."""
+    from openembedding_tpu_torch import distributed
+    pipelined = bool(trainer._pipelined)
+    n = len(order)
+    losses = []
+    before = {k: w.launches for k, w in _wrappers().items()}
+
+    def step(i):
+        nonlocal state
+        kw = {"next_batch": order[i + 1]} if pipelined else {}
+        state, m = trainer.train_step(state, order[i], **kw)
+        losses.append(float(m["loss"]))
+    step(0)
+    _mp_sync()
+    distributed.reset_stats()
+    t0 = time.perf_counter()
+    for i in range(1, n - 1):
+        step(i)
+    _mp_sync()
+    wall = time.perf_counter() - t0
+    state, more, prof = _eager_busy(trainer, state, order[n - 1:], 1,
+                                    os.path.join(out, f"trace{rank}.json"))
+    losses += more
+    st_ = distributed.STATS
+    timed = n - 2
+    step_s = wall / timed if timed else prof["wall_ms_per_step"] / 1e3
+    reading = {
+        "examples_per_s": BATCH / step_s, "step_ms": step_s * 1e3,
+        "timed_steps": timed if timed else "the profiled step",
+        "collective_ms_per_step": st_["seconds"] / (n - 1) * 1e3,
+        "collectives_per_step": st_["calls"] / (n - 1),
+        "cross_bytes_per_step": st_["bytes"] / (n - 1),
+        "profile": prof,
+        "launches_per_step": {k: (w.launches - before[k]) / n
+                              for k, w in _wrappers().items()}}
+    if trainer._hot:
+        reading["replica_hits"] = _replica_hits(
+            trainer, state, order[PLANE_CACHE_REFRESH:])
+        reading["refreshes"] = {k: m.refreshes
+                                for k, m in trainer._hot.items()}
+    return state, losses, reading
 
 
 def _batch_rows(batch, lo: int, hi: int):
@@ -6867,11 +6965,15 @@ def mp_worker(rank: int, port: int, out: str) -> None:
     """One worker of phase 19 (``chip_smoke.py --mp-worker RANK PORT
     OUT``): joins the gloo cluster on ``cuda:0``, then each of
     ``MP_RUNS`` on the 2 x 2 mesh across the processes with its half of
-    ``bench.py``'s batches: init against the CPU's draws, the steps
-    (``a2a``: warm-up, timed blocks with the collectives' seconds and
-    bytes, profiled steps), a part save. Writes ``out/worker<rank>.json``
-    (losses, readings, the kernels' launches) and the dense parameters
-    to ``out/dense<rank>_<run>.npz``."""
+    ``bench.py``'s batches: init (``MP_INIT_CHECKED`` against the CPU's
+    draws), the steps (``a2a``: warm-up, timed blocks with the
+    collectives' seconds and bytes, profiled steps; a plane run:
+    ``mp_plane_steps``), a part save (a pipelined state drained first).
+    Writes ``out/worker<rank>.json`` (losses, readings, the kernels'
+    launches), the dense parameters to ``out/dense<rank>_<run>.npz``, a
+    cached run's replica keys to ``out/replica<rank>_<run>.npz`` and a
+    cached hash run's table keys, slot for slot, to
+    ``out/keys<rank>_<run>.npz``."""
     from functools import partial
     from openembedding_tpu_torch import checkpoint as ckpt
     from openembedding_tpu_torch import distributed
@@ -6899,9 +7001,10 @@ def mp_worker(rank: int, port: int, out: str) -> None:
         state = trainer.init(prng_key(SEED), local[0])
         _mp_sync()
         run = {"init_s": time.perf_counter() - t0}
-        with _Uncounted():
-            run["init_without_copy"] = check_sharded_init(
-                trainer, state, partial(build_sharded_trainer, **kw))
+        if what in MP_INIT_CHECKED:
+            with _Uncounted():
+                run["init_without_copy"] = check_sharded_init(
+                    trainer, state, partial(build_sharded_trainer, **kw))
         order = [local[i % TRAIN_BATCHES] for i in range(mp_steps(what))]
         losses = []
 
@@ -6937,6 +7040,9 @@ def mp_worker(rank: int, port: int, out: str) -> None:
                 trainer, state, order[lo:], MP_PROFILE_STEPS,
                 os.path.join(out, f"trace{rank}.json"))
             losses += more
+        elif what not in MP_INIT_CHECKED:
+            state, losses, run["throughput"] = mp_plane_steps(
+                trainer, state, order, rank, out)
         else:
             for b in order:
                 step(b)
@@ -6950,6 +7056,17 @@ def mp_worker(rank: int, port: int, out: str) -> None:
         np.savez(os.path.join(out, f"dense{rank}_{what}.npz"),
                  **{k: v.detach().cpu().numpy()
                     for k, v in state.params.items()})
+        cached = trainer.collection.cached_names()
+        if cached:
+            np.savez(os.path.join(out, f"replica{rank}_{what}.npz"),
+                     **{n: state.emb[n].cache.keys.cpu().numpy()
+                        for n in cached})
+            if kw.get("hashed"):
+                np.savez(os.path.join(out, f"keys{rank}_{what}.npz"),
+                         **{n: state.emb[n].table.keys.cpu().numpy()
+                            for n in cached})
+        if trainer._pipelined:
+            state = trainer.drain_pipeline(state)
         info = ckpt.save_checkpoint(os.path.join(out, what),
                                     trainer.collection, state.emb,
                                     model_sign=f"{MP_SIGN}-{what}")
@@ -6984,7 +7101,8 @@ def mp_nccl_check(rank: int, port: int) -> None:
 def mp_reference(what: str, kw: dict) -> dict:
     """The run ``what`` in one process on the 2 x 2 mesh (phase 17's
     ``build_sharded_trainer``), the same steps on the global batches:
-    eager; the ``a2a`` run's blocks timed as the workers' are. Returns
+    eager; the ``a2a`` run's blocks timed as the workers' are, a plane
+    run's steps after the first each timed alone (the median). Returns
     its state, losses and examples/s."""
     from openembedding_tpu_torch.optim.initializers import prng_key
     batches = sharded_batches(TRAIN_BATCHES, **kw)
@@ -6992,10 +7110,11 @@ def mp_reference(what: str, kw: dict) -> dict:
     state = trainer.init(prng_key(SEED), batches[0])
     order = [batches[i % TRAIN_BATCHES] for i in range(mp_steps(what))]
     losses, blocks = [], []
+    plane = what not in MP_INIT_CHECKED
     for i, b in enumerate(order):
         k = i - MP_WARMUP
         if what == "a2a" and 0 <= k < MP_BLOCKS * MP_BLOCK_STEPS \
-                and k % MP_BLOCK_STEPS == 0:
+                and k % MP_BLOCK_STEPS == 0 or plane and i:
             _mp_sync()
             t0 = time.perf_counter()
         state, m = trainer.train_step_eager(state, b)
@@ -7005,6 +7124,9 @@ def mp_reference(what: str, kw: dict) -> dict:
             _mp_sync()
             blocks.append(BATCH * MP_BLOCK_STEPS
                           / (time.perf_counter() - t0))
+        elif plane and i:
+            _mp_sync()
+            blocks.append(BATCH / (time.perf_counter() - t0))
     out = {"trainer": trainer, "state": state, "losses": losses}
     if blocks:
         out["eager_examples_per_s"] = statistics.median(blocks)
@@ -7027,6 +7149,40 @@ def _hash_by_key(st) -> dict:
     return out
 
 
+def _replicas_equal(what: str, state, out: str) -> dict:
+    """Gates of a cached run: each replica's keys equal on both ranks
+    and to the one-process replica's bit for bit (and some admitted: a
+    refresh ran), and a hash run's table
+    keys, the ranks' shards in rank order, equal to one process's slot
+    for slot. Returns the replicas' admitted keys (none without a
+    cached run)."""
+    from openembedding_tpu_torch.parallel.hot_cache import unwrap
+    got = {}
+    path = os.path.join(out, f"replica{{}}_{what}.npz")
+    if not os.path.exists(path.format(0)):
+        return got
+    ranks = [dict(np.load(path.format(r))) for r in range(MP_WORKERS)]
+    for name, keys in ranks[0].items():
+        for r in range(1, MP_WORKERS):
+            bitwise_equal(f"multiprocess {what}: {name} replica keys of "
+                          f"rank {r}", ranks[r][name], keys)
+        bitwise_equal(f"multiprocess {what}: {name} replica keys",
+                      keys, state.emb[name].cache.keys)
+        live = keys if keys.ndim == 1 else keys[:, 1]
+        got[name] = int((live != np.iinfo(np.int32).min).sum())
+        if not got[name]:
+            raise AssertionError(f"multiprocess {what}: {name}'s replica "
+                                 "admitted no key (no refresh ran)")
+    path = os.path.join(out, f"keys{{}}_{what}.npz")
+    if os.path.exists(path.format(0)):
+        ranks = [dict(np.load(path.format(r))) for r in range(MP_WORKERS)]
+        for name in ranks[0]:
+            bitwise_equal(f"multiprocess {what}: {name} keys slot for slot",
+                          np.concatenate([r[name] for r in ranks]),
+                          unwrap(state.emb[name]).keys)
+    return got
+
+
 def mp_compare(what: str, kw: dict, ref: dict, results: list,
                out: str) -> dict:
     """A worker run against its one-process reference: the losses of the
@@ -7034,7 +7190,8 @@ def mp_compare(what: str, kw: dict, ref: dict, results: list,
     reference's; the dense parameters equal on both ranks bit for bit and
     close to the reference's; the part dump, loaded in one process on the
     2 x 2 mesh, within ``MP_ATOL + MP_RTOL`` of the reference's tables
-    (hash tables key by key, the live keys the same)."""
+    (hash tables key by key, the live keys the same); a cached run's
+    replicas (``_replicas_equal``)."""
     from openembedding_tpu_torch import checkpoint as ckpt
     from openembedding_tpu_torch.parallel.hot_cache import unwrap
     runs = [r["runs"][what] for r in results]
@@ -7082,13 +7239,15 @@ def mp_compare(what: str, kw: dict, ref: dict, results: list,
                             rs.slots[k]) for k, v in st.slots.items()])
     del loaded
     torch.cuda.empty_cache()
-    return {"losses": runs[0]["losses"], "one_process_losses": ref["losses"],
+    replicas = _replicas_equal(what, state, out)
+    return {**({"replica_live_keys": replicas} if replicas else {}),"losses": runs[0]["losses"], "one_process_losses": ref["losses"],
             "loss_max_rel_diff": float(np.max(
                 np.abs(np.subtract(runs[0]["losses"], ref["losses"]))
                 / np.abs(ref["losses"]))),
             "dense_max_abs_diff": dense_diff,
             "tables_max_abs_diff": diffs, "dump_load_s": load_s,
-            "init_without_copy": [r["init_without_copy"] for r in runs],
+            "init_without_copy": [r.get("init_without_copy")
+                                  for r in runs],
             "program": runs[0]["program"], "builds": runs[0]["builds"],
             "save": [r["save"] for r in runs]}
 
@@ -7190,11 +7349,11 @@ def mp_serving(path: str, procs: dict, eps: list, ready_s: dict,
     return out
 
 
-def mp_driver(tmp: str) -> dict:
+def mp_driver_start(tmp: str) -> dict:
     """``examples.multihost_train`` at its defaults on two ranks of the
     card over gloo, and two ranks asking for ``nccl`` on the one card,
-    which ``distributed.initialize`` must refuse; all four processes at
-    once."""
+    which ``distributed.initialize`` must refuse; all four processes
+    started at once. :func:`mp_driver_finish` waits for them."""
     ports = (_free_port(), _free_port())
     procs = {}
     for r in range(MP_WORKERS):
@@ -7209,7 +7368,13 @@ def mp_driver(tmp: str) -> dict:
             procs[f"nccl rank {r}"] = _spawn(
                 f"nccl{r}", [os.path.join(ROOT, "chip_smoke.py"),
                              "--mp-nccl", str(r), str(ports[1])], tmp)
-    t0 = time.perf_counter()
+    return procs
+
+
+def mp_driver_finish(procs: dict, t0: float) -> dict:
+    """A gate: the processes of :func:`mp_driver_start` (started at
+    ``t0``) exit 0, the driver logs two finite losses and finishes,
+    nccl is refused."""
     wait_procs(procs, MP_TIMEOUT_S, "multiprocess driver")
     with open(procs["driver rank 0"].out) as f:
         text = f.read()
@@ -7255,11 +7420,38 @@ def _boot_grid(daemons: dict) -> list:
     return eps
 
 
+def mp_plane_readings(results: list) -> dict:
+    """The plane runs' readings over both ranks: rank 0's examples/s,
+    each rank's timings and profile, the kernels' launches a step summed
+    over the ranks, and a cached run's hit rate over the steps after its
+    refresh (the ranks' hits over their valid ids)."""
+    out = {}
+    for what, _ in MP_RUNS:
+        if what in MP_INIT_CHECKED:
+            continue
+        per = [r["runs"][what]["throughput"] for r in results]
+        reading = {"examples_per_s": per[0]["examples_per_s"],
+                   "per_rank": per,
+                   "launches_per_step": {
+                       k: sum(p["launches_per_step"][k] for p in per)
+                       for k in per[0]["launches_per_step"]}}
+        if "replica_hits" in per[0]:
+            reading["hit_rate"] = {
+                name: sum(p["replica_hits"][name][0] for p in per)
+                / max(1, sum(p["replica_hits"][name][1] for p in per))
+                for name in per[0]["replica_hits"]}
+        out[what] = reading
+    return out
+
+
 def phase_multiprocess() -> dict:
-    """Phase 19: ``deepfm_dim9`` (``a2a``, ``psum``) and
-    ``deepfm_dim9_hash`` trained by two processes on a 2 x 2 mesh that
-    spans them (one data row each, gloo through host memory, both on the
-    one card) and held against one process's mesh on the same batches;
+    """Phase 19: ``deepfm_dim9`` (``a2a``, ``psum``, ``a2a+pipelined``),
+    ``deepfm_dim9_hash`` (``a2a``, ``a2a+cache``), ``deepfm_dim9_zipf``
+    (``a2a+cache``) and the 52 per-feature variables (``a2a+grouped``,
+    ``a2a+grouped+pipelined``) trained by two processes on a 2 x 2 mesh
+    that spans them (one data row each, gloo through host memory, both on
+    the one card) and held against one process's mesh on the same
+    batches (a cached run's replica keys too, bit for bit);
     the ``a2a`` dump served by a 2 x 2 grid of shard groups and replicas
     through a ``ShardedRoutingClient`` with a replica of each group
     killed; the multihost driver and the nccl refusal. Prints one
@@ -7273,7 +7465,7 @@ def phase_multiprocess() -> dict:
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="oe-smoke-mp-")
     reading, seconds, daemons = {}, {}, {}
-    refs = {}
+    refs, driver = {}, {}
     # seconds since the phase began at which each milestone was reached
     at = reading["at_s"] = {}
 
@@ -7292,6 +7484,8 @@ def phase_multiprocess() -> dict:
         _mp_sync()
         one_eps = {k: refs["a2a"][k] for k in ("eager_examples_per_s",
                                                  "eager_block_eps")}
+        one_plane_eps = {w: refs[w]["eager_examples_per_s"]
+                         for w in refs if w not in MP_INIT_CHECKED}
         seconds["references"] = time.perf_counter() - mark
         mark = time.perf_counter()
         with open(os.path.join(tmp, "config.json"), "w") as f:
@@ -7309,18 +7503,10 @@ def phase_multiprocess() -> dict:
         for r in range(MP_WORKERS):
             with open(os.path.join(tmp, f"worker{r}.json")) as f:
                 results.append(json.load(f))
-        mark = time.perf_counter()
-        runs = {}
-        with _Uncounted():
-            for what, kw in MP_RUNS:
-                runs[what] = mp_compare(what, kw, refs.pop(what), results,
-                                        tmp)
-                torch.cuda.empty_cache()
-        seconds["compare"] = time.perf_counter() - mark
-        milestone("compared")
         # the grid loads its slices of the a2a dump, each replica its
-        # group's (ShardedRoutingClient.create_model); the loads wait
-        # for the training and the comparisons, which they would slow
+        # group's (ShardedRoutingClient.create_model), and the multihost
+        # driver runs, both beside the comparisons (all on the host and
+        # disk more than on the card; the overlap is in the readings)
         router = ShardedRoutingClient(eps, timeout=MP_ROUTER_TIMEOUT_S)
         router.create_model(os.path.join(tmp, "a2a"), model_sign=MP_SIGN,
                             block=False)
@@ -7330,6 +7516,27 @@ def phase_multiprocess() -> dict:
                 target=_note_ready, args=(ready, f"{k}.{i}", eps[k][i]),
                 daemon=True))
             pollers[-1].start()
+        driver.update(mp_driver_start(tmp))
+        driver_t0 = time.perf_counter()
+        milestone("loads_and_driver_started")
+        mark = time.perf_counter()
+        runs = {}
+        with _Uncounted():
+            for what, kw in MP_RUNS:
+                runs[what] = mp_compare(what, kw, refs.pop(what), results,
+                                        tmp)
+                if what != "a2a":
+                    # only the a2a dump is served below
+                    shutil.rmtree(os.path.join(tmp, what),
+                                  ignore_errors=True)
+                torch.cuda.empty_cache()
+        for what, per in mp_plane_readings(results).items():
+            runs[what]["two_process"] = {
+                **per, "one_process_eager_examples_per_s":
+                one_plane_eps[what],
+                "contention": "two processes time-sliced on one card"}
+        seconds["compare"] = time.perf_counter() - mark
+        milestone("compared")
         a2a = [r["runs"]["a2a"] for r in results]
         runs["a2a"]["two_process"] = {
             "examples_per_s": a2a[0]["throughput"]["examples_per_s"],
@@ -7337,6 +7544,9 @@ def phase_multiprocess() -> dict:
             "per_rank": [r["throughput"] for r in a2a],
             "profile": [r["profile"] for r in a2a],
             "contention": "two processes time-sliced on one card"}
+        mark = time.perf_counter()
+        reading["driver"] = mp_driver_finish(driver, driver_t0)
+        seconds["driver_after_compare"] = time.perf_counter() - mark
         mark = time.perf_counter()
         for t in pollers:
             t.join()
@@ -7350,12 +7560,13 @@ def phase_multiprocess() -> dict:
                                         eps, ready, router)
         milestone("served")
         seconds["serving"] = time.perf_counter() - mark
-        mark = time.perf_counter()
-        reading["driver"] = mp_driver(tmp)
-        seconds["driver"] = time.perf_counter() - mark
         reading["runs"] = runs
     finally:
         refs.clear()
+        for p in driver.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         replica = _stop_replicas(list(daemons.values()))
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()

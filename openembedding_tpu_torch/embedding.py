@@ -31,10 +31,10 @@ an ``EFState``). On a mesh across processes
 (``distributed.create_global_mesh``) the collection holds this process's
 shards and ``pull``/``apply_gradients`` take this process's slice of the
 batch (``batch_sharded``: the global batch is the processes' slices in
-rank order), on ``a2a`` (``+bf16``, ``+int8``) and ``psum``. Dirty
-tracking marks logical rows and keys on every plane. What the port does
-not run yet raises ``NotImplementedError`` naming its ROADMAP.md item:
-the cached, grouped and pipelined planes over processes.
+rank order), on every plane: ``a2a`` (``+bf16``, ``+int8``), ``psum``,
+``a2a+cache``, ``a2a+grouped``, ``a2a+pipelined`` and
+``a2a+grouped+pipelined``. Dirty tracking marks logical rows and keys on
+every plane.
 """
 
 from __future__ import annotations
@@ -62,13 +62,6 @@ from .utils.device import DeviceLike
 
 POOLINGS = ragged.POOLINGS
 _LAYOUTS = ("mod", "div")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for what a later slice of the port brings; ``item`` names
-    its ROADMAP.md Queue 1 entry."""
-    return NotImplementedError(
-        f"{what} is not in the torch port yet (ROADMAP.md Queue 1, {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,15 +194,6 @@ class EmbeddingCollection:
                     a2a_slack=spec.a2a_slack, cache_k=spec.cache_k,
                     exchange_precision=spec.exchange_precision,
                     push_precision=spec.push_precision)
-        if mesh.spans_processes:
-            over = sorted(n for n, ss in self._shardings.items()
-                          if ss.is_cached or ss.is_grouped
-                          or ss.is_pipelined)
-            if over:
-                raise not_ported(
-                    f"the cached, grouped and pipelined planes over a mesh "
-                    f"across processes (variables {over})",
-                    "multi-shard exchange planes")
 
     # --- introspection -----------------------------------------------------
     def sharding_spec(self, name: str):
@@ -227,6 +211,8 @@ class EmbeddingCollection:
         return ss.num_shards > 1 or ss.is_cached \
             or self.mesh.spans_processes
 
+    # the plane lists below depend on the specs and the mesh's shape
+    # alone, so every process of a mesh across processes has the same
     def cached_names(self) -> tuple:
         """Variables on the ``"a2a+cache"`` plane (hot-row replica)."""
         return tuple(n for n, s in self._shardings.items() if s.is_cached)
@@ -253,7 +239,7 @@ class EmbeddingCollection:
         return hot_cache.HotCacheManager(
             spec=sspec, k=sspec.cache_k,
             refresh_every=spec.cache_refresh_every,
-            decay=spec.cache_decay, name=name)
+            decay=spec.cache_decay, name=name, mesh=self.mesh)
 
     def attach_derived(self, name: str, table_state):
         """The derived state a plane keeps beside a bare table (JAX's

@@ -47,8 +47,13 @@ inserts go to each key's owner shard (``sharded_hash.insert_rows_sharded``
 and its packed form), an eviction streams every shard to the host and
 re-inserts the survivors the same way, and the overflow counter is the
 shards' ``shard_failures``. The host books know nothing of shards, as in
-JAX, so they assume one process sees the whole batch: a mesh across
-processes raises, naming ROADMAP item 9.
+JAX, so they assume one process sees the whole batch. A mesh across
+processes raises (:func:`across_processes_error`), as the reference
+cannot run there: JAX's writeback reads the whole sharded cache onto one
+host (``np.asarray(jax.device_get(v))``, ``openembedding_tpu/offload.py``
+``:614``, which JAX refuses for an array over other processes' devices,
+and which every flush, eviction and persist reaches), and its books see
+only the batch one process passes to ``note_update`` (``:992``).
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ import torch
 from .analysis import scope
 from .analysis.concurrency import make_rlock, sync_point
 from .dirty import DirtyTracker
-from .embedding import EmbeddingSpec, not_ported
+from .embedding import EmbeddingSpec
 from .meta import EmbeddingVariableMeta
 from .ops.init_rows import init_flat
 from .optim.initializers import Constant, fold_in, make_initializer, \
@@ -424,6 +429,17 @@ class PreparedBatch:
     gen: int = 0                          # residency generation stamp
 
 
+def across_processes_error(what: str) -> NotImplementedError:
+    """The refusal of an offloaded table over a mesh across processes
+    (module note): the reference cannot run one there."""
+    return NotImplementedError(
+        f"{what} over a mesh across processes: the reference cannot run "
+        "an offloaded table there (its writeback reads the whole sharded "
+        "cache onto one host, openembedding_tpu/offload.py:614, and its "
+        "host books see only the batch one process passes to note_update, "
+        ":992); use a one-process mesh")
+
+
 class ShardedOffloadedTable:
     """The ``Trainer``'s offload tier: a host store plus a device hash
     cache registered in the collection (:meth:`embedding_spec`) and kept
@@ -434,8 +450,9 @@ class ShardedOffloadedTable:
     ``HashShardingSpec``); None, or a mesh of one position, keeps the
     one-device cache. ``device`` (cuda unless named; the mesh's device on
     a mesh) is the cache's device, where the host store's initial rows
-    are drawn unless the initializer is constant. A mesh across processes raises ``NotImplementedError``
-    naming ROADMAP item 9. Every other argument is JAX's."""
+    are drawn unless the initializer is constant. A mesh across
+    processes raises :func:`across_processes_error` before any work.
+    Every other argument is JAX's."""
 
     def __init__(self, name: str, meta: EmbeddingVariableMeta,
                  optimizer: Any, initializer: Any = None, *,
@@ -449,9 +466,7 @@ class ShardedOffloadedTable:
                  seed: int = 0,
                  overflow_check_every_n_batches: int = 0):
         if mesh is not None and mesh.spans_processes:
-            raise not_ported(
-                f"ShardedOffloadedTable {name!r} over a mesh across "
-                "processes", "multi-shard exchange planes")
+            raise across_processes_error(f"ShardedOffloadedTable {name!r}")
         self.name = name
         self.meta = meta
         self.mesh = mesh

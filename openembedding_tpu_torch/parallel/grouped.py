@@ -34,6 +34,12 @@ are the per-owner push's); its owners' row lookups are one launch of the
 row-gather kernel (K1) a round. A hash member probes and updates each
 owner's shard (K2 and KI, as the per-table plane does).
 
+On a mesh across processes (``distributed.create_global_mesh``) the
+exchanges cross the processes (``alltoall.grid_all_to_all``); a process
+holds its own positions' owners, so every owner index is local (from
+the members' ``shard_lo``), and a member's window bound counts the
+global batch, the processes' equal slices together.
+
 Per-table calls on a grouped spec (serving, checkpoints,
 ``sharded_table.pull_sharded``) run the plain ``a2a`` exchange, so the
 plane composes with cached variables in the same collection. Counters
@@ -172,12 +178,14 @@ def _array_plan(collection, group_names, bucket: int) -> GroupPlan:
                      members=members, bases=bases)
 
 
-def _stream_bounds(plan: GroupPlan, idxs) -> Tuple[int, ...]:
+def _stream_bounds(plan: GroupPlan, idxs, procs: int = 1
+                   ) -> Tuple[int, ...]:
     """Each member's static window size: its global entry count before
-    dedup, the most of it one owner can receive in one exchange."""
+    dedup (``procs`` equal slices of this process's), the most of it one
+    owner can receive in one exchange."""
     out = []
     for i in idxs:
-        out.append(i.numel() // (2 if plan.wide else 1))
+        out.append(i.numel() // (2 if plan.wide else 1) * procs)
     return tuple(out)
 
 
@@ -223,8 +231,10 @@ def _scatter_add_rows(out: torch.Tensor, ow: torch.Tensor,
     out.view(s * n, b).index_add_(0, flat, rows.reshape(-1, b))
 
 
-def _me(keys: torch.Tensor) -> torch.Tensor:
-    return torch.arange(keys.shape[0], device=keys.device)[:, None]
+def _me(keys: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """Each owner row's global shard id: this process's owners from
+    ``lo``."""
+    return torch.arange(lo, lo + keys.shape[0], device=keys.device)[:, None]
 
 
 # --- array groups: offset streams ---------------------------------------------
@@ -245,15 +255,18 @@ def _array_owner(plan: GroupPlan):
     return owner
 
 
-def _member_rows(plan: GroupPlan, t: int, kw: torch.Tensor) -> torch.Tensor:
-    """Each window key's row in member ``t``'s stacked table where the
-    key is the member's and owned by the window's owner, else ``-1``."""
+def _member_rows(plan: GroupPlan, t: int, kw: torch.Tensor,
+                 lo: int = 0) -> torch.Tensor:
+    """Each window key's row in member ``t``'s stacked shards (held from
+    shard ``lo``) where the key is the member's and owned by the window's
+    owner, else ``-1``."""
     m = plan.members[t]
     k = kw.to(torch.int64)
     shard, local = m.spec.shard_and_local(k - plan.bases[t])
     mine = (k >= plan.bases[t]) & (k < plan.bases[t + 1]) \
-        & (shard == _me(kw))
-    return torch.where(mine, shard * m.spec.rows_per_shard + local, -1)
+        & (shard == _me(kw, lo))
+    return torch.where(mine, (shard - lo) * m.spec.rows_per_shard + local,
+                       -1)
 
 
 def _tag_array_streams(plan: GroupPlan, idxs) -> torch.Tensor:
@@ -272,6 +285,11 @@ def _groups_of(mesh, spec, batch_sharded: bool) -> int:
     return mesh.shape[spec.data_axis] if batch_sharded else 1
 
 
+def _lo(plan: GroupPlan, states) -> int:
+    """The first shard this process holds (every member alike)."""
+    return states[plan.members[0].name].shard_lo
+
+
 def _carve(plan: GroupPlan, rows: torch.Tensor, idxs):
     sizes = [i.numel() // (2 if plan.wide else 1) for i in idxs]
     segs = a2a.carve_segments(rows, sizes)
@@ -286,7 +304,8 @@ def _array_pull(mesh, plan: GroupPlan, states, idxs, batch_sharded,
                 record):
     first = plan.members[0].spec
     weights = [states[m.name].weights for m in plan.members]
-    bounds = _stream_bounds(plan, idxs)
+    bounds = _stream_bounds(plan, idxs, mesh.process_count)
+    lo = _lo(plan, states)
 
     def resolve(req: torch.Tensor) -> torch.Tensor:
         s, n = req.shape
@@ -294,7 +313,7 @@ def _array_pull(mesh, plan: GroupPlan, states, idxs, batch_sharded,
                           device=req.device)
         for t, (kw, ow) in _sorted_member_windows(req, bounds,
                                                   plan.bases[:-1]):
-            ids = _member_rows(plan, t, kw)
+            ids = _member_rows(plan, t, kw, lo)
             rows = gather_rows(weights[t], ids.reshape(-1)).view(
                 s, -1, plan.members[t].dim)
             _scatter_add_rows(out, ow, rows)
@@ -306,7 +325,7 @@ def _array_pull(mesh, plan: GroupPlan, states, idxs, batch_sharded,
         num_shards=first.num_shards,
         groups=_groups_of(mesh, first, batch_sharded),
         capacity=first.a2a_capacity, slack=first.a2a_slack,
-        record_stats=record, wire_dtype=first.pull_wire_dtype)
+        record_stats=record, wire_dtype=first.pull_wire_dtype, mesh=mesh)
     return _carve(plan, rows, idxs)
 
 
@@ -320,7 +339,8 @@ def _pad_grads(plan: GroupPlan, grads) -> torch.Tensor:
 def _array_push(mesh, plan: GroupPlan, states, idxs, grads, batch_sharded,
                 record):
     first = plan.members[0].spec
-    bounds = _stream_bounds(plan, idxs)
+    bounds = _stream_bounds(plan, idxs, mesh.process_count)
+    lo = _lo(plan, states)
 
     def apply_fn(keys, g, counts):
         for t, (kw, _ow, gw, cw) in _sorted_member_windows(
@@ -329,7 +349,7 @@ def _array_push(mesh, plan: GroupPlan, states, idxs, grads, batch_sharded,
             st = states[m.name]
             table_lib.apply_gradients(
                 table_lib.TableState(weights=st.weights, slots=st.slots),
-                m.optimizer, _member_rows(plan, t, kw).reshape(-1),
+                m.optimizer, _member_rows(plan, t, kw, lo).reshape(-1),
                 gw[..., :m.dim].reshape(-1, m.dim),
                 in_counts=cw.reshape(-1))
 
@@ -339,7 +359,7 @@ def _array_push(mesh, plan: GroupPlan, states, idxs, grads, batch_sharded,
         num_shards=first.num_shards,
         groups=_groups_of(mesh, first, batch_sharded),
         capacity=first.a2a_capacity, slack=first.a2a_slack,
-        record_stats=record, wire_dtype=first.push_wire_dtype)
+        record_stats=record, wire_dtype=first.push_wire_dtype, mesh=mesh)
 
 
 # --- hash groups: a table-id column beside the key words ------------------------
@@ -386,16 +406,17 @@ def _hash_owner(plan: GroupPlan, kw: int):
 
 
 def _hash_windows(plan: GroupPlan, q: torch.Tensor, bounds, empty: int,
-                  *streams):
+                  lo: int, *streams):
     """Per member: its windows' keys masked to the member's owned keys
-    (EMPTY elsewhere), and the windows of ``streams``."""
+    (EMPTY elsewhere; the owners held from shard ``lo``), and the windows
+    of ``streams``."""
     kw = 2 if plan.wide else 1
     keyc_all = q[..., :kw] if plan.wide else q[..., 0]
     for t, (tag, ow, keyc, *rest) in _sorted_member_windows(
             q[..., kw], bounds, range(len(plan.members)), keyc_all,
             *streams):
         m = plan.members[t]
-        mine = (tag == t) & (m.spec.owner_shard(keyc) == _me(tag))
+        mine = (tag == t) & (m.spec.owner_shard(keyc) == _me(tag, lo))
         fill = torch.full_like(keyc, empty)
         masked = torch.where(mine[..., None] if plan.wide else mine, keyc,
                              fill)
@@ -407,14 +428,15 @@ def _hash_pull(mesh, plan: GroupPlan, states, idxs, batch_sharded,
     first = plan.members[0].spec
     kw = 2 if plan.wide else 1
     empty, kd = _hash_empty(plan, states)
-    bounds = _stream_bounds(plan, idxs)
+    bounds = _stream_bounds(plan, idxs, mesh.process_count)
+    lo = _lo(plan, states)
     dtype = states[plan.members[0].name].weights.dtype
 
     def resolve(q: torch.Tensor) -> torch.Tensor:
         s, n = q.shape[:2]
         out = torch.zeros((s, n, plan.bucket_dim), dtype=dtype,
                           device=q.device)
-        for t, ow, masked, _ in _hash_windows(plan, q, bounds, empty):
+        for t, ow, masked, _ in _hash_windows(plan, q, bounds, empty, lo):
             m = plan.members[t]
             st = states[m.name]
             rows = torch.stack([
@@ -431,7 +453,7 @@ def _hash_pull(mesh, plan: GroupPlan, states, idxs, batch_sharded,
         num_shards=first.num_shards,
         groups=_groups_of(mesh, first, batch_sharded),
         capacity=first.a2a_capacity, slack=first.a2a_slack,
-        record_stats=record, wire_dtype=first.pull_wire_dtype)
+        record_stats=record, wire_dtype=first.pull_wire_dtype, mesh=mesh)
     return _carve(plan, rows, idxs)
 
 
@@ -440,11 +462,12 @@ def _hash_push(mesh, plan: GroupPlan, states, idxs, grads, batch_sharded,
     first = plan.members[0].spec
     kw = 2 if plan.wide else 1
     empty, kd = _hash_empty(plan, states)
-    bounds = _stream_bounds(plan, idxs)
+    bounds = _stream_bounds(plan, idxs, mesh.process_count)
+    lo = _lo(plan, states)
 
     def apply_fn(q, g, counts):
         for t, _ow, masked, (gw, cw) in _hash_windows(plan, q, bounds,
-                                                      empty, g, counts):
+                                                      empty, lo, g, counts):
             m = plan.members[t]
             st = states[m.name]
             for o in range(q.shape[0]):
@@ -459,20 +482,23 @@ def _hash_push(mesh, plan: GroupPlan, states, idxs, grads, batch_sharded,
         num_shards=first.num_shards,
         groups=_groups_of(mesh, first, batch_sharded),
         capacity=first.a2a_capacity, slack=first.a2a_slack,
-        record_stats=record, wire_dtype=first.push_wire_dtype)
+        record_stats=record, wire_dtype=first.push_wire_dtype, mesh=mesh)
 
 
 # --- collection-level dispatch ------------------------------------------------
 
-def _record_group(plan: GroupPlan, idxs, itemsize: int) -> None:
+def _record_group(plan: GroupPlan, idxs, itemsize: int,
+                  procs: int = 1) -> None:
     """Host counters: one group exchanged and an entry-granularity byte
-    estimate of its routed traffic (before dedup)."""
+    estimate of its routed traffic (before dedup) over the global batch,
+    ``procs`` equal slices of this process's."""
     if plan.kind == "hash":
         kc = (2 if plan.wide else 1) + 1
         n = sum(int(i.numel()) // (2 if plan.wide else 1) for i in idxs)
     else:
         kc = 1
         n = sum(int(i.numel()) for i in idxs)
+    n *= procs
     nbytes = n * (plan.bucket_dim * itemsize + kc * 4)
     observability.GLOBAL.add("grouped_groups", 1)
     observability.GLOBAL.add("grouped_exchange_bytes", nbytes)
@@ -504,7 +530,8 @@ def pull_grouped(collection, states, idx_map: Dict[str, torch.Tensor], *,
             "pull", plan.members[0].spec.plane_label, record, fn, mesh,
             plan, bare, idxs, batch_sharded, record)
         if host_record:
-            _record_group(plan, idxs, bare[names[0]].weights.element_size())
+            _record_group(plan, idxs, bare[names[0]].weights.element_size(),
+                          mesh.process_count)
         out.update(zip(names, res))
     return out
 
@@ -529,5 +556,6 @@ def apply_gradients_grouped(collection, states,
             "push", plan.members[0].spec.plane_label, record, fn, mesh,
             plan, bare, idxs, grads, batch_sharded, record)
         if host_record:
-            _record_group(plan, idxs, bare[names[0]].weights.element_size())
+            _record_group(plan, idxs, bare[names[0]].weights.element_size(),
+                          mesh.process_count)
     return {n: states[n] for n in idx_map}

@@ -19,7 +19,16 @@ mesh lives on one device, so it holds one.
   stays authoritative and a refresh only re-gathers.
 
 Each key's update runs once with the same totals as on ``a2a``, so the
-parameters match ``a2a``'s to float-summation-order tolerance. The
+parameters match ``a2a``'s to float-summation-order tolerance.
+
+On a mesh across processes (``distributed.create_global_mesh``) every
+process holds the whole replica, as every JAX device does, and the same
+bits of it: the senders' partial sums are all-gathered in rank order and
+added in mesh sender order, the one-process sum; the replica's gather
+takes each key's rows from the process that owns it (one all-gather of
+the owners' rows, slots and found flags); and the owners' write-back
+lands on the rows a process holds. The ``Trainer`` counts the global
+batch into every process's sketch, so the admitted keys agree. The
 replica's buffers keep their size, and a refresh rewrites them in place
 (:func:`build_cache` with ``out=``), so a captured step program stays
 valid across refreshes.
@@ -137,13 +146,41 @@ def mask_hits(flat: torch.Tensor, hit: torch.Tensor,
     return torch.where(hit, s, flat)
 
 
+def _all_gather_rows(mesh, *ts: torch.Tensor) -> list:
+    """Every process's ``ts`` (tensors of one leading size), in rank
+    order: ``[P, *t.shape]`` each, bit for bit, by one all-gather of
+    their raw bytes side by side."""
+    from .. import distributed
+    n = ts[0].shape[0]
+    raw = [t.contiguous().view(torch.uint8).reshape(n, -1) for t in ts]
+    got = distributed.all_gather(torch.cat(raw, dim=1), mesh)
+    out, c = [], 0
+    for t, r in zip(ts, raw):
+        w = r.shape[1]
+        out.append(got[..., c:c + w].contiguous().view(t.dtype).reshape(
+            (got.shape[0],) + tuple(t.shape)))
+        c += w
+    return out
+
+
+def _spans(mesh) -> bool:
+    return mesh is not None and mesh.spans_processes
+
+
 def cache_pre_reduce(pos: torch.Tensor, hit: torch.Tensor,
                      grads: torch.Tensor, k: int, parts: int,
-                     groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                     groups: int = 1, mesh=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The K cached keys' ``(gradient sum [K, dim], count [K] int32)`` over
     the global batch: every sender pre-reduces its slice of the exchange's
     split (``alltoall.split_slice``, so no entry counts twice), then the
-    partial sums add over the senders in mesh order (JAX's psum)."""
+    partial sums add over the senders in mesh order (JAX's psum). On a
+    ``mesh`` across processes ``pos``, ``hit`` and ``grads`` are this
+    process's batch (``groups`` the mesh's data rows): its senders' sums
+    are all-gathered in rank order first, so every process adds every
+    sender's, the one-process sum bit for bit."""
+    if _spans(mesh):
+        groups //= mesh.process_count
     binpos = torch.where(hit, pos, torch.full_like(pos, k))
     sl_bin, m = a2a.split_slice(binpos, parts, k, groups)
     sl_g = a2a.split_slice_rows(grads, parts, groups)
@@ -158,6 +195,11 @@ def cache_pre_reduce(pos: torch.Tensor, hit: torch.Tensor,
     counts.index_add_(0, flat_bin, (sl_bin < k).reshape(-1).to(torch.int32))
     summed = summed.view(s, k + 1, dim)[:, :k]
     counts = counts.view(s, k + 1)[:, :k]
+    if _spans(mesh):
+        summed, counts = _all_gather_rows(mesh, summed, counts)
+        s *= mesh.process_count
+        summed = summed.reshape(s, k, dim)
+        counts = counts.reshape(s, k)
     total, total_c = summed[0], counts[0]
     for p in range(1, s):
         total = total + summed[p]
@@ -184,8 +226,8 @@ def write_back(table: Any, cache: HotCacheState, phys: torch.Tensor,
                counts: torch.Tensor) -> None:
     """The owners' rows and slots set from the replica where its count is
     not zero, in place: ``phys`` is each replica key's row in the stacked
-    table (``-1`` for padding). A static-shape scatter
-    (``hash_table._scatter_plan``)."""
+    shards held (``-1`` for padding and for rows another process holds).
+    A static-shape scatter (``hash_table._scatter_plan``)."""
     ok = (phys >= 0) & (counts > 0)
     plan = hash_lib._scatter_plan(ok, torch.where(ok, phys, 0))
     hash_lib._commit(table.weights, cache.rows, plan)
@@ -194,16 +236,18 @@ def write_back(table: Any, cache: HotCacheState, phys: torch.Tensor,
 
 
 def record_cache_stats(hit: torch.Tensor, valid: torch.Tensor, *,
-                       entry_bytes: int, record: bool) -> None:
+                       entry_bytes: int, record: bool, mesh=None) -> None:
     """Gated ``cache_hits``, ``cache_misses`` and ``ici_bytes_saved``
     (module note); the senders' slices cover the batch once, so these are
-    the batch's totals."""
+    the batch's totals (summed over the processes of a ``mesh`` across
+    them, ``alltoall.record_stat``)."""
     if not record:
         return
     hits = hit.sum()
-    a2a.record_stat("cache_hits", hits, record)
-    a2a.record_stat("cache_misses", valid.sum() - hits, record)
-    a2a.record_stat("ici_bytes_saved", hits * int(entry_bytes), record)
+    a2a.record_stat("cache_hits", hits, record, mesh)
+    a2a.record_stat("cache_misses", valid.sum() - hits, record, mesh)
+    a2a.record_stat("ici_bytes_saved", hits * int(entry_bytes), record,
+                    mesh)
 
 
 # --- building the replica (host side, outside the step) -----------------------
@@ -259,9 +303,11 @@ def _as_matrix(t: torch.Tensor) -> torch.Tensor:
 
 def _gather_table(table, spec, keys: torch.Tensor):
     """``(rows, slots, found)`` of the replica keys on an array table: one
-    K1 launch a field over the stacked shards (each key at its owner's
-    row; padding and out-of-range keys give zero rows, not found)."""
-    ids = spec.physical_rows(keys)
+    K1 launch a field over the stacked shards held (each key at its
+    owner's row; padding, out-of-range keys and keys of shards another
+    process holds give zero rows, not found)."""
+    from .sharded_table import held_rows
+    ids = held_rows(spec, table, keys)
     rows = gather_rows(table.weights, ids)
     slots = {name: gather_rows(_as_matrix(t), ids).reshape(
         (keys.shape[0],) + tuple(t.shape[1:]))
@@ -271,8 +317,9 @@ def _gather_table(table, spec, keys: torch.Tensor):
 
 def _gather_hash(table, spec, keys: torch.Tensor):
     """``(rows, slots, found)`` of the replica keys on a hash table: every
-    shard probes the keys it owns with the probe-gather kernel (K2), one
-    launch a field, and the owners' rows add up (the others are zero)."""
+    shard held probes the keys it owns with the probe-gather kernel (K2),
+    one launch a field, and the owners' rows add up (the others are
+    zero)."""
     from .sharded_hash import _mask_non_owned
     c = table.capacity_per_shard
     bsz, _nb, chain = hash_lib.table_layout(c, spec.max_probes)
@@ -280,15 +327,15 @@ def _gather_hash(table, spec, keys: torch.Tensor):
     rows = None
     slots: Dict[str, torch.Tensor] = {}
     found = None
-    for s in range(table.num_shards):
+    for j, s in enumerate(table.held):
         q = _mask_non_owned(spec, keys, s).contiguous()
-        tk = table.keys[s * c:(s + 1) * c]
-        r, hit = probe_gather(tk, table.weights[s * c:(s + 1) * c], q,
+        tk = table.keys[j * c:(j + 1) * c]
+        r, hit = probe_gather(tk, table.weights[j * c:(j + 1) * c], q,
                               chain=chain, bucket=bsz, empty=empty)
         rows = r if rows is None else rows + r
         found = hit if found is None else found | hit
         for name, t in table.slots.items():
-            block = _as_matrix(t[s * c:(s + 1) * c])
+            block = _as_matrix(t[j * c:(j + 1) * c])
             sr, _ = probe_gather(tk, block, q, chain=chain, bucket=bsz,
                                  empty=empty)
             sr = sr.reshape((keys.shape[0],) + tuple(t.shape[1:]))
@@ -296,15 +343,39 @@ def _gather_hash(table, spec, keys: torch.Tensor):
     return rows, slots, found
 
 
+def _merge_owned(mesh, rows: torch.Tensor, slots: Dict[str, torch.Tensor],
+                 found: torch.Tensor):
+    """Across processes: each key's rows and slots from the process that
+    found it (one owner a key; where none did, the zero rows every
+    process holds) and ``found`` over all of them, the same bits on every
+    process (one all-gather); in one process as they are."""
+    if not _spans(mesh):
+        return rows, slots, found
+    names = list(slots)
+    got = _all_gather_rows(mesh, found.to(torch.uint8), rows,
+                          *[slots[n] for n in names])
+    hit = got[0].bool()
+    merged = [t[0] for t in got[1:]]
+    for p in range(1, mesh.process_count):
+        for i, t in enumerate(got[1:]):
+            m = hit[p].reshape((-1,) + (1,) * (t.dim() - 2))
+            merged[i] = torch.where(m, t[p], merged[i])
+    return merged[0], dict(zip(names, merged[1:])), hit.any(dim=0)
+
+
 def build_cache(table_state: Any, candidates: np.ndarray, k: int, *,
-                spec, out: Optional[HotCacheState] = None) -> HotCacheState:
+                spec, out: Optional[HotCacheState] = None,
+                mesh=None) -> HotCacheState:
     """Admit up to ``k`` candidate keys (host keys ranked by the caller:
     joined int64 for wide tables): pad, sort, gather their rows and slots.
     Hash candidates absent from the table are dropped and the rest
     gathered again (a replica must never shadow the init-row contract of
     an unseen key); array keys are always present. ``out``: a replica of
     the same K whose buffers take the result in place (a captured step
-    keeps them); else new ones."""
+    keeps them); else new ones. On a ``mesh`` across processes every
+    process passes the same candidates and gets the same replica: each
+    key's rows come from its owner's process (:func:`_merge_owned`), so
+    the drop of absent keys is decided alike everywhere."""
     from .sharded_hash import HashShardingSpec
     is_hash = isinstance(spec, HashShardingSpec)
     wide = bool(is_hash and spec.wide)
@@ -332,7 +403,8 @@ def build_cache(table_state: Any, candidates: np.ndarray, k: int, *,
     packed, device_keys = _pack(cand)
     for _ in range(2):
         dk = torch.from_numpy(np.ascontiguousarray(device_keys)).to(dev)
-        rows, slots, found = gather(table_state, spec, dk)
+        rows, slots, found = _merge_owned(
+            mesh, *gather(table_state, spec, dk))
         found_np = found.cpu().numpy()
         if (found_np | (packed == pad)).all():
             break
@@ -459,9 +531,11 @@ class HotCacheManager:
 
     def __init__(self, *, spec, k: int = DEFAULT_CACHE_K,
                  refresh_every: int = 64, decay: float = 0.8,
-                 name: str = ""):
+                 name: str = "", mesh=None):
         from .sharded_hash import HashShardingSpec
         self.spec = spec
+        # a mesh across processes: refreshes gather from every process
+        self.mesh = mesh
         self.name = name
         self.k = int(k)
         self.refresh_every = max(1, int(refresh_every))
@@ -540,7 +614,7 @@ class HotCacheManager:
             if self._owns_sketch:
                 self.sketch.decay()
             cache = build_cache(state.table, cand, self.k, spec=self.spec,
-                                out=state.cache)
+                                out=state.cache, mesh=self.mesh)
             self.last_replica_bytes = int(
                 cache.keys.nbytes + cache.rows.nbytes
                 + sum(v.nbytes for v in cache.slots.values()))

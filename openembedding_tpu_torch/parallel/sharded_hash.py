@@ -30,8 +30,8 @@ sums them over the processes (a collective every process calls). The
 
 The later ``a2a`` planes run as on array tables
 (``parallel/sharded_table.py``): the cached plane's replica holds probed
-rows (its owners' write-back finds each admitted key's slot, as JAX's
-``find_rows`` does), and an int8_ef push keeps an ``EFState`` of the
+rows (its owners' write-back finds each admitted key's slot in the
+shards held, as JAX's ``find_rows`` does), and an int8_ef push keeps an ``EFState`` of the
 table's own key words (pairs as int32 words, int32 and int64 keys as
 they are, ``precision.ef_key_space``).
 """
@@ -371,7 +371,7 @@ def _pull_cached(state, indices, initializer, mesh, spec, batch_sharded,
     served = hot_cache.served_rows(cache.rows, pos, hit)
     hot_cache.record_cache_stats(
         hit, valid, entry_bytes=dim * cache.rows.element_size()
-        + (8 if spec.wide else 4), record=record)
+        + (8 if spec.wide else 4), record=record, mesh=mesh)
     resid = hot_cache.mask_hits(flat, hit, hash_lib.empty_key(flat.dtype))
     rows = _pull(table, resid, initializer, mesh, spec, batch_sharded,
                  record).reshape(-1, dim)
@@ -468,22 +468,23 @@ def _push_cached(state, optimizer, initializer, indices, grads, mesh, spec,
     pos, hit = hot_cache.lookup(cache.keys, flat, valid)
     groups = mesh.shape[spec.data_axis] if batch_sharded else 1
     summed, counts = hot_cache.cache_pre_reduce(
-        pos, hit, g2, cache.k, spec.num_shards // groups, groups)
+        pos, hit, g2, cache.k, spec.num_shards // groups, groups, mesh)
     hot_cache.record_cache_stats(
         hit, valid, entry_bytes=dim * cache.rows.element_size()
-        + (12 if spec.wide else 8), record=record)
+        + (12 if spec.wide else 8), record=record, mesh=mesh)
     resid = hot_cache.mask_hits(flat, hit, hash_lib.empty_key(flat.dtype))
     _push(table, optimizer, initializer, resid, g2, mesh, spec,
           batch_sharded, dedup_capacity, record)
     hot_cache.update_replica(optimizer, cache, summed, counts)
-    # the owners' slots of the admitted keys (present by admission)
+    # the slots of the admitted keys (present by admission) in the
+    # shards held
     c = table.capacity_per_shard
     phys = torch.full((cache.k,), -1, dtype=torch.int64,
                       device=cache.keys.device)
-    for s in range(table.num_shards):
-        slot = hash_lib.find_rows(table.keys[s * c:(s + 1) * c],
+    for j, s in enumerate(table.held):
+        slot = hash_lib.find_rows(table.keys[j * c:(j + 1) * c],
                                   _mask_non_owned(spec, cache.keys, s),
                                   spec.max_probes)
-        phys = torch.where(slot >= 0, s * c + slot, phys)
+        phys = torch.where(slot >= 0, j * c + slot, phys)
     hot_cache.write_back(table, cache, phys, counts)
     return state

@@ -53,7 +53,9 @@ The other planes of JAX ride the ``a2a`` layout:
   (``parallel/hot_cache.py``; the state is a ``CachedState``): hits are
   served from the replica, the residue rides the exchange, and the push
   updates the replica from one sum over the senders and writes the rows
-  back to their owners, so the table stays authoritative;
+  back to their owners, so the table stays authoritative; across
+  processes each holds the whole replica and writes back the rows it
+  holds (:func:`held_rows`);
 * ``"a2a+grouped"`` and ``"a2a+pipelined"`` (and both): the collection
   batches grouped tables into one exchange a group
   (``parallel/grouped.py``) and the ``Trainer`` double-buffers pipelined
@@ -344,6 +346,19 @@ def deliver_rows_sharded(arr: torch.Tensor, phys: torch.Tensor,
     return arr
 
 
+def held_rows(spec: ShardingSpec, state, ids: torch.Tensor) -> torch.Tensor:
+    """Each logical id's row in the stacked shards ``state`` holds (int64),
+    ``-1`` for ids outside ``[0, padded_vocab)`` and for ids of shards
+    another process holds: ``spec.physical_rows`` in one process."""
+    phys = spec.physical_rows(ids)
+    held = state.held
+    if len(held) == spec.num_shards:
+        return phys
+    lo = held.start * spec.rows_per_shard
+    hi = held.stop * spec.rows_per_shard
+    return torch.where((phys >= lo) & (phys < hi), phys - lo, -1)
+
+
 def logical_to_physical(spec: ShardingSpec, vocab: int,
                         device) -> torch.Tensor:
     """The stacked row of every logical id ``0 .. vocab - 1`` (int64)."""
@@ -481,7 +496,7 @@ def _pull_cached(state, indices, mesh, spec, batch_sharded, record):
     served = hot_cache.served_rows(cache.rows, pos, hit)
     hot_cache.record_cache_stats(
         hit, valid, entry_bytes=dim * cache.rows.element_size() + 4,
-        record=record)
+        record=record, mesh=mesh)
     resid = hot_cache.mask_hits(flat, hit, dedup.FILL)
     rows = _pull(table, resid, mesh, spec, batch_sharded, record)
     return (rows + served).reshape(tuple(indices.shape) + (dim,))
@@ -601,14 +616,14 @@ def _push_cached(state, optimizer, indices, grads, mesh, spec,
     pos, hit = hot_cache.lookup(cache.keys, flat, valid)
     groups = _mesh_groups(mesh, spec, batch_sharded)
     summed, counts = hot_cache.cache_pre_reduce(
-        pos, hit, g2, cache.k, spec.num_shards // groups, groups)
+        pos, hit, g2, cache.k, spec.num_shards // groups, groups, mesh)
     hot_cache.record_cache_stats(
         hit, valid, entry_bytes=dim * cache.rows.element_size() + 8,
-        record=record)
+        record=record, mesh=mesh)
     resid = hot_cache.mask_hits(flat, hit, dedup.FILL)
     _push(table, optimizer, resid, g2, mesh, spec, batch_sharded,
           dedup_capacity, record)
     hot_cache.update_replica(optimizer, cache, summed, counts)
-    hot_cache.write_back(table, cache, spec.physical_rows(cache.keys),
+    hot_cache.write_back(table, cache, held_rows(spec, table, cache.keys),
                          counts)
     return state

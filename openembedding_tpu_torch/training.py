@@ -62,7 +62,13 @@ the local rows, the loss is the local sum over the global count (each
 process adds its share; the sum over the processes is the global
 mean), the dense gradients are summed over the processes before the
 update, so the dense parameters, which start equal from the same key,
-stay equal, and the pushes exchange through the planes. Gloo's
+stay equal, and the pushes exchange through the planes, every plane of
+a single process's. A cached variable's sketch counts the global batch
+(each column gathered over the processes) and every refresh checks that
+the processes admitted the same keys; the pipelined schedule checks
+that they prime on the same steps, and ``fit`` that their sources hold
+as many batches, so a divergence raises instead of blocking in a
+collective. Gloo's
 collectives run on the host, which a CUDA graph cannot capture, so on
 such a mesh ``train_step`` and ``eval_step`` run the eager step (their
 programs are ``_EagerProgram`` s, counted as builds the same way); a
@@ -94,6 +100,7 @@ once, inside ``fit``'s two-step warm-up.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 import uuid
@@ -179,6 +186,22 @@ def _sum_over_processes(grads, loss, mesh):
         out.append(flat[o:o + g.numel()].view(g.shape).to(g.dtype))
         o += g.numel()
     return out, flat[o].to(loss.dtype)
+
+
+def _global_column(col, mesh) -> torch.Tensor:
+    """A batch column of every process, in rank order: the global batch's
+    column (the processes feed equal slices)."""
+    from . import distributed
+    t = col if isinstance(col, torch.Tensor) \
+        else torch.from_numpy(np.array(col, copy=True))
+    g = distributed.all_gather(t, mesh)
+    return g.reshape((-1,) + tuple(t.shape[1:]))
+
+
+def _digest(t: torch.Tensor) -> int:
+    """A 63-bit digest of a tensor's bytes."""
+    raw = t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+    return int.from_bytes(hashlib.sha256(raw).digest()[:8], "little") >> 1
 
 
 def _host(x):
@@ -368,10 +391,9 @@ class Trainer:
                     f"offloaded variable {oname!r} is not in the collection; "
                     "register table.embedding_spec() in its specs")
             if collection.mesh.spans_processes:
-                from .embedding import not_ported
-                raise not_ported(f"offloaded variable {oname!r} over a "
-                                 "mesh across processes",
-                                 "multi-shard exchange planes")
+                from .offload import across_processes_error
+                raise across_processes_error(
+                    f"offloaded variable {oname!r}")
             want = collection.sharding_spec(oname).num_shards \
                 if collection.sharded(oname) else 1
             tspec = getattr(self.offload[oname], "spec", None)
@@ -580,7 +602,7 @@ class Trainer:
         pull_inputs, _ = self._split_sparse(batch["sparse"])
         pre, _ = pipeline_lib.split_columns(self.collection, pull_inputs)
         fresh = pipeline_lib.prefetch_pull(self.collection, state.emb,
-                                           self.place_batch(
+                                           self.shard_batch(
                                                {"label": None,
                                                 "sparse": pre})["sparse"])
         pipe = state.pipe if state.pipe is not None else self._pipe_spare
@@ -607,9 +629,19 @@ class Trainer:
     def _pipelined_host(self, state: TrainState, batch, next_batch):
         """The host batch of a pipelined step, its ``next`` columns those
         of ``next_batch`` (the batch itself without one), after priming
-        the buffer where it does not hold this batch's rows."""
-        if state.pipe is None or self._pipe_for is not batch \
-                or self._pipe_token != id(state.pipe):
+        the buffer where it does not hold this batch's rows. On a mesh
+        across processes every process must prime on the same steps (a
+        prime is an exchange): the decision is checked across them, and
+        the next columns are this process's slice
+        (``distributed.local_batch_to_global``)."""
+        prime = state.pipe is None or self._pipe_for is not batch \
+            or self._pipe_token != id(state.pipe)
+        if self.spans_processes:
+            from . import distributed
+            distributed.check_agree(
+                int(prime), "pipeline primes: every process primes on the "
+                "same step (the same batches and next batches)")
+        if prime:
             # a first step, a drain, a batch the lookahead did not
             # predict, or an older state: fill the buffer for this batch
             observability.GLOBAL.add("pipeline_primes", 1)
@@ -617,8 +649,12 @@ class Trainer:
         nxt = next_batch if next_batch is not None else batch
         host = self.host_batch(batch)
         pipelined = set(self._pipelined)
+        cols = {k: v for k, v in nxt["sparse"].items() if k in pipelined}
+        if self.spans_processes:
+            cols = distributed.local_batch_to_global(cols,
+                                                     self.collection.mesh)
         host["next"] = {k: self.collection.host_ids(k, v)
-                        for k, v in nxt["sparse"].items() if k in pipelined}
+                        for k, v in cols.items()}
         return state, host, nxt
 
     @torch.no_grad()
@@ -725,8 +761,17 @@ class Trainer:
         batch's keys (a shared sketch once a step) and refresh the due
         replicas, in place, outside the program: a re-gather from the
         authoritative table, never a write-back. The refresh's wall time
-        is kept per manager (``last_refresh_s``)."""
+        is kept per manager (``last_refresh_s``).
+
+        On a mesh across processes each process counts the global batch,
+        as JAX's one process does: the column is gathered over the
+        processes in rank order (one collective) before it is counted, so
+        every sketch, top K and replica is the one-process one. After a
+        refresh a digest of the admitted keys is checked across the
+        processes: a divergence raises rather than trains on different
+        replicas."""
         counted = set()
+        mesh = self.collection.mesh
         for name, mgr in self._hot.items():
             col = batch["sparse"].get(name)
             if col is None:
@@ -734,10 +779,17 @@ class Trainer:
             if id(mgr.sketch) in counted:
                 mgr.tick()
             else:
+                if mesh.spans_processes:
+                    col = _global_column(col, mesh)
                 mgr.observe(col)
                 counted.add(id(mgr.sketch))
             if mgr.due:
                 mgr.refresh(state.emb[name])
+                if mesh.spans_processes:
+                    from . import distributed
+                    distributed.check_agree(
+                        _digest(state.emb[name].cache.keys),
+                        f"the replica keys of {name!r} after a refresh")
         return state
 
     # --- the offload lane -----------------------------------------------------
@@ -1085,7 +1137,7 @@ class Trainer:
         refill()   # the window's first fill: warm-up, unrecorded
         i = 0
         try:
-            while window:
+            while self._window_agrees(window):
                 if self.offload:
                     for b in window:
                         if not self._prep_started(b):
@@ -1140,6 +1192,19 @@ class Trainer:
         for table in self.offload.values():
             table.finish()
         return state, last
+
+    def _window_agrees(self, window) -> bool:
+        """Whether ``fit``'s window holds a batch to step. On a mesh
+        across processes every process must step the same count of
+        batches (each step is collectives): the window's length is
+        checked across them each turn, so a source that runs out on one
+        process first raises on all."""
+        if self.spans_processes:
+            from . import distributed
+            distributed.check_agree(
+                len(window), "fit's window: every process's batch source "
+                "must hold as many batches")
+        return bool(window)
 
     def _restore_fit(self, state: TrainState, path: str):
         """``(state, cursor)`` restored from the delta chain at ``path``

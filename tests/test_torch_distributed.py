@@ -454,8 +454,9 @@ def test_multihost_driver_at_its_defaults():
 
 
 def test_planes_that_raise_across_processes():
-    """The cached, grouped and pipelined planes over a mesh across
-    processes raise ``NotImplementedError`` naming item 9; an exchange
+    """The cached, grouped and pipelined planes build over a mesh across
+    processes, each process holding its own shards, and every process
+    lists the same cached, grouped and pipelined variables; an exchange
     over processes needs a batch-sharded batch; a mesh whose data rows
     do not split over the processes raises; ``export_dense``, which needs
     every row, refuses a process's share."""
@@ -463,16 +464,32 @@ def test_planes_that_raise_across_processes():
     from openembedding_tpu_torch.embedding import (EmbeddingCollection,
                                                    EmbeddingSpec)
     from openembedding_tpu_torch.parallel import alltoall
+    from openembedding_tpu_torch.parallel.hot_cache import CachedState
     from openembedding_tpu_torch.parallel.mesh import Mesh
     mesh = Mesh(["cpu"] * 4, 2, 2, process_count=2, process_index=1)
     assert mesh.spans_processes and list(mesh.local_positions) == [2, 3]
     assert mesh.process_of(1) == 0 and mesh.process_of(3) == 1
-    for plane in ("a2a+cache", "a2a+grouped", "a2a+pipelined",
-                  "a2a+grouped+pipelined"):
-        with pytest.raises(NotImplementedError,
-                           match="multi-shard exchange planes"):
-            EmbeddingCollection([EmbeddingSpec("x", 8, 2, plane=plane)],
-                                mesh)
+    planes = ("a2a+cache", "a2a+grouped", "a2a+pipelined",
+              "a2a+grouped+pipelined")
+    specs = [EmbeddingSpec(f"x{i}", 8, 2, plane=p)
+             for i, p in enumerate(planes)] + [
+        EmbeddingSpec(f"h{i}", -1, 2, hash_capacity=64, plane=p)
+        for i, p in enumerate(planes)]
+    names = []
+    for rank in range(2):
+        coll = EmbeddingCollection(specs, Mesh(
+            ["cpu"] * 4, 2, 2, process_count=2, process_index=rank))
+        names.append((coll.cached_names(), coll.grouped_names(),
+                      coll.pipelined_names()))
+        states = coll.init()
+        for spec in specs:
+            st = states[spec.name]
+            assert isinstance(st, CachedState) == (spec.plane
+                                                   == "a2a+cache")
+            table = st.table if isinstance(st, CachedState) else st
+            assert list(table.held) == [2 * rank, 2 * rank + 1]
+    assert names[0] == names[1] == (
+        ("x0", "h0"), ("x1", "x3", "h1", "h3"), ("x2", "x3", "h2", "h3"))
     with pytest.raises(ValueError, match="batch-sharded"):
         alltoall.exchange_pull(torch.zeros(8, dtype=torch.int32),
                                lambda r: r, lambda k: k, sentinel=-1,

@@ -595,15 +595,16 @@ def test_check_overflow_prefers_live_cache_counter():
 
 
 def test_mesh_or_shards_raise_naming_item_9():
-    """Only a mesh across processes raises, naming item 9 (the host books
-    assume one process sees the whole batch); a one-process mesh shards
-    the cache; the arguments are JAX's and ``device``."""
+    """Only a mesh across processes raises, giving the reference's reason
+    (its writeback reads the whole sharded cache onto one host and its
+    host books see one process's batch); a one-process mesh shards the
+    cache; the arguments are JAX's and ``device``."""
     import inspect
     from openembedding_tpu_torch.parallel.mesh import Mesh
     meta = EmbeddingVariableMeta(embedding_dim=DIM, vocabulary_size=64)
     spanning = Mesh(["cpu"] * 4, 2, 2, process_count=2, process_index=1)
     with pytest.raises(NotImplementedError,
-                       match="multi-shard exchange planes"):
+                       match="reads the whole sharded cache onto one host"):
         toff.ShardedOffloadedTable("x", meta, SGD, vocab=64,
                                    cache_capacity=128, mesh=spanning)
     params = set(inspect.signature(toff.ShardedOffloadedTable).parameters)

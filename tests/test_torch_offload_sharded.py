@@ -53,8 +53,8 @@ def test_cache_is_sharded_like_the_collection():
     """On a 2 x 4 mesh the cache is 8 stacked shards under the
     collection's own spec for the table's ``embedding_spec()``; a mesh of
     one position keeps the one-device cache; a mesh across processes
-    raises, naming item 9; a ``Trainer`` whose collection shards the
-    variable otherwise than the table's cache raises."""
+    raises, giving the reference's reason; a ``Trainer`` whose collection
+    shards the variable otherwise than the table's cache raises."""
     meta = EmbeddingVariableMeta(embedding_dim=4, vocabulary_size=1024)
     mesh = create_mesh(2, 4, device="cpu")
     t = toff.ShardedOffloadedTable("off", meta, off.SGD, vocab=1024,
@@ -71,7 +71,7 @@ def test_cache_is_sharded_like_the_collection():
     assert not one.sharded and one.create_cache().keys.shape[0] == 256
     spanning = Mesh(["cpu"] * 4, 2, 2, process_count=2, process_index=0)
     with pytest.raises(NotImplementedError,
-                       match="multi-shard exchange planes"):
+                       match="reference cannot run an offloaded table"):
         toff.ShardedOffloadedTable("off", meta, off.SGD, vocab=1024,
                                    cache_capacity=256, mesh=spanning)
     with pytest.raises(ValueError, match="shard"):

@@ -427,8 +427,8 @@ def test_offload_refusals():
     """As in JAX: an offloaded name outside the collection, and
     ``autosave_every`` / ``resume_from`` with offload, raise
     ``ValueError``; an offloaded variable over a mesh across processes
-    raises, naming item 9; no other offload argument is left
-    unported."""
+    raises, giving the reference's reason; no other offload argument is
+    left unported."""
     trainer, tabs = lr_trainer("port")
     with pytest.raises(ValueError, match="not in the collection"):
         tr.Trainer(tm.LogisticRegression(feature_names=("off",)),
@@ -445,7 +445,7 @@ def test_offload_refusals():
     from openembedding_tpu_torch.parallel.mesh import Mesh
     spanning = Mesh(["cpu"] * 4, 2, 2, process_count=2, process_index=0)
     with pytest.raises(NotImplementedError,
-                       match="multi-shard exchange planes"):
+                       match="reference cannot run an offloaded table"):
         tr.Trainer(tm.LogisticRegression(feature_names=("off",)),
                    EmbeddingCollection(
                        (tabs["off"].embedding_spec(),), spanning),
