@@ -335,7 +335,8 @@ CHECK_STEPS = 4               # card steps held against CPU steps
 WARMUP_STEPS = 3
 BLOCKS, BLOCK_STEPS = 5, 20   # timed throughput blocks
 TRACE_STEPS = 20
-STAGE_REPS = 20
+STAGE_REPS = 20               # fresh batches of the hash push's stages
+STAGE_STEPS = 8               # steps of the armed window (step_stages)
 UNTOUCHED_SAMPLE = 1 << 20    # untouched ids checked bit for bit
 CHANGE_RTOL = 1e-3            # of a touched row's largest change
 CHANGE_ULPS = 2               # units at each value's magnitude
@@ -1437,42 +1438,35 @@ def check_first_loss(what, reading: dict, card_loss: float) -> None:
             f"{reading['cpu_first_loss']} from the CPU's")
 
 
-def _stage_ms(fn, reps: int = 0) -> float:
-    """Wall time of one call of ``fn`` on the host's clock, each run
-    ended by a synchronize, median of ``reps`` (``STAGE_REPS``) after a
-    warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps or STAGE_REPS):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
-def stage_breakdown(trainer, state, batch) -> dict:
-    """Each stage of a step timed alone on the trained state, as
-    ``bench.py`` isolates its stages: the pull of both tables, the dense
-    half (forward, backward, dense update) and the push of both tables.
-    The stages mutate the state like steps do."""
-    coll = trainer.collection
-    placed = trainer.place_batch(batch)
-    rows = coll.pull(state.emb, placed["sparse"])
-    _, grads = trainer.dense_step(state, placed, rows)
-    ids = batch["sparse"]["fields"]
-    if ids.ndim == 3:                   # wide hash keys: (lo, hi) pairs
-        from openembedding_tpu_torch.hash_table import join64
-        ids = join64(ids)
-    return {
-        "pull_ms": _stage_ms(lambda: coll.pull(state.emb, placed["sparse"])),
-        "dense_ms": _stage_ms(lambda: trainer.dense_step(state, placed,
-                                                         rows)),
-        "push_ms": _stage_ms(lambda: coll.apply_gradients(
-            state.emb, placed["sparse"], grads)),
-        "place_batch_ms": _stage_ms(lambda: trainer.place_batch(batch)),
-        "unique_fraction": float(np.unique(ids).size / ids.size)}
+def step_stages(trainer, state, batches) -> tuple:
+    """The step's own split, ``observability.step_timings``, over a short
+    window of captured steps on ``batches`` with the evaluate-performance
+    gate on: the first step builds the armed program (its stage events
+    inside the graph), the others replay it. Device ms a replay by stage
+    (``pull_ms``, ``dense_ms``, ``push_ms``, ``push.<part>_ms``) and host
+    ms a step by phase (``host_<phase>_ms``; the gate's every-batch scans
+    land in ``host_stats_ms``). Returns ``(state, split)``."""
+    from openembedding_tpu_torch.utils import observability
+    before = observability.step_timings()
+    observability.set_evaluate_performance(True)
+    try:
+        for b in batches:
+            state, _ = trainer.train_step(state, b)
+    finally:
+        observability.set_evaluate_performance(False)
+    after = observability.step_timings()
+    out = {}
+    for name, v in after["device"].items():
+        was = before["device"].get(name, {"seconds": 0.0, "replays": 0})
+        if v["replays"] > was["replays"]:
+            out[f"{name}_ms"] = 1e3 * (v["seconds"] - was["seconds"]) \
+                / (v["replays"] - was["replays"])
+    calls = after["host"]["step"]["calls"] - before["host"]["step"]["calls"]
+    for phase, v in after["host"].items():
+        if calls:
+            out[f"host_{phase}_ms"] = 1e3 * (
+                v["seconds"] - before["host"][phase]["seconds"]) / calls
+    return state, out
 
 
 def _kernel_family(name: str):
@@ -1967,7 +1961,7 @@ def phase_training() -> int:
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"training: loss {loss}")
-    stages = stage_breakdown(trainer, state, batches[0])
+    state, stages = step_stages(trainer, state, batches[:STAGE_STEPS])
     before = gather_rows.launches
     state, stats_cost = batch_stats_cost(trainer, state, batches)
     launches += gather_rows.launches - before
@@ -2538,9 +2532,10 @@ def phase_hash_training():
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"hash training: loss {loss}")
-    # a batch not yet seen: its pulls fill the missing rows every time;
-    # its push inserts in the warm-up call only, so it is ``push_seen_ms``
-    stages = stage_breakdown(trainer, state, stage_batches[0])
+    # a batch not yet seen, stepped again and again: its push inserts in
+    # the build's warm-up only, so the replays' push is ``push_seen_ms``
+    state, stages = step_stages(trainer, state,
+                                [stage_batches[0]] * STAGE_STEPS)
     stages["push_seen_ms"] = stages.pop("push_ms")
     stages.update(push_stages(trainer, state, stage_batches[1:]))
     tables = {n: {"keys": s.num_used(), "capacity": s.capacity,
@@ -2640,7 +2635,7 @@ def phase_xdeepfm_training() -> int:
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"xdeepfm: loss {loss}")
-    stages = stage_breakdown(trainer, state, batches[0])
+    state, stages = step_stages(trainer, state, batches[:STAGE_STEPS])
     reading = {
         "config": "xdeepfm_dim16", "batch": XDEEP_BATCH, "init_s": init_s,
         "init_without_copy": nocopy, "init_flat_launches": flat_launches,
@@ -2995,24 +2990,6 @@ def eval_throughput(trainer, state, batches) -> dict:
     return out
 
 
-def hybrid_stages(trainer, state, batch) -> dict:
-    """Each stage of a hybrid step timed alone: the collection's pull (24
-    tables and the pooled history), the dense half (the dense-kept
-    lookups, forward, backward, Adam) and the collection's push."""
-    coll = trainer.collection
-    placed = trainer.place_batch(batch)
-    pull_inputs, _ = trainer._split_sparse(placed["sparse"])
-    rows = coll.pull(state.emb, pull_inputs)
-    _, grads = trainer.dense_step(state, placed, rows)
-    return {
-        "pull_ms": _stage_ms(lambda: coll.pull(state.emb, pull_inputs)),
-        "dense_ms": _stage_ms(lambda: trainer.dense_step(state, placed,
-                                                         rows)),
-        "push_ms": _stage_ms(lambda: coll.apply_gradients(
-            state.emb, pull_inputs, grads)),
-        "place_batch_ms": _stage_ms(lambda: trainer.place_batch(batch))}
-
-
 def _pooled_on_host(weights: np.ndarray, ids: np.ndarray,
                     pooling: str) -> np.ndarray:
     """A pooled sequence lookup computed on the host: zero rows for
@@ -3200,7 +3177,7 @@ def phase_hybrid_training():
     loss = float(m["loss"])
     if not np.isfinite(loss):
         raise AssertionError(f"hybrid: loss {loss}")
-    stages = hybrid_stages(trainer, state, batches[0])
+    state, stages = step_stages(trainer, state, batches[:STAGE_STEPS])
     served = hybrid_train_then_serve(trainer, state, batches[1])
     reading = {
         "config": "criteo_hist_hybrid", "batch": BATCH, "init_s": init_s,
@@ -6444,7 +6421,7 @@ def phase_sharded() -> dict:
 
 PLANE_TRACE_STEPS = 2
 PLANE_ORACLE_STEPS = 2          # captured steps held against eager ones
-PLANE_STAGE_REPS = 3            # each stage timed alone, median of these
+PLANE_STAGE_REPS = 3            # armed replays of the stage split
 PLANE_CACHE_K = 4096            # deepfm_dim9_zipf (bench.py:1578-1582)
 PLANE_CACHE_REFRESH = 16
 PER_FEATURE_VOCAB = 1 << 18     # deepfm_dim9_per_feature (bench.py:1632)
@@ -6487,23 +6464,6 @@ def parity_against(label, got, base, mode) -> dict:
     return out
 
 
-def _stage_ms_of(trainer, state, batch) -> dict:
-    """The pull of every variable, the dense half and the push, each timed
-    alone on the trained state (``_stage_ms``): the exchange's ms beside
-    the dense ms, read against the step's."""
-    coll = trainer.collection
-    placed = trainer.place_batch(batch)
-    cols = {n: placed["sparse"][n] for n in state.emb}
-    rows = coll.pull(state.emb, cols)
-    _, grads = trainer.dense_step(state, placed, rows)
-    reps = PLANE_STAGE_REPS
-    return {"pull_ms": _stage_ms(lambda: coll.pull(state.emb, cols), reps),
-            "dense_ms": _stage_ms(lambda: trainer.dense_step(
-                state, placed, rows), reps),
-            "push_ms": _stage_ms(lambda: coll.apply_gradients(
-                state.emb, cols, grads), reps)}
-
-
 def plane_readings(what, trainer, state, batch, after) -> dict:
     """What each plane shows of itself, on a copy of the trained state
     (one eager step, not the main path's launches): the exchanges a step
@@ -6514,7 +6474,9 @@ def plane_readings(what, trainer, state, batch, after) -> dict:
     largest over senders and variables, read from the residuals the last
     training step left); the replica's hits, misses, bytes saved,
     refreshes and the last refresh's ms, and the host sketch's cost a
-    step; the stages alone (dense beside pull and push)."""
+    step; the step's own stage split over an armed window on the copy
+    (``step_stages``; the replica managers are put back after it)."""
+    import copy
     from openembedding_tpu_torch.parallel import alltoall
     from openembedding_tpu_torch.parallel.precision import EFState
     from openembedding_tpu_torch.training import copy_state
@@ -6578,7 +6540,12 @@ def plane_readings(what, trainer, state, batch, after) -> dict:
                     "quant_residual_norm": max(
                         out["quant"]["quant_residual_norm"],
                         float(blocks.norm(dim=1).max()))}
-        out["stages"] = _stage_ms_of(trainer, s, batch)
+        # the stage window's steps must not move the shared replica
+        # managers, whose counters are read below
+        hot = copy.deepcopy(trainer._hot)
+        _, out["stages"] = step_stages(trainer, s,
+                                       [batch] * (PLANE_STAGE_REPS + 1))
+        trainer._hot = hot
         del s, s2
     if trainer._hot:
         from openembedding_tpu_torch.parallel.hot_cache import FreqSketch

@@ -46,22 +46,27 @@ from .concurrency import make_lock
 # ---------------------------------------------------------------------------
 
 _TRACE_ENV = "OE_SCOPE_TRACE"
-_tracing_forced: Optional[bool] = None
+
+
+def _tracing_from_env() -> bool:
+    return os.environ.get(_TRACE_ENV, "").lower() in ("1", "true", "yes",
+                                                      "on")
+
+
+_tracing = _tracing_from_env()
 
 
 def set_tracing(on: Optional[bool]) -> None:
     """Force span-ring recording on/off; ``None`` restores the
-    environment default (``OE_SCOPE_TRACE``). Histograms are always fed;
-    only the per-event rings are gated."""
-    global _tracing_forced
-    _tracing_forced = on
+    environment default (``OE_SCOPE_TRACE``, read here and at import, so
+    no span pays for reading the environment). Histograms are always
+    fed; only the per-event rings are gated."""
+    global _tracing
+    _tracing = _tracing_from_env() if on is None else bool(on)
 
 
 def tracing_enabled() -> bool:
-    if _tracing_forced is not None:
-        return _tracing_forced
-    return os.environ.get(_TRACE_ENV, "").lower() in ("1", "true", "yes",
-                                                      "on")
+    return _tracing
 
 
 def _trace_state_clean() -> bool:
@@ -77,19 +82,25 @@ def _trace_state_clean() -> bool:
         return True
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session records in this process. A
+    host-only process never pays for importing torch here."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return bool(torch.autograd._profiler_enabled())
+    except Exception:  # noqa: BLE001 — annotation is best-effort
+        return False
+
+
 def _profiler():
     """``torch.profiler.record_function`` while a torch profiler session
     records, else None: outside a session the annotation would only cost
-    time, and a host-only process never pays for importing torch here."""
-    torch = sys.modules.get("torch")
-    if torch is None:
+    time."""
+    if not profiling():
         return None
-    try:
-        if not torch.autograd._profiler_enabled():
-            return None
-    except Exception:  # noqa: BLE001 — annotation is best-effort
-        return None
-    return torch.profiler.record_function
+    return sys.modules["torch"].profiler.record_function
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +277,11 @@ class HistogramRegistry:
         self._counters: Dict[Tuple[str, tuple], float] = {}
 
     def observe(self, name: str, value: float, **labels) -> None:
-        key = (name, _labels_key(labels))
+        self.observe_key((name, _labels_key(labels)), value)
+
+    def observe_key(self, key: Tuple[str, tuple], value: float) -> None:
+        """:meth:`observe` by the series' key, ``(name, sorted label
+        pairs)``, built once by a caller that feeds one series often."""
         idx = bisect.bisect_left(BUCKET_BOUNDS, value)
         with self._lock:
             h = self._hists.get(key)
@@ -478,12 +493,39 @@ def span(kind: str, detail: Optional[Mapping[str, Any]] = None,
                 dict(detail) if detail else None, _annotation(kind))
 
 
-def step_span(step: int, name: str = "step") -> Span:
-    """Span for one whole train step; under a profiler session the
-    annotation is named ``"<name> <step>"`` so device work is attributed
-    to step numbers."""
-    return Span(name, None, {"step": int(step)},
-                _annotation(f"{name} {int(step)}"))
+_STEP_SERIES = (_hist_name("step"), ())
+
+
+def record_step(step: int, t0: float, dt: float,
+                error: Optional[str] = None) -> None:
+    """One train step's span, from the trainer's own clock readings
+    (``utils/observability.py`` ``StepClock``; the step opens no
+    :class:`Span`): a ``span_step_seconds`` sample, and while tracing is
+    on the ring event, its step number in the args."""
+    if error is None and not _tracing:
+        HISTOGRAMS.observe_key(_STEP_SERIES, dt)
+        return
+    record_span("step", t0, dt, error=error, detail={"step": int(step)})
+
+
+def enter_annotation(name: str):
+    """Enter ``record_function(name)`` under a profiler session; returns
+    what :func:`exit_annotation` closes, or None."""
+    ann = _annotation(name)
+    if ann is not None:
+        try:
+            ann.__enter__()
+        except Exception:  # noqa: BLE001 — annotation is best-effort
+            return None
+    return ann
+
+
+def exit_annotation(ann) -> None:
+    if ann is not None:
+        try:
+            ann.__exit__(None, None, None)
+        except Exception:  # noqa: BLE001 — annotation is best-effort
+            pass
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ from .optim.initializers import (Initializer, make_initializer,
                                  threefry_key)
 from .optim.optimizers import make_optimizer
 from .table import resolve_dtype
+from .utils import observability
 from .utils.device import DeviceLike, resolve_device
 
 BUCKET = 128              # slots per bucket
@@ -617,15 +618,20 @@ def apply_gradients(state: HashTableState,
     EMPTY keys are dropped; keys that find no free slot in their window
     are dropped and counted in ``insert_failures``. ``dedup_capacity`` and
     ``in_counts``: as in :func:`push_dedup`. No step reads the device
-    back. Returns ``state``.
+    back. It opens the stages ``push.dedup``, ``push.find`` and
+    ``push.update`` of an armed step program (``utils/observability.py``
+    ``stage``). Returns ``state``.
     """
     if indices.numel() == 0:
         return state
+    observability.stage("push.dedup")
     uniq, valid, summed, counts = push_dedup(
         state, indices, grads, dedup_capacity=dedup_capacity,
         in_counts=in_counts)
+    observability.stage("push.find")
     _, slot, inserted, failed = find_or_insert(state.keys, uniq, valid,
                                                max_probes)
+    observability.stage("push.update")
     push_update(state, make_optimizer(optimizer),
                 make_initializer(initializer), uniq, valid, summed, counts,
                 slot, inserted)

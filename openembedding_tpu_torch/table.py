@@ -6,7 +6,9 @@ kernel of ``ops/gather.py`` (the plain version on CPU tensors), with the
 framework-wide invalid-index contract: ids ``< 0`` or ``>= capacity`` give
 zero rows. ``apply_gradients`` is the push: dedup, combine, gather the
 touched rows, update them, scatter them back, step for step the JAX
-program, in PyTorch ops with static shapes (no device-to-host read).
+program, in PyTorch ops with static shapes (no device-to-host read); it
+opens the stages ``push.dedup`` and ``push.update`` of an armed step
+program (``utils/observability.py`` ``stage``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from .ops import dedup
 from .ops.gather import gather_rows
 from .optim.initializers import make_initializer
 from .optim.optimizers import SparseOptimizer, make_optimizer
+from .utils import observability
 from .utils.device import DeviceLike, resolve_device
 
 DEFAULT_INITIALIZER = {"category": "uniform", "minval": -1e-3, "maxval": 1e-3}
@@ -130,6 +133,7 @@ def apply_gradients(state: TableState,
         return state
     capacity = dedup_capacity or flat_idx.shape[0]
 
+    observability.stage("push.dedup")
     uniq, inverse, valid = dedup.unique_indices(flat_idx, capacity)
     summed, counts = dedup.combine_gradients(
         flat_grads, inverse, capacity,
@@ -138,6 +142,7 @@ def apply_gradients(state: TableState,
     # they drop before the gather, so they never read or write a real row
     valid = valid & (uniq >= 0) & (uniq < state.capacity)
     safe = torch.where(valid, uniq, torch.zeros_like(uniq)).to(torch.int64)
+    observability.stage("push.update")
     w = state.weights.index_select(0, safe)
     s = {k: v.index_select(0, safe) for k, v in state.slots.items()}
     new_w, new_s = optimizer_block_update(optimizer, w, s, summed, counts)

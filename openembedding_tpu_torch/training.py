@@ -25,6 +25,19 @@ fails raises; nothing falls back to the eager step. On the CPU a program
 is the eager step, cached and counted the same way, so that
 ``fit(retrace_budget=)`` means there what it means on the card.
 ``train_step_eager`` is the step without a program, on any device.
+A step times itself (``utils/observability.py``): ``train_step`` reads
+the host's clock at its phase boundaries (``StepClock``: the batch stats,
+the host preparation, the program lookup, the batch copy, which holds
+the wait for the card's previous step where the batch lies in pageable
+memory, the launch, the output's copy and the work after it) and adds
+them up over the steps that neither build a program nor run
+under a ``torch.profiler`` session. A step program built while
+``observability.evaluate_performance()`` is on is armed, and the arming
+is part of its cache key: its pull, dense half and push open
+``observability.stage`` marks, which a captured graph holds as CUDA
+event-record nodes between the stages (an unarmed graph holds none) and
+which read the host's clock on the CPU; ``observability.step_timings()``
+sums them by stage.
 ``eval_step`` keeps a cache of eval programs keyed the same way (JAX jits
 it too): on CUDA one captured graph of pull, model and sigmoid, sharing
 the step programs' memory pool (they replay one at a time, on one
@@ -99,6 +112,7 @@ once, inside ``fit``'s two-step warm-up.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -275,15 +289,37 @@ class _Program:
 
 
 class _EagerProgram(_Program):
-    """A program on the CPU: ``fn(state, placed batch)``, eagerly."""
+    """A program on the CPU: ``fn(state, placed batch)``, eagerly. An
+    armed one (``Trainer._run``) records its stages on every call:
+    ``observability.stage`` marks on the host's clock, or CUDA events on
+    the eager card of a mesh across processes."""
 
-    def __init__(self, trainer: "Trainer", state: "TrainState", fn):
+    def __init__(self, trainer: "Trainer", state: "TrainState", fn,
+                 armed: bool = False):
         super().__init__(state)
         self.trainer = trainer
         self.fn = fn
+        self.armed = armed
 
-    def __call__(self, state: "TrainState", host) -> torch.Tensor:
-        return self.fn(state, self.trainer.place_batch(host))
+    def __call__(self, state: "TrainState", host, clock=None,
+                 counted: bool = True) -> torch.Tensor:
+        placed = self.trainer.place_batch(host)
+        if clock is not None:
+            clock.mark()                                    # copy
+        if not self.armed:
+            out = self.fn(state, placed)
+        else:
+            observability.stages_before_run()
+            rec = observability.StageRecorder(
+                self.trainer.device.type == "cuda")
+            with rec.recording():
+                out = self.fn(state, placed)
+            if counted:
+                observability.stages_after_run(rec)
+        if clock is not None:
+            clock.mark()                                    # launch
+            clock.mark()                                    # output
+        return out
 
 
 class _CapturedProgram(_Program):
@@ -299,9 +335,13 @@ class _CapturedProgram(_Program):
     share (they replay one at a time, on one stream). ``first`` is the
     warm-up's output (a step's: its loss, and the step is taken);
     ``build_s`` the seconds the build took; ``pool_bytes`` the memory the
-    capture reserved."""
+    capture reserved. An armed program (``Trainer._run``) captures with
+    ``stages`` recording, so its graph holds the stage events, and each
+    replay first reads the previous armed replay's
+    (``observability.stages_before_run``)."""
 
-    def __init__(self, trainer: "Trainer", state: "TrainState", host, fn):
+    def __init__(self, trainer: "Trainer", state: "TrainState", host, fn,
+                 armed: bool = False, clock=None):
         super().__init__(state)
         t0 = time.perf_counter()
         dev = trainer.device
@@ -317,6 +357,8 @@ class _CapturedProgram(_Program):
             self.inputs["next"] = {k: buffer(v)
                                    for k, v in host["next"].items()}
         self._load(host)
+        if clock is not None:
+            clock.mark()                                    # copy
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
@@ -325,11 +367,18 @@ class _CapturedProgram(_Program):
         main.wait_stream(side)
         self.first.record_stream(main)
         self.graph = CountedGraph()
-        with self.graph.capture(pool=trainer._graph_pool()):
+        self.armed = armed
+        self.stages = observability.StageRecorder(True) if armed else None
+        with self.graph.capture(pool=trainer._graph_pool()), \
+                (self.stages.recording() if armed
+                 else contextlib.nullcontext()):
             reserved = torch.cuda.memory_reserved(dev)
             self.out = fn(state, self.inputs)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.build_s = time.perf_counter() - t0
+        if clock is not None:
+            clock.mark()                                    # launch
+            clock.mark()                                    # output
 
     def _load(self, host) -> None:
         """Copy a batch into the static buffers, on the current stream and
@@ -343,12 +392,27 @@ class _CapturedProgram(_Program):
             if buf is not None:
                 buf.copy_(x, non_blocking=True)
 
-    def __call__(self, state: "TrainState", host) -> torch.Tensor:
+    def __call__(self, state: "TrainState", host,
+                 clock=None) -> torch.Tensor:
         del state           # the graph holds its tensors' addresses
         self._load(host)
-        self.graph.replay()
+        if clock is not None:
+            # a copy from pageable memory waits for the card's previous
+            # step once the driver's staging buffer fills: ``copy`` holds it
+            clock.mark()                                    # copy
+        if self.stages is None:
+            self.graph.replay()
+        else:
+            observability.stages_before_run()
+            self.graph.replay()
+            observability.stages_after_run(self.stages)
+        if clock is not None:
+            clock.mark()                                    # launch
         # a copy of its own: the next replay overwrites the graph's output
-        return self.out.clone()
+        out = self.out.clone()
+        if clock is not None:
+            clock.mark()                                    # output
+        return out
 
 
 class Trainer:
@@ -562,7 +626,9 @@ class Trainer:
         pipelined variables their rows come from ``state.pipe`` and the
         step ends with the prefetch of ``batch["next"]`` into it, after
         the push (``parallel/pipelined.py``)."""
+        stage = observability.stage
         pull_inputs, _ = self._split_sparse(batch["sparse"])
+        stage("pull")
         if self._pipelined:
             _pre, inline = pipeline_lib.split_columns(self.collection,
                                                       pull_inputs)
@@ -572,16 +638,20 @@ class Trainer:
                 rows.update(self.collection.pull(state.emb, inline))
         else:
             rows = self.collection.pull(state.emb, pull_inputs)
+        stage("dense")
         loss, row_grads = self.dense_step(state, batch, rows)
         with torch.no_grad():
             # dirty marks come from the host batch, outside the step
+            stage("push")
             self.collection.apply_gradients(state.emb, pull_inputs,
                                             row_grads, mark=False)
             state.step.add_(1)
             if self._pipelined:
                 # the version barrier: pull(N + 1) reads push(N)'s tables
+                stage("pull")
                 pipeline_lib.prefetch_pull(self.collection, state.emb,
                                            batch["next"], out=state.pipe)
+            stage("end")
         return loss
 
     # --- the pipelined schedule (parallel/pipelined.py) ---------------------
@@ -667,20 +737,27 @@ class Trainer:
         return torch.sigmoid(logits.reshape(-1))
 
     def _run(self, cache: Dict[tuple, _Program], fn, state: TrainState,
-             host) -> tuple:
+             host, clock=None, armed: bool = False) -> tuple:
         """``fn`` on the host batch ``host`` (:meth:`host_batch`) through
-        its program in ``cache`` (batch signature and state identity),
-        building the program first when there is none: on CUDA a captured
-        graph, whose warm-up is this call, on the CPU the eager ``fn``.
-        Returns the output and whether a program was built."""
+        its program in ``cache`` (batch signature, state identity and
+        ``armed``), building the program first when there is none: on
+        CUDA a captured graph, whose warm-up is this call, on the CPU the
+        eager ``fn``. An armed program records its stages
+        (``observability.stage``). ``clock``: the step's
+        ``observability.StepClock``, marked after the lookup, the copy,
+        the launch and the output. Returns the output and whether a
+        program was built."""
         self._check_dense_ids(state, host)
-        key = (_batch_key(host), _state_key(state))
+        key = (_batch_key(host), _state_key(state), armed)
         program = cache.get(key)
-        if program is not None and program.live():
-            return program(state, host), False
+        live = program is not None and program.live()
+        if clock is not None:
+            clock.mark()                                    # lookup
+        if live:
+            return program(state, host, clock), False
         self._drop_stale_programs()
         if self.device.type == "cuda" and not self.spans_processes:
-            program = _CapturedProgram(self, state, host, fn)
+            program = _CapturedProgram(self, state, host, fn, armed, clock)
             out = program.first
         else:
             if self.spans_processes:
@@ -691,8 +768,9 @@ class Trainer:
                     observability.evaluate_performance(),
                     "observability.evaluate_performance() must be set "
                     "alike on every process")
-            program = _EagerProgram(self, state, fn)
-            out = program(state, host)
+            program = _EagerProgram(self, state, fn, armed)
+            # a build's first call is its warm-up: its stages go unread
+            out = program(state, host, clock, counted=False)
         cache[key] = program
         note_build()
         return out, True
@@ -717,37 +795,43 @@ class Trainer:
         runs this step (``fit`` keeps ``pipeline_depth`` in flight;
         :meth:`prefetch` is the hand-driven form). The lookahead is keyed
         on batch object identity."""
+        profiling = scope.profiling()
+        clock = observability.StepClock(self._host_step, profiling)
+        self._host_step += 1
         try:
-            with scope.step_span(self._host_step):
-                # the batch-shape stats of JAX's step (always-on gauges,
-                # one scan a table a second; every batch when the gate is
-                # on), from the batch's host arrays, outside the program
-                observability.record_batch_stats(
-                    {k: _stats_view(v) for k, v in batch["sparse"].items()})
-                state, uniqs = self._apply_prepared_offload(state, batch)
-                if self._pipelined:
-                    state, host, nxt = self._pipelined_host(
-                        state, batch, next_batch)
-                else:
-                    host = self.host_batch(batch)
-                self._size_ef(state, host)
-                record = observability.evaluate_performance()
-                loss, built = observability.plane_timed(
-                    "step", self.pipeline_plane, record and bool(
-                        self._pipelined), self._run, self.programs,
-                    self._step, state, host)
-                self.builds += built
-                if self._pipelined:
-                    self._pipe_for = nxt
-                    self._pipe_token = id(state.pipe)
-                self._mark_dirty(host)
-                self._note_offload(batch, uniqs)
-                self._note_hot_cache(state, batch)
-                if next_batch is not None and self.offload \
-                        and not self._prep_started(next_batch):
-                    self._start_host_prepare(next_batch)
-        finally:
-            self._host_step += 1
+            # the batch-shape stats of JAX's step (always-on gauges, one
+            # scan a table a second; every batch when the gate is on), from
+            # the batch's host arrays, outside the program
+            observability.record_batch_stats(batch["sparse"],
+                                             view=_stats_view)
+            clock.mark()                                    # stats
+            state, uniqs = self._apply_prepared_offload(state, batch)
+            if self._pipelined:
+                state, host, nxt = self._pipelined_host(state, batch,
+                                                        next_batch)
+            else:
+                host = self.host_batch(batch)
+            self._size_ef(state, host)
+            clock.mark()                                    # prepare
+            record = observability.evaluate_performance()
+            loss, built = observability.plane_timed(
+                "step", self.pipeline_plane, record and bool(
+                    self._pipelined), self._run, self.programs, self._step,
+                state, host, clock, record)
+            self.builds += built
+            if self._pipelined:
+                self._pipe_for = nxt
+                self._pipe_token = id(state.pipe)
+            self._mark_dirty(host)
+            self._note_offload(batch, uniqs)
+            self._note_hot_cache(state, batch)
+            if next_batch is not None and self.offload \
+                    and not self._prep_started(next_batch):
+                self._start_host_prepare(next_batch)
+        except BaseException as e:
+            clock.close(False, type(e).__name__)
+            raise
+        clock.close(not built and not profiling)                 # after
         return state, {"loss": loss}
 
     def _size_ef(self, state: TrainState, host) -> None:

@@ -17,6 +17,18 @@ reports a trace. ``plane_timed``/``plane_timings`` time the sharded
 planes' pulls and pushes (``parallel/``) under the gate; the hot-row
 cache's ``cache_stats`` comes with its plane (ROADMAP Queue 1,
 multi-shard exchange planes).
+
+The train step times itself from inside, which the JAX package does not:
+``stage`` marks (``pull``, ``dense``, ``push`` and the tables'
+``push.dedup``, ``push.find``, ``push.update``) record CUDA events inside
+the captured graph of an armed step program (one built while the gate is
+on) and read the host's clock on the CPU; ``StepClock`` reads the host's
+clock at the phase boundaries of ``Trainer.train_step`` (``stats``,
+``prepare``, ``lookup``, ``copy``, ``launch``, ``output``, ``after``)
+and feeds the step's span.
+``step_timings`` returns both; ``prometheus_text`` renders them as the
+``oe_step_host_*`` and ``oe_step_device_*`` families, and ``Reporter``
+prints them.
 """
 
 from __future__ import annotations
@@ -111,9 +123,14 @@ _BATCH_GAUGE_INTERVAL_S = 1.0
 _BATCH_GAUGE_LAST: Dict[str, float] = {}
 
 
-def record_batch_stats(sparse: Dict[str, np.ndarray],
-                       accumulator: Optional[Accumulator] = None) -> None:
-    """Per-table batch-shape stats for one batch (host-side).
+def record_batch_stats(sparse: Dict[str, Any],
+                       accumulator: Optional[Accumulator] = None,
+                       view: Optional[Callable[[Any], np.ndarray]] = None
+                       ) -> None:
+    """Per-table batch-shape stats for one batch (host-side). ``view``
+    turns a column into the host array that is scanned; it is called only
+    for a column the throttle lets through (the trainer's copies a
+    device-resident column to the host).
 
     Two tiers:
 
@@ -136,7 +153,7 @@ def record_batch_stats(sparse: Dict[str, np.ndarray],
             now = time.monotonic()
             if last is not None and now - last < _BATCH_GAUGE_INTERVAL_S:
                 continue
-        arr = np.asarray(idx).ravel()
+        arr = np.asarray(idx if view is None else view(idx)).ravel()
         _uniq, counts = np.unique(arr, return_counts=True)
         if gated:
             acc.add("pull_indices", arr.size)
@@ -258,6 +275,245 @@ def plane_timed(verb: str, plane: str, enabled: bool, fn, *args):
     GLOBAL.add_time(f"{verb}/{plane}", dt)
     scope.record_span(verb, t0, dt, {"plane": plane})
     return out
+
+
+# --- step timings: the device stages of an armed step program, the host
+# phases of Trainer.train_step --------------------------------------------
+
+_STAGES = threading.local()          # .recorder: the marks being recorded
+
+
+def stage(name: str) -> None:
+    """Open the stage ``name`` on the current stream: a segment runs from
+    one mark to the next in stream order and is added to the stage that
+    opened it; ``a.b`` is added to ``a`` too (``push.find`` to ``push``).
+    Nothing happens unless a :class:`StageRecorder` records on this
+    thread, which the trainer arranges only while it builds or, on the
+    CPU, runs an armed step program (``training.py``)."""
+    rec = getattr(_STAGES, "recorder", None)
+    if rec is not None:
+        rec.mark(name)
+
+
+class StageRecorder:
+    """The stage marks of one armed step program.
+
+    On a CUDA device each mark records a timing event on the current
+    stream with ``external=True``: inside a graph capture it becomes an
+    event-record node of the graph (not a kernel, copy or fill), which
+    every replay records again, and the marks cost nothing in a program
+    built unarmed, which holds none. On the CPU, where operations run as
+    they are called, a mark reads the host's clock."""
+
+    def __init__(self, cuda: bool):
+        self.cuda = cuda
+        self.marks: list = []
+
+    def mark(self, name: str) -> None:
+        if self.cuda:
+            import torch
+            ev = torch.cuda.Event(enable_timing=True, external=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Marks of :func:`stage` calls on this thread, in the ``with``
+        body, go to this recorder."""
+        prev = getattr(_STAGES, "recorder", None)
+        _STAGES.recorder = self
+        try:
+            yield self
+        finally:
+            _STAGES.recorder = prev
+
+    def seconds(self) -> Dict[str, float]:
+        """Seconds by stage of the last run, after waiting for its last
+        mark."""
+        out: Dict[str, float] = {}
+        if self.cuda and self.marks:
+            self.marks[-1][1].synchronize()
+        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
+            dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
+            out[name] = out.get(name, 0.0) + dt
+            if "." in name:
+                top = name.split(".", 1)[0]
+                out[top] = out.get(top, 0.0) + dt
+        return out
+
+
+_STEP_LOCK = make_lock("observability.steps")
+_PENDING: Optional[StageRecorder] = None    # the last armed run, unread
+_DEVICE: Dict[str, list] = {}               # stage -> [seconds, replays]
+
+HOST_PHASES = ("stats", "prepare", "lookup", "copy", "launch", "output",
+               "after")
+# seconds by phase, then the whole call's ("step"); counted steps
+_HOST_SECONDS = [0.0] * (len(HOST_PHASES) + 1)
+_HOST_CALLS = [0]
+
+
+def _read_pending_locked() -> None:
+    global _PENDING
+    rec, _PENDING = _PENDING, None
+    if rec is not None:
+        for name, dt in rec.seconds().items():
+            d = _DEVICE.setdefault(name, [0.0, 0])
+            d[0] += dt
+            d[1] += 1
+
+
+def stages_before_run() -> None:
+    """Read the previous armed run's stages (waiting for its end) before
+    the next armed run records the same events again."""
+    with _STEP_LOCK:
+        _read_pending_locked()
+
+
+def stages_after_run(recorder: StageRecorder) -> None:
+    """One armed run (a replay, or an eager call) was launched; its
+    stages are read before the next armed run or at
+    :func:`step_timings`."""
+    global _PENDING
+    with _STEP_LOCK:
+        _PENDING = recorder
+
+
+class StepClock:
+    """The host phases of one ``Trainer.train_step``, on the host's clock.
+
+    The clock reads ``time.perf_counter()`` as the step starts; each
+    :meth:`mark` ends the current phase of :data:`HOST_PHASES` and opens
+    the next, and :meth:`close` ends the last (``after``) and the step.
+    A counted step adds each phase's seconds, and the whole call's as
+    ``step``, to plain floats in one process-wide store (the trainer is
+    one thread); every step, counted or not, feeds the
+    ``span_step_seconds`` histogram from the same readings
+    (``scope.record_step``). Under a ``torch.profiler`` session the step
+    enters ``record_function("step <n>")`` and each phase
+    ``record_function("step.<phase>")``, so a profile puts the host's
+    gaps between device work down to a phase."""
+
+    __slots__ = ("step", "t", "_ann", "_step_ann")
+
+    def __init__(self, step: int, profiling: bool):
+        self.step = step
+        self._ann = self._step_ann = None
+        if profiling:
+            self._step_ann = scope.enter_annotation(f"step {step}")
+            self._ann = scope.enter_annotation("step." + HOST_PHASES[0])
+        self.t = [time.perf_counter()]
+
+    def mark(self) -> None:
+        self.t.append(time.perf_counter())
+        if self._step_ann is not None:
+            scope.exit_annotation(self._ann)
+            n = len(self.t) - 1
+            self._ann = scope.enter_annotation("step." + HOST_PHASES[n]) \
+                if n < len(HOST_PHASES) else None
+
+    def close(self, counted: bool, error: Optional[str] = None) -> None:
+        """End the step; ``counted``: add its phases to the store (only a
+        step that took every phase is)."""
+        t = self.t
+        t.append(time.perf_counter())
+        if self._step_ann is not None:
+            scope.exit_annotation(self._ann)
+            scope.exit_annotation(self._step_ann)
+        dt = t[-1] - t[0]
+        scope.record_step(self.step, t[0], dt, error)
+        if counted and len(t) == len(HOST_PHASES) + 1:
+            s = _HOST_SECONDS
+            for i in range(len(HOST_PHASES)):
+                s[i] += t[i + 1] - t[i]
+            s[-1] += dt
+            _HOST_CALLS[0] += 1
+
+
+def step_timings() -> Dict[str, Dict[str, Dict[str, float]]]:
+    """The step's timings so far: ``{"host": {phase: {"seconds",
+    "calls"}}, "device": {stage: {"seconds", "replays"}}}``.
+
+    ``host``: each phase of :data:`HOST_PHASES` and ``step``, the whole
+    ``Trainer.train_step`` call, over the counted steps: a step that
+    built a program, or ran while a profiler session recorded (the
+    profiler's own cost would read as host time), is not counted.
+    ``copy`` is the batch's copy into the step program's buffers, and
+    holds the wait for the card's previous step where the batch lies in
+    pageable memory (such a copy waits for its stream once the driver's
+    staging buffer fills).
+
+    ``device``: the stages of the armed runs (:func:`stage`; ``pull``,
+    ``dense``, ``push`` and its parts ``push.dedup``, ``push.find``,
+    ``push.update``), in device seconds on CUDA, and ``replays`` the armed
+    runs that held each. A step program is armed when
+    :func:`evaluate_performance` is on at its build (a profiler session
+    does not arm it: a trace shows the program users run); a build's
+    warm-up is not counted. The last armed run is read
+    here, after waiting for it. Its cost: while armed, at most one replay
+    is in flight (each armed run first waits for the one before), as
+    :func:`plane_timed`'s timers serialize the step."""
+    with _STEP_LOCK:
+        _read_pending_locked()
+        device = {k: {"seconds": v[0], "replays": v[1]}
+                  for k, v in sorted(_DEVICE.items())}
+    names = HOST_PHASES + ("step",)
+    host = {p: {"seconds": _HOST_SECONDS[i], "calls": _HOST_CALLS[0]}
+            for i, p in enumerate(names)}
+    return {"host": host, "device": device}
+
+
+def reset_step_timings() -> None:
+    """Forget every step timing, the unread armed run too."""
+    global _PENDING
+    with _STEP_LOCK:
+        _PENDING = None
+        _DEVICE.clear()
+        _HOST_SECONDS[:] = [0.0] * len(_HOST_SECONDS)
+        _HOST_CALLS[0] = 0
+
+
+def _step_report() -> list:
+    """The step timings as :class:`Reporter` prints them: milliseconds a
+    counted step by host phase, a replay by device stage; empty parts are
+    left out."""
+    st = step_timings()
+    out = []
+    calls = st["host"]["step"]["calls"]
+    if calls:
+        fields = ", ".join(f"{p}_ms={1e3 * v['seconds'] / calls:.6g}"
+                           for p, v in st["host"].items())
+        out.append(f"step_host[{fields}, calls={calls}]")
+    if st["device"]:
+        fields = ", ".join(
+            f"{k}_ms={1e3 * v['seconds'] / v['replays']:.6g}"
+            for k, v in st["device"].items())
+        out.append(f"step_device[{fields}]")
+    return out
+
+
+def _step_lines(prefix: str) -> list:
+    """The four ``<prefix>_step_*`` families of :func:`step_timings`."""
+    st = step_timings()
+    lines = []
+    for part, label, field, kind, help_txt in (
+            ("host", "phase", "seconds", "seconds",
+             "host seconds of Trainer.train_step by phase, counted steps"),
+            ("host", "phase", "calls", "calls",
+             "counted Trainer.train_step calls by phase"),
+            ("device", "stage", "seconds", "seconds",
+             "device seconds of armed step runs by stage"),
+            ("device", "stage", "replays", "replays",
+             "armed step runs by stage")):
+        base = f"{prefix}_step_{part}_{kind}_total"
+        lines.append(f"# HELP {base} {help_txt}")
+        lines.append(f"# TYPE {base} counter")
+        for name, v in st[part].items():
+            lines.append(f'{base}{{{label}="{_esc_label(name)}"}} '
+                         f"{v[field]:.10g}")
+    return lines
 
 
 def plane_timings(accumulator: Optional[Accumulator] = None
@@ -562,6 +818,9 @@ def prometheus_text(accumulator: Optional[Accumulator] = None,
                          f"lock `{name}`")
             lines.append(f"# TYPE {base}_{suffix} counter")
             lines.append(f"{base}_{suffix} {st[key]:.10g}")
+    if acc is GLOBAL:
+        # the step timings are process-wide, as GLOBAL is
+        lines.extend(_step_lines(prefix))
     if include_scope:
         lines.extend(scope.HISTOGRAMS.prometheus_lines(prefix))
     if include_mem:
@@ -628,12 +887,14 @@ class Reporter:
         snap = self.acc.snapshot()
         with self._lock:
             self._ticks += 1
-        if snap:
-            parts = []
-            for name in sorted(snap):
-                fields = ", ".join(f"{k}={v:.6g}"
-                                   for k, v in sorted(snap[name].items()))
-                parts.append(f"{name}[{fields}]")
+        parts = []
+        for name in sorted(snap):
+            fields = ", ".join(f"{k}={v:.6g}"
+                               for k, v in sorted(snap[name].items()))
+            parts.append(f"{name}[{fields}]")
+        if self.acc is GLOBAL:
+            parts.extend(_step_report())
+        if parts:
             self.sink("metrics: " + " ".join(parts))
 
     def stop(self):

@@ -709,6 +709,53 @@ def test_captured_step_matches_eager(kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["array", "hash"])
+def test_armed_captured_step_times_its_stages(kind):
+    """With the evaluate-performance gate on, a small DeepFM trainer's
+    captured step program is armed: its replays record CUDA events
+    between the stages, each stage's device time a replay is above zero,
+    and a replay's ``pull``, ``dense`` and ``push`` add up to the span
+    from its first event to its last (``push.find`` only over hash
+    tables). Arming builds one program; turning the gate off replays the
+    first."""
+    _need_card()
+    from openembedding_tpu_torch.data import criteo
+    from openembedding_tpu_torch.utils import observability as obs
+    build = _tiny_trainer if kind == "array" else _tiny_hash_trainer
+    gpu, mapper = build("cuda")
+    batches = [mapper.fuse_batch(b) for b in criteo.synthetic_criteo(
+        512, num_buckets=1000 if kind == "array" else 1 << 12, seed=0,
+        num_batches=4)]
+    state = gpu.init(prng_key(0), batches[0])
+    state, _ = gpu.train_step(state, batches[0])
+    obs.reset_step_timings()
+    obs.set_evaluate_performance(True)
+    try:
+        for b in batches:
+            state, _ = gpu.train_step(state, b)
+        assert gpu.builds == 2
+        obs.step_timings()
+        obs.reset_step_timings()
+        state, _ = gpu.train_step(state, batches[0])
+    finally:
+        obs.set_evaluate_performance(False)
+    device = obs.step_timings()["device"]
+    want = {"pull", "dense", "push", "push.dedup", "push.update"} | (
+        {"push.find"} if kind == "hash" else set())
+    assert set(device) == want
+    assert all(v["replays"] == 1 and v["seconds"] > 0.0
+               for v in device.values())
+    (armed,) = [p for p in gpu.programs.values() if p.armed]
+    marks = armed.stages.marks
+    span = marks[0][1].elapsed_time(marks[-1][1]) / 1e3
+    total = sum(device[k]["seconds"] for k in ("pull", "dense", "push"))
+    assert abs(total - span) <= 1e-5 + 1e-3 * span
+    state, _ = gpu.train_step(state, batches[1])
+    assert gpu.builds == 2
+    assert obs.step_timings()["device"]["pull"]["replays"] == 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("model", ["xdeepfm", "dcn"])
 def test_xdeepfm_and_dcn_steps_on_card_match_cpu(model):
     """A small xDeepFM (CIN (8, 8)) or DCN (3 cross layers) over fused
