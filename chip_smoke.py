@@ -6,6 +6,8 @@ then the serving and training paths driven end to end at full width.
 
 (``python3 chip_smoke.py --ki`` runs KI's per-key cases alone, to compare
 two versions of the kernel in turns within one call; see ``ki_only``.
+``python3 chip_smoke.py --k3`` holds K3 against its plain version at the
+benchmark's hash cell's shape and times it; see ``phase_find_kernels``.
 ``python3 chip_smoke.py --hybrid`` runs phase 11 alone, ``--delta``
 phase 12, ``--ingest`` phase 13, ``--serving`` phase 14, ``--offload``
 phase 15, ``--drivers`` phase 16, ``--sharded`` phase 17, ``--planes``
@@ -73,6 +75,15 @@ Phases, in order; any failure raises and the run exits nonzero:
    ``lookup``; every response must equal the host's key -> row
    dictionary exactly, and the probe kernel's launch count must cover
    every lookup;
+   then K3 against its plain version (``phase_find_check``): a table of
+   the benchmark's hash cell's 2^26 wide slots filled with its 33.8 M
+   keys through ``find_or_insert`` and through
+   ``find_or_insert_reference``, the keys arrays equal word for word, and
+   a push's find at the cell's shape (106,496 entries, 16,100 stored
+   keys, then a tenth of them new), slot for slot, timed beside the plain
+   version and the bound (``phase_find_kernels``); K3's launches on the
+   main path are summed phase by phase (``K3_LAUNCHES``, the phase 14 and
+   19 children's besides), and phase 8 holds them to its steps;
 7. training: the ``deepfm_dim9`` trainer at full width (the fused tables
    with sparse Adagrad, ``DeepFM`` 247 -> 256 -> 128 -> 1, dense
    optax-form Adagrad, batches of 4096 from ``synthetic_criteo``) built
@@ -1701,11 +1712,12 @@ def captured_against_eager(what, trainer, state, batches,
     sketch and refresh clock, where the first run started it). The
     kernel launches of these runs are not counted as the main path's:
     the counters are put back."""
+    from openembedding_tpu_torch.ops.find_or_insert import find_or_insert
     from openembedding_tpu_torch.ops.gather import gather_rows
     from openembedding_tpu_torch.ops.init_rows import init_rows
     from openembedding_tpu_torch.ops.probe_gather import probe_gather
     from openembedding_tpu_torch.training import copy_state
-    wrappers = (gather_rows, probe_gather, init_rows)
+    wrappers = (gather_rows, probe_gather, init_rows, find_or_insert)
     counted = [w.launches for w in wrappers]
 
     def run(step):
@@ -2463,9 +2475,11 @@ def hash_train_then_serve(trainer, state, batch) -> dict:
 
 
 def phase_hash_training():
-    """Phase 8; returns the KI cases and K2's and KI's launches on the hash
-    training path (KI's array launches: the trainer's init)."""
+    """Phase 8; returns the KI cases and K2's, KI's and K3's launches on
+    the hash training path (KI's array launches: the trainer's init)."""
+    from openembedding_tpu_torch import hash_table as hash_lib
     from openembedding_tpu_torch.data.criteo import synthetic_criteo
+    from openembedding_tpu_torch.ops.find_or_insert import find_or_insert
     from openembedding_tpu_torch.ops.init_rows import init_flat, init_rows
     from openembedding_tpu_torch.optim.initializers import prng_key
     from openembedding_tpu_torch.ops.probe_gather import probe_gather
@@ -2491,6 +2505,7 @@ def phase_hash_training():
     check_init_launches("hash training", state, flat_launches)
     nocopy = check_hash_init_without_copy(trainer, state, batches[0])
     probe_gather.launches = init_rows.launches = 0
+    k3_before = find_or_insert.launches
     reserved = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
     state, check = check_hash_against_cpu(trainer, state, batches)
     program = program_reading(trainer, reserved)
@@ -2528,6 +2543,15 @@ def phase_hash_training():
     if launches != {"probe_gather": 2 * steps, "init_rows": 4 * steps}:
         raise AssertionError(f"hash training: launches {launches} in "
                              f"{steps} steps, K2 2 and KI 4 a step expected")
+    # each step's push finds or inserts once a table: 3 + chain kernels
+    k3_step = sum(3 + hash_lib.table_layout(
+        s.capacity, hash_lib.DEFAULT_MAX_PROBES)[2]
+        for s in state.emb.values())
+    launches["find_or_insert"] = find_or_insert.launches - k3_before
+    if launches["find_or_insert"] != k3_step * steps:
+        raise AssertionError(f"hash training: {launches['find_or_insert']} "
+                             f"K3 launches in {steps} steps, {k3_step} a "
+                             "step expected")
     launches["init_flat"] = flat_launches
     loss = float(m["loss"])
     if not np.isfinite(loss):
@@ -4688,7 +4712,7 @@ def _stop_replicas(procs) -> dict:
     for p in procs:
         if p.poll() is None:
             p.send_signal(signal.SIGTERM)
-    sums = {"gather_rows": 0, "probe_gather": 0}
+    sums = {"gather_rows": 0, "probe_gather": 0, "find_or_insert": 0}
     for p in procs:
         for line in _replica_output(p).splitlines():
             if line.startswith("replica: kernel launches "):
@@ -4955,7 +4979,8 @@ def phase_serving_batched() -> dict:
     log(json.dumps({"serving_batched": reading}))
     idle = [f"{where} {k}" for where, counts in (
         ("in process", in_process), ("in the replicas", replica_launches))
-        for k, n in counts.items() if not n]
+        for k, n in counts.items() if not n and k in in_process]
+    launches["find_or_insert_replicas"] = replica_launches["find_or_insert"]
     if idle:
         raise AssertionError(f"phase 14 launched no {', no '.join(idle)}")
     return launches
@@ -5738,16 +5763,25 @@ def _wrappers():
             "init_rows": init_rows, "init_flat": init_flat}
 
 
+def _k3():
+    """K3's wrapper, whose launches ``main`` sums phase by phase
+    (``K3_LAUNCHES``) rather than each phase zeroing its counter."""
+    from openembedding_tpu_torch.ops.find_or_insert import find_or_insert
+    return find_or_insert
+
+
 class _Uncounted:
     """Launches inside the ``with`` body (comparisons, timings) are not
-    the main path's: the wrappers' counters are put back at its end."""
+    the main path's: the wrappers' counters (K3's too) are put back at its
+    end."""
 
     def __enter__(self):
-        self.saved = {k: w.launches for k, w in _wrappers().items()}
+        self.wrappers = {**_wrappers(), "find_or_insert": _k3()}
+        self.saved = {k: w.launches for k, w in self.wrappers.items()}
         return self
 
     def __exit__(self, *exc):
-        for k, w in _wrappers().items():
+        for k, w in self.wrappers.items():
             w.launches = self.saved[k]
 
 
@@ -7043,6 +7077,7 @@ def mp_worker(rank: int, port: int, out: str) -> None:
         del trainer, state
         torch.cuda.empty_cache()
     res["launches"] = {k: w.launches for k, w in _wrappers().items()}
+    res["launches"]["find_or_insert"] = _k3().launches
     with open(os.path.join(out, f"worker{rank}.json"), "w") as f:
         json.dump(res, f)
     distributed.barrier("done")
@@ -7543,6 +7578,7 @@ def phase_multiprocess() -> dict:
     reading["launches_replicas"] = replica
     launches["gather_rows"] += replica["gather_rows"]
     launches["probe_gather"] += replica["probe_gather"]
+    launches["find_or_insert"] += replica["find_or_insert"]
     reading["launches"] = launches
     reading["seconds"] = {**seconds, "phase": time.perf_counter() - t0}
     log(json.dumps({"multiprocess": reading}, default=str))
@@ -8184,6 +8220,135 @@ def setup_hash():
     return hcoll, hstates, batches, keys64, hhost
 
 
+K3_SLOTS = 1 << 26             # deepfm_dim9_hash's table (oebench)
+K3_KEYS = 33_762_577           # the keys it holds: load 0.503
+K3_ENTRIES = BATCH * 26        # a push's dedup buffer, batch x features
+K3_VALID = 16_100              # its distinct keys at zipf 1.2 (share 0.151)
+K3_CHUNK = 1 << 20             # keys an insert_rows call of the cell fills
+
+
+def k3_bound_bytes(keys, query, valid, slot) -> int:
+    """Bytes a find of stored keys must move: the key sectors from each
+    valid entry's window start through its slot, each sector once over
+    all entries (as ``probe_bound_bytes`` counts them); the entries and
+    their valid flags read; slot, inserted and failed written."""
+    from openembedding_tpu_torch.hash_table import (DEFAULT_MAX_PROBES,
+                                                    probe_starts)
+    start = probe_starts(query[valid], keys.shape[0], DEFAULT_MAX_PROBES)
+    stop = slot[valid]
+    start, stop = start.cpu().numpy(), stop.cpu().numpy()
+    needed = _union_length(start * 8 // SECTOR, (stop * 8 + 7) // SECTOR)
+    n = query.shape[0]
+    return needed * SECTOR + n * (8 + 1) + n * (8 + 1 + 1)
+
+
+def phase_find_kernels() -> dict:
+    """``python3 chip_smoke.py --k3``: K3 (``ops/find_or_insert.py``)
+    against ``find_or_insert_reference`` at the benchmark's hash cell's
+    shape, exact. A wide table of ``K3_SLOTS`` slots is filled with
+    ``K3_KEYS`` random keys through ``find_or_insert`` in chunks of
+    ``K3_CHUNK`` (every key a miss), and a twin through the plain version:
+    the two keys arrays must be equal word for word, each fill timed.
+    Then a push's find, ``K3_ENTRIES`` entries of which ``K3_VALID`` are
+    stored keys and the rest EMPTY (sorted, as the dedup hands them): the
+    outputs equal, timed as the kernel table times K2 (CUDA-event medians
+    with the L2 flushed, per-call wall time, the plain version) beside
+    its bound, with each of its launches' device time from a profiler
+    window; and the same batch with a tenth of its keys new, exact. Prints
+    the readings; no result line."""
+    from torch.profiler import ProfilerActivity, profile
+    from openembedding_tpu_torch import hash_table as th
+    from openembedding_tpu_torch.ops import find_or_insert as k3
+    dev = torch.device("cuda")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k64 = torch.unique(torch.randint(-2**62, 2**62, (K3_KEYS + 40_000,),
+                                     device=dev, generator=gen))
+    k64 = k64[torch.randperm(k64.numel(), device=dev, generator=gen)]
+    stored, fresh = th.widen_ids(k64[:K3_KEYS]), th.widen_ids(k64[K3_KEYS:])
+    out = {"slots": K3_SLOTS, "keys": K3_KEYS}
+    tables = {}
+    for name, fn in (("kernel", th.find_or_insert),
+                     ("plain", th.find_or_insert_reference)):
+        keys = torch.full((K3_SLOTS, 2), -2**31, dtype=torch.int32,
+                          device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, K3_KEYS, K3_CHUNK):
+            part = stored[lo:lo + K3_CHUNK]
+            fn(keys, part, torch.ones(part.shape[0], dtype=torch.bool,
+                                      device=dev))
+        torch.cuda.synchronize()
+        out[f"fill_{name}_s"] = time.perf_counter() - t0
+        tables[name] = keys
+    if not torch.equal(tables["kernel"], tables["plain"]):
+        raise AssertionError("K3 fill: keys arrays differ from the plain "
+                             "version's")
+    keys = tables.pop("kernel")
+    out["load"] = int((keys[:, 1] != -2**31).sum()) / K3_SLOTS
+    del tables
+    torch.cuda.empty_cache()
+
+    pick = torch.randperm(K3_KEYS, device=dev, generator=gen)[:K3_VALID]
+    found = torch.sort(k64[pick]).values
+    mixed = torch.sort(torch.cat([k64[pick[:-K3_VALID // 10]],
+                                  k64[K3_KEYS:K3_KEYS + K3_VALID // 10]])
+                       ).values
+    empty = torch.full((K3_ENTRIES - K3_VALID,), -2**63, dtype=torch.int64,
+                       device=dev)
+    for case, ids in (("push_found", found), ("push_mixed", mixed)):
+        query = th.widen_ids(torch.cat([ids, empty]))
+        valid = query[:, 1] != -2**31
+        twin = keys.clone()
+        counts = k3.key_counts()
+        got = th.find_or_insert(keys, query, valid)
+        want = th.find_or_insert_reference(twin, query, valid)
+        torch.cuda.synchronize()
+        same = torch.equal(keys, twin) and all(
+            torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+        del twin
+        if not same:
+            raise AssertionError(f"K3 != plain on case {case}")
+        reading = {"entries": K3_ENTRIES, "valid": int(valid.sum()),
+                   "inserted": int(want[2].sum()),
+                   "failed": int(want[3].sum()),
+                   "counted": {k: v - counts[k]
+                               for k, v in k3.key_counts().items()}}
+        if case == "push_found":
+            fns = {"kernel": lambda: th.find_or_insert(keys, query, valid),
+                   "plain": lambda: th.find_or_insert_reference(
+                       keys, query, valid)}
+            for k, fn in fns.items():
+                reading[f"{k}_ms"] = _median_ms(fn, flush)
+            reading["kernel_call_ms"] = _call_ms(fns["kernel"])
+            bound = k3_bound_bytes(keys, query, valid, got[1])
+            reading["bound_bytes"] = bound
+            reading["bound_ms"] = bound / HBM_BYTES_PER_S * 1e3
+            before = k3.find_or_insert.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fns["kernel"]()
+                torch.cuda.synchronize()
+            reading["launches_a_call"] = (k3.find_or_insert.launches
+                                          - before) / 20
+            device_us = {e.key[:48]: getattr(e, "device_time_total", None)
+                         or getattr(e, "cuda_time_total", 0)
+                         for e in prof.key_averages()}
+            reading["device_us_a_call"] = {k: v / 20 for k, v in
+                                           device_us.items() if v > 0}
+        out[case] = reading
+        log(f"k3 {case}: {json.dumps(reading)}")
+    log(f"k3: {json.dumps({k: v for k, v in out.items() if 'push' not in k})}")
+    return out
+
+
+def phase_find_check() -> dict:
+    """``phase_find_kernels`` in the main run, after phase 6; its launches
+    are not the main path's."""
+    with _Uncounted():
+        return phase_find_kernels()
+
+
 def ki_only() -> None:
     """``python3 chip_smoke.py --ki``: KI's per-key cases alone, for
     comparing two versions of the kernel in turns within one call (run it
@@ -8204,15 +8369,23 @@ def ki_only() -> None:
 
 
 PHASE_SECONDS: dict = {}
+# K3's main-path launches in this process by phase (``_timed``); the phase
+# 14 and 19 children's come back in those phases' launches
+K3_LAUNCHES: dict = {}
 
 
 def _timed(name, fn, *args):
-    """``fn(*args)``, its wall seconds kept under ``name``."""
-    t0 = time.perf_counter()
+    """``fn(*args)``, its wall seconds kept under ``name``, and K3's
+    launches in this process during it under ``name`` in ``K3_LAUNCHES``
+    where it made any."""
+    k3 = _k3()
+    t0, before = time.perf_counter(), k3.launches
     try:
         return fn(*args)
     finally:
         PHASE_SECONDS[name] = time.perf_counter() - t0
+        if k3.launches != before:
+            K3_LAUNCHES[name] = k3.launches - before
 
 
 def main() -> None:
@@ -8230,6 +8403,9 @@ def main() -> None:
     _timed("build", phase_build)
     if sys.argv[1:] == ["--ki"]:
         ki_only()
+        return
+    if sys.argv[1:] == ["--k3"]:
+        phase_find_kernels()
         return
     if sys.argv[1:] == ["--hybrid"]:
         phase_hybrid_training()
@@ -8278,6 +8454,8 @@ def main() -> None:
     plaunches = _timed("6 hash serving", phase_hash_serving, hcoll,
                        hstates, batches, hhost)
     del hcoll, hstates, hhost
+    torch.cuda.empty_cache()
+    k3case = _timed("6 find kernels", phase_find_check)
     torch.cuda.empty_cache()
 
     k1_training, flat_training, fcases = _timed("7 training",
@@ -8334,6 +8512,15 @@ def main() -> None:
 
     main_case, pmain, kmain, fmain = cases[0], pcases[0], kcases[0], \
         fcases[0]
+    k3main = k3case["push_found"]
+    k3_by_phase = {**K3_LAUNCHES,
+                   "14 serving batched replicas":
+                   served["find_or_insert_replicas"],
+                   "19 multiprocess workers and replicas":
+                   multi["find_or_insert"]}
+    for phase in ("5 setup", "8 hash training"):
+        if not K3_LAUNCHES.get(phase):
+            raise AssertionError(f"K3 never launched in phase {phase}")
     PHASE_SECONDS["whole"] = time.perf_counter() - t_main
     log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     log(card)       # again beside the results: the first line may scroll
@@ -8395,7 +8582,20 @@ def main() -> None:
         "int64_ms": sharded["kcase"]["kernel_ms"],
         "int64_plain_ms": sharded["kcase"]["plain_ms"],
         "int64_bound_ms": sharded["kcase"]["bound_ms"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "find_or_insert", "route": "cuda",
+        "source": "openembedding_tpu_torch/csrc/find_or_insert.cu",
+        "replaces": "openembedding_tpu/hash_table.py:374 (find_or_insert): "
+                    "XLA code, not a Pallas kernel",
+        "launches": sum(k3_by_phase.values()),
+        "launches_by_phase": k3_by_phase,
+        "launches_a_call": k3main["launches_a_call"],
+        "checked_against_plain": True, "max_abs_err": 0,
+        "ms": k3main["kernel_ms"], "call_ms": k3main["kernel_call_ms"],
+        "plain_ms": k3main["plain_ms"],
+        "bound_ms": k3main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "fill_s": k3case["fill_kernel_s"],
+        "fill_plain_s": k3case["fill_plain_s"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

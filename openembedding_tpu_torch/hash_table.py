@@ -30,11 +30,13 @@ zero rows for missing keys; the training pull gives a missing key its
 deterministic init row, drawn from the table's threefry key
 (``init_rng``) folded with the key, by the init-rows kernel of
 ``ops/init_rows.py`` (KI): the same rows JAX's ``init_rows`` draws.
-``apply_gradients`` (the push) dedups, inserts missing keys with those
-init rows, runs the optimizer over the touched rows and writes them back,
-with static shapes and no device-to-host read. An int64 key's init row
-folds its low 32 bits only (``jax.random.fold_in`` casts its data to
-uint32), so keys ``2^40 + 1`` and ``1`` draw the same row, as in JAX.
+``apply_gradients`` (the push) dedups, finds or inserts its keys through
+the find-or-insert kernels of ``ops/find_or_insert.py`` (K3), gives the
+inserted keys those init rows, runs the optimizer over the touched rows
+and writes them back, with static shapes and no device-to-host read.
+An int64 key's init row folds its low 32 bits only (``jax.random.fold_in``
+casts its data to uint32), so keys ``2^40 + 1`` and ``1`` draw the same
+row, as in JAX.
 ``find_or_insert``, ``insert_rows`` and ``apply_gradients`` update the
 table in place (the JAX functions return new arrays): a checkpoint load
 streams many chunks into one table, and a copy per chunk would double the
@@ -52,6 +54,7 @@ import torch
 from . import table as table_lib
 from .meta import EmbeddingVariableMeta
 from .ops import dedup
+from .ops.find_or_insert import find_or_insert as _find_or_insert_kernel
 from .ops.init_rows import init_rows as _init_rows_kernel
 from .ops.probe_gather import probe_gather
 from .optim.initializers import (Initializer, make_initializer,
@@ -437,7 +440,22 @@ def find_or_insert(table_keys: torch.Tensor, new_keys: torch.Tensor,
                    max_probes: int = DEFAULT_MAX_PROBES
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
-    """Find each (unique) key's slot, inserting missing keys IN PLACE.
+    """Find each (unique) key's slot, inserting missing keys IN PLACE:
+    :func:`find_or_insert_reference`'s answer and placement. CPU tensors
+    run that plain version; CUDA tensors the K3 kernels of
+    ``ops/find_or_insert.py``, which resolve every key by a window scan
+    and rank only the keys that missed. Returns ``(table_keys, slot [n]
+    (-1 = failed), inserted [n], failed [n])``."""
+    return _find_or_insert_kernel(table_keys, new_keys, valid, max_probes)
+
+
+def find_or_insert_reference(table_keys: torch.Tensor,
+                             new_keys: torch.Tensor, valid: torch.Tensor,
+                             max_probes: int = DEFAULT_MAX_PROBES
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+    """Find each (unique) key's slot, inserting missing keys IN PLACE: the
+    plain version, in PyTorch operations on any device.
 
     One pass per chain level: every unplaced key probes its level-j bucket,
     matches an existing entry, or else contenders for the same bucket are

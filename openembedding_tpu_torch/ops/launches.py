@@ -1,14 +1,14 @@
 """Launch counts of the kernel wrappers, kept true under CUDA graphs.
 
 Each wrapper of a hand-written kernel (``gather_rows``, ``probe_gather``,
-``init_rows``, ``init_flat``) keeps a plain integer ``launches`` and calls
-:func:`count` where it launches its kernel. A launch made while the
-current stream is capturing does not run then: it runs each time the
-graph replays. So :func:`count` adds it to the tally of the capture in
-progress (:meth:`CountedGraph.capture`), and :meth:`CountedGraph.replay`
-adds that tally to the counters on every replay. A wrapper called while
-a stream captures outside a ``CountedGraph`` raises: its launches could
-not be counted.
+``init_rows``, ``init_flat``, ``find_or_insert``) keeps a plain integer
+``launches`` and calls :func:`count` where it launches its kernels. A
+launch made while the current stream is capturing does not run then: it
+runs each time the graph replays. So :func:`count` adds it to the tally
+of the capture in progress (:meth:`CountedGraph.capture`), and
+:meth:`CountedGraph.replay` adds that tally to the counters on every
+replay. A wrapper called while a stream captures outside a
+``CountedGraph`` raises: its launches could not be counted.
 
 A capture holds Python's cyclic garbage collector off (:func:`gc_held`):
 a collection on the capturing thread can free an unreachable CUDA graph
@@ -40,8 +40,9 @@ def _tallies() -> List[Dict[Callable, int]]:
     return tallies
 
 
-def count(wrapper: Callable) -> None:
-    """One launch of ``wrapper``'s kernel on the current CUDA stream."""
+def count(wrapper: Callable, kernels: int = 1) -> None:
+    """``kernels`` launches of ``wrapper``'s kernels on the current CUDA
+    stream."""
     if torch.cuda.is_current_stream_capturing():
         tallies = _tallies()
         if not tallies:
@@ -50,9 +51,9 @@ def count(wrapper: Callable) -> None:
                 "outside ops.launches.CountedGraph, whose replays would go "
                 "uncounted")
         tally = tallies[-1]
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        tally[wrapper] = tally.get(wrapper, 0) + kernels
         return
-    wrapper.launches += 1
+    wrapper.launches += kernels
 
 
 @contextlib.contextmanager

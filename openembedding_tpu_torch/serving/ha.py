@@ -183,11 +183,13 @@ def replica_main(argv: Optional[Sequence[str]] = None) -> int:
         # on any exit, a failed boot load too: join the accept loop and
         # quiesce loaders and batchers
         server.stop()
+        from ..ops.find_or_insert import find_or_insert
         from ..ops.gather import gather_rows
         from ..ops.probe_gather import probe_gather
         print("replica: kernel launches " + json.dumps(
             {"gather_rows": gather_rows.launches,
-             "probe_gather": probe_gather.launches}), flush=True)
+             "probe_gather": probe_gather.launches,
+             "find_or_insert": find_or_insert.launches}), flush=True)
         if args.trace_out:
             scope.export_chrome_trace(
                 args.trace_out, process_name=f"oe-replica:{server.port}")

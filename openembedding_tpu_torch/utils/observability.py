@@ -28,7 +28,9 @@ clock at the phase boundaries of ``Trainer.train_step`` (``stats``,
 and feeds the step's span.
 ``step_timings`` returns both; ``prometheus_text`` renders them as the
 ``oe_step_host_*`` and ``oe_step_device_*`` families, and ``Reporter``
-prints them.
+prints them. ``prometheus_text`` also shows the hash find-or-insert
+kernels' key counters (``oe_hash_find_keys_total{outcome=}``), zeros
+until a kernel has run.
 """
 
 from __future__ import annotations
@@ -516,6 +518,22 @@ def _step_lines(prefix: str) -> list:
     return lines
 
 
+def _hash_find_lines(prefix: str) -> list:
+    """``<prefix>_hash_find_keys_total{outcome=}``: the keys the
+    find-or-insert kernels (``ops/find_or_insert.py``) found, inserted and
+    failed to place, zeros before a kernel has run in this process. Read
+    from the card at the scrape: the scrape waits on the current stream
+    of each device the kernels ran on."""
+    from ..ops import find_or_insert as k3
+    base = f"{prefix}_hash_find_keys_total"
+    lines = [f"# HELP {base} keys the hash find-or-insert kernels found, "
+             "inserted or failed to place",
+             f"# TYPE {base} counter"]
+    for outcome, v in k3.key_counts().items():
+        lines.append(f'{base}{{outcome="{outcome}"}} {v}')
+    return lines
+
+
 def plane_timings(accumulator: Optional[Accumulator] = None
                   ) -> Dict[str, Dict[str, float]]:
     """Per-plane pull/push wall-time split recorded by :func:`plane_timed`
@@ -819,8 +837,10 @@ def prometheus_text(accumulator: Optional[Accumulator] = None,
             lines.append(f"# TYPE {base}_{suffix} counter")
             lines.append(f"{base}_{suffix} {st[key]:.10g}")
     if acc is GLOBAL:
-        # the step timings are process-wide, as GLOBAL is
+        # the step timings and the kernels' key counters are process-wide,
+        # as GLOBAL is
         lines.extend(_step_lines(prefix))
+        lines.extend(_hash_find_lines(prefix))
     if include_scope:
         lines.extend(scope.HISTOGRAMS.prometheus_lines(prefix))
     if include_mem:

@@ -1573,3 +1573,223 @@ def test_bf16_pull_on_card_equals_cpu():
     assert torch.equal(rows["a2a+bf16", "cuda"], rows["a2a+bf16", "cpu"])
     assert torch.equal(rows["a2a+bf16", "cuda"],
                        rows["a2a", "cuda"].to(torch.bfloat16).float())
+
+
+# --- K3: the find-or-insert kernels ------------------------------------------
+
+K3_MODES = ("wide", "int32", "int64")
+# (capacity, max_probes): one whole-table bucket; two buckets with chains
+# of 1 and 2 (one window start for the latter); 512 buckets, chains 1, 2
+K3_GEOMETRIES = ((64, 256), (256, 128), (256, 256), (1 << 16, 128),
+                 (1 << 16, 256))
+
+
+def _k3_pool(rng, n, mode):
+    """Distinct keys, none EMPTY, in random order."""
+    if mode == "int64":
+        k = _int64_keys(rng, n)
+    else:
+        k = _keys(rng, n, mode == "wide")
+        k = k[k[:, 1] != EMPTY] if mode == "wide" else k[k != EMPTY]
+    return k[rng.permutation(len(k))]
+
+
+def _k3_empty(mode, n):
+    if mode == "int64":
+        return np.full(n, -2**63, np.int64)
+    return np.full((n, 2) if mode == "wide" else n, EMPTY, np.int32)
+
+
+def _k3_table(mode, capacity, offset):
+    """An empty keys array on the card; ``offset`` slots into a larger
+    buffer, so that it starts off the 16-byte grid (the slot-by-slot
+    path)."""
+    dtype = torch.int64 if mode == "int64" else torch.int32
+    shape = (capacity + offset, 2) if mode == "wide" else (capacity + offset,)
+    buf = torch.full(shape, th.empty_key(dtype), dtype=dtype, device="cuda")
+    return buf[offset:]
+
+
+def _k3_batch(rng, keys, mode, invalid=0.05):
+    """A batch of ``keys`` with EMPTY entries mixed in and some valid keys
+    marked not valid; returns ``(keys, valid)`` on the card."""
+    both = np.concatenate([keys, _k3_empty(mode, max(1, len(keys) // 20))])
+    both = both[rng.permutation(len(both))]
+    valid = ((both[:, 1] if mode == "wide" else both)
+             != (-2**63 if mode == "int64" else EMPTY))
+    valid &= rng.rand(len(both)) >= invalid
+    return torch.from_numpy(both).cuda(), torch.from_numpy(valid).cuda()
+
+
+def _k3_step(tk, rk, batch, valid, max_probes):
+    """One K3 call on ``tk`` and one plain call on its twin ``rk``: every
+    output and the keys arrays word for word, the launches and the key
+    counters moved by this call. Returns the outputs."""
+    from openembedding_tpu_torch.ops import find_or_insert as k3
+    _b, _nb, chain = th.table_layout(tk.shape[0], max_probes)
+    launched, counts = k3.find_or_insert.launches, k3.key_counts()
+    out = th.find_or_insert(tk, batch, valid, max_probes)
+    want = th.find_or_insert_reference(rk, batch, valid, max_probes)
+    torch.cuda.synchronize()
+    assert out[0] is tk
+    assert torch.equal(tk, rk)
+    for got, w in zip(out[1:], want[1:]):
+        assert got.dtype == w.dtype and torch.equal(got, w)
+    n = batch.shape[0]
+    assert k3.find_or_insert.launches == launched + (3 + chain if n else 0)
+    slot, inserted, failed = want[1:]
+    moved = {k: v - counts[k] for k, v in k3.key_counts().items()}
+    assert moved == {"found": int((valid & ~inserted & ~failed).sum()),
+                     "inserted": int(inserted.sum()),
+                     "failed": int(failed.sum())}
+    return slot, inserted, failed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("capacity,max_probes", K3_GEOMETRIES)
+@pytest.mark.parametrize("mode", K3_MODES)
+def test_find_or_insert_kernel_matches_plain(mode, capacity, max_probes,
+                                             offset):
+    """K3 against ``find_or_insert_reference`` on the card, slot for slot
+    and the keys arrays word for word, call after call on one table: all
+    keys missing, mixed, all found, a crowd of keys with one window start
+    (ranked past 128 contenders, overflowing into the chain's next bucket,
+    failing when the window is full), more keys than the table holds, EMPTY
+    and invalid entries, n = 0; keys on and off the 16-byte grid."""
+    _need_card()
+    rng = np.random.RandomState(capacity + max_probes + len(mode) + offset)
+    bsz, _nb, chain = th.table_layout(capacity, max_probes)
+    pool = _k3_pool(rng, 4 * capacity + 4000, mode)
+    start = th.probe_starts(torch.from_numpy(pool), capacity, max_probes)
+    crowd = pool[(start == start[0]).numpy()][:300]
+    assert len(crowd) > bsz
+    tk = _k3_table(mode, capacity, offset)
+    rk = tk.clone()
+    quarter = capacity // 4
+    fresh, more = pool[:quarter], pool[quarter:2 * quarter]
+    batches = [fresh,                                     # all missing
+               np.concatenate([fresh[:quarter // 2], more]),   # mixed
+               None,                                      # all found
+               crowd,
+               pool[2 * quarter:2 * quarter + 2 * capacity],   # overfull
+               pool[:0]]
+    outcomes = {"found": 0, "inserted": 0, "failed": 0, "overflowed": 0}
+    for keys in batches:
+        if keys is None:
+            stored = rk.cpu().numpy()
+            live = (stored[:, 1] if mode == "wide" else stored) != (
+                -2**63 if mode == "int64" else EMPTY)
+            keys = stored[live][rng.permutation(int(live.sum()))]
+        batch, valid = _k3_batch(rng, keys, mode) if len(keys) else (
+            torch.from_numpy(keys).cuda(),
+            torch.zeros(0, dtype=torch.bool, device="cuda"))
+        slot, inserted, failed = _k3_step(tk, rk, batch, valid, max_probes)
+        first = th.probe_starts(batch, capacity, max_probes)
+        outcomes["found"] += int((valid & ~inserted & ~failed).sum())
+        outcomes["inserted"] += int(inserted.sum())
+        outcomes["failed"] += int(failed.sum())
+        outcomes["overflowed"] += int((inserted
+                                       & (slot - first >= bsz)).sum())
+    assert outcomes["found"] and outcomes["inserted"] and outcomes["failed"]
+    assert bool(outcomes["overflowed"]) == (chain > 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", K3_MODES)
+def test_insert_rows_through_find_or_insert_kernel(mode):
+    """A table filled through ``insert_rows`` (K3 on the card) holds the
+    CPU's keys and rows exactly, keeps the probe precondition (no stored
+    key after an EMPTY slot of its window) and answers every key through
+    ``probe_gather``; absent keys miss."""
+    _need_card()
+    rng = np.random.RandomState(11 + len(mode))
+    capacity = 1 << 16
+    keys = _k3_pool(rng, 9 * capacity // 10 + 2000, mode)  # load 0.9
+    absent, keys = keys[:2000], keys[2000:]
+    rows = rng.randn(len(keys), 9).astype(np.float32)
+    meta = EmbeddingVariableMeta("float32", 9, 2**63)
+    states = {dev: th.create_hash_table(meta, "default", capacity=capacity,
+                                        key_dtype=mode, device=dev)
+              for dev in ("cuda", "cpu")}
+    for dev, st in states.items():
+        for lo in range(0, len(keys), 10_000):
+            th.insert_rows(st, torch.from_numpy(keys[lo:lo + 10_000]).to(dev),
+                           torch.from_numpy(rows[lo:lo + 10_000]).to(dev))
+    card, cpu = states["cuda"], states["cpu"]
+    assert torch.equal(card.keys.cpu(), cpu.keys)
+    assert torch.equal(card.weights.cpu(), cpu.weights)
+    assert int(card.insert_failures) == int(cpu.insert_failures)
+    bsz, _nb, chain = th.table_layout(capacity, th.DEFAULT_MAX_PROBES)
+    stored = cpu.keys
+    live = cpu.live()
+    slots = torch.nonzero(live).flatten()
+    start = th.probe_starts(stored[slots], capacity, th.DEFAULT_MAX_PROBES)
+    free_before = torch.cat([torch.zeros(1, dtype=torch.int64),
+                             torch.cumsum((~live).long(), 0)])
+    assert torch.equal(free_before[slots] - free_before[start],
+                       torch.zeros_like(slots))
+    assert bool(((slots - start) >= bsz).any())       # overflowed keys
+    query = torch.from_numpy(np.concatenate([keys, absent])).cuda()
+    got, hit = tp.probe_gather(card.keys, card.weights, query, chain=chain,
+                               bucket=bsz,
+                               empty=th.empty_key(card.keys.dtype))
+    placed = int(live.sum())
+    assert placed == len(keys) - int(cpu.insert_failures)
+    assert int(hit[:len(keys)].sum()) == placed and not bool(
+        hit[len(keys):].any())
+    assert torch.equal(got[:len(keys)][hit[:len(keys)]].cpu(),
+                       torch.from_numpy(rows)[hit[:len(keys)].cpu()])
+
+
+@pytest.mark.gpu
+def test_find_or_insert_kernel_captured_in_a_graph():
+    """K3 launched into a ``CountedGraph``: the capture launches nothing,
+    each replay on new keys in the captured buffers equals the plain
+    version on a twin table, moves ``find_or_insert.launches`` by its
+    ``3 + chain`` kernels and the key counters by its keys, and
+    ``/metrics`` shows the counters."""
+    _need_card()
+    from openembedding_tpu_torch.ops import find_or_insert as k3
+    from openembedding_tpu_torch.ops.launches import CountedGraph
+    from openembedding_tpu_torch.utils import observability
+    rng = np.random.RandomState(5)
+    capacity, n = 1 << 16, 4096
+    _b, _nb, chain = th.table_layout(capacity, th.DEFAULT_MAX_PROBES)
+    pool = _k3_pool(rng, 3 * capacity // 2, "wide")
+    tk = _k3_table("wide", capacity, 0)
+    th.find_or_insert(tk, torch.from_numpy(pool[:capacity // 4]).cuda(),
+                      torch.ones(capacity // 4, dtype=torch.bool,
+                                 device="cuda"))
+    rk = tk.clone()
+    batch = torch.from_numpy(pool[:n]).cuda()
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    graph = CountedGraph()
+    before = k3.find_or_insert.launches
+    with graph.capture():
+        out = th.find_or_insert(tk, batch, valid)
+    assert k3.find_or_insert.launches == before
+    assert graph.tally == {k3.find_or_insert: 3 + chain}
+    for replay in range(3):
+        lo = capacity // 4 - n // 2 + replay * n // 2   # found and new
+        batch.copy_(torch.from_numpy(pool[lo:lo + n]))
+        valid.copy_(torch.from_numpy(rng.rand(n) < 0.9))
+        counts = k3.key_counts()
+        graph.replay()
+        want = th.find_or_insert_reference(rk, batch, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(tk, rk)
+        for got, w in zip(out[1:], want[1:]):
+            assert torch.equal(got, w)
+        assert k3.find_or_insert.launches == before + (3 + chain) * (
+            replay + 1)
+        _s, inserted, failed = want[1:]
+        assert int(inserted.sum()) > 0
+        moved = {k: v - counts[k] for k, v in k3.key_counts().items()}
+        assert moved == {"found": int((valid & ~inserted & ~failed).sum()),
+                         "inserted": int(inserted.sum()),
+                         "failed": int(failed.sum())}
+    text = observability.prometheus_text(include_mem=False)
+    for outcome, v in k3.key_counts().items():
+        assert f'oe_hash_find_keys_total{{outcome="{outcome}"}} {v}' in text

@@ -289,3 +289,103 @@ def test_hash_refusals():
                                   "default", capacity=8, device="cpu")
     with pytest.raises(ValueError, match="int64 but the table stores"):
         th.pull(narrow, torch.zeros(3, dtype=torch.int64))
+
+
+def _foi_case(mode):
+    """A CPU keys array holding some keys, and a batch of found, new and
+    EMPTY entries for it."""
+    rng = np.random.RandomState(len(mode))
+    if mode == "int64":
+        k = np.unique(rng.randint(-2**63 + 1, 2**63 - 1, 600, dtype=np.int64))
+        empty = np.full(4, -2**63, np.int64)
+    elif mode == "wide":
+        k = np.unique(_pair_keys(rng, 600)[4:], axis=0)
+        empty = np.full((4, 2), EMPTY, np.int32)
+    else:
+        k = np.unique(_narrow_keys(rng, 600)[4:])
+        empty = np.full(4, EMPTY, np.int32)
+    k = k[rng.permutation(len(k))]
+    dtype = torch.int64 if mode == "int64" else torch.int32
+    keys = torch.full((512, 2) if mode == "wide" else (512,),
+                      th.empty_key(dtype), dtype=dtype)
+    th.find_or_insert_reference(keys, torch.from_numpy(k[:200]),
+                                torch.ones(200, dtype=torch.bool))
+    batch = np.concatenate([k[100:400], empty])
+    flat = batch[:, 1] if mode == "wide" else batch
+    return keys, torch.from_numpy(batch), torch.from_numpy(
+        flat != th.empty_key(dtype))
+
+
+@pytest.mark.parametrize("mode", ["wide", "int32", "int64"])
+def test_find_or_insert_on_cpu_is_the_plain_version(mode):
+    """On CPU tensors ``find_or_insert`` (and the kernel wrapper) is
+    ``find_or_insert_reference``: the same outputs and the same keys
+    array, no kernel launch and nothing counted."""
+    from openembedding_tpu_torch.ops import find_or_insert as k3
+    keys, batch, valid = _foi_case(mode)
+    twin, wrapped = keys.clone(), keys.clone()
+    launched, counts = k3.find_or_insert.launches, k3.key_counts()
+    got = th.find_or_insert(keys, batch, valid)
+    want = th.find_or_insert_reference(twin, batch, valid)
+    again = k3.find_or_insert(wrapped, batch, valid, th.DEFAULT_MAX_PROBES)
+    assert got[0] is keys and again[0] is wrapped
+    assert torch.equal(keys, twin) and torch.equal(wrapped, twin)
+    for out in (got, again):
+        for g, w in zip(out[1:], want[1:]):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(want[2].any()) and bool((valid & ~want[2]).any())
+    assert k3.find_or_insert.launches == launched
+    assert k3.key_counts() == counts == dict.fromkeys(k3.OUTCOMES, 0)
+
+
+def _refusal(case):
+    keys, batch, valid = _foi_case("wide")
+    if case == "device":
+        return (keys.to("meta"), batch.to("meta"), valid.to("meta")), \
+            ValueError, "cpu or cuda"
+    if case == "several_devices":
+        return (keys, batch.to("meta"), valid), ValueError, "several"
+    if case == "shape":
+        return (keys, batch[:, 0], valid), ValueError, "key-shape"
+    if case == "dtype":
+        return (keys, batch.to(torch.int64), valid), TypeError, "dtype"
+    if case == "int64_pairs":
+        return (keys.to(torch.int64), batch.to(torch.int64), valid), \
+            TypeError, "pairs"
+    if case == "valid_dtype":
+        return (keys, batch, valid.to(torch.int32)), ValueError, "bool"
+    return (keys, batch, valid[1:]), ValueError, "valid"
+
+
+@pytest.mark.parametrize("case", ["device", "several_devices", "shape",
+                                  "dtype", "int64_pairs", "valid_dtype",
+                                  "valid_shape"])
+def test_find_or_insert_refusals(case):
+    """The wrapper refuses a device that is neither cpu nor cuda, tensors
+    on several devices, a wide/narrow mismatch, keys of another dtype or
+    pairs that are not int32, and a ``valid`` that is not ``[n]`` bool;
+    the keys array is left as it was."""
+    args, error, words = _refusal(case)
+    before = args[0].clone() if args[0].device.type == "cpu" else None
+    with pytest.raises(error, match=words):
+        th.find_or_insert(*args)
+    if before is not None:
+        assert torch.equal(args[0], before)
+
+
+@pytest.mark.parametrize("mode", ["wide", "int32", "int64"])
+def test_key_counts_on_cpu(mode):
+    """``key_counts`` names every outcome and reads zeros where no kernel
+    ran (the plain version counts nothing), without touching CUDA; the
+    ``/metrics`` page shows those zeros."""
+    from openembedding_tpu_torch.ops import find_or_insert as k3
+    from openembedding_tpu_torch.utils import observability
+    keys, batch, valid = _foi_case(mode)
+    before = k3.find_or_insert.launches
+    th.find_or_insert(keys, batch, valid)
+    assert k3.find_or_insert.launches == before
+    assert k3.key_counts() == {"found": 0, "inserted": 0, "failed": 0}
+    text = observability.prometheus_text(include_mem=False)
+    assert "# TYPE oe_hash_find_keys_total counter" in text
+    for outcome in k3.OUTCOMES:
+        assert f'oe_hash_find_keys_total{{outcome="{outcome}"}} 0' in text

@@ -3,7 +3,8 @@ JAX package's: the same fused DeepFM trains 2 steps and evaluates twice
 (the evaluate-performance gate off, then on) in both packages, and both
 registries serve the same dump, direct and batched, gate off then on.
 The Prometheus pages then name the same metrics, apart from the port's
-four ``oe_step_*`` families of its train step's own timings, and every
+four ``oe_step_*`` families of its train step's own timings and its hash
+find-or-insert kernels' ``oe_hash_find_keys_total``, and every
 counter (and every histogram's sample count) of JAX's holds the same
 value on the port's; the registries report the same ``serving`` memory
 gauges.
@@ -56,10 +57,12 @@ def fresh():
 PLANE_TIMERS = re.compile(r"^oe_(span_pull_seconds|pull_a2a\S*)")
 
 
-# the port's train-step timings, which the JAX package has not
-STEP_FAMILIES = ("oe_step_host_seconds_total", "oe_step_host_calls_total",
+# the port's train-step timings and hash find-or-insert key counters,
+# which the JAX package has not
+PORT_FAMILIES = ("oe_step_host_seconds_total", "oe_step_host_calls_total",
                  "oe_step_device_seconds_total",
-                 "oe_step_device_replays_total")
+                 "oe_step_device_replays_total",
+                 "oe_hash_find_keys_total")
 
 
 def _families(text):
@@ -124,11 +127,12 @@ def test_metrics_match_jax(devices8, tmp_path, fresh):
           "oe_batch_flushes_total", "oe_serving_batch_rows"}
     assert f1 <= _families(jtext)
     # the port's page holds JAX's families, with the same values, and the
-    # train step's own timings (``observability.step_timings``) besides
-    assert _families(ttext) - _families(jtext) == set(STEP_FAMILIES)
+    # train step's own timings (``observability.step_timings``) and the
+    # hash kernels' key counters besides
+    assert _families(ttext) - _families(jtext) == set(PORT_FAMILIES)
     assert _families(jtext) <= _families(ttext)
     tvalues = {k: v for k, v in _values(ttext).items()
-               if not k.startswith(STEP_FAMILIES)}
+               if not k.startswith(PORT_FAMILIES)}
     assert tvalues == _values(jtext)
     assert tscope.HISTOGRAMS.count("span_eval_seconds") == 1
     assert tobs.GLOBAL.snapshot()["serving_lookup_requests"]["count"] == 4
