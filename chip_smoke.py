@@ -2600,7 +2600,9 @@ def build_xdeep_trainer(device, model="xdeepfm"):
     specs, mapper = make_fused_specs(
         SPARSE_NAMES, VOCAB_PER_FEATURE, XDEEP_DIM,
         optimizer={"category": "adagrad", "learning_rate": 0.01})
-    extra = {"cin_layer_sizes": CIN_LAYERS} if model == "xdeepfm" \
+    # bench.py's xDeepFM is the JAX package's: no split half, no bias
+    extra = {"cin_layer_sizes": CIN_LAYERS, "cin_split_half": False,
+             "cin_bias": False} if model == "xdeepfm" \
         else {"cross_layers": CROSS_LAYERS}
     module = build_model(model, SPARSE_NAMES, embedding_dim=XDEEP_DIM,
                          num_dense=NUM_DENSE, dnn_units=DNN_UNITS, **extra)

@@ -6,7 +6,9 @@ the embedding rows outside the module and passes them in as a dict: per
 feature ``rows[name] -> [B, dim]`` and ``rows[name + ":linear"] -> [B,
 1]``, or fused ``rows["fields"] -> [B, F, dim]`` and
 ``rows["fields:linear"] -> [B, F, 1]``. The arithmetic is the JAX
-modules', term for term.
+modules', term for term, except xDeepFM's default CIN, which is DeepCTR's
+(split half and a per-map bias; ``cin_split_half=False, cin_bias=False``
+gives the JAX package's).
 
 Two differences follow from torch. A linear layer takes its input width
 when it is built (torch has no lazy ``nn.Dense``), so a model takes the
@@ -16,7 +18,8 @@ flax's names (``MLP_0.Dense_0``, ``Dense_0``, ``CIN_0.cin_w_0``,
 ``[in, out]`` stored as the torch ``weight`` ``[out, in]`` (a
 ``self.param`` array such as ``cin_w_0`` keeps its flax shape), so
 ``interop.dense_params_from_flax`` maps one onto the other by name; a
-module registers its parameters in flax's order of creation.
+module registers its parameters in flax's order of creation. DeepCTR's
+CIN has no flax twin: its filters are linear maps ``CIN_0.conv_<k>``.
 :func:`init_params` draws flax's initial values from flax's keys: each
 parameter's flax initializer (``lecun_normal`` kernels,
 ``glorot_uniform`` CIN and cross weights, zeros), equal to
@@ -36,6 +39,7 @@ from ..fused import FUSED_NAME, LINEAR_SUFFIX
 from ..interop import flax_path
 from ..optim.initializers import Normal, Uniform, flax_param_key
 from ..utils.device import resolve_device
+from ..utils.observability import stage, stage_grad
 
 # flax's lecun_normal: the stddev of a normal truncated at +-2 is this
 # fraction of the untruncated one
@@ -194,54 +198,102 @@ class DeepFM(nn.Module):
 
 
 class CIN(nn.Module):
-    """Compressed Interaction Network, xDeepFM's core block: each layer
-    takes the outer products of ``x_k`` and ``x_0`` over the fields
-    (``z[b, i, j, d] = x_k[b, i, d] * x_0[b, j, d]``, flattened to
-    ``[B, H_k·F, D]``), compresses them to ``h`` maps with ``cin_w_i``
-    ``[H_k·F, h]`` (``einsum("bnd,nh->bhd")``), applies ReLU and sum-pools
-    over ``d``; the pooled layers are concatenated.
+    """Compressed Interaction Network, xDeepFM's core block (Lian et al.,
+    2018). Each layer takes the outer products of the maps ``x_k`` it is
+    given and the fields ``x_0`` (``z[b, i, j, d] = x_k[b, i, d] *
+    x_0[b, j, d]``, flattened to ``[B, H_k·F, D]`` with ``n = i·F + j``),
+    compresses them to ``h`` maps (a 1x1 convolution over ``n``) and
+    applies ReLU; the maps each layer pools are summed over ``d``, and the
+    pooled maps concatenated.
+
+    ``bias=True`` is DeepCTR's ``CIN`` (``deepctr/layers/interaction.py``):
+    each layer's filter and per-map bias are a linear map ``conv_<k>``,
+    ``.weight [h, H_k·F]`` (glorot_uniform, as DeepCTR draws its filters)
+    and ``.bias [h]`` (zeros). DeepCTR flattens the pairs field-major
+    (``n = j·H_k + i``); here every form is map-major, a fixed permutation
+    of the filter's columns that changes no sum. ``bias=False`` is the JAX
+    package's CIN: ``cin_w_<k>`` ``[H_k·F, h]`` in flax's shape and order,
+    no bias.
+
+    ``split_half`` (DeepCTR's ``split_half``): a layer other than the last
+    passes its first ``h / 2`` maps on as the next ``x_k`` and pools the
+    other half (so its ``h`` must be even); the last pools all of its
+    maps. Without it every layer passes all of its maps on and pools them
+    all, as the JAX package's CIN does.
 
     The maps are kept as ``[B, D, ·]``, so each layer's compression is one
     ``[B·D, H_k·F] x [H_k·F, h]`` matrix product in float32, the same sums
-    as JAX's ``einsum`` in another order. The layout changes nothing in the
-    values: ``n = i·F + j`` indexes ``z`` as JAX's reshape does."""
+    as JAX's ``einsum("bnd,nh->bhd")`` in another order."""
 
-    def __init__(self, num_fields: int, layer_sizes: Sequence[int]):
+    def __init__(self, num_fields: int, layer_sizes: Sequence[int],
+                 split_half: bool = True, bias: bool = True):
         super().__init__()
         self.flax_init = {}
-        hk = num_fields
-        for i, h in enumerate(layer_sizes):
-            name = f"cin_w_{i}"
-            self.register_parameter(
-                name, nn.Parameter(torch.zeros(hk * num_fields, h)))
-            self.flax_init[name] = "glorot_uniform"
-            hk = h
-        self.out_features = sum(layer_sizes)
+        self.split_half = split_half
+        self.sizes = tuple(int(h) for h in layer_sizes)
+        hk, pooled = num_fields, 0
+        for k, h in enumerate(self.sizes):
+            split = split_half and k < len(self.sizes) - 1
+            if split and h % 2:
+                raise ValueError("with split_half every CIN layer but the "
+                                 f"last needs an even size, not {h}")
+            if bias:
+                conv = nn.Linear(hk * num_fields, h)
+                conv.flax_init = {"weight": "glorot_uniform"}
+                self.add_module(f"conv_{k}", conv)
+            else:
+                name = f"cin_w_{k}"
+                self.register_parameter(
+                    name, nn.Parameter(torch.zeros(hk * num_fields, h)))
+                self.flax_init[name] = "glorot_uniform"
+            hk = h // 2 if split else h          # passed on, and pooled
+            pooled += hk
+        self.out_features = pooled
+
+    def _compress(self, k: int, z: torch.Tensor) -> torch.Tensor:
+        conv = getattr(self, f"conv_{k}", None)
+        if conv is not None:
+            return nn.functional.linear(z.to(conv.weight.dtype), conv.weight,
+                                        conv.bias)
+        w = getattr(self, f"cin_w_{k}")
+        return z.to(w.dtype) @ w
 
     def forward(self, x0):                                    # [B, F, D]
         b, f, d = x0.shape
         x0t = x0.transpose(1, 2)                              # [B, D, F]
         xk = x0t
         pooled = []
-        for w in self.parameters():
+        for k, h in enumerate(self.sizes):
             z = (xk[:, :, :, None] * x0t[:, :, None, :]).reshape(b * d, -1)
-            xk = torch.relu(z.to(w.dtype) @ w).reshape(b, d, -1)  # [B, D, h]
-            pooled.append(torch.sum(xk, dim=1))               # [B, h]
+            maps = torch.relu(self._compress(k, z)).reshape(b, d, h)
+            if self.split_half and k < len(self.sizes) - 1:
+                xk, direct = maps[..., :h // 2], maps[..., h // 2:]
+            else:
+                xk = direct = maps
+            pooled.append(torch.sum(direct, dim=1))           # [B, ·]
         return torch.cat(pooled, dim=-1)
 
 
 class XDeepFM(nn.Module):
     """xDeepFM: the linear term, a ``Dense`` over the CIN's pooled maps
-    and an MLP over the field embeddings and the dense features."""
+    and an MLP over the field embeddings and the dense features.
+
+    By default its CIN is DeepCTR's ``xDeepFM``'s (``cin_split_half``,
+    a per-map ``cin_bias``, layers (128, 128)); with both flags False it
+    is the JAX package's. In an armed step program the CIN's forward is
+    the stage ``dense.cin`` and its backward ``dense.cin_grad``
+    (``utils/observability.py``)."""
 
     def __init__(self, feature_names: Sequence[str], embedding_dim: int,
                  num_dense: int = 13,
                  dnn_units: Tuple[int, ...] = (256, 128),
-                 cin_layer_sizes: Tuple[int, ...] = (128, 128)):
+                 cin_layer_sizes: Tuple[int, ...] = (128, 128),
+                 cin_split_half: bool = True, cin_bias: bool = True):
         super().__init__()
         self.feature_names = tuple(feature_names)
         num_fields = len(self.feature_names)
-        self.CIN_0 = CIN(num_fields, cin_layer_sizes)
+        self.CIN_0 = CIN(num_fields, cin_layer_sizes, cin_split_half,
+                         cin_bias)
         self.Dense_0 = nn.Linear(self.CIN_0.out_features, 1)
         self.MLP_0 = MLP(num_fields * embedding_dim + num_dense, dnn_units)
         self.Dense_1 = nn.Linear(self.MLP_0.out_features, 1)
@@ -250,7 +302,10 @@ class XDeepFM(nn.Module):
     def forward(self, dense, rows):
         linear = _linear_term(rows, self.feature_names)
         fields = _stack_fields(rows, self.feature_names)
-        cin_out = self.CIN_0(fields.to(self.Dense_0.weight.dtype))
+        stage("dense.cin")
+        x0 = stage_grad(fields.to(self.Dense_0.weight.dtype), "dense")
+        cin_out = stage_grad(self.CIN_0(x0), "dense.cin_grad")
+        stage("dense")
         cin_logit = _dense(self.Dense_0, cin_out).reshape(-1)
         deep = self.MLP_0(_deep_input(fields, dense))
         deep_logit = _dense(self.Dense_1, deep).reshape(-1)
@@ -323,10 +378,12 @@ def build_model(name: str, feature_names: Sequence[str], **kwargs):
 def _flax_initializer(owner: nn.Module, leaf: str) -> str:
     """The flax initializer of parameter ``leaf`` of module ``owner``: a
     ``Dense`` kernel is ``lecun_normal`` and its bias zeros; a module's own
-    ``self.param`` arrays name theirs in ``flax_init`` (zeros if absent)."""
-    if isinstance(owner, nn.Linear):
-        return "lecun_normal" if leaf == "weight" else "zeros"
-    return getattr(owner, "flax_init", {}).get(leaf, "zeros")
+    ``self.param`` arrays, and a linear map that is no ``Dense`` (a CIN
+    filter), name theirs in ``flax_init`` (zeros if absent)."""
+    default = "zeros"
+    if isinstance(owner, nn.Linear) and leaf == "weight":
+        default = "lecun_normal"
+    return getattr(owner, "flax_init", {}).get(leaf, default)
 
 
 def init_params(module: nn.Module, rng, device=None, *,

@@ -19,10 +19,11 @@ cache's ``cache_stats`` comes with its plane (ROADMAP Queue 1,
 multi-shard exchange planes).
 
 The train step times itself from inside, which the JAX package does not:
-``stage`` marks (``pull``, ``dense``, ``push`` and the tables'
-``push.dedup``, ``push.find``, ``push.update``) record CUDA events inside
-the captured graph of an armed step program (one built while the gate is
-on) and read the host's clock on the CPU; ``StepClock`` reads the host's
+``stage`` marks (``pull``, ``dense``, ``push``, xDeepFM's ``dense.cin``
+and the tables' ``push.dedup``, ``push.find``, ``push.update``) and
+``stage_grad`` marks in the backward pass (``dense.cin_grad``) record
+CUDA events inside the captured graph of an armed step program (one
+built while the gate is on) and read the host's clock on the CPU; ``StepClock`` reads the host's
 clock at the phase boundaries of ``Trainer.train_step`` (``stats``,
 ``prepare``, ``lookup``, ``copy``, ``launch``, ``output``, ``after``)
 and feeds the step's span.
@@ -297,6 +298,26 @@ def stage(name: str) -> None:
         rec.mark(name)
 
 
+def stage_grad(x, name: str):
+    """``x``, or a view of it that the backward pass leaves unchanged and
+    that opens the stage ``name`` once ``x``'s gradient is complete (a
+    tensor hook), where a :class:`StageRecorder` records on this thread and
+    gradients are on. Autograd runs a card's backward on a thread of its
+    own, where no recorder records, so the hook takes this thread's
+    recorder along; it marks on the stream the backward runs on, the
+    forward's. Like :func:`stage`, nothing happens unless a recorder
+    records, and an unarmed program holds no hook."""
+    rec = getattr(_STAGES, "recorder", None)
+    if rec is None or not x.requires_grad:
+        return x
+    import torch
+    if not torch.is_grad_enabled():
+        return x
+    x = x.view_as(x)
+    x.register_hook(lambda _grad: rec.mark(name))
+    return x
+
+
 class StageRecorder:
     """The stage marks of one armed step program.
 
@@ -447,10 +468,11 @@ def step_timings() -> Dict[str, Dict[str, Dict[str, float]]]:
     pageable memory (such a copy waits for its stream once the driver's
     staging buffer fills).
 
-    ``device``: the stages of the armed runs (:func:`stage`; ``pull``,
-    ``dense``, ``push`` and its parts ``push.dedup``, ``push.find``,
-    ``push.update``), in device seconds on CUDA, and ``replays`` the armed
-    runs that held each. A step program is armed when
+    ``device``: the stages of the armed runs (:func:`stage`,
+    :func:`stage_grad`; ``pull``, ``dense`` and xDeepFM's parts
+    ``dense.cin``, ``dense.cin_grad``, ``push`` and its parts
+    ``push.dedup``, ``push.find``, ``push.update``), in device seconds
+    on CUDA, and ``replays`` the armed runs that held each. A step program is armed when
     :func:`evaluate_performance` is on at its build (a profiler session
     does not arm it: a trace shows the program users run); a build's
     warm-up is not counted. The last armed run is read

@@ -775,7 +775,8 @@ def test_xdeepfm_and_dcn_steps_on_card_match_cpu(model):
         specs, mapper = make_fused_specs(
             criteo.SPARSE_NAMES, 1000, 16,
             optimizer={"category": "adagrad", "learning_rate": 0.01})
-        extra = {"cin_layer_sizes": (8, 8)} if model == "xdeepfm" else {}
+        extra = {"cin_layer_sizes": (8, 8), "cin_split_half": False,
+                 "cin_bias": False} if model == "xdeepfm" else {}
         module = tm.build_model(model, criteo.SPARSE_NAMES, embedding_dim=16,
                                 dnn_units=(64, 32), **extra)
         return tr.Trainer(module, EmbeddingCollection(specs, device=device),

@@ -112,7 +112,8 @@ def _jax_module(kind):
 def _torch_module(kind):
     kw = {} if kind == "lr" else {"embedding_dim": DIM, "dnn_units": UNITS}
     if kind == "xdeepfm":
-        kw["cin_layer_sizes"] = CIN
+        # the JAX package's CIN: no split half, no per-map bias
+        kw.update(cin_layer_sizes=CIN, cin_split_half=False, cin_bias=False)
     return tm.build_model(kind, criteo.SPARSE_NAMES,
                           num_dense=criteo.NUM_DENSE, **kw)
 

@@ -52,10 +52,12 @@ MODELS = {
                 "dnn_units": (16, 8)}),
     "xdeepfm": ({"dnn_units": (16, 8), "cin_layer_sizes": (8, 8)},
                 {"embedding_dim": DIM, "num_dense": NUM_DENSE,
-                 "dnn_units": (16, 8), "cin_layer_sizes": (8, 8)}),
+                 "dnn_units": (16, 8), "cin_layer_sizes": (8, 8),
+                 "cin_split_half": False, "cin_bias": False}),
     "xdeepfm_no_dense": ({"dnn_units": (16, 8), "cin_layer_sizes": (8, 8)},
                          {"embedding_dim": DIM, "num_dense": 0,
-                          "dnn_units": (16, 8), "cin_layer_sizes": (8, 8)}),
+                          "dnn_units": (16, 8), "cin_layer_sizes": (8, 8),
+                          "cin_split_half": False, "cin_bias": False}),
     "dcn": ({"dnn_units": (16, 8)},
             {"embedding_dim": DIM, "num_dense": NUM_DENSE,
              "dnn_units": (16, 8)}),

@@ -75,6 +75,9 @@ def _pair(devices8, kind, fused):
         JaxCollection(jspecs, mesh), optax.adagrad(0.01))
     jstate = jtrainer.init(jax.random.PRNGKey(0),
                            jtrainer.shard_batch(batches[0]))
+    if kind == "xdeepfm":
+        # the JAX package's CIN: no split half, no per-map bias
+        extra.update(cin_split_half=False, cin_bias=False)
     module = tm.build_model(kind, names, embedding_dim=DIM,
                             num_dense=criteo.NUM_DENSE, dnn_units=UNITS,
                             **extra)
